@@ -1,0 +1,2 @@
+"""The paper's contribution on the host: wireless cost model, Eq. 1-3
+quality metrics and the DQS scheduler (Algorithm 2)."""

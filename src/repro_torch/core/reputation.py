@@ -1,0 +1,40 @@
+"""UE reputation (paper §III-B.2, Eq. 1), host numpy in f64.
+
+    R_k^t = R_k^{t-1} - eta * ( beta1 * (acc_local - avg(acc))
+                              + beta2 * (acc_local - acc_test) )
+
+Reputation drops when a UE uploads a bad / poisoned model (its test accuracy
+trails the cohort) or when it over-reports its local accuracy versus the
+server-side test-set evaluation. Reputations start at 1 (Alg. 1 line 4) and
+are clipped to [0, 1]. Both deltas are subtracted, as Eq. 1 is written (the
+sign audit is in ``repro.core.reputation``).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.configs.base import FeelConfig
+
+
+class ReputationTracker:
+    def __init__(self, cfg: FeelConfig):
+        self.cfg = cfg
+        self.values = np.ones(cfg.n_population)
+
+    def update(self, participants: np.ndarray,
+               acc_local: np.ndarray, acc_test: np.ndarray) -> np.ndarray:
+        """Apply Eq. 1 to the participating UEs of this round.
+
+        participants — indices; acc_local — self-reported accuracies
+        (len == len(participants)); acc_test — server-measured accuracies of
+        the uploaded models on the held-out test set.
+        """
+        cfg = self.cfg
+        if len(participants) == 0:
+            return self.values
+        avg_acc = float(np.mean(acc_local))
+        delta = cfg.eta * (cfg.beta1 * (acc_local - avg_acc)
+                           + cfg.beta2 * (acc_local - acc_test))
+        self.values[participants] = np.clip(
+            self.values[participants] - delta, 0.0, 1.0)
+        return self.values

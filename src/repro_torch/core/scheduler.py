@@ -1,0 +1,169 @@
+"""Joint UE selection + bandwidth allocation (paper §IV, Algorithm 2).
+
+Problem (8) — maximise ``sum_k x_k V_k`` subject to the round deadline (8b),
+total bandwidth (8c/8d) and binary selection (8e) — is knapsack-equivalent
+(NP-hard). DQS solves it greedily: compute each UE's bandwidth *cost* ``c_k``
+(minimum number of uniform 1/K fractions meeting its minimum rate, Eq. 9),
+order by ``V_k / c_k`` decreasing, and pack into the budget of K fractions,
+then take the better of the greedy pack and the single best feasible UE
+(the modified greedy, ``objective >= OPT / 2``).
+
+Every packing policy is one *priority key* feeding one shared greedy-packing
+primitive: sort ascending by the key, then walk the order consuming the
+budget of K fractions, SKIPPING any UE whose cost does not fit (a later,
+cheaper UE may still fit). ``priority_key`` builds the key per policy:
+
+    dqs          -(V_k / c_k)          (Alg. 2 density order)
+    random       inverse permutation    (uniform order, Li et al. style)
+    best_channel c_k*K - gains/max      (Nishio & Yonetani: good channels)
+    max_count    c_k                    (Zeng et al.: cheapest first)
+
+``top_value`` (paper §V-B.1) is the one non-packing policy: top-N by value,
+no wireless constraint. ``brute_force_schedule`` is the exact solver for
+small K (test oracle).
+
+A numpy copy of the host half of ``repro.core.scheduler``: the same inputs
+and RNG give the same schedules exactly.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+
+import numpy as np
+
+from repro_torch.configs.base import FeelConfig
+
+POLICY_NAMES = ("dqs", "random", "best_channel", "max_count", "top_value")
+
+
+@dataclasses.dataclass
+class Schedule:
+    x: np.ndarray          # (K,) bool selection
+    alpha: np.ndarray      # (K,) bandwidth fractions, sum <= 1
+    cost: np.ndarray       # (K,) c_k in fractions (K+1 = infeasible)
+    value: np.ndarray      # (K,) V_k used for the decision
+
+    @property
+    def selected(self) -> np.ndarray:
+        return np.flatnonzero(self.x)
+
+    def objective(self) -> float:
+        return float(self.value[self.x].sum())
+
+
+def greedy_pack(order: np.ndarray, costs: np.ndarray, k: int):
+    """Walk ``order`` packing UEs into a budget of ``k`` fractions.
+
+    A UE whose cost exceeds the *remaining* budget (or the deadline, c > K)
+    is skipped and the walk continues. Returns (x bool (N,), alpha (N,)).
+    """
+    x = np.zeros(len(costs), bool)
+    alpha = np.zeros(len(costs))
+    budget = k
+    for u in order:
+        c = int(costs[u])
+        if c <= k and budget - c >= 0:
+            x[u] = True
+            alpha[u] = c / k
+            budget -= c
+    return x, alpha
+
+
+def priority_key(policy: str, values, costs, k: int,
+                 gains=None, rand_rank=None):
+    """Ascending-sort key whose stable argsort reproduces each packing
+    policy's visit order (see module docstring). ``rand_rank`` is the
+    inverse permutation of the ``random`` policy's visit order."""
+    if policy == "dqs":
+        return -(values / costs)
+    if policy == "random":
+        return rand_rank
+    if policy == "best_channel":
+        return costs * k - gains / (gains.max(-1, keepdims=True) + 1e-12)
+    if policy == "max_count":
+        return costs
+    raise KeyError(policy)
+
+
+def dqs_schedule(values: np.ndarray, costs: np.ndarray,
+                 cfg: FeelConfig) -> Schedule:
+    """Algorithm 2: greedy knapsack by V_k / c_k over a budget of K fractions,
+    then the modified-greedy fallback: if the single best feasible UE beats
+    the whole greedy pack, schedule it alone."""
+    K = cfg.n_ues
+    order = np.argsort(priority_key("dqs", values, costs, K), kind="stable")
+    x, alpha = greedy_pack(order, costs, K)
+    feas = costs <= K
+    if feas.any():
+        k_best = int(np.flatnonzero(feas)[np.argmax(values[feas])])
+        if values[k_best] > values[x].sum():
+            x = np.zeros(len(values), bool)
+            x[k_best] = True
+            alpha = np.zeros(len(values))
+            alpha[k_best] = costs[k_best] / K
+    return Schedule(x=x, alpha=alpha, cost=costs, value=values)
+
+
+def brute_force_schedule(values: np.ndarray, costs: np.ndarray,
+                         cfg: FeelConfig, max_k: int = 16) -> Schedule:
+    """Exact knapsack by enumeration — oracle for tests (N <= max_k). The
+    fraction budget is ``cfg.n_ues``; the candidate width is
+    ``len(values)``."""
+    K = cfg.n_ues
+    N = len(values)
+    if N < K or N > max_k:
+        raise ValueError(f"brute force needs n_ues <= N <= {max_k}, "
+                         f"got N={N}, K={K}")
+    best, best_x = -1.0, np.zeros(N, bool)
+    feas = [k for k in range(N) if costs[k] <= K]
+    for r in range(len(feas) + 1):
+        for combo in itertools.combinations(feas, r):
+            c = sum(int(costs[k]) for k in combo)
+            if c <= K:
+                v = float(values[list(combo)].sum()) if combo else 0.0
+                if v > best:
+                    best = v
+                    best_x = np.zeros(N, bool)
+                    best_x[list(combo)] = True
+    alpha = np.where(best_x, costs / K, 0.0)
+    return Schedule(x=best_x, alpha=alpha, cost=costs, value=values)
+
+
+# ---------------------------------------------------------------------- #
+# Baseline policies (paper §II / §V comparisons)
+# ---------------------------------------------------------------------- #
+def random_schedule(values, costs, cfg, rng) -> Schedule:
+    """Random feasible packing (ignores data quality)."""
+    K = cfg.n_ues
+    x, alpha = greedy_pack(rng.permutation(len(values)), costs, K)
+    return Schedule(x=x, alpha=alpha, cost=costs, value=values)
+
+
+def best_channel_schedule(values, costs, cfg, gains) -> Schedule:
+    """Nishio & Yonetani-style: prioritise good channels (min cost first)."""
+    K = cfg.n_ues
+    order = np.argsort(priority_key("best_channel", values, costs, K,
+                                    gains=gains), kind="stable")
+    x, alpha = greedy_pack(order, costs, K)
+    return Schedule(x=x, alpha=alpha, cost=costs, value=values)
+
+
+def max_count_schedule(values, costs, cfg) -> Schedule:
+    """Zeng et al.-style: maximise the number of scheduled UEs."""
+    K = cfg.n_ues
+    order = np.argsort(priority_key("max_count", values, costs, K),
+                       kind="stable")
+    x, alpha = greedy_pack(order, costs, K)
+    return Schedule(x=x, alpha=alpha, cost=costs, value=values)
+
+
+def top_value_schedule(values, costs, cfg, n: int) -> Schedule:
+    """Paper §V-B.1: pick the n highest-V_k UEs (no wireless constraint).
+    Selection ignores the channel, but ``Schedule.cost`` reports the real
+    Eq. 9 costs."""
+    order = np.argsort(-values, kind="stable")[:n]
+    x = np.zeros(len(values), bool)
+    x[order] = True
+    alpha = np.where(x, 1.0 / max(n, 1), 0.0)
+    return Schedule(x=x, alpha=alpha, cost=np.asarray(costs), value=values)

@@ -1,0 +1,122 @@
+"""The paper's experimental model: a two-fully-connected-layer MLP for
+(synthetic) MNIST, trained with FedAvg (Section V: "simple multi-layer
+perceptron (MLP) model with two fully connected layers").
+
+Parameters are a dict of tensors in the JAX package's layout and key set:
+``w1`` (784, 64), ``b1`` (64,), ``w2`` (64, 10), ``b2`` (10,) — weights
+stored (in, out). Every function also takes a *stacked* cohort: params
+with a leading client axis (N, ...) and data with the same leading axis,
+(N, B, 784). The products are then batched matmuls, one per client, and
+losses come back per client, shape (N,).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.models.common import dense_init
+
+Params = Dict[str, torch.Tensor]
+
+
+def mlp_init(generator: torch.Generator, n_in: int = 28 * 28,
+             n_hidden: int = 64, n_out: int = 10, dtype=torch.float32,
+             device="cpu") -> Params:
+    params = {
+        "w1": dense_init(generator, (n_in, n_hidden), dtype),
+        "b1": torch.zeros((n_hidden,), dtype=dtype),
+        "w2": dense_init(generator, (n_hidden, n_out), dtype),
+        "b2": torch.zeros((n_out,), dtype=dtype),
+    }
+    return {k: v.to(device) for k, v in params.items()}
+
+
+def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """x (..., B, 784) -> logits (..., B, 10)."""
+    h = torch.relu(x @ params["w1"] + params["b1"].unsqueeze(-2))
+    return h @ params["w2"] + params["b2"].unsqueeze(-2)
+
+
+def _nll(params: Params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Per-sample cross-entropy (..., B); ``y`` int64."""
+    logits = mlp_apply(params, x)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, y.unsqueeze(-1)).squeeze(-1)
+    return logz - ll
+
+
+def mlp_loss(params: Params, batch) -> torch.Tensor:
+    return _nll(params, batch["x"], batch["y"]).mean(-1)
+
+
+def mlp_accuracy(params: Params, x, y) -> torch.Tensor:
+    return (torch.argmax(mlp_apply(params, x), -1) == y).float().mean(-1)
+
+
+def _sgd_step(params: Params, loss_fn, lr: float) -> Params:
+    """p <- p - lr * grad(loss_fn)(p). ``loss_fn`` returns one loss per
+    client; their sum is differentiated, and since the clients' terms are
+    disjoint each client's gradient is its own."""
+    p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    grads = torch.autograd.grad(loss_fn(p).sum(), list(p.values()))
+    return {k: (v - lr * g).detach() for (k, v), g in zip(p.items(), grads)}
+
+
+def mlp_sgd_epoch(params: Params, x, y, lr: float,
+                  batch_size: int = 50) -> Params:
+    """One epoch of mini-batch SGD over a client dataset (the loop oracle's
+    epoch); a tail batch shorter than ``batch_size`` is dropped."""
+    n = x.shape[-2]
+    nb = max(n // batch_size, 1)
+    for i in range(nb):
+        sl = slice(i * batch_size, (i + 1) * batch_size)
+        params = _sgd_step(
+            params, lambda p, sl=sl: mlp_loss(p, {"x": x[..., sl, :],
+                                                  "y": y[..., sl]}), lr)
+    return params
+
+
+# ---------------------------------------------------------------------- #
+# Masked variants — the vectorized cohort engine's contract: client
+# datasets are zero-padded to a uniform length with a {0,1} validity mask;
+# a padded sample contributes *exactly* zero gradient, so the padded run
+# reproduces the unpadded one, and a fully padded batch is a strict no-op
+# (zero gradient -> params unchanged bit for bit).
+# ---------------------------------------------------------------------- #
+def mlp_loss_masked(params: Params, batch) -> torch.Tensor:
+    """Mean cross-entropy over the valid samples of a batch.
+
+    batch["m"] (..., B) float validity mask; padding rows carry m == 0.
+    """
+    m = batch["m"]
+    nll = _nll(params, batch["x"], batch["y"])
+    return (nll * m).sum(-1) / m.sum(-1).clamp_min(1.0)
+
+
+def mlp_accuracy_masked(params: Params, x, y, m) -> torch.Tensor:
+    """Accuracy over the valid samples only (0.0 when the mask is empty)."""
+    correct = (torch.argmax(mlp_apply(params, x), -1) == y).float()
+    return (correct * m).sum(-1) / m.sum(-1).clamp_min(1.0)
+
+
+def mlp_sgd_epoch_masked(params: Params, x, y, m, lr: float,
+                         batch_size: int = 50) -> Params:
+    """Masked twin of ``mlp_sgd_epoch`` over a padded client dataset.
+
+    x (..., S, D), y (..., S), m (..., S) with S a multiple of batch_size;
+    batch i covers the same rows the plain epoch slices, and batches that
+    fall entirely in the padding leave params untouched.
+    """
+    n = x.shape[-2]
+    if n % batch_size:
+        raise ValueError(
+            f"padded length {n} must be a multiple of batch_size "
+            f"{batch_size} (pad_clients(multiple_of=batch_size) "
+            "guarantees this)")
+    for i in range(n // batch_size):
+        sl = slice(i * batch_size, (i + 1) * batch_size)
+        batch = {"x": x[..., sl, :], "y": y[..., sl], "m": m[..., sl]}
+        params = _sgd_step(
+            params, lambda p, b=batch: mlp_loss_masked(p, b), lr)
+    return params
