@@ -5,19 +5,31 @@
 Phases; any failure raises and exits non-zero, and no phase catches one:
 
  1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
- 2. build every kernel of the port from its source with nvcc, timed;
+ 2. build every kernel of the port from its source with nvcc (one process
+    a source, all at once), timed;
  3. hold each kernel against its plain PyTorch version on the card — the
-    main path's shapes, ragged and misaligned shapes, bf16 and one
+    main paths' shapes, ragged and misaligned shapes, bf16 and one
     bandwidth-sized case — with its time, the plain version's, one PyTorch
-    library call's (a yardstick the port never calls) and its bound;
- 4. the main path at the paper's §V scale: K = 50 UEs, 50,000/10,000
-    synthetic MNIST, 5 label flippers, DQS on the host control plane, the
-    vectorized engine, 3 rounds on the GPU. Every kernel's launch count is
-    set to 0 just before and read just after; then one round split into
-    its phases and one under ``torch.profiler`` say where the time goes;
- 5. a small run on the GPU and on the CPU: the same selections, accuracies
-    within 1e-2;
- 6. one JSON line of per-kernel numbers, then the result line.
+    library call's (a yardstick the port never calls) and its bound.
+    ``weighted_aggregate`` (K1) within 1e-6·max|x|, ``robust_aggregate``
+    (K2) bit for bit;
+ 4. the undefended main path at the paper's §V scale: K = 50 UEs,
+    50,000/10,000 synthetic MNIST, 5 label flippers, DQS on the host
+    control plane, the vectorized engine, 3 rounds on the GPU. Every
+    kernel's launch count is set to 0 just before and read just after;
+    then one round split into its phases and one under ``torch.profiler``
+    say where the time goes;
+ 5. the defended path at the same scale through ``run_experiment``:
+    (a) ``sign_flip`` under ``trimmed_mean+validation`` and (b)
+    ``noise_0.8`` under ``median``, 3 rounds each, K2 launched once a round
+    and K1 never; one round of (a) split into its phases and one profiled;
+ 6. K1's defended routes (``norm_clip``, ``krum``, ``validation``) at
+    K = 10, 2 rounds each, K1 launched once a round; and the loop engine
+    under ``trimmed_mean`` and ``median``, K2 launched once a round;
+ 7. small runs on the GPU and on the CPU, undefended and under
+    ``trimmed_mean+validation``: the same selections and defense counts,
+    accuracies within 1e-2;
+ 8. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without printing a result where CUDA is absent. A kernel's
 time is its device time from ``torch.profiler`` over back-to-back calls
@@ -26,6 +38,7 @@ reported beside the CUDA-event time per call, which includes the host's
 launch overhead.
 """
 import json
+import math
 import platform
 import subprocess
 import sys
@@ -42,19 +55,33 @@ from repro_torch.core.poisoning import (EASY_PAIR, LabelFlipAttack,  # noqa: E40
                                         pick_malicious)
 from repro_torch.data.partition import partition  # noqa: E402
 from repro_torch.data.synthetic_mnist import generate  # noqa: E402
+from repro_torch.core.defenses import TrimmedMean  # noqa: E402
+from repro_torch.federated import simulation  # noqa: E402
 from repro_torch.federated.cohort import pad_count  # noqa: E402
 from repro_torch.federated.server import FeelServer  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.robust_aggregate import (  # noqa: E402
+    robust_aggregate, robust_aggregate_ref)
 from repro_torch.kernels.weighted_aggregate import (  # noqa: E402
     weighted_aggregate, weighted_aggregate_ref)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+# one 32-bit instruction (a comparison, an add) a lane a clock: half the
+# float32 FLOP rate, which counts an FMA as two
+INSTR_PER_S = F32_FLOPS / 2
 M_MLP = 784 * 64 + 64 + 64 * 10 + 10   # flattened MLP update, 50,890
-KERNELS = {"weighted_aggregate": {
-    "route": "cuda",
-    "source": "src/repro_torch/kernels/csrc/weighted_aggregate.cu",
-    "replaces": "src/repro/kernels/weighted_aggregate.py:21"}}
+KERNELS = {
+    "weighted_aggregate": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/weighted_aggregate.cu",
+        "replaces": "src/repro/kernels/weighted_aggregate.py:21"},
+    "robust_aggregate": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/robust_aggregate.cu",
+        "replaces": "src/repro/kernels/robust_aggregate.py:31"}}
+LAUNCH_COUNTERS = {"weighted_aggregate": weighted_aggregate,
+                   "robust_aggregate": robust_aggregate}
 
 
 def emit(**kw):
@@ -142,6 +169,208 @@ def check_aggregate(n, m, dtype, label, assume_normalized=True,
     return row
 
 
+def robust_bound(n, m, trim, mode, dtype):
+    """(least ms, what bounds it, bytes moved) of the robust reduce of the
+    first n rows of (N, M) -> (M,): the n real rows read once and the
+    output written once at the memory rate, or the comparisons and adds at
+    the 32-bit instruction rate — log2(n!) comparisons a column to order
+    it and n - 2b adds for the trimmed mean, n - 1 comparisons (the least
+    any selection needs) and 2 operations for the median."""
+    nbytes = (n * m + m) * torch.tensor([], dtype=dtype).element_size()
+    if mode == "median":
+        ops = m * (n - 1 + 2)
+    else:
+        ops = m * (math.lgamma(n + 1) / math.log(2) + (n - 2 * trim))
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / INSTR_PER_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations", nbytes)
+
+
+def check_robust(rows, n, m, mode, dtype, label, reps=200, nan=False):
+    """K2 against its plain version on the card at one shape, bit for bit;
+    rows >= n hold values the kernel must ignore. ``nan`` puts NaN in the
+    first 64 columns past the rank window (the result is NaN there) and
+    one NaN in the next 64 (trimmed or below the median). Returns the
+    numbers."""
+    g = torch.Generator(device="cuda").manual_seed(rows * 7919 + n * 31 + m)
+    x = torch.randn(rows, m, device="cuda", generator=g).to(dtype)
+    if nan:
+        x[:n // 2 + 1, :64] = float("nan")
+        x[0, 64:128] = float("nan")
+    trim = TrimmedMean(0.2).n_trim(n) if mode == "trimmed_mean" else 0
+    kw = dict(trim=trim, mode=mode)
+    got = robust_aggregate(x, n, **kw)
+    want = robust_aggregate_ref(x, n, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (m,) and got.dtype == dtype
+    is_nan = got.isnan()
+    assert torch.equal(is_nan, want.isnan()), (label, rows, n, m, mode)
+    assert bool(is_nan[:64].all()) == nan and not bool(is_nan[64:].any())
+    err = (got.float() - want.float())[~is_nan].abs().max().item()
+    assert err == 0 and torch.equal(got[~is_nan], want[~is_nan]), (
+        label, rows, n, m, mode, dtype, err)
+    kernel_ms, kernel_call_ms = time_ms(
+        lambda: robust_aggregate(x, n, **kw), reps)
+    plain_ms, plain_call_ms = time_ms(
+        lambda: robust_aggregate_ref(x, n, **kw), max(reps // 10, 3))
+    real = x[:n]
+    if mode == "median":
+        library = "torch.quantile(midpoint)"
+        # torch.quantile takes at most 2**24 elements
+        lib_fn = (None if real.numel() > 1 << 24 or dtype != torch.float32
+                  else lambda: torch.quantile(real, 0.5, dim=0,
+                                              interpolation="midpoint"))
+    else:
+        library = "torch.sort (sort only)"
+        lib_fn = lambda: torch.sort(real, dim=0)
+    library_ms = library_call_ms = None
+    if lib_fn is not None:
+        library_ms, library_call_ms = time_ms(lib_fn, max(reps // 4, 3))
+    b_ms, b_by, nbytes = robust_bound(n, m, trim, mode, dtype)
+    row = dict(phase="kernel_check", kernel="robust_aggregate", case=label,
+               rows=rows, n=n, trim=trim, m=m, mode=mode,
+               dtype=str(dtype).split(".")[-1], max_abs_err=err,
+               kernel_ms=kernel_ms, plain_ms=plain_ms, library=library,
+               library_ms=library_ms, bound_ms=b_ms, bound_us=b_ms * 1e3,
+               bound_by=b_by,
+               attained_gbps=nbytes / (kernel_ms * 1e-3) / 1e9,
+               kernel_call_ms=kernel_call_ms, plain_call_ms=plain_call_ms,
+               library_call_ms=library_call_ms)
+    emit(**row)
+    return row
+
+
+def reset_launches():
+    for fn in LAUNCH_COUNTERS.values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {k: fn.launches for k, fn in LAUNCH_COUNTERS.items()}
+
+
+def round_phases(server, t):
+    """Round ``t`` split into its phases (host clock, the GPU synchronised
+    after each). The detector's validation eval runs inside the cohort
+    engine; it is timed there and reported apart from training."""
+    phases = {}
+    inner = server._eval_validation
+
+    def timed_validation(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args)       # numpy: the GPU work is done
+        if out is not None:
+            phases["validation_eval_ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    server._eval_validation = timed_validation
+    t0 = time.perf_counter()
+    values, sched, sel, forced = server._schedule_round(t)
+    phases["schedule_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    uploads, weights, acc_local, acc_test, acc_val = server._train_cohort(
+        sel, t)
+    torch.cuda.synchronize()
+    phases["train_and_eval_uploads_ms"] = (
+        (time.perf_counter() - t0) * 1e3 - phases.get("validation_eval_ms",
+                                                      0.0))
+    t0 = time.perf_counter()
+    server._aggregate_uploads(sel, uploads, weights)
+    torch.cuda.synchronize()
+    phases["aggregate_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    g_acc, g_loss, src_acc, atk_succ = server._global_metrics()
+    phases["global_eval_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    server._finalize_round(t, values, sched, sel, forced, acc_local,
+                           acc_test, g_acc, src_acc, atk_succ, acc_val,
+                           g_loss)
+    phases["finalize_ms"] = (time.perf_counter() - t0) * 1e3
+    del server._eval_validation
+    return phases
+
+
+def profile_round(server, t):
+    """One round under torch.profiler: wall, device busy time, idle share,
+    kernel time by name."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        server.run_round(t)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_kernel = device_us(prof)
+    busy_us = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    return dict(round=t, wall_us=wall_us, device_busy_us=busy_us,
+                device_idle_share=1.0 - busy_us / wall_us,
+                n_device_events=sum(1 for ev in prof.events()
+                                    if ev.device_type
+                                    == torch.autograd.DeviceType.CUDA),
+                agg_kernel_us=sum(v for k, v in by_kernel.items()
+                                  if "agg_kernel" in k),
+                robust_kernel_us=sum(v for k, v in by_kernel.items()
+                                     if "robust_kernel" in k),
+                top_kernels_us=[[k[:80], v] for k, v in top])
+
+
+class TimedServer(FeelServer):
+    """A FeelServer that records each round's wall time (ending in a GPU
+    synchronise) and itself, so the defended path can be driven through
+    ``run_experiment`` and still be read round by round."""
+    made = []
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.round_ms = []
+        TimedServer.made.append(self)
+
+    def run_round(self, t):
+        t0 = time.perf_counter()
+        log = super().run_round(t)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()
+        self.round_ms.append((time.perf_counter() - t0) * 1e3)
+        return log
+
+
+def experiment(**kw):
+    """``simulation.run_experiment(**kw)`` -> (result dict, its server)."""
+    real, simulation.FeelServer = simulation.FeelServer, TimedServer
+    try:
+        out = simulation.run_experiment(**kw)
+    finally:
+        simulation.FeelServer = real
+    return out, TimedServer.made[-1]
+
+
+def defended_run(label, **kw):
+    """One defended §V-scale run through run_experiment on the GPU with
+    every launch count set to 0 just before and read just after."""
+    reset_launches()
+    out, server = experiment(
+        cfg=FeelConfig(n_ues=50, n_malicious=5), n_train=50_000,
+        n_test=10_000, policy="dqs", engine="vectorized", control="host",
+        device="cuda", rounds=3, seed=0, **kw)
+    launches = read_launches()
+    for t, log in enumerate(server.logs):
+        emit(phase="defended_path", run=label, round=t,
+             wall_ms=server.round_ms[t], acc=log.global_acc,
+             n_selected=int(log.selected.size),
+             n_malicious_selected=int(log.n_malicious_selected),
+             n_rejected=log.n_rejected, n_flagged=log.n_flagged,
+             det_precision=log.det_precision, det_recall=log.det_recall,
+             rep_gap=log.rep_gap, agg_rows=pad_count(int(log.selected.size)))
+    emit(phase="defended_path_launches", run=label, launches=launches,
+         scenario=out["scenario"], defense=out["defense"])
+    assert launches == {"weighted_aggregate": 0, "robust_aggregate": 3}, (
+        label, launches)
+    assert all(np.isfinite(out["acc"])), out["acc"]
+    return out, server
+
+
 def quickstart(n_ues, n_malicious, n_train, n_test, device, seed=0):
     cfg = FeelConfig(n_ues=n_ues, n_malicious=n_malicious)
     train, test = generate(n_train, n_test, seed=seed)
@@ -191,8 +420,24 @@ def main():
                     assume_normalized=False)
     check_aggregate(64, 1 << 22, torch.float32, "bandwidth", reps=20)
 
-    # 4. the main path at the paper's §V scale
-    weighted_aggregate.launches = 0
+    f32, bf16 = torch.float32, torch.bfloat16
+    for mode in ("trimmed_mean", "median"):
+        check_robust(48, 44, M_MLP, mode, f32, "main path rows")
+        check_robust(8, 8, M_MLP, mode, f32, "n = N")
+        check_robust(8, 1, M_MLP, mode, f32, "n = 1")
+        check_robust(48, 44, M_MLP, mode, bf16, "bf16")
+        check_robust(128, 128, M_MLP, mode, f32, "N = 128")
+        check_robust(48, 44, M_MLP, mode, f32, "NaN uploads", reps=20,
+                     nan=True)
+    check_robust(16, 13, M_MLP, "median", f32, "odd n")
+    check_robust(16, 12, M_MLP, "median", f32, "even n")
+    check_robust(16, 11, 4097, "trimmed_mean", f32, "ragged M")
+    check_robust(16, 11, M_MLP + 1, "median", f32, "ragged M")
+    check_robust(16, 11, 4097, "median", bf16, "bf16 ragged M")
+    check_robust(64, 60, 1 << 22, "trimmed_mean", f32, "bandwidth", reps=5)
+
+    # 4. the undefended main path at the paper's §V scale
+    reset_launches()
     server = quickstart(50, 5, 50_000, 10_000, "cuda")
     emit(phase="main_path_init",
          w1_sum=float(server.params["w1"].double().sum()),
@@ -209,60 +454,65 @@ def main():
             wall_ms=(time.perf_counter() - t0) * 1e3,
             selected=log.selected.tolist()))
         emit(phase="main_path", **rounds[-1])
-    launches = {"weighted_aggregate": weighted_aggregate.launches}
+    launches = read_launches()
     emit(phase="main_path_launches", launches=launches)
-    assert launches["weighted_aggregate"] == 3, launches
+    assert launches == {"weighted_aggregate": 3, "robust_aggregate": 0}, (
+        launches)
     accs = [r["acc"] for r in rounds]
     assert all(np.isfinite(accs)), accs
     assert accs[2] > accs[0], accs
 
-    # not counted: one round split into its phases (host clock, the GPU
-    # synchronised after each), then one round under the profiler for
-    # the device's busy share and kernel time by name
-    phases, t = {}, 3
-    t0 = time.perf_counter()
-    values, sched, sel, forced = server._schedule_round(t)
-    phases["schedule_ms"] = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    uploads, weights, acc_local, acc_test = server._train_cohort(sel, t)
-    torch.cuda.synchronize()
-    phases["train_and_eval_uploads_ms"] = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    server._aggregate_uploads(uploads, weights)
-    torch.cuda.synchronize()
-    phases["aggregate_ms"] = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    metrics = server._global_metrics()
-    phases["global_eval_ms"] = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    server._finalize_round(t, values, sched, sel, forced, acc_local,
-                           acc_test, *metrics)
-    phases["finalize_ms"] = (time.perf_counter() - t0) * 1e3
-    emit(phase="round_phases", round=t, **phases)
-
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        server.run_round(4)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_kernel = device_us(prof)
-    busy_us = sum(by_kernel.values())
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
-    emit(phase="profile_round", round=4, wall_us=wall_us,
-         device_busy_us=busy_us, device_idle_share=1.0 - busy_us / wall_us,
-         n_device_events=sum(1 for ev in prof.events() if ev.device_type
-                             == torch.autograd.DeviceType.CUDA),
-         agg_kernel_us=sum(v for k, v in by_kernel.items()
-                           if "agg_kernel" in k),
-         top_kernels_us=[[k[:80], v] for k, v in top])
+    # not counted: one round split into its phases, then one round under
+    # the profiler for the device's busy share and kernel time by name
+    emit(phase="round_phases", run="main", round=3,
+         **round_phases(server, 3))
+    emit(phase="profile_round", run="main", **profile_round(server, 4))
 
     # the kernel at the main path's aggregation shape, for the summary
     n_main = max(r["agg_rows"] for r in rounds)
-    main = check_aggregate(n_main, M_MLP, torch.float32, "main path rows")
+    summary = {"weighted_aggregate": check_aggregate(
+        n_main, M_MLP, torch.float32, "main path rows")}
 
-    # 5. a small run on the GPU and on the CPU
+    # 5. the defended path at the same scale, through run_experiment
+    out_a, server_a = defended_run(
+        "a", scenario="sign_flip", defense="trimmed_mean+validation")
+    launches["robust_aggregate"] = read_launches()["robust_aggregate"]
+    emit(phase="round_phases", run="a", round=3,
+         **round_phases(server_a, 3))
+    emit(phase="profile_round", run="a", **profile_round(server_a, 4))
+    n_a = max(int(log.selected.size) for log in server_a.logs[:3])
+    summary["robust_aggregate"] = check_robust(
+        pad_count(n_a), n_a, M_MLP, "trimmed_mean", f32, "run (a) rows")
+    defended_run("b", scenario="noise_0.8", defense="median")
+
+    # 6. K1's defended routes
+    for defense in ("norm_clip", "krum", "validation"):
+        reset_launches()
+        out, _ = experiment(
+            cfg=FeelConfig(n_ues=10, n_malicious=2), n_train=3000,
+            n_test=500, scenario="sign_flip", defense=defense, rounds=2,
+            device="cuda")
+        got = read_launches()
+        emit(phase="k1_defended_route", defense=defense, launches=got,
+             acc=out["acc"], n_clipped=out["n_clipped"],
+             n_rejected=out["n_rejected"], n_flagged=out["n_flagged"])
+        assert got == {"weighted_aggregate": 2, "robust_aggregate": 0}, (
+            defense, got)
+    # the loop engine stacks its uploads on the card and aggregates there
+    for defense in ("trimmed_mean", "median"):
+        reset_launches()
+        out, _ = experiment(
+            cfg=FeelConfig(n_ues=10, n_malicious=2), n_train=3000,
+            n_test=500, scenario="sign_flip", defense=defense,
+            engine="loop", rounds=2, device="cuda")
+        got = read_launches()
+        emit(phase="loop_defended_route", defense=defense, launches=got,
+             acc=out["acc"], n_rejected=out["n_rejected"])
+        assert got == {"weighted_aggregate": 0, "robust_aggregate": 2}, (
+            defense, got)
+        assert all(np.isfinite(out["acc"])), out["acc"]
+
+    # 7. small runs on the GPU and on the CPU
     small = {dev: quickstart(10, 2, 3000, 500, dev).run(2)
              for dev in ("cuda", "cpu")}
     for a, b in zip(small["cuda"], small["cpu"]):
@@ -270,17 +520,32 @@ def main():
                                                         b.selected)
         assert abs(a.global_acc - b.global_acc) <= 1e-2, (a.global_acc,
                                                          b.global_acc)
-        emit(phase="cuda_vs_cpu", round=a.round, acc_cuda=a.global_acc,
-             acc_cpu=b.global_acc, selected=a.selected.tolist())
+        emit(phase="cuda_vs_cpu", run="undefended", round=a.round,
+             acc_cuda=a.global_acc, acc_cpu=b.global_acc,
+             selected=a.selected.tolist())
+    defended = {dev: experiment(
+        cfg=FeelConfig(n_ues=10, n_malicious=2), n_train=3000, n_test=500,
+        scenario="sign_flip", defense="trimmed_mean+validation", rounds=2,
+        device=dev)[1].logs for dev in ("cuda", "cpu")}
+    for a, b in zip(defended["cuda"], defended["cpu"]):
+        assert np.array_equal(a.selected, b.selected), (a.selected,
+                                                        b.selected)
+        assert (a.n_rejected, a.n_flagged) == (b.n_rejected, b.n_flagged)
+        assert abs(a.global_acc - b.global_acc) <= 1e-2, (a.global_acc,
+                                                         b.global_acc)
+        emit(phase="cuda_vs_cpu", run="trimmed_mean+validation",
+             round=a.round, acc_cuda=a.global_acc, acc_cpu=b.global_acc,
+             n_rejected=a.n_rejected, n_flagged=a.n_flagged,
+             selected=a.selected.tolist())
 
-    # 6. summary and result
+    # 8. summary and result
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [dict(
         name=name, **KERNELS[name], launches=launches[name],
-        max_abs_err=main["max_abs_err"], ms=main["kernel_ms"],
-        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-        bound_by=main["bound_by"], library_ms=main["library_ms"])
-        for name in KERNELS]}))
+        max_abs_err=row["max_abs_err"], ms=row["kernel_ms"],
+        plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=row["library_ms"])
+        for name, row in summary.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

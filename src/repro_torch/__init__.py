@@ -6,5 +6,7 @@ in ``tests/test_torch_*.py``. It imports neither ``jax`` nor ``repro``.
 
 Entry points take an explicit ``device`` and default to the GPU
 (``device.resolve_device``); the FedAvg aggregation runs through the
-hand-written Hopper kernel in ``kernels/csrc/weighted_aggregate.cu``.
+hand-written Hopper kernel in ``kernels/csrc/weighted_aggregate.cu``, the
+defense plane's trimmed mean and median through
+``kernels/csrc/robust_aggregate.cu``.
 """

@@ -22,12 +22,15 @@ class ReputationTracker:
         self.values = np.ones(cfg.n_population)
 
     def update(self, participants: np.ndarray,
-               acc_local: np.ndarray, acc_test: np.ndarray) -> np.ndarray:
+               acc_local: np.ndarray, acc_test: np.ndarray,
+               penalty=None) -> np.ndarray:
         """Apply Eq. 1 to the participating UEs of this round.
 
         participants — indices; acc_local — self-reported accuracies
         (len == len(participants)); acc_test — server-measured accuracies of
-        the uploaded models on the held-out test set.
+        the uploaded models on the held-out test set; penalty — optional
+        per-participant trust penalty of the defense plane's validation
+        detector, subtracted inside the same clip.
         """
         cfg = self.cfg
         if len(participants) == 0:
@@ -35,6 +38,8 @@ class ReputationTracker:
         avg_acc = float(np.mean(acc_local))
         delta = cfg.eta * (cfg.beta1 * (acc_local - avg_acc)
                            + cfg.beta2 * (acc_local - acc_test))
+        if penalty is not None:
+            delta = delta + penalty
         self.values[participants] = np.clip(
             self.values[participants] - delta, 0.0, 1.0)
         return self.values

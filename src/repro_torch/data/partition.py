@@ -18,6 +18,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.core.attacks import poison_dataset
+
 GROUP_SIZE = 50
 MIN_GROUPS = 1
 MAX_GROUPS = 30
@@ -46,18 +48,17 @@ def partition(train, n_ues: int, rng: np.random.Generator,
               malicious: Optional[np.ndarray] = None,
               attack=None, group_size: int = GROUP_SIZE,
               min_groups: int = MIN_GROUPS,
-              max_groups: int = MAX_GROUPS) -> List[ClientData]:
+              max_groups: int = MAX_GROUPS,
+              context: str = "") -> List[ClientData]:
     """Allocate label-sorted sample groups to K UEs (module docstring).
 
-    ``attack`` poisons each malicious UE's labels: the label-only
-    ``core.poisoning.LabelFlipAttack`` (``apply(y, rng)``). The clean twin
-    of a poisoned dataset is kept on ``ClientData.clean``.
+    ``attack`` poisons each malicious UE's raw data: either a
+    ``core.attacks`` data attack (dispatched on the dataset type by
+    ``attacks.poison_dataset``, whose mismatch error names ``context``) or
+    the legacy label-only ``core.poisoning.LabelFlipAttack``
+    (``apply(y, rng)``). The clean twin of a poisoned dataset is kept on
+    ``ClientData.clean``.
     """
-    if attack is not None and (hasattr(attack, "poison")
-                               or hasattr(attack, "poison_tokens")):
-        raise NotImplementedError(
-            "scenario data attacks (core.attacks.poison_dataset) are ported "
-            "with the attack-plane slice; pass a LabelFlipAttack")
     order = np.argsort(train.y, kind="stable")
     n_groups = len(train) // group_size
     groups = order[: n_groups * group_size].reshape(n_groups, group_size)
@@ -79,7 +80,10 @@ def partition(train, n_ues: int, rng: np.random.Generator,
         clean = None
         if is_mal and attack is not None:
             clean = ds
-            ds = type(ds)(ds.x, attack.apply(ds.y, rng))
+            if hasattr(attack, "poison") or hasattr(attack, "poison_tokens"):
+                ds = poison_dataset(attack, ds, rng, context=context)
+            else:                               # legacy label-only attack
+                ds = type(ds)(ds.x, attack.apply(ds.y, rng))
         clients.append(ClientData(ue_id=k, data=ds, malicious=is_mal,
                                   clean=clean))
     return clients

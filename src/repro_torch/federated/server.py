@@ -20,12 +20,27 @@ package's server does. The data plane runs on ``device``:
         one ``weighted_aggregate`` kernel launch per round.
     "loop" — the sequential per-client loop, kept as the correctness oracle.
 
+Threat model: the server takes a ``core.attacks.AttackScenario``; its data
+component is baked into the clients by the partition, and its model/report
+components apply to the merged cohort stack through one masked
+``torch.where`` per leaf (``_apply_attacks``) on the scenario's activity
+schedule — ``_apply_attacks_loop`` keeps the per-client dispatch as its
+parity oracle, and the loop engine applies the same attacks per client.
+
+Defense plane (``core/defenses.py``): the policy's robust aggregator
+replaces FedAvg in ``_aggregate_uploads`` — for both engines, on
+``device``: the trimmed mean and median through the ``robust_aggregate``
+kernel, norm clipping and Krum through the ``weighted_aggregate`` kernel —
+and its validation
+detector scores every upload on a held-out split in one extra batched
+evaluation, feeding a trust penalty into Eq. 1 in ``_finalize_round``.
+
 Not ported yet: the batched control plane (``control="batched"``), the
-defense plane, model/report attacks, the population cut, async mode and
-the observability spans.
+population cut, async mode and the observability spans.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
@@ -33,7 +48,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FeelConfig
-from repro_torch.core.attacks import AttackScenario, reputation_gap
+from repro_torch.core import attacks as atk
+from repro_torch.core import defenses as dfs
 from repro_torch.core.diversity import diversity_index
 from repro_torch.core.quality import adaptive_weights, data_quality_value
 from repro_torch.core.reputation import ReputationTracker
@@ -46,7 +62,7 @@ from repro_torch.data.partition import (ClientData, pad_clients,
                                         pad_clients_bucketed)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.federated import cohort
-from repro_torch.federated.aggregation import fedavg, fedavg_stacked
+from repro_torch.federated.aggregation import fedavg_stacked
 from repro_torch.federated.task import MnistTask, as_task
 
 
@@ -72,6 +88,14 @@ class RoundLog:
     # highest-value UE. Problem (8) had no feasible point, so ``objective``
     # is 0.0 for forced rounds — the forced UE's V_k is not credited.
     forced: bool = False
+    # defense-plane metrics: norm-clipped / aggregation-rejected upload
+    # counts, validation-detector flags, and detection precision/recall
+    # against the ground-truth malicious mask (metrics only)
+    n_clipped: int = 0
+    n_rejected: int = 0
+    n_flagged: int = 0
+    det_precision: float = float("nan")
+    det_recall: float = float("nan")
 
 
 @dataclasses.dataclass
@@ -160,8 +184,15 @@ class FeelServer:
     ported with the batched-control-plane slice and raises here.
     device: where the data plane runs; None means 'cuda', which raises when
     CUDA is absent (pass 'cpu' to run on the CPU).
-    scenario: the threat model's activity schedule and watched pair; the
-    label flip itself must already be baked into ``clients``.
+    scenario: an ``core.attacks.AttackScenario`` (or registry name) — the
+    threat model. Its data component must already be baked into
+    ``clients``; the server applies the model/report components on the
+    scenario's activity schedule and tracks the watched (source, target)
+    metrics. It supersedes the legacy ``model_poison`` (a
+    ``core.poisoning.ModelPoisonAttack``), ``lie_boost`` and ``watch_class``
+    knobs, which are normalised into an equivalent scenario.
+    defense: a ``core.defenses.DefensePolicy`` (or registry name); None
+    defers to ``cfg.defense``.
     ``lr``/``batch_size`` default to the task's protocol values when None.
     n_buckets: number of max_samples size buckets for the vectorized
     engine. ``params`` may be replaced after construction (the parity tests
@@ -174,13 +205,13 @@ class FeelServer:
     def __init__(self, cfg: FeelConfig, clients: List[ClientData],
                  test, rng: np.random.Generator,
                  policy: str = "dqs", lr: Optional[float] = None,
-                 adaptive_omega: bool = False,
+                 adaptive_omega: bool = False, lie_boost: float = 0.0,
+                 watch_class: Optional[int] = None, model_poison=None,
                  engine: str = "vectorized",
                  batch_size: Optional[int] = None,
                  pad_to: Optional[int] = None, n_buckets: int = 3,
                  control: str = "host",
-                 scenario: Optional[AttackScenario] = None,
-                 defense: Optional[str] = None,
+                 scenario=None, defense=None,
                  task: Optional[MnistTask] = None,
                  device: DeviceLike = None):
         if engine not in ("vectorized", "loop"):
@@ -193,11 +224,13 @@ class FeelServer:
             raise ValueError(f"unknown control plane {control!r}")
         if policy not in POLICY_NAMES:
             raise KeyError(policy)
-        defense = cfg.defense if defense is None else defense
-        if defense != "none":
-            raise NotImplementedError(
-                f"defense {defense!r}: the defense plane is ported with "
-                "its own slice")
+        if scenario is not None and (model_poison is not None or lie_boost
+                                     or watch_class is not None):
+            raise ValueError(
+                "scenario supersedes the legacy model_poison/lie_boost/"
+                "watch_class knobs (set AttackScenario.watch instead)")
+        self.defense = dfs.as_defense(cfg.defense if defense is None
+                                      else defense)
         if cfg.population is not None or cfg.mode != "sync":
             raise NotImplementedError(
                 "the population cut and async mode are not ported yet")
@@ -213,10 +246,17 @@ class FeelServer:
         self.policy = policy
         self.lr = self.task.default_lr if lr is None else lr
         self.adaptive_omega = adaptive_omega
-        self.scenario = (scenario if scenario is not None
-                         else AttackScenario("legacy"))
+        self.scenario = (atk.as_scenario(scenario) if scenario is not None
+                         else atk.legacy_scenario(
+                             None, model_poison_scale=(
+                                 None if model_poison is None
+                                 else model_poison.scale),
+                             lie_boost_val=lie_boost))
+        # metrics watch pair: an explicit watch_class wins (legacy callers),
+        # else the scenario's (source, target)
         watch = self.scenario.watch
-        self.watch_class = watch[0] if watch else None
+        self.watch_class = (watch_class if watch_class is not None
+                            else (watch[0] if watch else None))
         self.watch_target = watch[1] if watch else None
         self.engine = engine
         self.batch_size = (self.task.batch_size if batch_size is None
@@ -241,6 +281,11 @@ class FeelServer:
         mal_ids = np.flatnonzero(self._mal_mask)
         self._mal_rank = np.full(cfg.n_population, -1)
         self._mal_rank[mal_ids] = np.arange(mal_ids.size)
+        # stale free-riders replay the global model from ``staleness``
+        # rounds ago; keep exactly that much history (None otherwise)
+        st = self.scenario.model.staleness if self.scenario.model else 0
+        self._param_hist = (collections.deque(maxlen=st + 1) if st > 0
+                            else None)
         # UEs report their quality metadata once; poisoned data is what the
         # UE *believes*, so the report reflects the attack
         self.divs = np.array([self.task.gini(c.data) for c in clients])
@@ -255,6 +300,20 @@ class FeelServer:
         self._test_mask_arr = np.stack(self._test_masks).astype(np.float32)
         self._ex = self.task.eval_inputs(test, self.device)
         self._ey = self.task.unit_targets(test, self.device)
+        # defense plane: the validation detector scores every upload on a
+        # held-out split (the units of the first n_val test rows),
+        # restricted per UE to the classes it claims to hold — the same
+        # masking argument as Eq. 1's acc_test
+        det = self.defense.detector
+        if det is not None:
+            self._n_val = min(det.n_val, len(test.y))
+            val_rows = self.task.unit_rows(test) < self._n_val
+            self._val_masks = [m & val_rows for m in self._test_masks]
+            arr = self._test_mask_arr * val_rows.astype(np.float32)[None]
+            self._val_mask_dev = torch.as_tensor(
+                np.concatenate([arr, np.zeros_like(arr[:1])]),
+                device=self.device)
+        self._def_stats = dfs.DefenseStats()   # refreshed every round
         self._cohort_data: Optional[CohortData] = None   # built lazily
         self.pad_waste: List[float] = []   # per-round padded/real samples
         self.logs: List[RoundLog] = []
@@ -315,14 +374,12 @@ class FeelServer:
 
     # ------------------------------------------------------------------ #
     # Per-cohort engines: both return the round's uploads WITHOUT
-    # aggregating — (uploads, weights, acc_local, acc_test) where
+    # aggregating — (uploads, weights, acc_local, acc_test, acc_val) where
     # ``uploads`` is a params list (loop) or the padded merged stack
-    # (vectorized) and ``weights`` the aligned FedAvg sample counts.
+    # (vectorized), ``weights`` the aligned FedAvg sample counts and
+    # ``acc_val`` the detector's (2, n) validation scores (None without a
+    # detector).
     # ------------------------------------------------------------------ #
-    def _active_malicious(self, t: int) -> np.ndarray:
-        return self.scenario.schedule.active(t, self._mal_mask,
-                                             self._mal_rank)
-
     def _run_cohort_loop(self, sel: np.ndarray, t: int):
         cfg = self.cfg
         # an inactive malicious UE trains on its clean twin this round
@@ -337,12 +394,37 @@ class FeelServer:
                 self.batch_size))
         acc_local = np.array([r.acc_local for r in reports])
         params_list = [r.params for r in reports]
+
+        # attacks, per client — the loop engine is the oracle of the
+        # masked stacked application
+        scn = self.scenario
+        ref = self._attack_ref_params()
+        mal = active[sel]
+        if scn.model is not None:
+            params_list = [scn.model.apply_loop(self.params, p, ref)
+                           if m else p for p, m in zip(params_list, mal)]
+        if scn.report is not None:
+            acc_local = scn.report.apply(acc_local, mal)
+
         # server-side evaluation of every uploaded model (Alg. 1 line 14)
         acc_test = np.array([
             self.task.eval_units_loop(p, self.test, self._test_masks[k])
             for p, k in zip(params_list, sel)])
+
+        # defense detector: every upload AND the start-of-round global
+        # model on each UE's masked validation split
+        acc_val = None
+        if self.defense.detector is not None:
+            acc_val = np.zeros((2, len(params_list)))
+            for i, (p, k) in enumerate(zip(params_list, sel)):
+                m = self._val_masks[k]
+                if m.any():
+                    acc_val[0, i] = self.task.eval_units_loop(
+                        p, self.test, m)
+                    acc_val[1, i] = self.task.eval_units_loop(
+                        self.params, self.test, m)
         weights = np.asarray([r.n_samples for r in reports], float)
-        return params_list, weights, acc_local, acc_test
+        return params_list, weights, acc_local, acc_test, acc_val
 
     def _ensure_cohort_data(self) -> CohortData:
         if self._cohort_data is None:
@@ -375,6 +457,59 @@ class FeelServer:
                 [rows, np.full(n_pad - pos.size, bkt["null"], rows.dtype)])
             yield bkt, pos, rows
 
+    def _active_malicious(self, t: int) -> np.ndarray:
+        """(K,) bool — UEs whose malicious behaviour is ACTIVE in round t
+        (gates the data, model and report components)."""
+        return self.scenario.schedule.active(t, self._mal_mask,
+                                             self._mal_rank)
+
+    def _attack_ref_params(self):
+        """Reference params for the model attack: the current global
+        model, or — for stale free-riders — the global model from
+        ``staleness`` rounds ago. Called exactly once per round (it
+        advances the history)."""
+        if self._param_hist is None:
+            return self.params
+        self._param_hist.append(self.params)     # start-of-round params
+        return self._param_hist[0]
+
+    def _apply_attacks(self, sel, stacked, acc_local, t):
+        """Model poisoning + dishonest reporting on the merged stack: one
+        masked ``torch.where`` per leaf over the malicious rows
+        (``ModelAttack.apply_stacked``) — no per-client dispatch."""
+        scn = self.scenario
+        ref = self._attack_ref_params()
+        mal = self._active_malicious(t)[sel]
+        if scn.model is not None and mal.any():
+            stacked = scn.model.apply_stacked(stacked, self.params, mal, ref)
+        if scn.report is not None:
+            acc_local = scn.report.apply(acc_local, mal)
+        return stacked, acc_local
+
+    def _apply_attacks_loop(self, sel, stacked, acc_local, t):
+        """The per-malicious-client dispatch loop, kept only as the parity
+        oracle of ``_apply_attacks``."""
+        scn = self.scenario
+        ref = self._attack_ref_params()
+        mal = self._active_malicious(t)[sel]
+        if scn.model is not None and mal.any():
+            for i in np.flatnonzero(mal):
+                poisoned = scn.model.apply_loop(
+                    self.params, cohort.unstack(stacked, int(i)), ref)
+                idx = torch.tensor([int(i)], device=self.device)
+                stacked = {k: v.index_copy(0, idx, poisoned[k][None])
+                           for k, v in stacked.items()}
+        if scn.report is not None:
+            acc_local = scn.report.apply(acc_local, mal)
+        return stacked, acc_local
+
+    def _pad_rows(self, sel: np.ndarray, n_pad: int) -> torch.Tensor:
+        """Row ids of a padded merged stack into the (K+1, U) mask tables:
+        the selection, then the all-zero null row."""
+        return torch.as_tensor(np.concatenate(
+            [sel, np.full(n_pad - sel.size, len(self.clients), sel.dtype)]),
+            device=self.device)
+
     def _run_cohort_vectorized(self, sel: np.ndarray, t: int):
         cfg = self.cfg
         cd = self._ensure_cohort_data()
@@ -401,34 +536,85 @@ class FeelServer:
         self.pad_waste.append(
             float(pad_slots) / max(float(cd.sizes[sel].sum()), 1.0))
 
+        stacked, acc_local = self._apply_attacks(sel, stacked, acc_local, t)
+
         # evaluate + aggregate once on the merged stack, zero-padded to a
         # stable row count (null rows score 0 under an all-zero mask and
         # contribute exactly 0 with weight 0)
         n_pad = cohort.pad_count(n, self._N_BUCKET)
         stacked_p = cohort.pad_stacked(stacked, n_pad)
-        eval_rows = np.concatenate(
-            [sel, np.full(n_pad - n, len(self.clients), sel.dtype)])
-        masks = cd.mask_dev.index_select(
-            0, torch.as_tensor(eval_rows, device=self.device))
+        masks = cd.mask_dev.index_select(0, self._pad_rows(sel, n_pad))
         acc_test = cohort.cohort_eval(self.task, stacked_p, self._ex,
                                       self._ey, masks)
         acc_test = acc_test.cpu().numpy().astype(float)[:n]
+        acc_val = self._eval_validation(stacked_p, sel)
         weights = np.zeros(n_pad)
         weights[:n] = cd.sizes[sel]
-        return stacked_p, weights, acc_local, acc_test
+        return stacked_p, weights, acc_local, acc_test, acc_val
+
+    def _eval_validation(self, stacked_p, sel: np.ndarray
+                         ) -> Optional[np.ndarray]:
+        """Defense detector: the ONE extra batched eval — every uploaded
+        model AND the start-of-round global model scored on the held-out
+        validation split restricted to each UE's claimed classes; (2, n):
+        uploads row, global row."""
+        if self.defense.detector is None:
+            return None
+        n = sel.size
+        n_pad = next(iter(stacked_p.values())).shape[0]
+        vm = self._val_mask_dev.index_select(0, self._pad_rows(sel, n_pad))
+        both = cohort.merge_stacks(
+            [stacked_p, cohort.broadcast_params(self.params, n_pad)])
+        acc = cohort.cohort_eval(self.task, both, self._ex, self._ey,
+                                 torch.cat([vm, vm]))
+        acc = acc.cpu().numpy().astype(float)
+        return np.stack([acc[:n], acc[n_pad:n_pad + n]])
 
     def _train_cohort(self, sel: np.ndarray, t: int):
+        """(uploads, weights, acc_local, acc_test, acc_val) of the round's
+        cohort — no aggregation (see the engines' section comment)."""
         if self.engine == "vectorized":
             return self._run_cohort_vectorized(sel, t)
         return self._run_cohort_loop(sel, t)
 
-    def _aggregate_uploads(self, uploads, weights: np.ndarray) -> None:
-        """FedAvg into ``self.params`` — one ``weighted_aggregate`` launch
-        in either engine."""
-        if self.engine == "vectorized":
+    def _aggregate_uploads(self, sel: np.ndarray, uploads,
+                           weights: np.ndarray) -> None:
+        """Aggregate a cohort's uploads into ``self.params`` — the single
+        write point of both engines. ``uploads`` is what ``_train_cohort``
+        returned (params list / padded stack), ``weights`` the aligned
+        FedAvg sample counts. The loop engine's list is stacked first, so
+        both engines aggregate on ``device`` through the same code:
+        undefended, FedAvg (one ``weighted_aggregate`` launch); under a
+        robust aggregator, ``defenses.aggregate_stacked`` over the (N, P)
+        layout (the trimmed mean and median through ``robust_aggregate``),
+        its stats landing in ``_def_stats``."""
+        if self.engine == "loop":
+            uploads = {k: torch.stack([u[k] for u in uploads])
+                       for k in uploads[0]}
+        agg = self.defense.aggregator
+        if agg is None:
+            self._def_stats = dfs.DefenseStats()
             self.params = fedavg_stacked(uploads, weights)
         else:
-            self.params = fedavg(uploads, list(weights))
+            self.params, self._def_stats = dfs.aggregate_stacked(
+                agg, uploads, weights, self.params, sel.size,
+                self.cfg.n_malicious)
+
+    def _detect(self, sel: np.ndarray, acc_val) -> Optional[np.ndarray]:
+        """Validation-detector phase: anomaly scores -> Eq. 1 trust
+        penalties (returned, aligned with ``sel``) + detection metrics
+        against the ground-truth malicious mask (into ``_def_stats``,
+        metrics only)."""
+        det = self.defense.detector
+        if det is None or acc_val is None or sel.size == 0:
+            return None
+        anomaly = det.anomaly(acc_val)
+        flags = anomaly > 0
+        st = self._def_stats
+        st.n_flagged = int(flags.sum())
+        st.det_precision, st.det_recall = dfs.detection_stats(
+            flags, self._mal_mask[sel])
+        return det.weight * anomaly
 
     def _global_metrics(self) -> Tuple[float, float, float, float]:
         """(global unit accuracy, global loss, watch accuracy, attack
@@ -438,13 +624,17 @@ class FeelServer:
                                         self.watch_target)
 
     def _finalize_round(self, t: int, values, sched, sel, forced,
-                        acc_local, acc_test, g_acc, g_loss, src_acc,
-                        atk_succ) -> RoundLog:
-        """Alg. 1 lines 15-16 + logging: reputation, staleness, RoundLog."""
-        self.reputation.update(sel, acc_local, acc_test)
+                        acc_local, acc_test, g_acc, src_acc,
+                        atk_succ=float("nan"), acc_val=None,
+                        g_loss=float("nan")) -> RoundLog:
+        """Alg. 1 lines 15-16 + logging: detector penalty, reputation,
+        staleness, RoundLog."""
+        penalty = self._detect(sel, acc_val)
+        self.reputation.update(sel, acc_local, acc_test, penalty=penalty)
         # ages: selected reset, others grow (staleness of Eq. 2)
         self.ages += 1.0
         self.ages[sel] = 1.0
+        ds = self._def_stats
         log = RoundLog(
             round=t, selected=sel, global_acc=g_acc, global_loss=g_loss,
             n_malicious_selected=sum(self.clients[k].malicious for k in sel),
@@ -452,19 +642,24 @@ class FeelServer:
             values=values.copy(),
             reputations=self.reputation.values.copy(), source_acc=src_acc,
             attack_success=atk_succ,
-            rep_gap=reputation_gap(self.reputation.values, self._mal_mask),
-            forced=forced)
+            rep_gap=atk.reputation_gap(self.reputation.values,
+                                       self._mal_mask),
+            forced=forced,
+            n_clipped=ds.n_clipped, n_rejected=ds.n_rejected,
+            n_flagged=ds.n_flagged, det_precision=ds.det_precision,
+            det_recall=ds.det_recall)
         self.logs.append(log)
         return log
 
     def run_round(self, t: int) -> RoundLog:
         values, sched, sel, forced = self._schedule_round(t)
-        uploads, weights, acc_local, acc_test = self._train_cohort(sel, t)
-        self._aggregate_uploads(uploads, weights)
+        uploads, weights, acc_local, acc_test, acc_val = \
+            self._train_cohort(sel, t)
+        self._aggregate_uploads(sel, uploads, weights)
         g_acc, g_loss, src_acc, atk_succ = self._global_metrics()
         return self._finalize_round(t, values, sched, sel, forced,
-                                    acc_local, acc_test, g_acc, g_loss,
-                                    src_acc, atk_succ)
+                                    acc_local, acc_test, g_acc, src_acc,
+                                    atk_succ, acc_val, g_loss)
 
     def run(self, rounds: Optional[int] = None) -> List[RoundLog]:
         for t in range(rounds or self.cfg.rounds):

@@ -51,11 +51,12 @@ class MnistTask:
         return generate(n_train, n_test, seed=seed)
 
     def partition_clients(self, train, n_ues, rng, malicious=None,
-                          attack=None):
+                          attack=None, context=""):
         return partition(train, n_ues, rng, malicious, attack,
                          group_size=self.group_size,
                          min_groups=self.min_groups,
-                         max_groups=self.max_groups)
+                         max_groups=self.max_groups,
+                         context=context or f"task={self.name}")
 
     def histogram(self, data) -> np.ndarray:
         """What a UE reports: its label histogram (claimed class support)."""
@@ -68,6 +69,11 @@ class MnistTask:
     # -- eval units ------------------------------------------------------ #
     def unit_labels(self, test) -> np.ndarray:
         return np.asarray(test.y)
+
+    def unit_rows(self, test) -> np.ndarray:
+        """The test row each unit comes from (the validation split is the
+        units of the first ``n_val`` rows)."""
+        return np.arange(len(test.y))
 
     def eval_inputs(self, test, device):
         return {"x": torch.as_tensor(test.x, device=device)}

@@ -196,8 +196,8 @@ def test_attack_schedule_and_reputation_gap_exact(ref):
     reps = np.array([0.9, 0.2, 0.4, 0.8, 0.1])
     assert tat.reputation_gap(reps, mal) == ref.at.reputation_gap(reps, mal)
     assert np.isnan(tat.reputation_gap(reps, np.zeros(5, bool)))
-    with pytest.raises(NotImplementedError):
-        tat.AttackScenario("boost", model=object())
+    with pytest.raises(ValueError):
+        tat.MaliciousSchedule("weekly")
 
 
 # ---------------------------------------------------------------------- #

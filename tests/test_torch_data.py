@@ -102,15 +102,14 @@ def test_padding_helpers_byte_equal(ref):
 
 
 def test_partition_rejects_scenario_data_attack():
-    """The ``core.attacks`` data-attack branch waits for the attack-plane
-    slice; it raises before drawing from the RNG."""
+    """A ``core.attacks`` data attack that does not fit the dataset (a
+    token-space attack on feature data) raises, naming the context."""
     train, _ = tsm.generate(500, 10, seed=0)
     rng = np.random.default_rng(0)
-    state = rng.bit_generator.state
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="task=mnist_mlp, scenario=tok"):
         tpa.partition(train, 4, rng, np.array([0]),
-                      types.SimpleNamespace(poison=lambda *a: None))
-    assert rng.bit_generator.state == state
+                      types.SimpleNamespace(poison_tokens=lambda *a: None),
+                      context="task=mnist_mlp, scenario=tok")
 
 
 def test_pad_clients_rejects_short_pad_to():

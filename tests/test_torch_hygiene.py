@@ -40,7 +40,7 @@ def test_no_jax_or_repro_imports(path):
 
 
 def test_importing_the_server_loads_no_jax():
-    code = ("import sys, repro_torch.federated.server, chip_smoke; "
+    code = ("import sys, repro_torch.federated.simulation, chip_smoke; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     out = subprocess.run(
@@ -79,8 +79,10 @@ def test_server_without_device_raises_when_cuda_is_absent(monkeypatch):
 def test_kernel_build_goes_to_an_ignored_directory():
     """The kernels build into build/, which .gitignore lists, under a name
     keyed by the source hash; nothing is built at import."""
-    path = build.library_path("weighted_aggregate")
-    assert path.parent == ROOT / "build" / "repro_torch_kernels"
+    assert build.KERNELS == ("weighted_aggregate", "robust_aggregate")
+    for name in build.KERNELS:
+        path = build.library_path(name)
+        assert path.parent == ROOT / "build" / "repro_torch_kernels"
+        assert (build.CSRC / f"{name}.cu").is_file()
     assert "build/" in (ROOT / ".gitignore").read_text().split()
-    assert (build.CSRC / "weighted_aggregate.cu").is_file()
     assert build.load.cache_info().currsize == 0

@@ -158,3 +158,138 @@ def test_normalize_weights_and_list_form(ref):
     a, b = tag.fedavg(listed, weights), tag.fedavg_stacked(st, weights)
     for k in a:
         assert torch.equal(a[k], b[k])
+
+
+# ---------------------------------------------------------------------- #
+# K2 ``robust_aggregate``: the plain version against the Pallas kernel
+# (interpret mode) and ``repro.kernels.ref.robust_aggregate_ref`` within
+# atol = rtol = 1e-6 (the reference sums the kept ranks with a tree, the
+# port sequentially), and bit-equal to the host oracles of the defense
+# plane, which sum in the port's order. The main path's shape is in
+# tests/test_torch_kernels_k2_main.py (its interpret compile is ~25 s).
+# ---------------------------------------------------------------------- #
+def _robust_inputs(n, n_pad, m, seed):
+    rng = np.random.default_rng(seed)
+    x = np.zeros((n_pad, m), np.float32)
+    x[:n] = rng.normal(size=(n, m)).astype(np.float32)
+    return x
+
+
+def robust_case(ref, n, n_pad, m, mode, dtype="float32"):
+    """(plain, Pallas, JAX ref, real rows) at one shape, as float32 numpy;
+    the trim is the defense plane's n_trim(n) at 20%."""
+    from repro_torch.core.defenses import TrimmedMean
+    from repro_torch.kernels.robust_aggregate import robust_aggregate
+    x = _robust_inputs(n, n_pad, m, seed=n * 1000 + m)
+    trim = TrimmedMean(0.2).n_trim(n) if mode == "trimmed_mean" else 0
+    jx = ref.jnp.asarray(x).astype(getattr(ref.jnp, dtype))
+    got = robust_aggregate(torch.from_numpy(x).to(getattr(torch, dtype)), n,
+                           trim=trim, mode=mode).float().numpy()
+    pallas = np.asarray(ref.ops.robust_aggregate(jx, n, trim=trim,
+                                                 mode=mode), np.float32)
+    oracle = np.asarray(ref.kref.robust_aggregate_ref(jx, n, trim=trim,
+                                                      mode=mode), np.float32)
+    return got, pallas, oracle, x[:n]
+
+
+@pytest.mark.parametrize("mode", ["trimmed_mean", "median"])
+@pytest.mark.parametrize("n,n_pad,m", [(5, 8, 300), (8, 8, 2048),
+                                       (13, 16, 700)])
+def test_robust_plain_matches_pallas_and_ref(ref, n, n_pad, m, mode):
+    got, pallas, oracle, real = robust_case(ref, n, n_pad, m, mode)
+    assert got.shape == (m,)
+    np.testing.assert_allclose(got, pallas, atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(got, oracle, atol=1e-6, rtol=1e-6)
+    # a rank-window statistic stays within the real rows
+    assert np.all(got <= real.max(0)) and np.all(got >= real.min(0))
+
+
+@pytest.mark.parametrize("mode", ["trimmed_mean", "median"])
+def test_robust_plain_bf16_matches_ref(ref, mode):
+    """bf16 in, f32 math, one rounding on the way out: the same bits as the
+    reference's ref twin, which computes in f32 and casts once too."""
+    got, _, oracle, _ = robust_case(ref, 13, 16, 700, mode, "bfloat16")
+    np.testing.assert_allclose(got, oracle, atol=1e-2, rtol=1e-2)
+
+
+@pytest.fixture(scope="module")
+def ref_defenses():
+    return reference("core.defenses")
+
+
+@pytest.mark.parametrize("n,n_pad", [(1, 1), (2, 8), (5, 8), (9, 16),
+                                     (11, 16), (16, 16), (44, 48)])
+def test_robust_plain_bit_equal_to_host_oracles(ref_defenses, n, n_pad):
+    """The plain version is bit-equal to the port's and the reference's
+    ``TrimmedMean/Median.aggregate_host`` (the same ascending sequential
+    sum and single division; the median is exact everywhere)."""
+    from repro_torch.core import defenses as tdfs
+    from repro_torch.kernels.robust_aggregate import robust_aggregate
+    x = _robust_inputs(n, n_pad, 257, seed=n)
+    tx = torch.from_numpy(x)
+    for port, refa in ((tdfs.TrimmedMean(0.2), ref_defenses.TrimmedMean(0.2)),
+                       (tdfs.Median(), ref_defenses.Median())):
+        if isinstance(port, tdfs.TrimmedMean):
+            got = robust_aggregate(tx, n, trim=port.n_trim(n)).numpy()
+        else:
+            got = robust_aggregate(tx, n, mode="median").numpy()
+        np.testing.assert_array_equal(got, port.aggregate_host(x[:n])[0])
+        np.testing.assert_array_equal(got, refa.aggregate_host(x[:n])[0])
+
+
+@pytest.mark.parametrize("n,n_pad", [(11, 16), (16, 16)])
+def test_robust_plain_orders_nan_last_like_host_oracles(ref_defenses, n,
+                                                        n_pad):
+    """NaN uploads sort after every number over the n real rows, as numpy
+    and the kernel order them: a column with more than b NaNs aggregates to
+    NaN, one with fewer trims them away — the padding rows never enter."""
+    from repro_torch.core import defenses as tdfs
+    from repro_torch.kernels.robust_aggregate import robust_aggregate
+    x = _robust_inputs(n, n_pad, 64, seed=n + 7)
+    x[:n // 2 + 1, :8] = np.nan            # past every trim and the median
+    x[0, 8:16] = np.nan                    # trimmed away
+    x[n - 1, 16:24] = np.inf
+    tx = torch.from_numpy(x)
+    for port, refa in ((tdfs.TrimmedMean(0.2), ref_defenses.TrimmedMean(0.2)),
+                       (tdfs.Median(), ref_defenses.Median())):
+        if isinstance(port, tdfs.TrimmedMean):
+            got = robust_aggregate(tx, n, trim=port.n_trim(n)).numpy()
+        else:
+            got = robust_aggregate(tx, n, mode="median").numpy()
+        assert np.isnan(got[:8]).all() and np.isfinite(got[8:]).all()
+        np.testing.assert_array_equal(got, port.aggregate_host(x[:n])[0])
+        np.testing.assert_array_equal(got, refa.aggregate_host(x[:n])[0])
+
+
+def test_robust_cpu_tensor_runs_plain_version_without_launch():
+    from repro_torch.kernels.robust_aggregate import (robust_aggregate,
+                                                      robust_aggregate_ref)
+    x = torch.from_numpy(_robust_inputs(7, 8, 1000, seed=3))
+    before = robust_aggregate.launches
+    for mode, trim in (("trimmed_mean", 2), ("median", 0)):
+        got = robust_aggregate(x, 7, trim=trim, mode=mode)
+        assert torch.equal(got, robust_aggregate_ref(x, 7, trim=trim,
+                                                     mode=mode))
+    assert robust_aggregate.launches == before
+
+
+@pytest.mark.parametrize("case", ["3d", "int", "noncontig", "empty",
+                                  "n_zero", "n_over", "trim_half",
+                                  "trim_neg", "rows_over", "mode"])
+def test_robust_wrapper_rejects_bad_inputs(case):
+    from repro_torch.kernels.robust_aggregate import robust_aggregate
+    x = torch.ones(8, 6)
+    args, kw = {
+        "3d": ((torch.ones(2, 2, 3), 2), {}),
+        "int": ((torch.ones(8, 6, dtype=torch.int32), 4), {}),
+        "noncontig": ((torch.ones(6, 8).t(), 4), {}),
+        "empty": ((torch.ones(8, 0), 4), {}),
+        "n_zero": ((x, 0), {}),
+        "n_over": ((x, 9), {}),
+        "trim_half": ((x, 6), {"trim": 3}),
+        "trim_neg": ((x, 6), {"trim": -1}),
+        "rows_over": ((torch.ones(129, 6), 100), {}),
+        "mode": ((x, 4), {"mode": "mean"}),
+    }[case]
+    with pytest.raises((ValueError, TypeError)):
+        robust_aggregate(*args, **kw)

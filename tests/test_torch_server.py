@@ -184,7 +184,7 @@ def test_scheduled_flip_and_watch_pair_match_reference():
 
 @pytest.mark.parametrize("kw,err", [
     (dict(control="batched"), NotImplementedError),
-    (dict(defense="krum"), NotImplementedError),
+    (dict(defense="no_such_defense"), KeyError),
     (dict(task="lm_tiny"), NotImplementedError),
     (dict(engine="sharded"), ValueError),
     (dict(policy="oracle"), KeyError),

@@ -7,6 +7,11 @@ package imports ``jax.experimental.enable_x64``, a name that newer jax
 releases dropped; ``reference`` installs it as an alias of
 ``jax.enable_x64`` first when it is missing.
 
+``ref_init_task`` gives the port's ``run_experiment`` the reference's
+initial params, and ``run_recorded`` runs either package's
+``run_experiment`` and hands back the server it ran, whose logs and host
+RNG the result dict leaves out.
+
 ``single_threaded`` pins torch to one CPU thread for a test module:
 multi-threaded CPU matmuls split their reductions by thread count and by
 batch size, so without it two computations of the same per-client product
@@ -28,6 +33,44 @@ def reference(module: str):
     if not hasattr(jax.experimental, "enable_x64"):
         jax.experimental.enable_x64 = lambda v=True: jax.enable_x64(v)
     return importlib.import_module(f"repro.{module}")
+
+
+def ref_init_task():
+    """A port ``MnistTask`` whose ``init_params(generator, device)`` builds
+    the reference's initial params: ``mlp_init(jax.random.PRNGKey(seed))``
+    for the seed the server drew from the host RNG, converted to torch. The
+    port's run then starts where the reference's does."""
+    import jax
+    import numpy as np
+
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.federated.task import MnistTask
+    mlp = reference("models.mlp")
+
+    class RefInitTask(MnistTask):
+        def init_params(self, generator, device):
+            p = mlp.mlp_init(jax.random.PRNGKey(generator.initial_seed()))
+            return params_from_numpy({k: np.asarray(v)
+                                      for k, v in p.items()}, device)
+
+    return RefInitTask()
+
+
+def run_recorded(sim, **kw):
+    """``sim.run_experiment(**kw)`` of either package -> (its result dict,
+    the ``FeelServer`` it ran), so a test can read what the dict leaves out
+    (per-round selections, the host RNG's next draw)."""
+    servers = []
+
+    class Recording(sim.FeelServer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            servers.append(self)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sim, "FeelServer", Recording)
+        out = sim.run_experiment(**kw)
+    return out, servers[0]
 
 
 @pytest.fixture(scope="module", autouse=True)
