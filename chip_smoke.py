@@ -12,7 +12,9 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     bandwidth-sized case — with its time, the plain version's, one PyTorch
     library call's (a yardstick the port never calls) and its bound.
     ``weighted_aggregate`` (K1) within 1e-6·max|x|, ``robust_aggregate``
-    (K2) bit for bit;
+    (K2) bit for bit, ``flash_attention`` (K3) within 2e-5 (f32) / 2e-2
+    (bf16), and K3's gradient through its autograd Function equal to the
+    plain version's within 1e-5;
  4. the undefended main path at the paper's §V scale: K = 50 UEs,
     50,000/10,000 synthetic MNIST, 5 label flippers, DQS on the host
     control plane, the vectorized engine, 3 rounds on the GPU. Every
@@ -29,7 +31,16 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
  7. small runs on the GPU and on the CPU, undefended and under
     ``trimmed_mean+validation``: the same selections and defense counts,
     accuracies within 1e-2;
- 8. one JSON line of per-kernel numbers, then the result line.
+ 8. the LM path: federated fine-tuning of ``lm_tiny`` through
+    ``run_experiment(task="lm_tiny")`` in the regime of
+    ``examples/federated_llm.py`` (K = 20, 6 malicious, the
+    vocabulary-collapse attack, 2,000/400 windows, DQS, 3 rounds; every
+    attention forward through K3, FedAvg of the 82,240-parameter updates
+    through K1 once a round), then ``policy="random"`` beside it; one round
+    split into phases, one profiled; K3 again at the shape the run
+    launched it at most; and a K = 8 run on the GPU and the CPU: the same
+    selections, loss and accuracy within 1e-3;
+ 9. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without printing a result where CUDA is absent. A kernel's
 time is its device time from ``torch.profiler`` over back-to-back calls
@@ -37,6 +48,7 @@ time is its device time from ``torch.profiler`` over back-to-back calls
 reported beside the CUDA-event time per call, which includes the host's
 launch overhead.
 """
+import collections
 import json
 import math
 import platform
@@ -51,6 +63,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs.base import FeelConfig  # noqa: E402
+from repro_torch.core import attacks as atk  # noqa: E402
 from repro_torch.core.poisoning import (EASY_PAIR, LabelFlipAttack,  # noqa: E402
                                         pick_malicious)
 from repro_torch.data.partition import partition  # noqa: E402
@@ -59,7 +72,9 @@ from repro_torch.core.defenses import TrimmedMean  # noqa: E402
 from repro_torch.federated import simulation  # noqa: E402
 from repro_torch.federated.cohort import pad_count  # noqa: E402
 from repro_torch.federated.server import FeelServer  # noqa: E402
+from repro_torch.federated.task import LM_TINY  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as k3  # noqa: E402
 from repro_torch.kernels.robust_aggregate import (  # noqa: E402
     robust_aggregate, robust_aggregate_ref)
 from repro_torch.kernels.weighted_aggregate import (  # noqa: E402
@@ -67,6 +82,7 @@ from repro_torch.kernels.weighted_aggregate import (  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
 # one 32-bit instruction (a comparison, an add) a lane a clock: half the
 # float32 FLOP rate, which counts an FMA as two
 INSTR_PER_S = F32_FLOPS / 2
@@ -79,9 +95,23 @@ KERNELS = {
     "robust_aggregate": {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/robust_aggregate.cu",
-        "replaces": "src/repro/kernels/robust_aggregate.py:31"}}
+        "replaces": "src/repro/kernels/robust_aggregate.py:31"},
+    "flash_attention": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:26"}}
 LAUNCH_COUNTERS = {"weighted_aggregate": weighted_aggregate,
-                   "robust_aggregate": robust_aggregate}
+                   "robust_aggregate": robust_aggregate,
+                   "flash_attention": k3.flash_attention}
+# examples/federated_llm.py's regime: the uplink of lm_tiny's 82,240 f32
+# parameters over a 100 kHz cell binds the knapsack at K = 20
+LM_CFG = dict(n_ues=20, n_malicious=6, deadline_s=60.0,
+              model_size_bits=LM_TINY.param_count() * 32.0,
+              bandwidth_hz=1e5)
+# its vocabulary-collapse attack: malicious streams collapse to token 0
+COLLAPSE = atk.AttackScenario(
+    "token_collapse_all",
+    data=atk.TokenFlip(tuple((s, 0) for s in range(1, 64))), watch=(1, 0))
 
 
 def emit(**kw):
@@ -240,6 +270,88 @@ def check_robust(rows, n, m, mode, dtype, label, reps=200, nan=False):
     return row
 
 
+def flash_bound(b, h, s, t, d, causal, window, dtype):
+    """(least ms, what bounds it, bytes moved) of attention: q, k, v read
+    once and o written once at the memory rate, or 4·D flops for every
+    (query, key) pair inside the causal/window band at the peak rate of
+    the inputs' type, whichever takes longer."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = b * h * d * (2 * s + 2 * t) * size
+    pairs = int(k3.band_mask(s, t, causal, window).sum())
+    flops = 4.0 * d * b * h * pairs
+    peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations", nbytes)
+
+
+def check_flash(b, h, s, t, d, causal, window, dtype, label, reps=100):
+    """K3 against its plain version on the card at one shape, within the
+    tolerances of tests/test_kernels.py (|err| <= tol + tol·|plain|);
+    returns the numbers. The library yardstick is PyTorch's
+    scaled_dot_product_attention with the same mask."""
+    g = torch.Generator(device="cuda").manual_seed(b * 7919 + s * 31 + d)
+    q, k, v = (torch.randn(b, h, n, d, device="cuda", generator=g).to(dtype)
+               for n in (s, t, t))
+    kw = dict(causal=causal, window=window)
+    got = k3.flash_attention(q, k, v, **kw)
+    want = k3.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == dtype
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert bool((diff <= tol + tol * want.float().abs()).all()), (
+        label, b, h, s, t, d, causal, window, dtype, err)
+    kernel_ms, kernel_call_ms = time_ms(
+        lambda: k3.flash_attention(q, k, v, **kw), reps)
+    plain_ms, plain_call_ms = time_ms(
+        lambda: k3.flash_attention_ref(q, k, v, **kw), max(reps // 5, 5))
+    if causal and s == t and window is None:
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True)
+    elif causal or window is not None:
+        mask = k3.band_mask(s, t, causal, window, "cuda")
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask)
+    else:
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v)
+    library_ms, library_call_ms = time_ms(lib, reps)
+    b_ms, b_by, nbytes = flash_bound(b, h, s, t, d, causal, window, dtype)
+    row = dict(phase="kernel_check", kernel="flash_attention", case=label,
+               b=b, h=h, s=s, t=t, d=d, causal=causal, window=window,
+               dtype=str(dtype).split(".")[-1], max_abs_err=err, tol=tol,
+               kernel_ms=kernel_ms, plain_ms=plain_ms,
+               library="scaled_dot_product_attention",
+               library_ms=library_ms, bound_ms=b_ms, bound_us=b_ms * 1e3,
+               bound_by=b_by,
+               attained_gbps=nbytes / (kernel_ms * 1e-3) / 1e9,
+               kernel_call_ms=kernel_call_ms, plain_call_ms=plain_call_ms,
+               library_call_ms=library_call_ms)
+    emit(**row)
+    return row
+
+
+def check_flash_grad(b, h, s, d):
+    """The gradient through K3's autograd Function (kernel forward, plain
+    version's VJP) against the plain version's own, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(b + s + d)
+    qkv = [torch.randn(b, h, s, d, device="cuda", generator=g)
+           for _ in range(3)]
+    cot = torch.randn(b, h, s, d, device="cuda", generator=g)
+    outs = {}
+    for name, fn in (("kernel", k3.flash_attention),
+                     ("plain", k3.flash_attention_ref)):
+        leaves = [x.clone().requires_grad_(True) for x in qkv]
+        outs[name] = torch.autograd.grad(fn(*leaves), leaves, cot)
+    err = max((a - b_).abs().max().item()
+              for a, b_ in zip(outs["kernel"], outs["plain"]))
+    emit(phase="kernel_grad_check", kernel="flash_attention", b=b, h=h, s=s,
+         d=d, max_abs_err=err)
+    assert err <= 1e-5, err
+
+
 def reset_launches():
     for fn in LAUNCH_COUNTERS.values():
         fn.launches = 0
@@ -293,7 +405,8 @@ def round_phases(server, t):
 
 def profile_round(server, t):
     """One round under torch.profiler: wall, device busy time, idle share,
-    kernel time by name."""
+    the device time of K1, K2 and K3 (and K3's share of the busy time),
+    the top kernels by name."""
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -303,6 +416,7 @@ def profile_round(server, t):
         wall_us = (time.perf_counter() - t0) * 1e6
     by_kernel = device_us(prof)
     busy_us = sum(by_kernel.values())
+    flash_us = sum(v for k, v in by_kernel.items() if "flash_kernel" in k)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     return dict(round=t, wall_us=wall_us, device_busy_us=busy_us,
                 device_idle_share=1.0 - busy_us / wall_us,
@@ -313,26 +427,32 @@ def profile_round(server, t):
                                   if "agg_kernel" in k),
                 robust_kernel_us=sum(v for k, v in by_kernel.items()
                                      if "robust_kernel" in k),
+                flash_kernel_us=flash_us,
+                flash_kernel_share=flash_us / busy_us,
                 top_kernels_us=[[k[:80], v] for k, v in top])
 
 
 class TimedServer(FeelServer):
     """A FeelServer that records each round's wall time (ending in a GPU
-    synchronise) and itself, so the defended path can be driven through
-    ``run_experiment`` and still be read round by round."""
+    synchronise), each round's kernel launches, and itself, so a path
+    driven through ``run_experiment`` can still be read round by round."""
     made = []
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
         self.round_ms = []
+        self.round_launches = []
         TimedServer.made.append(self)
 
     def run_round(self, t):
+        before = read_launches()
         t0 = time.perf_counter()
         log = super().run_round(t)
         if self.device.type == "cuda":
             torch.cuda.synchronize()
         self.round_ms.append((time.perf_counter() - t0) * 1e3)
+        self.round_launches.append({k: v - before[k] for k, v in
+                                    read_launches().items()})
         return log
 
 
@@ -365,10 +485,92 @@ def defended_run(label, **kw):
              rep_gap=log.rep_gap, agg_rows=pad_count(int(log.selected.size)))
     emit(phase="defended_path_launches", run=label, launches=launches,
          scenario=out["scenario"], defense=out["defense"])
-    assert launches == {"weighted_aggregate": 0, "robust_aggregate": 3}, (
-        label, launches)
+    assert launches == {"weighted_aggregate": 0, "robust_aggregate": 3,
+                        "flash_attention": 0}, (label, launches)
     assert all(np.isfinite(out["acc"])), out["acc"]
     return out, server
+
+
+def lm_run(policy, shapes=None):
+    """The LM path through run_experiment on the GPU (examples/
+    federated_llm.py's regime) with every launch count set to 0 just
+    before and read just after. ``shapes`` (a Counter) records the q shape
+    of every K3 launch."""
+    real = k3._kernel
+
+    def recording(q, *args):
+        shapes[tuple(q.shape)] += 1
+        return real(q, *args)
+
+    if shapes is not None:
+        k3._kernel = recording
+    reset_launches()
+    try:
+        out, server = experiment(
+            cfg=FeelConfig(**LM_CFG), scenario=COLLAPSE, task="lm_tiny",
+            n_train=2000, n_test=400, policy=policy, engine="vectorized",
+            control="host", device="cuda", rounds=3, seed=0)
+    finally:
+        k3._kernel = real
+    launches = read_launches()
+    for t, log in enumerate(server.logs):
+        emit(phase="lm_path", policy=policy, round=t,
+             wall_ms=server.round_ms[t], loss=log.global_loss,
+             acc=log.global_acc, n_selected=int(log.selected.size),
+             n_malicious_selected=int(log.n_malicious_selected),
+             attack_success=log.attack_success,
+             launches=server.round_launches[t],
+             selected=log.selected.tolist())
+    emit(phase="lm_path_launches", policy=policy, launches=launches)
+    assert all(np.isfinite(out["loss"])) and all(np.isfinite(out["acc"]))
+    return out, server
+
+
+def lm_phases():
+    """The LM path on the GPU: the DQS run (K3 launched in every round, K1
+    once a round), random scheduling beside it, one round split into
+    phases and one profiled, K3 at the shape the run launched it at most,
+    and a K = 8 run on the GPU and the CPU. Returns (K3's launches in the
+    DQS run, K3's numbers at that shape)."""
+    shapes = collections.Counter()
+    lm_dqs, server_lm = lm_run("dqs", shapes)
+    for t, got in enumerate(server_lm.round_launches):
+        assert got["flash_attention"] > 0 and got["weighted_aggregate"] == 1 \
+            and got["robust_aggregate"] == 0, (t, got)
+    k3_launches = read_launches()["flash_attention"]
+    emit(phase="lm_k3_shapes", launches_by_shape=sorted(
+        ([list(k), n] for k, n in shapes.items()), key=lambda x: -x[1]))
+    lm_random, _ = lm_run("random")
+    emit(phase="lm_dqs_vs_random", dqs_loss=lm_dqs["loss"],
+         random_loss=lm_random["loss"], dqs_acc=lm_dqs["acc"],
+         random_acc=lm_random["acc"],
+         dqs_malicious_selected=lm_dqs["malicious_selected"],
+         random_malicious_selected=lm_random["malicious_selected"])
+    emit(phase="round_phases", run="lm", round=3,
+         **round_phases(server_lm, 3))
+    emit(phase="profile_round", run="lm", **profile_round(server_lm, 4))
+    (b, h, s_, d), _ = shapes.most_common(1)[0]
+    k3_row = check_flash(b, h, s_, s_, d, True, None, torch.float32,
+                         "LM path's most launched")
+
+    # the LM path on the GPU and on the CPU, K = 8
+    lm_small = {dev: experiment(
+        cfg=FeelConfig(n_ues=8, n_malicious=2), scenario="token_flip_1to5",
+        task="lm_tiny", n_train=960, n_test=240, rounds=2,
+        device=dev)[1].logs for dev in ("cuda", "cpu")}
+    for a, b_ in zip(lm_small["cuda"], lm_small["cpu"]):
+        assert np.array_equal(a.selected, b_.selected), (a.selected,
+                                                         b_.selected)
+        assert abs(a.global_loss - b_.global_loss) <= 1e-3, (
+            a.global_loss, b_.global_loss)
+        assert abs(a.global_acc - b_.global_acc) <= 1e-3, (a.global_acc,
+                                                           b_.global_acc)
+        emit(phase="cuda_vs_cpu", run="lm_tiny token_flip_1to5",
+             round=a.round, loss_cuda=a.global_loss, loss_cpu=b_.global_loss,
+             acc_cuda=a.global_acc, acc_cpu=b_.global_acc,
+             selected=a.selected.tolist())
+
+    return k3_launches, k3_row
 
 
 def quickstart(n_ues, n_malicious, n_train, n_test, device, seed=0):
@@ -436,6 +638,25 @@ def main():
     check_robust(16, 11, 4097, "median", bf16, "bf16 ragged M")
     check_robust(64, 60, 1 << 22, "trimmed_mean", f32, "bandwidth", reps=5)
 
+    # lm_tiny's training shapes (8 windows a client row, a bucket's rows
+    # padded to 1, 2, 4, 8, 16 or 24) and its evaluation shape (16 client
+    # rows x 400 windows); then tests/test_kernels.py's five shapes in
+    # both types, a ragged S and a window without causal
+    for b in (8, 32, 64, 128, 192, 6400):
+        check_flash(b, 4, 32, 32, 16, True, None, f32,
+                    "lm_tiny eval" if b == 6400 else "lm_tiny train")
+    for dt in (f32, bf16):
+        for b, h, s_, t_, d, causal, window, label in (
+                (2, 4, 256, 256, 64, True, None, "causal"),
+                (1, 2, 128, 256, 64, True, None, "right-aligned S < T"),
+                (2, 2, 256, 256, 128, True, 64, "window 64, D 128"),
+                (1, 1, 256, 256, 64, False, None, "bidirectional"),
+                (1, 2, 512, 512, 64, True, None, "S = 512"),
+                (3, 2, 37, 37, 16, True, None, "ragged S = 37"),
+                (2, 2, 100, 130, 32, False, 17, "window, not causal")):
+            check_flash(b, h, s_, t_, d, causal, window, dt, label, reps=50)
+    check_flash_grad(128, 4, 32, 16)
+
     # 4. the undefended main path at the paper's §V scale
     reset_launches()
     server = quickstart(50, 5, 50_000, 10_000, "cuda")
@@ -456,8 +677,8 @@ def main():
         emit(phase="main_path", **rounds[-1])
     launches = read_launches()
     emit(phase="main_path_launches", launches=launches)
-    assert launches == {"weighted_aggregate": 3, "robust_aggregate": 0}, (
-        launches)
+    assert launches == {"weighted_aggregate": 3, "robust_aggregate": 0,
+                        "flash_attention": 0}, launches
     accs = [r["acc"] for r in rounds]
     assert all(np.isfinite(accs)), accs
     assert accs[2] > accs[0], accs
@@ -496,8 +717,8 @@ def main():
         emit(phase="k1_defended_route", defense=defense, launches=got,
              acc=out["acc"], n_clipped=out["n_clipped"],
              n_rejected=out["n_rejected"], n_flagged=out["n_flagged"])
-        assert got == {"weighted_aggregate": 2, "robust_aggregate": 0}, (
-            defense, got)
+        assert got == {"weighted_aggregate": 2, "robust_aggregate": 0,
+                       "flash_attention": 0}, (defense, got)
     # the loop engine stacks its uploads on the card and aggregates there
     for defense in ("trimmed_mean", "median"):
         reset_launches()
@@ -508,8 +729,8 @@ def main():
         got = read_launches()
         emit(phase="loop_defended_route", defense=defense, launches=got,
              acc=out["acc"], n_rejected=out["n_rejected"])
-        assert got == {"weighted_aggregate": 0, "robust_aggregate": 2}, (
-            defense, got)
+        assert got == {"weighted_aggregate": 0, "robust_aggregate": 2,
+                       "flash_attention": 0}, (defense, got)
         assert all(np.isfinite(out["acc"])), out["acc"]
 
     # 7. small runs on the GPU and on the CPU
@@ -538,7 +759,10 @@ def main():
              n_rejected=a.n_rejected, n_flagged=a.n_flagged,
              selected=a.selected.tolist())
 
-    # 8. summary and result
+    # 8. the LM path
+    launches["flash_attention"], summary["flash_attention"] = lm_phases()
+
+    # 9. summary and result
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [dict(
         name=name, **KERNELS[name], launches=launches[name],

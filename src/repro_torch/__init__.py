@@ -8,5 +8,6 @@ Entry points take an explicit ``device`` and default to the GPU
 (``device.resolve_device``); the FedAvg aggregation runs through the
 hand-written Hopper kernel in ``kernels/csrc/weighted_aggregate.cu``, the
 defense plane's trimmed mean and median through
-``kernels/csrc/robust_aggregate.cu``.
+``kernels/csrc/robust_aggregate.cu``, and the LM task's attention
+forward through ``kernels/csrc/flash_attention.cu``.
 """

@@ -1,6 +1,12 @@
-"""FEEL round configuration: ``FeelConfig`` (the paper's Table I) and the
-dBm -> watt conversion its wireless constants share. The LLM
-``ModelConfig`` family of the JAX package is not part of the port yet.
+"""FEEL round configuration: ``FeelConfig`` (the paper's Table I), the
+dBm -> watt conversion its wireless constants share, and ``ModelConfig``,
+the transformer configuration of the LM task (``lm_tiny``).
+
+``ModelConfig`` keeps the JAX package's field names. The port runs the
+dense family only: the MoE, SSM, MLA, encoder-decoder and multi-token
+prediction fields exist so that a config reads as the reference's, but
+setting any of them raises ``NotImplementedError`` until the big-model zoo
+is ported.
 """
 from __future__ import annotations
 
@@ -84,3 +90,95 @@ class FeelConfig:
 
 def dbm_to_watt(dbm: float) -> float:
     return 10.0 ** (dbm / 10.0) / 1000.0
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """A decoder-only transformer: pre-norm layers of GQA attention (RoPE,
+    optional sliding window) and a SwiGLU MLP, stacked in ``n_blocks``
+    super-blocks of ``block_len`` layers."""
+    name: str
+    family: str                   # only "dense" runs in the port
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    citation: str = ""
+
+    head_dim: int = 0             # 0 -> d_model // n_heads
+    rope_theta: float = 10_000.0
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    norm_eps: float = 1e-5
+    sliding_window: Optional[int] = None
+    long_context_window: Optional[int] = None
+
+    # planes of the big-model zoo (not ported: any non-default raises)
+    moe: Optional[object] = None
+    moe_layer_period: int = 1
+    first_dense_layers: int = 0
+    ssm: Optional[object] = None
+    attn_layer_period: int = 0
+    attn_layer_offset: int = 4
+    encoder_layers: int = 0
+    is_encoder_decoder: bool = False
+    frontend: str = "none"
+    mla: Optional[object] = None
+    mtp: bool = False
+
+    dtype: str = "bfloat16"
+    block_len: int = 0            # 0 -> derived (1 for the dense family)
+    scan_unroll: int = 1
+
+    _ZOO = (("moe", None), ("first_dense_layers", 0), ("ssm", None),
+            ("attn_layer_period", 0), ("encoder_layers", 0),
+            ("is_encoder_decoder", False), ("frontend", "none"),
+            ("mla", None), ("mtp", False))
+
+    def __post_init__(self):
+        if self.family != "dense":
+            raise NotImplementedError(
+                f"{self.name}: the {self.family!r} family is not ported; "
+                "the port runs the dense family")
+        for field, default in self._ZOO:
+            if getattr(self, field) != default:
+                raise NotImplementedError(
+                    f"{self.name}: {field}={getattr(self, field)!r} is not "
+                    "ported; the port runs the dense family")
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.block_len == 0:
+            object.__setattr__(self, "block_len", 1)
+        if self.n_heads % self.n_kv_heads:
+            raise ValueError(f"{self.name}: n_heads {self.n_heads} is not a "
+                             f"multiple of n_kv_heads {self.n_kv_heads}")
+
+    @property
+    def scanned_layers(self) -> int:
+        return self.n_layers - self.first_dense_layers
+
+    @property
+    def n_blocks(self) -> int:
+        if self.scanned_layers % self.block_len:
+            raise ValueError(f"{self.name}: {self.scanned_layers} layers not "
+                             f"divisible by block_len {self.block_len}")
+        return self.scanned_layers // self.block_len
+
+    def layer_kind(self, idx_in_block: int) -> dict:
+        """Sub-layer ``idx_in_block`` of a super-block: attention mixer and
+        dense MLP, the only kind of the dense family."""
+        return {"mixer": "attn", "mlp": "dense"}
+
+    def block_pattern(self) -> Tuple[dict, ...]:
+        return tuple(self.layer_kind(i) for i in range(self.block_len))
+
+    def param_count(self) -> int:
+        """Parameters of the dense LM: embedding and head (untied), per
+        layer the attention projections, the SwiGLU MLP and two norm
+        scales, and the final norm."""
+        d, hd = self.d_model, self.head_dim
+        attn = d * self.n_heads * hd * 2 + 2 * d * self.n_kv_heads * hd
+        layer = attn + 3 * d * self.d_ff + 2 * d
+        return 2 * self.vocab_size * d + self.n_layers * layer + d

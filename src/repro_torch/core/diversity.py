@@ -17,10 +17,18 @@ import numpy as np
 
 def gini_simpson(labels: np.ndarray, n_classes: int) -> float:
     """1 - sum p_c^2; 0 for a single-class set, (C-1)/C for uniform."""
-    if labels.size == 0:
+    return gini_simpson_hist(np.bincount(labels.astype(int),
+                                         minlength=n_classes))
+
+
+def gini_simpson_hist(counts: np.ndarray) -> float:
+    """``gini_simpson`` from a precomputed histogram (the LM task's token
+    histogram of a client's windows); 0.0 for an empty histogram."""
+    counts = np.asarray(counts, float)
+    total = counts.sum()
+    if total == 0:
         return 0.0
-    counts = np.bincount(labels.astype(int), minlength=n_classes)
-    p = counts / counts.sum()
+    p = counts / total
     return float(1.0 - np.sum(p * p))
 
 

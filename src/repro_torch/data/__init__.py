@@ -1,1 +1,2 @@
-"""Synthetic MNIST and the non-IID federated partition."""
+"""Synthetic MNIST, synthetic token streams and the non-IID federated
+partition."""

@@ -35,7 +35,7 @@ class ClientData:
     ``federated.server.CohortData``).
     """
     ue_id: int
-    data: object              # synthetic_mnist.Dataset
+    data: object              # synthetic_mnist.Dataset or tokens.TokenDataset
     malicious: bool = False
     clean: Optional[object] = None
 
@@ -95,7 +95,10 @@ def label_histogram(ds, n_classes: int = 10) -> np.ndarray:
 
 def sample_arrays(data) -> Dict[str, np.ndarray]:
     """Per-sample array dict of a dataset — the fields the padded cohort
-    layout stacks: the ``(N, D)/(N,)`` (x, y) pair."""
+    layout stacks: a token dataset's ``(N, seq)`` int windows, a feature
+    dataset's ``(N, D)/(N,)`` (x, y) pair."""
+    if hasattr(data, "tokens"):
+        return {"tokens": data.tokens}
     return {"x": data.x, "y": data.y}
 
 
@@ -103,11 +106,13 @@ def sample_arrays(data) -> Dict[str, np.ndarray]:
 class PaddedClients:
     """Uniform-shape client layout for the vectorized cohort engine.
 
-    ``arrays`` holds the per-sample fields (``sample_arrays``), each leaf
-    ``(K, max_samples, ...)`` zero-padded on the sample axis; ``mask`` is
-    the {0,1} float validity mask. The masked SGD gives padding rows an
+    ``arrays`` holds the per-sample fields (``sample_arrays``: ``tokens``
+    for the LM task, ``x``/``y`` for the MLP), each leaf ``(K,
+    max_samples, ...)`` zero-padded on the sample axis; ``mask`` is the
+    {0,1} float validity mask. The masked SGD gives padding rows an
     exactly-zero gradient, so training on the padded layout reproduces the
-    per-client unpadded run.
+    per-client unpadded run. ``x``/``y`` remain as properties for the
+    feature layout.
     """
     arrays: Dict[str, np.ndarray]   # each (K, max_samples, ...)
     mask: np.ndarray                # (K, max_samples) float32, 1 = real

@@ -33,8 +33,8 @@ def cohort_train(task, params: Params, data: Dict[str, torch.Tensor],
                  batch_size: int = 50):
     """Train the whole cohort at once.
 
-    task — the ``MnistTask`` whose ``sgd_epoch``/``local_metric`` define the
-    per-client step; params — global model (broadcast to every client);
+    task — the ``FeelTask`` whose ``sgd_epoch``/``local_metric`` define
+    the per-client step; params — global model (broadcast to every client);
     data — per-sample tensors with leading (N, S), mask (N, S) — the
     padded, stacked cohort.
     Returns (stacked_params with leaves (N, ...), acc_local (N,)) where

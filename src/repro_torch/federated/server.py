@@ -63,7 +63,7 @@ from repro_torch.data.partition import (ClientData, pad_clients,
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.federated import cohort
 from repro_torch.federated.aggregation import fedavg_stacked
-from repro_torch.federated.task import MnistTask, as_task
+from repro_torch.federated.task import FeelTask, as_task
 
 
 @dataclasses.dataclass
@@ -75,7 +75,8 @@ class RoundLog:
     objective: float
     values: np.ndarray
     reputations: np.ndarray
-    # task-defined global loss metric (NaN for the MNIST MLP)
+    # task-defined global loss metric: the LM's held-out per-token
+    # cross-entropy (NaN for the MNIST MLP)
     global_loss: float = float("nan")
     source_acc: float = float("nan")   # accuracy on the attacked class
     # fraction of watched source-class test samples classified as the
@@ -103,12 +104,14 @@ class CohortData:
     """Device-resident padded client layout for the vectorized engine.
 
     ``buckets[b]`` holds one size bucket's per-sample tensors (``data``:
-    ``x`` float32, ``y`` int64) and validity mask, laid out as [real client
-    rows | clean twin rows | one all-zero "null client" row at index
-    ``null``] — cohort-size padding gathers the null row for a strict
-    training no-op. The twin rows hold the PRE-POISON data of label-flipped
-    clients (``ClientData.clean``): a round-scheduled data attack gathers a
-    malicious UE's twin row in its off rounds.
+    the task's ``sample_arrays`` fields, integer fields as int64 — ``x``
+    float32 and ``y`` for the MLP, ``tokens`` for the LM) and validity
+    mask, laid out as [real client rows | clean twin rows | one all-zero
+    "null client" row at index ``null``] — cohort-size padding gathers the
+    null row for a strict training no-op. The twin rows hold the
+    PRE-POISON data of data-attacked clients (``ClientData.clean``): a
+    round-scheduled data attack gathers a malicious UE's twin row in its
+    off rounds.
     """
     buckets: List[Dict]       # data/mask tensors, level, null
     bucket_of: np.ndarray     # (K,) bucket index per client
@@ -162,7 +165,8 @@ def build_cohort_data(clients: List[ClientData], test_mask_arr: np.ndarray,
         data = {f: torch.as_tensor(zrow(np.concatenate(parts)),
                                    device=device)
                 for f, parts in arrays.items()}
-        data["y"] = data["y"].long()
+        data = {f: a if a.is_floating_point() else a.long()
+                for f, a in data.items()}
         buckets.append({
             "data": data,
             "mask": torch.as_tensor(zrow(np.concatenate(mask_parts)),
@@ -212,7 +216,7 @@ class FeelServer:
                  pad_to: Optional[int] = None, n_buckets: int = 3,
                  control: str = "host",
                  scenario=None, defense=None,
-                 task: Optional[MnistTask] = None,
+                 task: Optional[FeelTask] = None,
                  device: DeviceLike = None):
         if engine not in ("vectorized", "loop"):
             raise ValueError(f"unknown engine {engine!r}")

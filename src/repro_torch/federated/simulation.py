@@ -26,7 +26,7 @@ from repro_torch.core import attacks as atk
 from repro_torch.core.poisoning import pick_malicious
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.federated.server import FeelServer
-from repro_torch.federated.task import MnistTask, as_task
+from repro_torch.federated.task import FeelTask, as_task
 
 
 def run_experiment(policy: str = "dqs",
@@ -44,14 +44,16 @@ def run_experiment(policy: str = "dqs",
                    engine: str = "vectorized",
                    control: str = "host",
                    scenario=None, defense=None,
-                   task: Optional[MnistTask] = None,
+                   task: Optional[FeelTask] = None,
                    population: Optional[int] = None,
                    device: DeviceLike = None) -> Dict:
     """One FEEL experiment; returns the per-round curves + run summary.
 
-    ``task`` — a ``federated.task.MnistTask`` (or registry name; None
-    defers to ``cfg.task``). ``n_train``/``n_test`` default to the task's
-    protocol sizes.
+    ``task`` — a ``federated.task.FeelTask`` (``MnistTask``, ``LmTask``)
+    or its registry name (``"mnist_mlp"``, ``"lm_tiny"``); None defers to
+    ``cfg.task``. ``n_train``/``n_test`` default to the task's protocol
+    sizes, the learning rate and batch size to its ``default_lr`` and
+    ``batch_size``.
 
     Threat model — either an explicit ``scenario`` (an
     ``core.attacks.AttackScenario``, a registry name, or a ``(source,

@@ -1,0 +1,170 @@
+"""Flash attention (causal, sliding-window or bidirectional), online softmax:
+
+    o = softmax(scale * q k^T + mask) v
+
+q (B,H,S,D), k/v (B,H,T,D) -> (B,H,S,D), T >= S, queries right-aligned
+(query i sits at key position i + T - S). A key j is masked when
+``causal`` and j > i + T - S, or when ``window`` is given and
+(i + T - S) - j >= window — the window applies with or without ``causal``,
+as in the TPU kernel (the JAX package's oracle applies it only under
+``causal``). A masked logit is -1e30.
+
+``flash_attention`` launches the hand-written Hopper kernel
+``csrc/flash_attention.cu`` on CUDA tensors and runs the plain PyTorch
+version ``flash_attention_ref`` on CPU tensors; there is no other path. It
+replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
+(``_flash_kernel`` / ``flash_attention``) and is differentiable as the
+JAX package's ``ops.flash_attention`` is: the kernel is the forward, the
+backward is the VJP of the plain version, recomputed (the TPU kernel has
+no backward kernel either).
+
+Bound on the card: memory at the LM task's shapes (S = T = 32, D = 16):
+q, k, v and o each move once, 4·B·H·S·D·bytes — 1.25 us at the training
+shape (B = 128, H = 4, f32), 63 us at the evaluation shape (B = 6,400).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 128)    # the kernel's instantiations
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: Optional[int]) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be 4-D (B, H, S|T, D)")
+    b, h, s, d = q.shape
+    if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} / v "
+                         f"{tuple(v.shape)} do not match")
+    if not 1 <= s <= k.shape[2]:
+        raise ValueError(f"need 1 <= S <= T, got S = {s}, T = {k.shape[2]}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one dtype, float32 or "
+                        f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+
+
+def band_mask(s: int, t: int, causal: bool, window: Optional[int],
+              device=None) -> torch.Tensor:
+    """(S, T) bool: True where query i may attend to key j."""
+    qi = torch.arange(s, device=device)[:, None] + (t - s)
+    kj = torch.arange(t, device=device)[None, :]
+    m = torch.ones((s, t), dtype=torch.bool, device=device)
+    if causal:
+        m &= kj <= qi
+    if window is not None:
+        m &= (qi - kj) < window
+    return m
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version: float32 logits, the -1e30 mask, softmax, the
+    probabilities cast to ``v.dtype`` before the second product (as
+    ``repro.kernels.ref.flash_attention_ref``)."""
+    _check(q, k, v, window)
+    s, t, d = q.shape[2], k.shape[2], q.shape[3]
+    scale = scale if scale is not None else d ** -0.5
+    logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale
+    if causal or window is not None:
+        logits = logits.masked_fill(
+            ~band_mask(s, t, causal, window, q.device), NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", p.to(v.dtype), v)
+
+
+@functools.cache
+def _launchers():
+    """{dtype: C launcher} of the built kernel, argument types declared."""
+    lib = build.load("flash_attention")
+    fns = {torch.float32: lib.flash_attention_f32,
+           torch.bfloat16: lib.flash_attention_bf16}
+    for fn in fns.values():
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fns
+
+
+def _kernel(q, k, v, causal: bool, window: Optional[int],
+            scale: float) -> torch.Tensor:
+    """One launch of the CUDA kernel; raises on what it does not take."""
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[3]} not in {HEAD_DIMS}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k, v must be contiguous")
+    b, h, s, d = q.shape
+    out = torch.empty_like(q)
+    fn = _launchers()[q.dtype]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b * h, s, k.shape[2], d, int(causal), window or 0, scale,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: "
+                           f"cudaError_t {err}")
+    flash_attention.launches += 1
+    return out
+
+
+def _forward(q, k, v, causal, window, scale) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    return _kernel(q, k, v, causal, window, scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel forward; backward = the VJP of ``flash_attention_ref``,
+    recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, scale)
+        return _forward(q, k, v, causal, window, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window, scale = ctx.args
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            out = flash_attention_ref(*qkv, causal=causal, window=window,
+                                      scale=scale)
+            grads = torch.autograd.grad(out, qkv, g)
+        return (*grads, None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,H,S,D), k/v (B,H,T,D) float32/bfloat16 -> (B,H,S,D), the dtype
+    of q; differentiable (see the module docstring).
+
+    A CUDA tensor goes to the kernel (contiguous, D in ``HEAD_DIMS``; a
+    failed build or launch raises); a CPU tensor goes to
+    ``flash_attention_ref``. Each kernel launch adds one to
+    ``flash_attention.launches``.
+    """
+    _check(q, k, v, window)
+    scale = scale if scale is not None else q.shape[3] ** -0.5
+    return _FlashAttention.apply(q, k, v, causal, window, scale)
+
+
+flash_attention.launches = 0

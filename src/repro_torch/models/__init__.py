@@ -1,1 +1,1 @@
-"""The paper's 2-layer MNIST MLP."""
+"""The paper's 2-layer MNIST MLP and the LM task's dense transformer."""

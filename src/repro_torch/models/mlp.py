@@ -15,7 +15,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, sgd_step
 
 Params = Dict[str, torch.Tensor]
 
@@ -54,15 +54,6 @@ def mlp_accuracy(params: Params, x, y) -> torch.Tensor:
     return (torch.argmax(mlp_apply(params, x), -1) == y).float().mean(-1)
 
 
-def _sgd_step(params: Params, loss_fn, lr: float) -> Params:
-    """p <- p - lr * grad(loss_fn)(p). ``loss_fn`` returns one loss per
-    client; their sum is differentiated, and since the clients' terms are
-    disjoint each client's gradient is its own."""
-    p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    grads = torch.autograd.grad(loss_fn(p).sum(), list(p.values()))
-    return {k: (v - lr * g).detach() for (k, v), g in zip(p.items(), grads)}
-
-
 def mlp_sgd_epoch(params: Params, x, y, lr: float,
                   batch_size: int = 50) -> Params:
     """One epoch of mini-batch SGD over a client dataset (the loop oracle's
@@ -71,7 +62,7 @@ def mlp_sgd_epoch(params: Params, x, y, lr: float,
     nb = max(n // batch_size, 1)
     for i in range(nb):
         sl = slice(i * batch_size, (i + 1) * batch_size)
-        params = _sgd_step(
+        params = sgd_step(
             params, lambda p, sl=sl: mlp_loss(p, {"x": x[..., sl, :],
                                                   "y": y[..., sl]}), lr)
     return params
@@ -117,6 +108,6 @@ def mlp_sgd_epoch_masked(params: Params, x, y, m, lr: float,
     for i in range(n // batch_size):
         sl = slice(i * batch_size, (i + 1) * batch_size)
         batch = {"x": x[..., sl, :], "y": y[..., sl], "m": m[..., sl]}
-        params = _sgd_step(
+        params = sgd_step(
             params, lambda p, b=batch: mlp_loss_masked(p, b), lr)
     return params

@@ -185,7 +185,7 @@ def test_scheduled_flip_and_watch_pair_match_reference():
 @pytest.mark.parametrize("kw,err", [
     (dict(control="batched"), NotImplementedError),
     (dict(defense="no_such_defense"), KeyError),
-    (dict(task="lm_tiny"), NotImplementedError),
+    (dict(task="no_such_task"), KeyError),
     (dict(engine="sharded"), ValueError),
     (dict(policy="oracle"), KeyError),
 ])

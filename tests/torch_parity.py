@@ -7,8 +7,9 @@ package imports ``jax.experimental.enable_x64``, a name that newer jax
 releases dropped; ``reference`` installs it as an alias of
 ``jax.enable_x64`` first when it is missing.
 
-``ref_init_task`` gives the port's ``run_experiment`` the reference's
-initial params, and ``run_recorded`` runs either package's
+``ref_init_task(name)`` gives the port's ``run_experiment`` the
+reference's initial params for task ``name`` (``mnist_mlp`` or
+``lm_tiny``), and ``run_recorded`` runs either package's
 ``run_experiment`` and hands back the server it ran, whose logs and host
 RNG the result dict leaves out.
 
@@ -35,23 +36,25 @@ def reference(module: str):
     return importlib.import_module(f"repro.{module}")
 
 
-def ref_init_task():
-    """A port ``MnistTask`` whose ``init_params(generator, device)`` builds
-    the reference's initial params: ``mlp_init(jax.random.PRNGKey(seed))``
-    for the seed the server drew from the host RNG, converted to torch. The
-    port's run then starts where the reference's does."""
+def ref_init_task(name: str = "mnist_mlp"):
+    """The port's task ``name`` with ``init_params(generator, device)``
+    replaced by the reference's: its ``task.init_params`` for
+    ``jax.random.PRNGKey(seed)``, with the seed the server drew from the
+    host RNG, flattened (``convert.flatten_tree``) and converted to torch.
+    The port's run then starts where the reference's does."""
     import jax
     import numpy as np
 
-    from repro_torch.convert import params_from_numpy
-    from repro_torch.federated.task import MnistTask
-    mlp = reference("models.mlp")
+    from repro_torch.convert import flatten_tree, params_from_numpy
+    from repro_torch.federated.task import as_task
+    ref_task = reference("federated.task").as_task(name)
 
-    class RefInitTask(MnistTask):
+    class RefInitTask(type(as_task(name))):
         def init_params(self, generator, device):
-            p = mlp.mlp_init(jax.random.PRNGKey(generator.initial_seed()))
-            return params_from_numpy({k: np.asarray(v)
-                                      for k, v in p.items()}, device)
+            p = ref_task.init_params(
+                jax.random.PRNGKey(generator.initial_seed()))
+            return params_from_numpy(
+                flatten_tree(jax.tree.map(np.asarray, p)), device)
 
     return RefInitTask()
 
