@@ -14,7 +14,11 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     ``weighted_aggregate`` (K1) within 1e-6·max|x|, ``robust_aggregate``
     (K2) bit for bit, ``flash_attention`` (K3) within 2e-5 (f32) / 2e-2
     (bf16), and K3's gradient through its autograd Function equal to the
-    plain version's within 1e-5;
+    plain version's within 1e-5; ``decode_attention`` (K4) within 2e-5 /
+    2e-2 at tests/test_kernels.py's shapes, at starcoder2-15b's GQA
+    serving shape, on a window's view and a ring's prefix;
+    ``ssd_scan`` (K6) within 5e-4 (y and the final state) at
+    tests/test_kernels.py's shapes and at mamba2-370m's prefill shape;
  4. the undefended main path at the paper's §V scale: K = 50 UEs,
     50,000/10,000 synthetic MNIST, 5 label flippers, DQS on the host
     control plane, the vectorized engine, 3 rounds on the GPU. Every
@@ -40,7 +44,22 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     split into phases, one profiled; K3 again at the shape the run
     launched it at most; and a K = 8 run on the GPU and the CPU: the same
     selections, loss and accuracy within 1e-3;
- 9. one JSON line of per-kernel numbers, then the result line.
+ 9. serving the decoder-only zoo: ``starcoder2-15b`` (all 40 layers, bf16,
+    22 B parameters drawn on the card) and ``mamba2-370m`` (48 layers)
+    each take 8 prompts of 2,048 tokens through ``api.prefill`` and 32
+    greedy ``api.decode_step`` calls, every launch count set to 0 just before
+    and read just after (K3 40 times at prefill and K4 40 times a step;
+    K6 48 times at prefill), with prefill and per-token times, peak
+    memory and one decode step profiled; check 1 runs the same steps with
+    K4's (K6's) plain version (logits within 0.06·max|plain|, greedy
+    tokens equal but for near ties of 8 bf16 ulps) and must reject a
+    negative control, a deliberately wrong plain version (K4 with the
+    wrong GQA grouping, K6 without the inter-chunk term); check 2 runs
+    each at full width, 2 layers, float32, prefill plus decode against
+    ``lm_forward`` within 1e-3·max|logit| + 1e-3; then reduced configs on
+    the GPU and the CPU (starcoder2's ring cache, qwen2.5 and mamba2
+    greedy generation): the same tokens, logits within 1e-4;
+10. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without printing a result where CUDA is absent. A kernel's
 time is its device time from ``torch.profiler`` over back-to-back calls
@@ -49,6 +68,8 @@ reported beside the CUDA-event time per call, which includes the host's
 launch overhead.
 """
 import collections
+import contextlib
+import dataclasses
 import json
 import math
 import platform
@@ -68,17 +89,24 @@ from repro_torch.core.poisoning import (EASY_PAIR, LabelFlipAttack,  # noqa: E40
                                         pick_malicious)
 from repro_torch.data.partition import partition  # noqa: E402
 from repro_torch.data.synthetic_mnist import generate  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core.defenses import TrimmedMean  # noqa: E402
+from repro_torch.data.tokens import make_stream  # noqa: E402
 from repro_torch.federated import simulation  # noqa: E402
 from repro_torch.federated.cohort import pad_count  # noqa: E402
 from repro_torch.federated.server import FeelServer  # noqa: E402
 from repro_torch.federated.task import LM_TINY  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import decode_attention as k4  # noqa: E402
 from repro_torch.kernels import flash_attention as k3  # noqa: E402
+from repro_torch.kernels import ssd_scan as k6  # noqa: E402
 from repro_torch.kernels.robust_aggregate import (  # noqa: E402
     robust_aggregate, robust_aggregate_ref)
 from repro_torch.kernels.weighted_aggregate import (  # noqa: E402
     weighted_aggregate, weighted_aggregate_ref)
+from repro_torch.launch import steps  # noqa: E402
+from repro_torch.models import api  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
@@ -99,10 +127,20 @@ KERNELS = {
     "flash_attention": {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:26"}}
+        "replaces": "src/repro/kernels/flash_attention.py:26"},
+    "decode_attention": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:22"},
+    "ssd_scan": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:26"}}
 LAUNCH_COUNTERS = {"weighted_aggregate": weighted_aggregate,
                    "robust_aggregate": robust_aggregate,
-                   "flash_attention": k3.flash_attention}
+                   "flash_attention": k3.flash_attention,
+                   "decode_attention": k4.decode_attention,
+                   "ssd_scan": k6.ssd_scan}
 # examples/federated_llm.py's regime: the uplink of lm_tiny's 82,240 f32
 # parameters over a 100 kHz cell binds the knapsack at K = 20
 LM_CFG = dict(n_ues=20, n_malicious=6, deadline_s=60.0,
@@ -131,7 +169,10 @@ def time_ms(fn, reps):
     """(device ms, call ms) per call of ``fn`` over ``reps`` back-to-back
     calls. Device ms is the GPU time of the kernels it launches (from
     torch.profiler); call ms is the CUDA-event time per call, which the
-    host's launch overhead sets whenever the kernels are shorter."""
+    host's launch overhead sets whenever the kernels are shorter. The
+    profiler now and then hands back no device events for a short run;
+    then the profiled calls are made again, at most twice more, and a
+    third empty reading raises."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -142,12 +183,16 @@ def time_ms(fn, reps):
     end.record()
     end.synchronize()
     call_ms = start.elapsed_time(end) / reps
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(device_us(prof).values()) / reps / 1e3, call_ms
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device_ms = sum(device_us(prof).values()) / reps / 1e3
+        if device_ms > 0:
+            return device_ms, call_ms
+    raise RuntimeError("torch.profiler recorded no device time in 3 runs")
 
 
 def bound(n, m, dtype):
@@ -352,6 +397,133 @@ def check_flash_grad(b, h, s, d):
     assert err <= 1e-5, err
 
 
+def decode_bound(b, h, hkv, length, d, dtype):
+    """(least ms, what bounds it, bytes moved) of flash decode: q read and
+    o written once, the ``length`` valid positions of K and V read once,
+    at the memory rate; or 4·D flops a (query head, key) at the peak rate
+    of the inputs' type, whichever takes longer."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * b * h * d + 2 * b * length * hkv * d) * size
+    flops = 4.0 * d * b * h * length
+    peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations", nbytes)
+
+
+def check_decode(label, b, h, hkv, cap, d, length, dtype, lo=0, reps=100):
+    """K4 against its plain version on the card: q (b, h, d) over the
+    positions [lo, lo + length) of a (b, cap, hkv, d) cache, passed as a
+    view; within the tolerances of tests/test_kernels.py (|err| <= tol +
+    tol·|plain|). The library yardstick is PyTorch's
+    scaled_dot_product_attention over the same view with a boolean mask
+    and its own GQA. Returns the numbers."""
+    g = torch.Generator(device="cuda").manual_seed(b * 7919 + cap + length)
+    q = torch.randn(b, h, d, device="cuda", generator=g).to(dtype)
+    kc, vc = (torch.randn(b, cap, hkv, d, device="cuda", generator=g)
+              .to(dtype) for _ in range(2))
+    k, v = kc[:, lo:lo + length], vc[:, lo:lo + length]
+    got = k4.decode_attention(q, k, v, length)
+    want = k4.decode_attention_ref(q, k, v, length)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == dtype
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert bool((diff <= tol + tol * want.float().abs()).all()), (
+        label, b, h, hkv, cap, d, length, lo, dtype, err)
+    kernel_ms, kernel_call_ms = time_ms(
+        lambda: k4.decode_attention(q, k, v, length), reps)
+    plain_ms, plain_call_ms = time_ms(
+        lambda: k4.decode_attention_ref(q, k, v, length), max(reps // 5, 5))
+    q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    mask = torch.ones(1, 1, 1, length, dtype=torch.bool, device="cuda")
+    library_ms, library_call_ms = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, kt, vt, attn_mask=mask, enable_gqa=True), reps)
+    b_ms, b_by, nbytes = decode_bound(b, h, hkv, length, d, dtype)
+    row = dict(phase="kernel_check", kernel="decode_attention", case=label,
+               b=b, h=h, hkv=hkv, cache=cap, d=d, length=length, lo=lo,
+               dtype=str(dtype).split(".")[-1], max_abs_err=err, tol=tol,
+               kernel_ms=kernel_ms, plain_ms=plain_ms,
+               library="scaled_dot_product_attention(bool mask, gqa)",
+               library_ms=library_ms, bound_ms=b_ms, bound_us=b_ms * 1e3,
+               bound_by=b_by,
+               attained_gbps=nbytes / (kernel_ms * 1e-3) / 1e9,
+               kernel_call_ms=kernel_call_ms, plain_call_ms=plain_call_ms,
+               library_call_ms=library_call_ms)
+    emit(**row)
+    return row
+
+
+def ssd_bound(b, length, h, p, n, g, q, dtype):
+    """(least ms, what bounds it, bytes moved, flops) of the SSD scan: x,
+    B, C and dt read once, y and the final state written once, at the
+    memory rate; or the flops at the peak rate of their operands' type,
+    whichever takes longer. Per (b, h, chunk) the causal C·Bᵀ scores are
+    Q·N·Q flops, on the bf16 tensor cores where B and C are bf16 (a bf16
+    product summed in float32 is exact there); the masked (C·Bᵀ∘L)·(x·dt)
+    product, Q·P·Q, and the inter-chunk term and state update, 4·Q·N·P,
+    take float32 operands, at the CUDA-core rate. The two times add."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = ((2 * b * length * h * p + 2 * b * length * g * n) * size
+              + b * length * h * 4 + b * h * n * p * 4)
+    units = b * h * (length // q)
+    scores = float(q) * n * q * units
+    rest = (float(q) * p * q + 4.0 * q * n * p) * units
+    scores_peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_ops = scores / scores_peak + rest / F32_FLOPS
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations", nbytes,
+            scores + rest)
+
+
+def check_ssd(label, b, length, h, p, n, g, chunk, dtype, reps=20):
+    """K6 against its plain version (the sequential recurrence) on the
+    card, y and the final state, within 5e-4 + 5e-4·|plain|
+    (tests/test_kernels.py's tolerance) in float32; a bfloat16 y within
+    2e-2 + 2e-2·|plain| (both round float32 results to 8 bits). No single
+    PyTorch call computes an SSD scan, so there is no library yardstick.
+    Returns the numbers."""
+    gen = torch.Generator(device="cuda").manual_seed(b * 7919 + length + n)
+    x = torch.randn(b, length, h, p, device="cuda", generator=gen).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, length, h, device="cuda", generator=gen))
+    A = -torch.exp(0.2 * torch.randn(h, device="cuda", generator=gen))
+    Bm, Cm = (torch.randn(b, length, g, n, device="cuda", generator=gen)
+              .to(dtype) for _ in range(2))
+    y, state = k6.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    y_ref, s_ref = k6.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert y.shape == x.shape and y.dtype == dtype
+    tol = 5e-4 if dtype == torch.float32 else 2e-2
+    dy = (y.float() - y_ref.float()).abs()
+    ds = (state - s_ref).abs()
+    assert bool((dy <= tol + tol * y_ref.float().abs()).all()), (
+        label, dy.max().item())
+    assert bool((ds <= 5e-4 + 5e-4 * s_ref.abs()).all()), (
+        label, ds.max().item())
+    kernel_ms, kernel_call_ms = time_ms(
+        lambda: k6.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk), reps)
+    plain_ms, plain_call_ms = time_ms(
+        lambda: k6.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk), 2)
+    q = min(chunk, length)
+    b_ms, b_by, nbytes, flops = ssd_bound(b, length, h, p, n, g, q, dtype)
+    row = dict(phase="kernel_check", kernel="ssd_scan", case=label, b=b,
+               l=length, h=h, p=p, n=n, g=g, chunk=q,
+               dtype=str(dtype).split(".")[-1],
+               max_abs_err=max(dy.max().item(), ds.max().item()),
+               y_err=dy.max().item(), state_err=ds.max().item(), tol=tol,
+               kernel_ms=kernel_ms, plain_ms=plain_ms, library=None,
+               library_ms=None, bound_ms=b_ms, bound_us=b_ms * 1e3,
+               bound_by=b_by,
+               attained_tflops=flops / (kernel_ms * 1e-3) / 1e12,
+               kernel_call_ms=kernel_call_ms, plain_call_ms=plain_call_ms)
+    emit(**row)
+    return row
+
+
 def reset_launches():
     for fn in LAUNCH_COUNTERS.values():
         fn.launches = 0
@@ -359,6 +531,11 @@ def reset_launches():
 
 def read_launches():
     return {k: fn.launches for k, fn in LAUNCH_COUNTERS.items()}
+
+
+def only(**counts):
+    """Launch counts of every kernel: those given, 0 for the rest."""
+    return {k: counts.get(k, 0) for k in LAUNCH_COUNTERS}
 
 
 def round_phases(server, t):
@@ -485,8 +662,7 @@ def defended_run(label, **kw):
              rep_gap=log.rep_gap, agg_rows=pad_count(int(log.selected.size)))
     emit(phase="defended_path_launches", run=label, launches=launches,
          scenario=out["scenario"], defense=out["defense"])
-    assert launches == {"weighted_aggregate": 0, "robust_aggregate": 3,
-                        "flash_attention": 0}, (label, launches)
+    assert launches == only(robust_aggregate=3), (label, launches)
     assert all(np.isfinite(out["acc"])), out["acc"]
     return out, server
 
@@ -535,8 +711,9 @@ def lm_phases():
     shapes = collections.Counter()
     lm_dqs, server_lm = lm_run("dqs", shapes)
     for t, got in enumerate(server_lm.round_launches):
-        assert got["flash_attention"] > 0 and got["weighted_aggregate"] == 1 \
-            and got["robust_aggregate"] == 0, (t, got)
+        assert got == only(flash_attention=got["flash_attention"],
+                           weighted_aggregate=1) \
+            and got["flash_attention"] > 0, (t, got)
     k3_launches = read_launches()["flash_attention"]
     emit(phase="lm_k3_shapes", launches_by_shape=sorted(
         ([list(k), n] for k, n in shapes.items()), key=lambda x: -x[1]))
@@ -571,6 +748,361 @@ def lm_phases():
              selected=a.selected.tolist())
 
     return k3_launches, k3_row
+
+
+# ---------------------------------------------------------------------- #
+# Serving the decoder-only zoo
+# ---------------------------------------------------------------------- #
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
+N_COMPARED = 8          # decode steps whose greedy tokens are compared
+# check 1: max|Δ logit| over max|plain logit|, and a near tie in bf16 ulps
+# of the top logit; the sound runs read at most 0.032 and 4 ulps, the
+# negative controls at least 0.70 and 107 ulps (PERF.md; H100 80GB HBM3,
+# 700 W)
+LOGIT_TOL = 0.06
+TIE_ULPS = 8
+
+
+def prompts(cfg, b, s, seed=0):
+    """b prompts of s tokens on the card: consecutive windows of the port's
+    token stream (``data/tokens.make_stream``) over the config's
+    vocabulary."""
+    stream = make_stream(b * s, cfg.vocab_size, seed=seed)
+    return torch.from_numpy(stream.astype(np.int64).reshape(b, s)).cuda()
+
+
+def _k4_control(q, k, v, n):
+    """K4's plain version with the wrong GQA grouping: query head h reads
+    KV head h % Hkv instead of h // G."""
+    g = q.shape[1] // k.shape[2]
+    return k4.decode_attention_ref(q, k.repeat(1, 1, g, 1),
+                                   v.repeat(1, 1, g, 1), n)
+
+
+def _k6_control(x, dt, A, B_, C_, q, s0):
+    """K6's plain version with the inter-chunk term dropped: every chunk
+    starts from the initial state instead of the one carried from the
+    chunk before."""
+    ys, state = [], s0
+    for c in range(0, x.shape[1], q):
+        sl = slice(c, c + q)
+        y, state = k6.ssd_scan_ref(x[:, sl], dt[:, sl], A, B_[:, sl],
+                                   C_[:, sl], chunk=q, initial_state=s0)
+        ys.append(y)
+    return torch.cat(ys, 1), state
+
+
+@contextlib.contextmanager
+def plain_route(module, control=False):
+    """Within the block, the wrapper of ``module`` (K4 or K6) runs its
+    plain version on CUDA tensors, for check 1 of the serving phases; with
+    ``control``, a deliberately wrong one (``_k4_control``,
+    ``_k6_control``), the negative control that check 1 must reject.
+    Nothing else in the script or the port routes a CUDA tensor so."""
+    real = module._kernel
+    if module is k4:
+        module._kernel = _k4_control if control else (
+            lambda q, k, v, n: k4.decode_attention_ref(q, k, v, n))
+    else:
+        module._kernel = _k6_control if control else (
+            lambda x, dt, A, B_, C_, q, s0: k6.ssd_scan_ref(
+                x, dt, A, B_, C_, chunk=q, initial_state=s0))
+    try:
+        yield
+    finally:
+        module._kernel = real
+
+
+def profile_fn(fn):
+    """``fn()`` once under torch.profiler: (its result, wall us, device
+    busy us, idle share, device events, top kernels by device time)."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_kernel = device_us(prof)
+    busy_us = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    # host calls that wait for the card (a synchronise, a blocking copy, a
+    # tensor read into a Python number); the closing synchronise above and
+    # the profiler's own are two of them
+    waits = collections.Counter(
+        ev.name for ev in prof.events()
+        if ev.device_type == torch.autograd.DeviceType.CPU
+        and ("Synchronize" in ev.name or ev.name in (
+            "cudaMemcpy", "aten::item", "aten::_local_scalar_dense")))
+    return out, dict(wall_us=wall_us, device_busy_us=busy_us,
+                     host_waits=dict(waits),
+                     device_idle_share=1.0 - busy_us / wall_us,
+                     n_device_events=sum(
+                         1 for ev in prof.events()
+                         if ev.device_type == torch.autograd.DeviceType.CUDA),
+                     top_kernels_us=[[k[:80], v] for k, v in top])
+
+
+def greedy_decode(decode, params, cache, first, n, profile_at=None):
+    """n greedy decode steps from ``cache`` starting with token ``first``
+    (B, 1): (the tokens fed (B, n), the logits (n, B, V), each step's ms —
+    host clock ending in a synchronise — the profile of step
+    ``profile_at``, whose time is left out of the list, and the cache)."""
+    tok, fed, logits_all, step_ms, prof = first, [], [], [], None
+    for i in range(n):
+        fed.append(tok)
+        if i == profile_at:
+            (logits, cache), prof = profile_fn(
+                lambda: decode(params, cache, tok))
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = decode(params, cache, tok)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        logits_all.append(logits)
+        tok = logits.argmax(-1)[:, None]
+    return torch.cat(fed, 1), torch.stack(logits_all), step_ms, prof, cache
+
+
+def forced_decode(decode, params, cache, fed):
+    """Decode the tokens ``fed`` (B, n) one step each: the logits (n, B,
+    V)."""
+    out = []
+    for i in range(fed.shape[1]):
+        logits, cache = decode(params, cache, fed[:, i:i + 1])
+        out.append(logits)
+    return torch.stack(out)
+
+
+def logit_gap(label, got, want, phase="plain_check"):
+    """The logits (n, B, V) of a run against the plain run's: max|Δ|, as
+    a share of max|plain| too, and the root-mean-square Δ over that of the
+    plain logits; and the greedy tokens of the first ``N_COMPARED`` steps,
+    where a differing token is a near tie if the plain run's token is
+    within ``TIE_ULPS`` bf16 ulps of the run's top logit. Emits the row
+    and returns it."""
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    diff = got - want
+    err = diff.abs().max().item()
+    tk, tp = got.argmax(-1)[:N_COMPARED], want.argmax(-1)[:N_COMPARED]
+    top = got[:N_COMPARED].max(-1).values
+    at_plain = got[:N_COMPARED].gather(-1, tp[..., None])[..., 0]
+    ulp = torch.exp2(torch.floor(torch.log2(top.abs())) - 7)
+    gap_ulps = (top - at_plain) / ulp
+    differ = tk != tp
+    tie = gap_ulps <= TIE_ULPS
+    row = dict(phase=phase, run=label, max_abs_err=err,
+               rel_max_err=err / scale,
+               rel_rms_err=(diff.norm() / want.norm()).item(),
+               max_abs_logit=scale, tol=LOGIT_TOL * scale,
+               tokens_compared=tk.numel(),
+               tokens_equal=int((~differ).sum()),
+               near_ties=int((differ & tie).sum()),
+               tokens_differ_outside_tie=int((differ & ~tie).sum()),
+               max_gap_ulps_of_differing=gap_ulps[differ].max().item()
+               if bool(differ.any()) else 0.0)
+    emit(**row)
+    return row
+
+
+def check1_passes(row):
+    """Check 1 of a serving phase: max|Δ| <= ``LOGIT_TOL``·max|plain| and
+    no greedy token differs outside a near tie."""
+    return (row["max_abs_err"] <= row["tol"]
+            and row["tokens_differ_outside_tie"] == 0)
+
+
+def compare_logits(label, got, want):
+    """Check 1 on the kernel run's logits against the plain run's.
+
+    The kernel and its plain version agree within their own tolerances
+    (phase 3), but each rounds its bf16 output in other places, and 40–48
+    bf16 layers carry that into every logit. ``LOGIT_TOL`` lies between
+    the sound runs' reading and that of the negative control
+    (``plain_route(control=True)``), which the serving phases run beside
+    check 1 and which check 1 must reject; PERF.md keeps both readings."""
+    row = logit_gap(label, got, want)
+    assert check1_passes(row), row
+    return row
+
+
+def serve_phase(arch):
+    """The serving main path of ``arch`` at full width: weights drawn on
+    the card (seed 0), 8 prompts of 2,048 tokens through ``api.prefill``
+    (target 2,080) and 32 greedy ``api.decode_step`` calls, every launch count
+    set to 0 just before and read just after; one decode step profiled;
+    then check 1, the same run with the mixer kernel's plain version, and
+    its negative control."""
+    cfg = registry.get(arch)
+    prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+    target = SERVE_PROMPT + SERVE_NEW
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(cfg, 0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in params.values())
+    tok = prompts(cfg, SERVE_BATCH, SERVE_PROMPT)
+    batch = {"tokens": tok}
+    with torch.inference_mode():
+        prefill(params, batch, target)              # warm-up, not counted
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch, target)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        at_prefill = read_launches()
+        cache0 = {k: v.clone() if torch.is_tensor(v) else v
+                  for k, v in cache.items()}
+        first = logits.argmax(-1)[:, None]
+        fed, step_logits, step_ms, prof, cache = greedy_decode(
+            decode, params, cache, first, SERVE_NEW,
+            profile_at=SERVE_NEW // 2)
+        launches = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        assert logits.shape == (SERVE_BATCH, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all())
+        assert bool(torch.isfinite(step_logits).all())
+        assert cache["index"] == target
+        steady = sorted(step_ms[1:])
+        decode_ms = steady[len(steady) // 2]
+        mixer = "ssd_scan" if cfg.family == "ssm" else "decode_attention"
+        emit(phase="serve", arch=arch, n_layers=cfg.n_layers,
+             dtype=cfg.dtype, n_params=n_params, init_s=init_s,
+             batch=SERVE_BATCH, prompt=SERVE_PROMPT, new_tokens=SERVE_NEW,
+             prefill_ms=prefill_ms,
+             prefill_tokens_per_s=SERVE_BATCH * SERVE_PROMPT
+             / (prefill_ms / 1e3),
+             decode_ms_per_step_median=decode_ms,
+             decode_ms_first=step_ms[0], decode_ms_max=max(step_ms[1:]),
+             decode_tokens_per_s=SERVE_BATCH * len(step_ms)
+             / (sum(step_ms) / 1e3),
+             peak_memory_gb=peak_gb, launches_at_prefill=at_prefill,
+             launches=launches,
+             greedy_tokens_row0=torch.cat([fed[0], step_logits[-1].argmax(
+                 -1)[:1]]).tolist())
+        emit(phase="serve_profile", arch=arch, step=SERVE_NEW // 2, **prof)
+        if cfg.family == "ssm":
+            assert at_prefill == launches == only(ssd_scan=cfg.n_layers), (
+                at_prefill, launches)
+        else:
+            assert at_prefill == only(flash_attention=cfg.n_layers), at_prefill
+            assert launches == only(
+                flash_attention=cfg.n_layers,
+                decode_attention=cfg.n_layers * SERVE_NEW), launches
+
+        # check 1: the same decode (and, for the SSM, the prefill) with the
+        # mixer kernel's plain version; then its negative control, the
+        # first N_COMPARED steps with a wrong plain version, which check 1
+        # must reject
+        module = k6 if cfg.family == "ssm" else k4
+        cache_c = {k: v.clone() if torch.is_tensor(v) else v
+                   for k, v in cache0.items()}
+        with plain_route(module):
+            if cfg.family == "ssm":
+                del cache0
+                logits_p, cache0 = prefill(params, batch, target)
+                compare_logits(arch + " prefill", logits[None],
+                               logits_p[None])
+            plain_logits = forced_decode(decode, params, cache0, fed)
+        check = compare_logits(arch + " decode", step_logits, plain_logits)
+        with plain_route(module, control=True):
+            if cfg.family == "ssm":
+                del cache_c
+                _, cache_c = prefill(params, batch, target)
+            control_logits = forced_decode(decode, params, cache_c,
+                                           fed[:, :N_COMPARED])
+        control = logit_gap(arch + " decode, negative control",
+                            control_logits, plain_logits[:N_COMPARED],
+                            phase="control_check")
+        assert not check1_passes(control), control
+    del params, cache, cache0, cache_c
+    torch.cuda.empty_cache()
+    return dict(launches=launches[mixer], check=check, control=control)
+
+
+def consistency_phase(arch):
+    """Check 2: full width at 2 layers in float32 — prefill of 24 tokens
+    plus 8 decode steps reproduce ``lm_forward``'s logits within
+    1e-3·max|logit| + 1e-3 (tests/test_decode_consistency.py's property,
+    on the card)."""
+    cfg = dataclasses.replace(registry.get(arch), n_layers=2,
+                              dtype="float32")
+    params = api.init(cfg, 1)
+    tok = prompts(cfg, 2, 32, seed=1)
+    with torch.inference_mode():
+        full = tf.lm_forward(cfg, params, tok, window=cfg.sliding_window)
+        logits, cache = api.prefill(cfg, params, {"tokens": tok[:, :24]},
+                                    target_len=32)
+        errs = [(logits - full[:, 23]).abs().max().item()]
+        for t in range(24, 32):
+            logits, cache = api.decode_step(cfg, params, cache,
+                                            tok[:, t:t + 1])
+            errs.append((logits - full[:, t]).abs().max().item())
+    tol = 1e-3 * full.abs().max().item() + 1e-3
+    emit(phase="prefill_decode_vs_forward", arch=arch, n_layers=2,
+         dtype="float32", max_abs_err=max(errs), tol=tol, errs=errs)
+    assert max(errs) <= tol, (arch, errs, tol)
+    del params
+    torch.cuda.empty_cache()
+
+
+def zoo_cuda_vs_cpu():
+    """Reduced float32 configs on the GPU and the CPU from the same
+    weights: starcoder2 decoding 48 tokens from scratch through its ring
+    cache (window 16), qwen2.5 and mamba2 greedy generation (8 prompt
+    tokens, 7 new; mamba2 32 prompt tokens, one chunk). The same tokens,
+    logits within 1e-4."""
+    for arch, mode in (("starcoder2-15b", "ring"), ("qwen2.5-32b", "greedy"),
+                       ("mamba2-370m", "greedy")):
+        cfg = dataclasses.replace(registry.reduced(registry.get(arch)),
+                                  dtype="float32")
+        host = api.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+        rng = np.random.default_rng(4)
+        n_prompt = 32 if cfg.family == "ssm" else 8
+        toks = rng.integers(0, cfg.vocab_size, (1 if mode == "ring" else 2,
+                                                48 if mode == "ring"
+                                                else n_prompt))
+        out = {}
+        for dev in ("cuda", "cpu"):
+            params = {k: v.to(dev) for k, v in host.items()}
+            tt = torch.from_numpy(toks).to(dev)
+            decode = steps.make_decode_step(cfg)
+            with torch.inference_mode():
+                if mode == "ring":
+                    cache = api.cache_init(cfg, 1, 48, device=dev)
+                    assert "slot_pos" in cache
+                    logits = forced_decode(decode, params, cache, tt)
+                    tokens = logits.argmax(-1)
+                else:
+                    first, cache = api.prefill(cfg, params, {"tokens": tt},
+                                               target_len=n_prompt + 8)
+                    fed, logits, _, _, _ = greedy_decode(
+                        decode, params, cache, first.argmax(-1)[:, None], 7)
+                    tokens = torch.cat([fed, logits[-1].argmax(-1)[:, None]],
+                                       1)
+            out[dev] = (tokens.cpu(), logits.float().cpu())
+        err = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
+        emit(phase="cuda_vs_cpu", run=f"{arch} reduced {mode}",
+             tokens=out["cuda"][0].tolist(), max_abs_logit_err=err)
+        assert torch.equal(out["cuda"][0], out["cpu"][0]), (arch, out)
+        assert err <= 1e-4, (arch, err)
+
+
+def zoo_phases():
+    """The serving path of the zoo: starcoder2-15b (dense, K3 at prefill,
+    K4 at every decode step) and mamba2-370m (SSM, K6 at every prefill)
+    at full width with checks 1 and 2, then GPU against CPU. Returns the
+    launches of K4 and K6 in their main-path runs."""
+    dense = serve_phase("starcoder2-15b")
+    consistency_phase("starcoder2-15b")
+    ssm = serve_phase("mamba2-370m")
+    consistency_phase("mamba2-370m")
+    zoo_cuda_vs_cpu()
+    return dense["launches"], ssm["launches"]
 
 
 def quickstart(n_ues, n_malicious, n_train, n_test, device, seed=0):
@@ -656,6 +1188,36 @@ def main():
                 (2, 2, 100, 130, 32, False, 17, "window, not causal")):
             check_flash(b, h, s_, t_, d, causal, window, dt, label, reps=50)
     check_flash_grad(128, 4, 32, 16)
+    # K3 at starcoder2-15b's prefill shape (its GQA heads repeated to 48)
+    check_flash(SERVE_BATCH, 48, SERVE_PROMPT, SERVE_PROMPT, 128, True, None,
+                bf16, "starcoder2-15b prefill", reps=5)
+
+    # K4: tests/test_kernels.py's three shapes in both types; the GQA
+    # serving shape of starcoder2-15b (48 query, 4 KV heads, D 128, bf16,
+    # a cache of 2,080) at the first, a middle and the last length; a
+    # window's view in the middle of a linear cache; a ring's prefix
+    for dt in (f32, bf16):
+        for b, h, t_, d, length in ((2, 4, 512, 64, 300),
+                                    (1, 8, 1024, 128, 1024),
+                                    (4, 2, 256, 64, 1)):
+            check_decode("tests/test_kernels.py", b, h, h, t_, d, length, dt)
+    cap = SERVE_PROMPT + SERVE_NEW
+    for length in (1, 2048, cap):
+        check_decode("starcoder2-15b serving", SERVE_BATCH, 48, 4, cap, 128,
+                     length, bf16)
+    check_decode("window 1,024 view of a linear cache", SERVE_BATCH, 48, 4,
+                 cap, 128, 1024, bf16, lo=1024)
+    check_decode("ring prefix (1,001 of 4,096 slots)", SERVE_BATCH, 48, 4,
+                 4096, 128, 1001, bf16)
+
+    # K6: tests/test_kernels.py's three shapes (grouped B/C included);
+    # mamba2-370m's prefill shape in bf16
+    for b, length, h, p, n, g, chunk in ((2, 256, 4, 32, 16, 4, 64),
+                                         (1, 128, 2, 64, 32, 1, 128),
+                                         (1, 64, 8, 16, 8, 8, 16)):
+        check_ssd("tests/test_kernels.py", b, length, h, p, n, g, chunk, f32)
+    summary_k6 = check_ssd("mamba2-370m prefill", SERVE_BATCH, SERVE_PROMPT,
+                           32, 64, 128, 1, 256, bf16, reps=10)
 
     # 4. the undefended main path at the paper's §V scale
     reset_launches()
@@ -677,8 +1239,7 @@ def main():
         emit(phase="main_path", **rounds[-1])
     launches = read_launches()
     emit(phase="main_path_launches", launches=launches)
-    assert launches == {"weighted_aggregate": 3, "robust_aggregate": 0,
-                        "flash_attention": 0}, launches
+    assert launches == only(weighted_aggregate=3), launches
     accs = [r["acc"] for r in rounds]
     assert all(np.isfinite(accs)), accs
     assert accs[2] > accs[0], accs
@@ -717,8 +1278,7 @@ def main():
         emit(phase="k1_defended_route", defense=defense, launches=got,
              acc=out["acc"], n_clipped=out["n_clipped"],
              n_rejected=out["n_rejected"], n_flagged=out["n_flagged"])
-        assert got == {"weighted_aggregate": 2, "robust_aggregate": 0,
-                       "flash_attention": 0}, (defense, got)
+        assert got == only(weighted_aggregate=2), (defense, got)
     # the loop engine stacks its uploads on the card and aggregates there
     for defense in ("trimmed_mean", "median"):
         reset_launches()
@@ -729,8 +1289,7 @@ def main():
         got = read_launches()
         emit(phase="loop_defended_route", defense=defense, launches=got,
              acc=out["acc"], n_rejected=out["n_rejected"])
-        assert got == {"weighted_aggregate": 0, "robust_aggregate": 2,
-                       "flash_attention": 0}, (defense, got)
+        assert got == only(robust_aggregate=2), (defense, got)
         assert all(np.isfinite(out["acc"])), out["acc"]
 
     # 7. small runs on the GPU and on the CPU
@@ -762,7 +1321,17 @@ def main():
     # 8. the LM path
     launches["flash_attention"], summary["flash_attention"] = lm_phases()
 
-    # 9. summary and result
+    # 9. serving the decoder-only zoo
+    launches["decode_attention"], launches["ssd_scan"] = zoo_phases()
+    # K4 at the serving path's median cache length (2,049 to 2,080 valid
+    # positions over the 32 steps)
+    summary["decode_attention"] = check_decode(
+        "starcoder2-15b decode, median length", SERVE_BATCH, 48, 4,
+        SERVE_PROMPT + SERVE_NEW, 128, SERVE_PROMPT + SERVE_NEW // 2,
+        torch.bfloat16)
+    summary["ssd_scan"] = summary_k6
+
+    # 10. summary and result
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [dict(
         name=name, **KERNELS[name], launches=launches[name],

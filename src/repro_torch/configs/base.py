@@ -1,12 +1,15 @@
 """FEEL round configuration: ``FeelConfig`` (the paper's Table I), the
-dBm -> watt conversion its wireless constants share, and ``ModelConfig``,
-the transformer configuration of the LM task (``lm_tiny``).
+dBm -> watt conversion its wireless constants share, ``ModelConfig`` (the
+transformer of the LM task, ``lm_tiny``, and the decoder-only configs of
+the big-model zoo), ``SSMConfig`` and the zoo's ``InputShape`` values.
 
 ``ModelConfig`` keeps the JAX package's field names. The port runs the
-dense family only: the MoE, SSM, MLA, encoder-decoder and multi-token
-prediction fields exist so that a config reads as the reference's, but
-setting any of them raises ``NotImplementedError`` until the big-model zoo
-is ported.
+decoder-only families without experts: ``dense``, ``vlm`` (an
+early-fusion decoder over token ids, its image frontend a stub) and
+``ssm`` (Mamba2). The MoE, hybrid, MLA, encoder-decoder, multi-token
+prediction and leading-dense-layer fields exist so that a config reads as
+the reference's, but setting any of them raises ``NotImplementedError``
+naming the slice of the port that brings it.
 """
 from __future__ import annotations
 
@@ -93,60 +96,115 @@ def dbm_to_watt(dbm: float) -> float:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD sub-config."""
+    d_state: int = 128            # N
+    head_dim: int = 64            # P
+    expand: int = 2               # d_inner = expand * d_model
+    n_groups: int = 1             # G (B/C groups)
+    conv_kernel: int = 4
+    chunk: int = 256              # SSD chunk length Q
+    dt_min: float = 0.001
+    dt_max: float = 0.1
+    # dtype of the reference's materialised intra-chunk decay/score
+    # tensors; the port computes them in float32 and takes no other value
+    compute_dtype: str = "float32"
+
+
+_MOE_SLICE = "the MoE slice of the port (K5 moe_gemm)"
+_LATER = "a later slice of the port"
+
+
+@dataclass(frozen=True)
 class ModelConfig:
-    """A decoder-only transformer: pre-norm layers of GQA attention (RoPE,
-    optional sliding window) and a SwiGLU MLP, stacked in ``n_blocks``
-    super-blocks of ``block_len`` layers."""
+    """A decoder-only language model: pre-norm layers of a mixer (GQA
+    attention with RoPE and an optional sliding window, or a Mamba2 SSD
+    block) and an MLP (SwiGLU, or none in the SSM family), stacked in
+    ``n_blocks`` super-blocks of ``block_len`` layers."""
     name: str
-    family: str                   # only "dense" runs in the port
+    family: str                   # dense | vlm | ssm run in the port
     n_layers: int
     d_model: int
     n_heads: int
     n_kv_heads: int
-    d_ff: int
+    d_ff: int                     # dense-MLP hidden width (0 for pure SSM)
     vocab_size: int
     citation: str = ""
 
     head_dim: int = 0             # 0 -> d_model // n_heads
     rope_theta: float = 10_000.0
     qkv_bias: bool = False
-    qk_norm: bool = False
+    qk_norm: bool = False         # Chameleon-style query/key RMSNorm
     norm_eps: float = 1e-5
+    # ``sliding_window`` applies to every shape (StarCoder2's own);
+    # ``long_context_window`` only to sequences past 32,768 tokens on
+    # otherwise full-attention archs (``transformer.decode_cache_len``)
     sliding_window: Optional[int] = None
     long_context_window: Optional[int] = None
 
-    # planes of the big-model zoo (not ported: any non-default raises)
+    # planes of the zoo the port does not run yet (any non-default raises)
     moe: Optional[object] = None
     moe_layer_period: int = 1
     first_dense_layers: int = 0
-    ssm: Optional[object] = None
-    attn_layer_period: int = 0
+    ssm: Optional[SSMConfig] = None
+    attn_layer_period: int = 0    # hybrid: one attention layer per p layers
     attn_layer_offset: int = 4
     encoder_layers: int = 0
     is_encoder_decoder: bool = False
-    frontend: str = "none"
+    frontend: str = "none"        # none | vlm (a stub: inputs are token ids)
     mla: Optional[object] = None
     mtp: bool = False
 
     dtype: str = "bfloat16"
-    block_len: int = 0            # 0 -> derived (1 for the dense family)
+    block_len: int = 0            # 0 -> derived (1 without a hybrid / MoE)
     scan_unroll: int = 1
 
-    _ZOO = (("moe", None), ("first_dense_layers", 0), ("ssm", None),
-            ("attn_layer_period", 0), ("encoder_layers", 0),
-            ("is_encoder_decoder", False), ("frontend", "none"),
-            ("mla", None), ("mtp", False))
+    # (field, default, the slice that brings it)
+    _UNPORTED = (("moe", None, _MOE_SLICE),
+                 ("moe_layer_period", 1, _MOE_SLICE),
+                 ("attn_layer_period", 0,
+                  "the MoE slice of the port (the Jamba hybrid)"),
+                 ("first_dense_layers", 0,
+                  _LATER + " (DeepSeek's MLA, MTP and leading dense "
+                  "layers)"),
+                 ("mla", None, _LATER + " (DeepSeek's MLA)"),
+                 ("mtp", False, _LATER + " (DeepSeek's MTP head)"),
+                 ("encoder_layers", 0, _LATER + " (the encoder-decoder)"),
+                 ("is_encoder_decoder", False,
+                  _LATER + " (the encoder-decoder)"))
+    _FAMILIES = {"dense": "none", "vlm": "vlm", "ssm": "none"}
 
     def __post_init__(self):
-        if self.family != "dense":
+        if self.family not in self._FAMILIES:
+            slice_ = (_MOE_SLICE if self.family in ("moe", "hybrid")
+                      else _LATER)
             raise NotImplementedError(
                 f"{self.name}: the {self.family!r} family is not ported; "
-                "the port runs the dense family")
-        for field, default in self._ZOO:
+                f"it comes with {slice_}")
+        for field, default, slice_ in self._UNPORTED:
             if getattr(self, field) != default:
                 raise NotImplementedError(
                     f"{self.name}: {field}={getattr(self, field)!r} is not "
-                    "ported; the port runs the dense family")
+                    f"ported; it comes with {slice_}")
+        if self.frontend != self._FAMILIES[self.family]:
+            raise NotImplementedError(
+                f"{self.name}: frontend={self.frontend!r} with family "
+                f"{self.family!r} is not ported (the audio frontend comes "
+                f"with {_LATER}, the encoder-decoder)")
+        if (self.family == "ssm") != (self.ssm is not None):
+            raise NotImplementedError(
+                f"{self.name}: an ssm sub-config outside the ssm family is "
+                f"the hybrid, which comes with {_MOE_SLICE}"
+                if self.ssm is not None else
+                f"{self.name}: the ssm family needs an SSMConfig")
+        if self.ssm is not None and not isinstance(self.ssm, SSMConfig):
+            raise TypeError(f"{self.name}: ssm must be an SSMConfig")
+        if self.ssm is not None and self.ssm.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"{self.name}: ssm.compute_dtype="
+                f"{self.ssm.compute_dtype!r} is not ported; the SSD scan "
+                f"computes in float32 until {_LATER} brings a lower "
+                f"precision")
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
         if self.block_len == 0:
@@ -167,18 +225,52 @@ class ModelConfig:
         return self.scanned_layers // self.block_len
 
     def layer_kind(self, idx_in_block: int) -> dict:
-        """Sub-layer ``idx_in_block`` of a super-block: attention mixer and
-        dense MLP, the only kind of the dense family."""
+        """Sub-layer ``idx_in_block`` of a super-block: a Mamba2 mixer and
+        no MLP in the SSM family, else attention and a dense MLP."""
+        if self.family == "ssm":
+            return {"mixer": "ssm", "mlp": "none"}
         return {"mixer": "attn", "mlp": "dense"}
 
     def block_pattern(self) -> Tuple[dict, ...]:
         return tuple(self.layer_kind(i) for i in range(self.block_len))
 
     def param_count(self) -> int:
-        """Parameters of the dense LM: embedding and head (untied), per
-        layer the attention projections, the SwiGLU MLP and two norm
-        scales, and the final norm."""
+        """Analytic parameter count, the reference's for the ported
+        families: embedding and head (untied); a layer's mixer, its MLP and
+        two norm scales (counted whatever the MLP, as the reference does:
+        an SSM layer has one); the final norm."""
+        n = 2 * self.vocab_size * self.d_model
+        for _ in range(self.n_blocks):
+            for kind in self.block_pattern():
+                n += self._mixer_params(kind["mixer"]) + 2 * self.d_model
+                if kind["mlp"] == "dense":
+                    n += 3 * self.d_model * self.d_ff
+        return n + self.d_model
+
+    def _mixer_params(self, kind: str) -> int:
         d, hd = self.d_model, self.head_dim
-        attn = d * self.n_heads * hd * 2 + 2 * d * self.n_kv_heads * hd
-        layer = attn + 3 * d * self.d_ff + 2 * d
-        return 2 * self.vocab_size * d + self.n_layers * layer + d
+        if kind == "attn":
+            return (d * self.n_heads * hd * 2
+                    + 2 * d * self.n_kv_heads * hd)
+        s = self.ssm
+        d_in = s.expand * d
+        nh = d_in // s.head_dim
+        proj_in = d * (2 * d_in + 2 * s.n_groups * s.d_state + nh)
+        conv = (d_in + 2 * s.n_groups * s.d_state) * s.conv_kernel
+        return proj_in + conv + d_in * d + nh * 3 + d_in
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+
+TRAIN_4K = InputShape("train_4k", 4_096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32_768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524_288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}

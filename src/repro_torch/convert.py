@@ -13,6 +13,12 @@ keys is the JAX package's leaf order (dict keys sorted, tuple items in
 order) for keys of letters, digits and underscores and tuples of at most
 10 items, as the LM's are, so ``aggregation.flatten_stacked`` lays the
 updates out in the reference's column order.
+
+A decode cache crosses the same way: ``cache_from_numpy`` takes the JAX
+package's cache tree (``blocks``, an empty ``head_layers``, a traced
+``index``, ``slot_pos`` for a ring) as numpy leaves into the port's flat
+cache (``index`` a host int), and ``cache_to_numpy`` gives the port's back
+as that tree, so either package can decode from the other's cache.
 """
 from __future__ import annotations
 
@@ -64,3 +70,22 @@ def unflatten_tree(flat: Mapping[str, Any]):
         return {k: build(v) for k, v in node.items()}
 
     return build(root)
+
+
+def cache_from_numpy(tree, device) -> Dict[str, Any]:
+    """The JAX package's decode cache (numpy leaves) -> the port's flat
+    cache on ``device``."""
+    flat = flatten_tree(tree)
+    out: Dict[str, Any] = {"index": int(flat.pop("index"))}
+    out.update(params_from_numpy(flat, device))
+    return out
+
+
+def cache_to_numpy(cache: Mapping[str, Any]):
+    """The port's flat cache -> the JAX package's cache tree, numpy
+    leaves (``index`` int32, as the reference traces it)."""
+    flat = {k: v for k, v in cache.items() if k != "index"}
+    tree = unflatten_tree(params_to_numpy(flat))
+    tree["index"] = np.asarray(cache["index"], np.int32)
+    tree["head_layers"] = ()
+    return tree

@@ -1,0 +1,193 @@
+"""Mamba2 SSD scan (state-space duality, [arXiv:2405.21060]): the
+recurrence
+
+    h_t = exp(dt_t A) h_{t-1} + dt_t B_t (x) x_t,    y_t = C_t . h_t
+
+over x (B,L,H,P), dt (B,L,H) float32, A (H,) float32 and grouped B/C
+(B,L,G,N) (head h reads group h // (H/G); G == H is the TPU kernel's own
+signature), computed chunk by chunk: per chunk of Q positions the
+intra-chunk term (C Bᵀ ∘ tril(exp(cum_i − cum_j))) (x dt), the inter-chunk
+term C exp(cum) · state, and the state update. Returns y (B,L,H,P) in x's
+dtype and the final state (B,H,N,P) float32; every product and exponent
+is float32. ``initial_state`` (B,H,N,P) starts the recurrence (zero when
+None, as the TPU kernel's ``_init``).
+
+``ssd_scan`` launches the hand-written Hopper kernel ``csrc/ssd_scan.cu``
+on CUDA tensors and runs the plain PyTorch version ``ssd_scan_ref`` (the
+sequential recurrence of ``repro.kernels.ref.ssd_ref``) on CPU tensors;
+there is no other path. It replaces the Pallas TPU kernel
+``repro/kernels/ssd_scan.py`` (``_ssd_kernel`` / ``ssd_scan``), which
+keeps the state in VMEM scratch across a sequential chunk axis; the TPU
+kernel returns y only, while this one also writes the final state, which
+``models/ssm.ssm_apply`` hands to the decode cache.
+
+Q = min(chunk, L) must divide L; otherwise ``ValueError`` (the JAX
+package asserts it, ROADMAP P3). x, B and C may be views whose last two
+axes are dense (``ssm_apply`` passes slices of the convolved projection
+without a copy).
+
+Bound on the card: operations, in float32 on the CUDA cores, at the
+serving shape (``mamba2-370m``: Q 256, N 128, P 64): per (b, h, chunk)
+2·Q·(N+P)·Q/2 flops for the causal intra-chunk products and 4·Q·N·P for
+the inter-chunk term and the state update, ~100 flops a byte moved.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build
+
+P_TILES = (64, 32, 16)      # the kernel's instantiations (columns of P)
+MAX_STATE = 128             # N the kernel's register tile holds
+MAX_CHUNK = 1024
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(x, dt, A, B_, C_, chunk: int, initial_state) -> int:
+    """Validate the inputs; returns the chunk length Q = min(chunk, L)."""
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1:
+        raise ValueError("x must be (B, L, H, P), dt (B, L, H), A (H,)")
+    b, length, h, p = x.shape
+    if B_.dim() != 4 or B_.shape != C_.shape or B_.shape[:2] != (b, length):
+        raise ValueError(f"B {tuple(B_.shape)} and C {tuple(C_.shape)} must "
+                         f"be (B, L, G, N) beside x {tuple(x.shape)}")
+    if h % B_.shape[2]:
+        raise ValueError(f"{h} heads are not a multiple of {B_.shape[2]} "
+                         "B/C groups")
+    if dt.shape != (b, length, h) or A.shape != (h,):
+        raise ValueError(f"dt {tuple(dt.shape)} / A {tuple(A.shape)} do not "
+                         f"match x {tuple(x.shape)}")
+    if x.dtype not in _DTYPES or B_.dtype != x.dtype or C_.dtype != x.dtype:
+        raise TypeError(f"x, B, C must share one dtype, float32 or bfloat16; "
+                        f"got {x.dtype}, {B_.dtype}, {C_.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise TypeError("dt and A must be float32")
+    if initial_state is not None and (
+            initial_state.shape != (b, h, B_.shape[3], p)
+            or initial_state.dtype != torch.float32):
+        raise ValueError(f"initial_state must be float32 (B, H, N, P) = "
+                         f"{(b, h, B_.shape[3], p)}")
+    devices = {t.device for t in (x, dt, A, B_, C_)}
+    if initial_state is not None:
+        devices.add(initial_state.device)
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: {devices}")
+    q = min(chunk, length)
+    if q < 1 or length % q:
+        raise ValueError(f"sequence length {length} is not a multiple of "
+                         f"the chunk {q}")
+    return q
+
+
+def ssd_scan_ref(x, dt, A, B_, C_, *, chunk: int = 128,
+                 initial_state: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: the sequential recurrence of
+    ``repro.kernels.ref.ssd_ref`` (grouped B/C repeated to H heads), one
+    position at a time in float32. ``chunk`` is only validated (L must be
+    a multiple of it), so both routes accept the same calls."""
+    _check(x, dt, A, B_, C_, chunk, initial_state)
+    b, length, h, p = x.shape
+    rep = h // B_.shape[2]
+    bh = B_.repeat_interleave(rep, dim=2).float()
+    ch = C_.repeat_interleave(rep, dim=2).float()
+    state = (torch.zeros(b, h, B_.shape[3], p, dtype=torch.float32,
+                         device=x.device)
+             if initial_state is None else initial_state.clone())
+    ys = []
+    for t in range(length):
+        dtt = dt[:, t]
+        decay = torch.exp(dtt * A)                                # (B,H)
+        upd = torch.einsum("bhn,bhp->bhnp", bh[:, t],
+                           (x[:, t] * dtt[..., None]).float())
+        state = state * decay[:, :, None, None] + upd
+        ys.append(torch.einsum("bhn,bhnp->bhp", ch[:, t], state))
+    return torch.stack(ys, 1).to(x.dtype), state
+
+
+@functools.cache
+def _launchers():
+    """{dtype: C launcher} of the built kernel, argument types declared."""
+    lib = build.load("ssd_scan")
+    fns = {torch.float32: lib.ssd_scan_f32, torch.bfloat16: lib.ssd_scan_bf16}
+    for fn in fns.values():
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                       + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fns
+
+
+def _p_tile(b: int, h: int, p: int, n_sms: int) -> int:
+    """Columns of P a block takes: the widest tile that still gives every
+    SM a block, else the narrowest that divides P (splitting P is exact;
+    each P tile recomputes C Bᵀ)."""
+    tiles = [t for t in P_TILES if p % t == 0]
+    if not tiles:
+        raise ValueError(f"head dim P = {p} is not a multiple of 16")
+    for t in tiles:
+        if b * h * (p // t) >= n_sms:
+            return t
+    return tiles[-1]
+
+
+def _kernel(x, dt, A, B_, C_, q: int, initial_state):
+    """One launch of the CUDA kernel; raises on what it does not take."""
+    b, length, h, p = x.shape
+    g, n = B_.shape[2], B_.shape[3]
+    if n > MAX_STATE:
+        raise ValueError(f"state size N = {n} > {MAX_STATE}")
+    if q > MAX_CHUNK:
+        raise ValueError(f"chunk {q} > {MAX_CHUNK}")
+    for name, t, inner in (("x", x, p), ("B", B_, n), ("C", C_, n)):
+        if t.stride(3) != 1 or t.stride(2) != inner:
+            raise ValueError(f"{name}'s last two axes must be dense; "
+                             f"strides {t.stride()}")
+    dt, A = dt.contiguous(), A.contiguous()
+    if initial_state is not None:
+        initial_state = initial_state.contiguous()
+    pt = _p_tile(b, h, p, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    y = torch.empty((b, length, h, p), dtype=x.dtype, device=x.device)
+    state = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
+    fn = _launchers()[x.dtype]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
+                 C_.data_ptr(),
+                 0 if initial_state is None else initial_state.data_ptr(),
+                 y.data_ptr(), state.data_ptr(),
+                 b, length, h, g, p, n, q, pt,
+                 x.stride(0), x.stride(1), B_.stride(0), B_.stride(1),
+                 C_.stride(0), C_.stride(1), stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed: cudaError_t {err}")
+    ssd_scan.launches += 1
+    return y, state
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B_: torch.Tensor, C_: torch.Tensor, *, chunk: int = 128,
+             initial_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,L,H,P) float32/bfloat16, dt (B,L,H) float32, A (H,) float32,
+    B_/C_ (B,L,G,N) in x's dtype -> (y (B,L,H,P) in x's dtype, final state
+    (B,H,N,P) float32).
+
+    A CUDA tensor goes to the kernel (N <= 128, P a multiple of 16; a
+    failed build or launch raises); a CPU tensor goes to ``ssd_scan_ref``.
+    Each kernel launch adds one to ``ssd_scan.launches``.
+    """
+    q = _check(x, dt, A, B_, C_, chunk, initial_state)
+    if x.device.type == "cpu":
+        return ssd_scan_ref(x, dt, A, B_, C_, chunk=chunk,
+                            initial_state=initial_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return _kernel(x, dt, A, B_, C_, q, initial_state)
+
+
+ssd_scan.launches = 0

@@ -1,5 +1,5 @@
-"""GQA attention for full sequences (train / evaluation) with RoPE, optional
-QKV bias, QK-norm and sliding window.
+"""GQA attention (train / evaluation / prefill / decode) with RoPE, optional
+QKV bias, QK-norm, sliding window and ring-buffer decode caches.
 
 Parameters are a flat dict (``wq``, ``wk``, ``wv``, ``wo``; ``bq``/``bk``/
 ``bv`` with ``qkv_bias``, ``q_norm``/``k_norm`` with ``qk_norm``) in the
@@ -11,7 +11,10 @@ Every attention forward goes through ``kernels.flash_attention`` (K3):
 the hand-written CUDA kernel on a CUDA tensor, its plain version on a CPU
 tensor. The JAX package sends only sequences of a multiple of 8 to its
 Pallas kernel (a TPU tiling constraint); the port's kernel masks the
-ragged edge, so every sequence length takes K3.
+ragged edge, so every sequence length takes K3. Every decode step's
+attention goes through ``kernels.decode_attention`` (K4) the same way.
+``sdpa`` is the JAX package's plain masked attention with GQA grouping,
+kept for the tests.
 """
 from __future__ import annotations
 
@@ -19,9 +22,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.decode_attention import NEG_INF, decode_attention
 from repro_torch.kernels.flash_attention import band_mask, flash_attention
 from repro_torch.models.common import (apply_rope, dense_init, dtype_of,
-                                       linear, ones, per_client, rms_norm)
+                                       linear, ones, per_client, rms_norm,
+                                       zeros)
 
 
 def attn_init(generator: torch.Generator, cfg, d_model=None):
@@ -34,13 +39,14 @@ def attn_init(generator: torch.Generator, cfg, d_model=None):
         "wv": dense_init(generator, (d, hkv * hd), dt),
         "wo": dense_init(generator, (hq * hd, d), dt, fan_in=hq * hd),
     }
+    dev = generator.device
     if cfg.qkv_bias:
-        p["bq"] = torch.zeros((hq * hd,), dtype=dt)
-        p["bk"] = torch.zeros((hkv * hd,), dtype=dt)
-        p["bv"] = torch.zeros((hkv * hd,), dtype=dt)
+        p["bq"] = zeros((hq * hd,), dt, dev)
+        p["bk"] = zeros((hkv * hd,), dt, dev)
+        p["bv"] = zeros((hkv * hd,), dt, dev)
     if cfg.qk_norm:
-        p["q_norm"] = ones((hd,), dt)
-        p["k_norm"] = ones((hd,), dt)
+        p["q_norm"] = ones((hd,), dt, dev)
+        p["k_norm"] = ones((hd,), dt, dev)
     return p
 
 
@@ -59,6 +65,22 @@ def _project_qkv(cfg, p, x):
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     return q, k, v
+
+
+def sdpa(q, k, v, mask, scale: Optional[float] = None):
+    """Plain masked attention with GQA grouping: q (B,S,Hq,D), k/v
+    (B,T,Hkv,D), mask (bool) broadcastable to (B,Hkv,G,S,T) -> (B,S,Hq*D).
+    Query head h reads KV head h // G (G = Hq/Hkv); float32 logits, masked
+    logits -1e30, the probabilities cast to ``v.dtype``."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, s, hkv, hq // hkv, d)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * scale
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, hq * d)
 
 
 def causal_window_mask(S: int, window: Optional[int], device=None):
@@ -98,3 +120,43 @@ def _full_attention(cfg, q, k, v, window):
                           v.transpose(1, 2).contiguous(),
                           causal=True, window=window)
     return out.transpose(1, 2).reshape(*lead, S, Hq * D)
+
+
+def attn_decode(cfg, p, x, cache_k, cache_v, index: int, *, slot_pos=None,
+                window=None):
+    """One decode step: x (B,1,d) at absolute position ``index`` (a host
+    int) -> (y (B,1,d), cache_k, cache_v, slot_pos).
+
+    cache_k/v (B,C,Hkv,D): a linear cache (``slot_pos`` None, C the
+    sequence capacity) or a ring buffer of the window (``slot_pos`` (C,)
+    the absolute position of each slot, -1 when empty). Keys are stored
+    rotated. The new key and value are written into the caches in place
+    (and ``index`` into ``slot_pos``), where the JAX package returns
+    updated copies; the same tensors come back.
+
+    The attention is K4 over the valid positions, which are a contiguous
+    run of the cache: on a linear cache ``[index - window + 1, index]``
+    (from 0 without a window), passed as a view; on a ring the slots fill
+    in order, so the valid ones (``slot_pos >= 0``) are the prefix of
+    ``min(index + 1, C)`` slots, and softmax does not depend on the order
+    of its keys. Both lengths are host ints: nothing synchronises.
+    """
+    b = x.shape[0]
+    q, k, v = _project_qkv(cfg, p, x)                       # (B,1,H*,D)
+    pos = torch.full((b, 1), index, device=x.device)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    c = cache_k.shape[1]
+    slot = index % c if slot_pos is not None else index
+    cache_k[:, slot] = k[:, 0]
+    cache_v[:, slot] = v[:, 0]
+    if slot_pos is not None:
+        slot_pos[slot] = index
+        lo, hi = 0, min(index + 1, c)
+    else:
+        hi = index + 1
+        lo = max(0, hi - window) if window is not None else 0
+    out = decode_attention(q[:, 0], cache_k[:, lo:hi], cache_v[:, lo:hi],
+                           hi - lo)
+    return (linear(out.reshape(b, 1, -1), p["wo"]), cache_k, cache_v,
+            slot_pos)

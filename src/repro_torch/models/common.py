@@ -1,5 +1,5 @@
-"""Shared model building blocks: initializers, norms, RoPE, the SwiGLU MLP,
-the cross-entropy and the SGD step.
+"""Shared model building blocks: initializers, norms (the Mamba2 gated one
+too), RoPE, the SwiGLU MLP, the cross-entropy and the SGD step.
 
 Every function also takes a *stacked* cohort: weights with a leading
 client axis (N, ...) applied to activations with the same leading axis,
@@ -7,6 +7,7 @@ client i's weights to client i's rows (``linear``, ``per_client``).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -25,12 +26,15 @@ def dtype_of(cfg) -> torch.dtype:
 # ---------------------------------------------------------------------- #
 def _truncated_normal(generator: torch.Generator, shape) -> torch.Tensor:
     """Standard normal truncated at +-3, float32, by the inverse CDF of one
-    float32 uniform draw from ``generator`` (a CPU generator): unlike
-    ``torch.nn.init.trunc_normal_``, whose sampling algorithm has changed
-    between torch releases, this gives the same values on every device and
-    torch version for the same seed."""
+    float32 uniform draw from ``generator``, on the generator's device:
+    unlike ``torch.nn.init.trunc_normal_``, whose sampling algorithm has
+    changed between torch releases, this gives the same values on every
+    torch version for the same seed and generator device (a CPU generator
+    draws on the host, a CUDA one on its card, where a 22 B-parameter model
+    can be drawn at all)."""
     cdf = lambda z: 0.5 * (1.0 + math.erf(z / math.sqrt(2.0)))
-    u = torch.empty(shape, dtype=torch.float32).uniform_(
+    u = torch.empty(shape, dtype=torch.float32,
+                    device=generator.device).uniform_(
         2.0 * cdf(-_TRUNC) - 1.0, 2.0 * cdf(_TRUNC) - 1.0,
         generator=generator)
     return (torch.erfinv(u) * math.sqrt(2.0)).clamp_(-_TRUNC, _TRUNC)
@@ -51,8 +55,12 @@ def embed_init(generator: torch.Generator, shape,
     return (0.02 * _truncated_normal(generator, shape)).to(dtype)
 
 
-def ones(shape, dtype=torch.float32) -> torch.Tensor:
-    return torch.ones(shape, dtype=dtype)
+def ones(shape, dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.ones(shape, dtype=dtype, device=device)
+
+
+def zeros(shape, dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.zeros(shape, dtype=dtype, device=device)
 
 
 # ---------------------------------------------------------------------- #
@@ -101,6 +109,12 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (y * per_client(scale, x).float()).to(x.dtype)
 
 
+def gated_rms_norm(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2 output norm: RMSNorm(x * silu(z)), silu in float32."""
+    return rms_norm(x * F.silu(z.float()).to(x.dtype), scale, eps)
+
+
 # ---------------------------------------------------------------------- #
 # RoPE
 # ---------------------------------------------------------------------- #
@@ -109,13 +123,22 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
 
+@functools.lru_cache(maxsize=64)
+def _rope_table(head_dim: int, theta: float,
+                device: torch.device) -> torch.Tensor:
+    """``rope_frequencies`` as a float32 tensor on ``device``, made once:
+    copying the host array to the card at every call would synchronise the
+    host with the card at every attention layer of a decode step."""
+    return torch.as_tensor(rope_frequencies(head_dim, theta),
+                           dtype=torch.float32, device=device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x (..., S, H, D); positions broadcastable to (..., S). Rotate-half
     layout: the first and second halves of D are the pair's two parts."""
     d = x.shape[-1]
-    freqs = torch.as_tensor(rope_frequencies(d, theta), dtype=torch.float32,
-                            device=x.device)
+    freqs = _rope_table(d, float(theta), x.device)
     ang = positions[..., None].to(torch.float32) * freqs    # (..., S, D/2)
     sin = torch.sin(ang)[..., None, :]                      # (..., S, 1, D/2)
     cos = torch.cos(ang)[..., None, :]
@@ -129,6 +152,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------- #
 def swiglu_init(generator: torch.Generator, d_model: int, d_ff: int,
                 dtype=torch.float32):
+    """The three SwiGLU weights, drawn on the generator's device."""
     return {
         "wg": dense_init(generator, (d_model, d_ff), dtype),
         "wu": dense_init(generator, (d_model, d_ff), dtype),

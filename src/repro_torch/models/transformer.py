@@ -1,6 +1,7 @@
-"""The decoder-only language model of the LM task (dense family): init,
-full-sequence forward, the next-token loss, and the masked federated twins
-the cohort engine trains with.
+"""Decoder-only language models (the LM task's ``lm_tiny`` and the zoo's
+dense, vlm and ssm families): init, full-sequence forward, the next-token
+loss, the masked federated twins the cohort engine trains with, and
+serving — prefill into a decode cache and single-token decode.
 
 Parameters are a flat dict under the JAX package's tree paths joined by
 "/": ``embed`` (V, d), ``blocks/layers/0/...`` (each leaf with a leading
@@ -10,26 +11,44 @@ function also takes a *stacked* cohort: params with a leading client axis
 gather, the products one batched matmul per layer, and losses and
 accuracies come back per client, shape (N,).
 
-The MoE router loss, multi-token prediction, decode caches and prefill of
-the JAX package belong to the big-model zoo and are not ported.
+A decode cache is a flat dict: ``blocks/layers/0/...`` (the stacked layer
+caches of ``blocks.py``), ``index`` — the position of the next token, a
+host int (the JAX package's is a traced int32; on the host, K4's cache
+length is known without a synchronisation) — and, for a ring buffer,
+``slot_pos`` (C,) int32. A decode step updates the cache's tensors in
+place and returns the cache with ``index`` advanced.
+
+The MoE router loss, multi-token prediction and DeepSeek's leading dense
+``head_layers`` of the JAX package come with later slices of the port (a
+config that needs them raises in ``ModelConfig``).
 """
 from __future__ import annotations
 
-import torch
+from typing import Optional
 
-from repro_torch.models.blocks import scan_blocks, stacked_blocks_init
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.blocks import (scan_blocks, scan_blocks_decode,
+                                       stacked_blocks_init, stacked_cache_init)
 from repro_torch.models.common import (cross_entropy, dense_init, dtype_of,
                                        embed_init, linear, ones, prefixed,
                                        rms_norm, sgd_step, subtree)
 
 
-def lm_init(generator: torch.Generator, cfg, device="cpu"):
+def lm_init(generator: torch.Generator, cfg, device=None):
+    """The LM's parameters on ``device`` (default: the generator's), drawn
+    from ``generator`` on its own device in a fixed order: embedding,
+    blocks (block by block), head."""
+    device = generator.device if device is None else torch.device(device)
     dt, d = dtype_of(cfg), cfg.d_model
-    params = {"embed": embed_init(generator, (cfg.vocab_size, d), dt),
-              **prefixed("blocks/", stacked_blocks_init(generator, cfg)),
-              "final_norm": ones((d,), dt),
-              "lm_head": dense_init(generator, (d, cfg.vocab_size), dt)}
-    return {k: v.to(device) for k, v in params.items()}
+    embed = embed_init(generator, (cfg.vocab_size, d), dt).to(device)
+    blocks = stacked_blocks_init(generator, cfg, device=device)
+    return {"embed": embed,
+            **prefixed("blocks/", blocks),
+            "final_norm": ones((d,), dt, device),
+            "lm_head": dense_init(generator, (d, cfg.vocab_size),
+                                  dt).to(device)}
 
 
 def _embed(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -42,13 +61,16 @@ def _embed(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return embed[clients.view(n, *([1] * (tokens.dim() - 1))), tokens]
 
 
-def lm_forward(cfg, params, tokens, *, window=None):
+def lm_forward(cfg, params, tokens, *, window=None, return_cache=False):
     """tokens (B, S) int64 -> logits (B, S, V); stacked: tokens (N, B, S)
-    -> (N, B, S, V)."""
+    -> (N, B, S, V). With ``return_cache``: (logits, the stacked layer
+    caches of the sequence, under ``blocks.py``'s keys)."""
     h = _embed(params["embed"], tokens).to(dtype_of(cfg))
-    h = scan_blocks(cfg, subtree(params, "blocks/"), h, window=window)
-    return linear(rms_norm(h, params["final_norm"], cfg.norm_eps),
-                  params["lm_head"])
+    h, caches = scan_blocks(cfg, subtree(params, "blocks/"), h,
+                            window=window, return_cache=return_cache)
+    logits = linear(rms_norm(h, params["final_norm"], cfg.norm_eps),
+                    params["lm_head"])
+    return (logits, caches) if return_cache else logits
 
 
 def lm_loss(cfg, params, batch):
@@ -135,3 +157,71 @@ def lm_sgd_epoch_masked(cfg, params, tokens, m, lr: float,
         params = sgd_step(
             params, lambda p, b=batch: lm_loss_masked(cfg, p, b), lr)
     return params
+
+
+# ---------------------------------------------------------------------- #
+# Serving
+# ---------------------------------------------------------------------- #
+def decode_cache_len(cfg, seq_len: int):
+    """(cache_len, is_ring). A ring cache of the window serves the
+    sliding-window archs, and the long-context variant of the
+    full-attention archs past 32,768 tokens."""
+    win = cfg.sliding_window
+    if (seq_len > 32_768 and cfg.long_context_window
+            and cfg.attn_layer_period == 0):
+        win = (min(win, cfg.long_context_window) if win
+               else cfg.long_context_window)
+    if win and win < seq_len:
+        return win, True
+    return seq_len, False
+
+
+def lm_cache_init(cfg, batch: int, seq_len: int, device):
+    """A zero decode cache for ``seq_len`` positions, index 0."""
+    cache_len, ring = decode_cache_len(cfg, seq_len)
+    cache = {**prefixed("blocks/", stacked_cache_init(cfg, batch, cache_len,
+                                                       device)),
+             "index": 0}
+    if ring:
+        cache["slot_pos"] = torch.full((cache_len,), -1, dtype=torch.int32,
+                                       device=device)
+    return cache
+
+
+def lm_prefill(cfg, params, tokens, target_len: Optional[int] = None):
+    """Prefill: tokens (B, S) -> (last-position logits (B, V), a decode
+    cache of the S positions, grown to ``target_len`` when it is
+    longer)."""
+    s = tokens.shape[1]
+    logits, caches = lm_forward(cfg, params, tokens,
+                                window=cfg.sliding_window, return_cache=True)
+    cache = {**prefixed("blocks/", caches), "index": s}
+    if target_len is not None and target_len > s:
+        cache = grow_cache(cache, target_len - s)
+    return logits[:, -1], cache
+
+
+def grow_cache(cache, extra: int):
+    """The cache with its attention k/v padded by ``extra`` zero positions
+    (their position axis, -3); every other leaf as it is."""
+    return {key: (F.pad(x, (0, 0, 0, 0, 0, extra))
+                  if key.rsplit("/", 1)[-1] in ("k", "v") else x)
+            for key, x in cache.items()}
+
+
+def lm_decode_step(cfg, params, cache, token):
+    """token (B, 1) -> (logits (B, V), the cache advanced by one position;
+    its tensors are updated in place)."""
+    index = cache["index"]
+    slot_pos = cache.get("slot_pos")
+    window = cfg.sliding_window if slot_pos is None else None
+    h = _embed(params["embed"], token).to(dtype_of(cfg))
+    h, blocks = scan_blocks_decode(cfg, subtree(params, "blocks/"), h,
+                                   subtree(cache, "blocks/"), index,
+                                   slot_pos=slot_pos, window=window)
+    hn = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = linear(hn[:, 0], params["lm_head"])
+    new_cache = {**prefixed("blocks/", blocks), "index": index + 1}
+    if slot_pos is not None:
+        new_cache["slot_pos"] = slot_pos
+    return logits, new_cache

@@ -1,0 +1,247 @@
+"""Port parity of the flash-decode kernel K4 (``decode_attention``): its
+plain PyTorch version — what the wrapper runs on CPU tensors — against the
+Pallas TPU kernel (interpret mode, through the JAX package's
+``ops.decode_attention``) and ``repro.kernels.ref.decode_attention_ref``;
+its GQA grouping, the sliding-window view and the ring-buffer prefix that
+``models/attention.attn_decode`` hands it, against the reference's masked
+``sdpa`` and ``attn_decode``. The CUDA kernel runs only on the card;
+``chip_smoke.py`` holds it against the plain version there.
+
+Tolerances, those of tests/test_kernels.py: 2e-5 for float32 (another
+summation order), 2e-2 for bfloat16 (the probabilities and the output
+rounded to 8 mantissa bits), both absolute and relative.
+"""
+import types
+
+import numpy as np
+import pytest
+import torch
+from torch_parity import reference, single_threaded  # noqa: F401
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.convert import flatten_tree, params_from_numpy
+from repro_torch.kernels.decode_attention import (TILE, decode_attention,
+                                                  decode_attention_ref,
+                                                  splits)
+from repro_torch.models import attention as tatt
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SHAPES = [  # B, H, T, D, length: tests/test_kernels.py's
+    (2, 4, 512, 64, 300),
+    (1, 8, 1024, 128, 1024),
+    (4, 2, 256, 64, 1),
+]
+
+
+@pytest.fixture(scope="module")
+def ref():
+    import jax
+    import jax.numpy as jnp
+    return types.SimpleNamespace(ops=reference("kernels.ops"),
+                                 kref=reference("kernels.ref"),
+                                 att=reference("models.attention"),
+                                 base=reference("configs.base"),
+                                 jax=jax, jnp=jnp)
+
+
+@pytest.fixture(autouse=True)
+def interpret(monkeypatch):
+    """The Pallas kernel runs in interpret mode (read at every call)."""
+    monkeypatch.setenv("REPRO_PALLAS_INTERPRET", "1")
+
+
+def _inputs(B, H, Hkv, T, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((B, H, D), (B, T, Hkv, D), (B, T, Hkv, D))]
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,T,D,length", SHAPES)
+def test_plain_matches_pallas_and_ref(ref, B, H, T, D, length, dtype):
+    arrays = _inputs(B, H, H, T, D)
+    j = [ref.jnp.asarray(a).astype(getattr(ref.jnp, dtype)) for a in arrays]
+    pallas = ref.ops.decode_attention(*j, length)
+    oracle = ref.kref.decode_attention_ref(*j, length)
+    t = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays]
+    before = decode_attention.launches
+    for got in (decode_attention(*t, length),
+                decode_attention_ref(*t, length)):
+        assert got.shape == (B, H, D) and got.dtype == t[0].dtype
+        for want in (pallas, oracle):
+            _close(got.float().numpy(), want, TOL[dtype])
+    assert decode_attention.launches == before      # the CPU route
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,D,length", [
+    (2, 12, 3, 96, 64, 70),     # G = 4
+    (3, 8, 1, 40, 16, 40),      # one KV head (MQA)
+    (1, 6, 2, 33, 32, 1),
+])
+def test_gqa_equals_ref_on_repeated_caches(ref, B, H, Hkv, T, D, length):
+    """Query head h reads KV head h // (H/Hkv): the plain version on the
+    grouped cache equals the reference's oracle on ``jnp.repeat``'s."""
+    q, k, v = _inputs(B, H, Hkv, T, D, seed=1)
+    g = H // Hkv
+    want = ref.kref.decode_attention_ref(
+        ref.jnp.asarray(q), ref.jnp.repeat(ref.jnp.asarray(k), g, axis=2),
+        ref.jnp.repeat(ref.jnp.asarray(v), g, axis=2), length)
+    got = decode_attention(*map(torch.from_numpy, (q, k, v)), length)
+    _close(got.numpy(), want, TOL["float32"])
+
+
+@pytest.mark.parametrize("index,window", [(40, 16), (9, 16), (63, 64),
+                                          (20, None)])
+def test_window_view_equals_masked_sdpa(ref, index, window):
+    """A linear cache with a sliding window: the view [index - window + 1,
+    index + 1) that attn_decode passes equals the reference's sdpa under
+    attn_decode's mask (index - window < j <= index) over the whole
+    cache."""
+    B, H, Hkv, C, D = 2, 4, 2, 64, 32
+    q, k, v = _inputs(B, H, Hkv, C, D, seed=2)
+    j = np.arange(C)
+    valid = j <= index
+    if window is not None:
+        valid &= j > index - window
+    want = ref.att.sdpa(ref.jnp.asarray(q)[:, None], ref.jnp.asarray(k),
+                        ref.jnp.asarray(v),
+                        ref.jnp.asarray(valid)[None, None, None, None])
+    hi = index + 1
+    lo = max(0, hi - window) if window is not None else 0
+    kt, vt = torch.from_numpy(k), torch.from_numpy(v)
+    got = decode_attention(torch.from_numpy(q), kt[:, lo:hi], vt[:, lo:hi],
+                           hi - lo)
+    _close(got.reshape(B, 1, H * D).numpy(), want, TOL["float32"])
+    mask = torch.from_numpy(valid)[None, None, None, None]
+    plain = tatt.sdpa(torch.from_numpy(q)[:, None], kt, vt, mask)
+    _close(plain.numpy(), want, TOL["float32"])
+
+
+def _attn_cfg(base, **kw):
+    fields = dict(name="decode-test", family="dense", n_layers=1,
+                  d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+                  vocab_size=32, dtype="float32", qkv_bias=True,
+                  rope_theta=10_000.0)
+    fields.update(kw)
+    return base(**fields)
+
+
+def test_ring_prefix_equals_attn_decode(ref):
+    """A ring cache filled by decode steps: its valid slots (slot_pos >= 0)
+    are the prefix of min(index + 1, C) slots at every step, and the
+    port's attn_decode (K4 over that prefix) gives the reference's output,
+    caches and slot_pos step by step, through the wrap-around."""
+    jnp = ref.jnp
+    cfg_ref = _attn_cfg(ref.base.ModelConfig)
+    cfg = _attn_cfg(ModelConfig)
+    p_ref = ref.att.attn_init(ref.jax.random.PRNGKey(0), cfg_ref)
+    p = params_from_numpy(flatten_tree(ref.jax.tree.map(np.asarray, p_ref)),
+                          "cpu")
+    B, C = 2, 8
+    rng = np.random.default_rng(3)
+    xs = rng.standard_normal((20, B, 1, cfg.d_model)).astype(np.float32)
+    shape = (B, C, cfg.n_kv_heads, cfg.head_dim)
+    ck, cv = jnp.zeros(shape), jnp.zeros(shape)
+    slot = jnp.full((C,), -1, jnp.int32)
+    tk, tv = torch.zeros(shape), torch.zeros(shape)
+    tslot = torch.full((C,), -1, dtype=torch.int32)
+    for index, x in enumerate(xs):
+        y_ref, ck, cv, slot = ref.att.attn_decode(
+            cfg_ref, p_ref, jnp.asarray(x), ck, cv, index, slot_pos=slot)
+        y, tk, tv, tslot = tatt.attn_decode(cfg, p, torch.from_numpy(x), tk,
+                                            tv, index, slot_pos=tslot)
+        valid = np.asarray(slot) >= 0
+        assert valid.tolist() == [s < min(index + 1, C) for s in range(C)]
+        np.testing.assert_array_equal(tslot.numpy(), np.asarray(slot))
+        _close(y.numpy(), y_ref, 1e-5)
+        _close(tk.numpy(), ck, 1e-5)
+        _close(tv.numpy(), cv, 1e-5)
+
+
+def test_linear_window_attn_decode_matches_reference(ref):
+    """attn_decode on a linear cache with a window (the view route) against
+    the reference's, past the point where the window binds."""
+    jnp = ref.jnp
+    cfg_ref = _attn_cfg(ref.base.ModelConfig, qkv_bias=False, qk_norm=True)
+    cfg = _attn_cfg(ModelConfig, qkv_bias=False, qk_norm=True)
+    p_ref = ref.att.attn_init(ref.jax.random.PRNGKey(1), cfg_ref)
+    p = params_from_numpy(flatten_tree(ref.jax.tree.map(np.asarray, p_ref)),
+                          "cpu")
+    B, C, W = 2, 24, 5
+    rng = np.random.default_rng(4)
+    xs = rng.standard_normal((C, B, 1, cfg.d_model)).astype(np.float32)
+    shape = (B, C, cfg.n_kv_heads, cfg.head_dim)
+    ck, cv = jnp.zeros(shape), jnp.zeros(shape)
+    tk, tv = torch.zeros(shape), torch.zeros(shape)
+    for index, x in enumerate(xs):
+        y_ref, ck, cv, _ = ref.att.attn_decode(
+            cfg_ref, p_ref, jnp.asarray(x), ck, cv, index, window=W)
+        y, tk, tv, _ = tatt.attn_decode(cfg, p, torch.from_numpy(x), tk, tv,
+                                        index, window=W)
+        _close(y.numpy(), y_ref, 1e-5)
+    _close(tk.numpy(), ck, 1e-5)
+
+
+@pytest.mark.parametrize("length", [0, -3, 65])
+def test_length_outside_the_cache_raises(length):
+    """length < 1 (ROADMAP P5: the TPU kernel would return the mean of V)
+    and length > T raise on both routes."""
+    q, k, v = map(torch.from_numpy, _inputs(1, 2, 2, 64, 16))
+    for fn in (decode_attention, decode_attention_ref):
+        with pytest.raises(ValueError, match="length"):
+            fn(q, k, v, length)
+
+
+@pytest.mark.parametrize("blocks,length", [
+    (32, 2048), (32, 2080), (32, 1), (32, 65), (8, 300), (1, 1024),
+    (300, 2048), (16, 4096), (500, 3)])
+def test_cache_splits_cover_the_valid_positions(blocks, length):
+    """The kernel's cut of [0, length): splits of a multiple of the tile,
+    none empty, together exactly covering it; no more of them than give
+    two blocks an SM (132 SMs) or than there are tiles."""
+    split_len, n = splits(blocks, length, 132)
+    assert split_len % TILE == 0
+    assert split_len * (n - 1) < length <= split_len * n
+    assert 1 <= n <= min(-(-2 * 132 // blocks), -(-length // TILE))
+
+
+def test_rejects_what_the_kernel_does_not_take():
+    q, k, v = map(torch.from_numpy, _inputs(1, 6, 4, 16, 16))
+    with pytest.raises(ValueError, match="multiple"):
+        decode_attention(q, k, v, 4)          # 6 heads over 4 KV heads
+    q, k, v = map(torch.from_numpy, _inputs(1, 4, 2, 16, 16))
+    with pytest.raises(TypeError):
+        decode_attention(q.double(), k.double(), v.double(), 4)
+    with pytest.raises(TypeError, match="host int"):
+        decode_attention(q, k, v, torch.tensor(4))
+
+
+def test_cpu_route_is_the_plain_version():
+    """On CPU tensors the wrapper is the plain version, bit for bit, and
+    launches nothing; a view of the cache gives what its copy gives."""
+    q, k, v = map(torch.from_numpy, _inputs(3, 8, 2, 50, 32, seed=5))
+    before = decode_attention.launches
+    assert torch.equal(decode_attention(q, k, v, 37),
+                       decode_attention_ref(q, k, v, 37))
+    assert torch.equal(decode_attention(q, k[:, 5:40], v[:, 5:40], 35),
+                       decode_attention(q, k[:, 5:40].contiguous(),
+                                        v[:, 5:40].contiguous(), 35))
+    assert decode_attention.launches == before
+
+
+def test_sdpa_matches_reference(ref):
+    """The plain GQA sdpa against the reference's, causal mask."""
+    rng = np.random.default_rng(6)
+    q = rng.standard_normal((2, 10, 6, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 10, 3, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 10, 3, 16)).astype(np.float32)
+    mask = np.tril(np.ones((10, 10), bool))[None, None, None]
+    want = ref.att.sdpa(*map(ref.jnp.asarray, (q, k, v, mask)))
+    got = tatt.sdpa(*map(torch.from_numpy, (q, k, v, mask)))
+    _close(got.numpy(), want, 1e-5)

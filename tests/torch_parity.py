@@ -4,8 +4,20 @@
 demand. Tests call it from fixtures, never while their module is imported,
 so collecting the port's tests imports no part of ``repro``. The JAX
 package imports ``jax.experimental.enable_x64``, a name that newer jax
-releases dropped; ``reference`` installs it as an alias of
-``jax.enable_x64`` first when it is missing.
+releases dropped; importing this module installs it as an alias of
+``jax.enable_x64`` when it is missing. It does so at import, not at the
+first ``reference`` call, so that in every pytest worker the alias is in
+place before any test runs, whichever files the worker is handed: a
+reference test that imports ``repro.core`` inside its body
+(``tests/test_kernels.py::test_robust_aggregate_kernel_matches_host_oracle``)
+otherwise passes or fails with the order in which ``pytest-xdist`` deals
+out the files. The alias also reaches the JAX package's own test files
+that pytest collects after the first ``test_torch_*`` file: in a run of
+the whole suite ``tests/test_wireless.py`` (11 tests) collects and passes,
+where alone, under a jax without the name, it fails at collection. The
+files collected before the first ``test_torch_*`` file are collected as
+they are alone: the 15 that import ``repro.core`` when they are imported
+still fail there.
 
 ``ref_init_task(name)`` gives the port's ``run_experiment`` the
 reference's initial params for task ``name`` (``mnist_mlp`` or
@@ -27,12 +39,19 @@ import pytest
 import torch
 
 
-def reference(module: str):
-    """``repro.<module>``, imported with the ``enable_x64`` alias in place."""
+def _install_enable_x64_alias():
     import jax
     import jax.experimental
     if not hasattr(jax.experimental, "enable_x64"):
         jax.experimental.enable_x64 = lambda v=True: jax.enable_x64(v)
+
+
+_install_enable_x64_alias()
+
+
+def reference(module: str):
+    """``repro.<module>``, imported with the ``enable_x64`` alias in place."""
+    _install_enable_x64_alias()
     return importlib.import_module(f"repro.{module}")
 
 
