@@ -14,11 +14,16 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     ``weighted_aggregate`` (K1) within 1e-6·max|x|, ``robust_aggregate``
     (K2) bit for bit, ``flash_attention`` (K3) within 2e-5 (f32) / 2e-2
     (bf16), and K3's gradient through its autograd Function equal to the
-    plain version's within 1e-5; ``decode_attention`` (K4) within 2e-5 /
-    2e-2 at tests/test_kernels.py's shapes, at starcoder2-15b's GQA
-    serving shape, on a window's view and a ring's prefix;
+    plain version's within 1e-5 (and at starcoder2-15b's and
+    qwen2-moe-a2.7b's prefill shapes); ``decode_attention`` (K4) within
+    2e-5 / 2e-2 at tests/test_kernels.py's shapes, at starcoder2-15b's
+    GQA and qwen2-moe-a2.7b's serving shapes, on a window's view and a
+    ring's prefix;
     ``ssd_scan`` (K6) within 5e-4 (y and the final state) at
     tests/test_kernels.py's shapes and at mamba2-370m's prefill shape;
+    ``moe_gemm`` (K5) within 1e-4 (f32) / 2e-1 (bf16) at
+    tests/test_kernels.py's shapes, ragged shapes and qwen2-moe-a2.7b's
+    prefill and decode shapes, with the largest difference in bf16 ulps;
  4. the undefended main path at the paper's §V scale: K = 50 UEs,
     50,000/10,000 synthetic MNIST, 5 label flippers, DQS on the host
     control plane, the vectorized engine, 3 rounds on the GPU. Every
@@ -59,7 +64,23 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     ``lm_forward`` within 1e-3·max|logit| + 1e-3; then reduced configs on
     the GPU and the CPU (starcoder2's ring cache, qwen2.5 and mamba2
     greedy generation): the same tokens, logits within 1e-4;
-10. one JSON line of per-kernel numbers, then the result line.
+10. serving the mixture-of-experts zoo: ``qwen2-moe-a2.7b`` (all 24
+    layers, bf16, 14.3 B parameters drawn on the card) with the same
+    traffic, every launch count set to 0 just before and read just after
+    (K3 24 times at prefill, K4 24 times a step, K5 72 times at prefill
+    and 72 times a step), the share of routes dropped at prefill, one
+    decode step profiled; check 1 holds every MoE layer of the prefill
+    and the decode steps, on its own input, against the same layer with
+    K5's plain version (within ``MOE_LAYER_TOL``·max|plain|) and must
+    reject a negative control (K5's plain version with the experts rolled
+    by one) at every layer; the whole run with K5's plain version is
+    reported beside it (logit gap, the (layer, token) expert sets that
+    differ), not held to a tolerance; check 2
+    at full width, 2 layers, float32, capacity factor 8.0; then the
+    reduced qwen2-moe (also ``optimized``: group-local dispatch),
+    moonshot and Jamba on the GPU and the CPU — the same tokens, logits
+    within 1e-4, the Jamba run launching K3, K4, K5 and K6;
+11. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without printing a result where CUDA is absent. A kernel's
 time is its device time from ``torch.profiler`` over back-to-back calls
@@ -99,6 +120,7 @@ from repro_torch.federated.task import LM_TINY  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import decode_attention as k4  # noqa: E402
 from repro_torch.kernels import flash_attention as k3  # noqa: E402
+from repro_torch.kernels import moe_gemm as k5  # noqa: E402
 from repro_torch.kernels import ssd_scan as k6  # noqa: E402
 from repro_torch.kernels.robust_aggregate import (  # noqa: E402
     robust_aggregate, robust_aggregate_ref)
@@ -106,6 +128,8 @@ from repro_torch.kernels.weighted_aggregate import (  # noqa: E402
     weighted_aggregate, weighted_aggregate_ref)
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import api  # noqa: E402
+from repro_torch.models import blocks  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -132,6 +156,10 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:22"},
+    "moe_gemm": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",
+        "replaces": "src/repro/kernels/moe_gemm.py:18"},
     "ssd_scan": {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -140,6 +168,7 @@ LAUNCH_COUNTERS = {"weighted_aggregate": weighted_aggregate,
                    "robust_aggregate": robust_aggregate,
                    "flash_attention": k3.flash_attention,
                    "decode_attention": k4.decode_attention,
+                   "moe_gemm": k5.moe_gemm,
                    "ssd_scan": k6.ssd_scan}
 # examples/federated_llm.py's regime: the uplink of lm_tiny's 82,240 f32
 # parameters over a 100 kHz cell binds the knapsack at K = 20
@@ -524,6 +553,70 @@ def check_ssd(label, b, length, h, p, n, g, chunk, dtype, reps=20):
     return row
 
 
+def moe_bound(e, c, k, n, dtype):
+    """(least ms, what bounds it, bytes moved) of the grouped product (E,
+    C, K) x (E, K, N): x and w read once and the output written once at
+    the memory rate, or 2·E·C·K·N flops at the peak rate of the inputs'
+    type (bf16 tensor cores, f32 CUDA cores), whichever takes longer."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (e * c * k + e * k * n + e * c * n) * size
+    flops = 2.0 * e * c * k * n
+    peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations", nbytes)
+
+
+def check_moe(label, e, c, k, n, dtype, reps=50):
+    """K5 against its plain version (the float32 einsum, rounded once) on
+    the card, within tests/test_kernels.py's tolerances (|err| <= tol +
+    tol·|plain|, 1e-4 f32, 2e-1 bf16). In bf16 also the largest difference
+    in ulps of the plain value, over all elements and over those at least
+    1% of max|plain|, and the share of elements more than one ulp off:
+    both sum in float32 and round once, so one ulp is expected where the
+    sum is not a near-cancellation (there the float32 sums' own difference
+    is many ulps of a tiny result). The library yardstick is
+    ``torch.bmm`` at the same shape. Returns the numbers."""
+    g = torch.Generator(device="cuda").manual_seed(e * 7919 + c + k + n)
+    x = torch.randn(e, c, k, device="cuda", generator=g).to(dtype)
+    w = torch.randn(e, k, n, device="cuda", generator=g).to(dtype)
+    got = k5.moe_gemm(x, w)
+    want = k5.moe_gemm_ref(x, w)
+    torch.cuda.synchronize()
+    assert got.shape == (e, c, n) and got.dtype == dtype
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    tol = 1e-4 if dtype == torch.float32 else 2e-1
+    assert bool((diff <= tol + tol * want.float().abs()).all()), (
+        label, e, c, k, n, dtype, err)
+    ulps = {}
+    if dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            want.float().abs().clamp_min(2.0 ** -126))) - 7)
+        in_ulps = diff / ulp
+        big = want.float().abs() >= 0.01 * want.float().abs().max()
+        ulps = dict(max_ulps=in_ulps.max().item(),
+                    max_ulps_above_1pct=in_ulps[big].max().item(),
+                    share_over_1_ulp=(in_ulps > 1).float().mean().item())
+    kernel_ms, kernel_call_ms = time_ms(lambda: k5.moe_gemm(x, w), reps)
+    plain_ms, plain_call_ms = time_ms(lambda: k5.moe_gemm_ref(x, w),
+                                      max(reps // 5, 2))
+    library_ms, library_call_ms = time_ms(lambda: torch.bmm(x, w), reps)
+    b_ms, b_by, nbytes = moe_bound(e, c, k, n, dtype)
+    row = dict(phase="kernel_check", kernel="moe_gemm", case=label, e=e,
+               c=c, k=k, n=n, dtype=str(dtype).split(".")[-1],
+               max_abs_err=err, tol=tol, **ulps, kernel_ms=kernel_ms,
+               plain_ms=plain_ms, library="torch.bmm", library_ms=library_ms,
+               bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=b_by,
+               attained_tflops=2.0 * e * c * k * n / (kernel_ms * 1e-3)
+               / 1e12,
+               attained_gbps=nbytes / (kernel_ms * 1e-3) / 1e9,
+               kernel_call_ms=kernel_call_ms, plain_call_ms=plain_call_ms,
+               library_call_ms=library_call_ms)
+    emit(**row)
+    return row
+
+
 def reset_launches():
     for fn in LAUNCH_COUNTERS.values():
         fn.launches = 0
@@ -761,6 +854,11 @@ N_COMPARED = 8          # decode steps whose greedy tokens are compared
 # 700 W)
 LOGIT_TOL = 0.06
 TIE_ULPS = 8
+# check 1 of the MoE path: every MoE layer's output with K5 against the
+# same layer with K5's plain version on the same input, max|Δ| over
+# max|plain|; the sound calls read at most 0.0108, the negative control's
+# at least 0.967 (PERF.md; H100 80GB HBM3, 700 W)
+MOE_LAYER_TOL = 0.05
 
 
 def prompts(cfg, b, s, seed=0):
@@ -792,17 +890,26 @@ def _k6_control(x, dt, A, B_, C_, q, s0):
     return torch.cat(ys, 1), state
 
 
+def _k5_control(x, w):
+    """K5's plain version with the experts' weights rolled by one along E:
+    expert e's slots meet expert e - 1's weights."""
+    return k5.moe_gemm_ref(x, w.roll(1, 0))
+
+
 @contextlib.contextmanager
 def plain_route(module, control=False):
-    """Within the block, the wrapper of ``module`` (K4 or K6) runs its
+    """Within the block, the wrapper of ``module`` (K4, K5 or K6) runs its
     plain version on CUDA tensors, for check 1 of the serving phases; with
     ``control``, a deliberately wrong one (``_k4_control``,
-    ``_k6_control``), the negative control that check 1 must reject.
-    Nothing else in the script or the port routes a CUDA tensor so."""
+    ``_k5_control``, ``_k6_control``), the negative control that check 1
+    must reject. Nothing else in the script or the port routes a CUDA
+    tensor so."""
     real = module._kernel
     if module is k4:
         module._kernel = _k4_control if control else (
             lambda q, k, v, n: k4.decode_attention_ref(q, k, v, n))
+    elif module is k5:
+        module._kernel = _k5_control if control else k5.moe_gemm_ref
     else:
         module._kernel = _k6_control if control else (
             lambda x, dt, A, B_, C_, q, s0: k6.ssd_scan_ref(
@@ -875,7 +982,7 @@ def forced_decode(decode, params, cache, fed):
     return torch.stack(out)
 
 
-def logit_gap(label, got, want, phase="plain_check"):
+def logit_gap(label, got, want, phase="plain_check", tol=LOGIT_TOL):
     """The logits (n, B, V) of a run against the plain run's: max|Δ|, as
     a share of max|plain| too, and the root-mean-square Δ over that of the
     plain logits; and the greedy tokens of the first ``N_COMPARED`` steps,
@@ -896,7 +1003,7 @@ def logit_gap(label, got, want, phase="plain_check"):
     row = dict(phase=phase, run=label, max_abs_err=err,
                rel_max_err=err / scale,
                rel_rms_err=(diff.norm() / want.norm()).item(),
-               max_abs_logit=scale, tol=LOGIT_TOL * scale,
+               max_abs_logit=scale, tol=tol * scale,
                tokens_compared=tk.numel(),
                tokens_equal=int((~differ).sum()),
                near_ties=int((differ & tie).sum()),
@@ -914,7 +1021,7 @@ def check1_passes(row):
             and row["tokens_differ_outside_tie"] == 0)
 
 
-def compare_logits(label, got, want):
+def compare_logits(label, got, want, tol=LOGIT_TOL):
     """Check 1 on the kernel run's logits against the plain run's.
 
     The kernel and its plain version agree within their own tolerances
@@ -923,9 +1030,23 @@ def compare_logits(label, got, want):
     the sound runs' reading and that of the negative control
     (``plain_route(control=True)``), which the serving phases run beside
     check 1 and which check 1 must reject; PERF.md keeps both readings."""
-    row = logit_gap(label, got, want)
+    row = logit_gap(label, got, want, tol=tol)
     assert check1_passes(row), row
     return row
+
+
+def expected_launches(cfg, steps):
+    """The kernel launches of a prefill and ``steps`` decode steps of
+    ``cfg``: K3 at every attention layer's prefill, K6 at every SSM
+    layer's, K4 at every attention layer a step, K5 three times (gate, up,
+    down) at every MoE layer of the prefill and of every step."""
+    pattern, nb = cfg.block_pattern(), cfg.n_blocks
+    n_attn = nb * sum(k["mixer"] == "attn" for k in pattern)
+    n_ssm = nb * sum(k["mixer"] == "ssm" for k in pattern)
+    n_moe = nb * sum(k["mlp"] == "moe" for k in pattern)
+    return only(flash_attention=n_attn, ssd_scan=n_ssm,
+                decode_attention=n_attn * steps,
+                moe_gemm=3 * n_moe * (1 + steps))
 
 
 def serve_phase(arch):
@@ -933,8 +1054,9 @@ def serve_phase(arch):
     the card (seed 0), 8 prompts of 2,048 tokens through ``api.prefill``
     (target 2,080) and 32 greedy ``api.decode_step`` calls, every launch count
     set to 0 just before and read just after; one decode step profiled;
-    then check 1, the same run with the mixer kernel's plain version, and
-    its negative control."""
+    then check 1, the same run with a kernel's plain version (K4's, K6's,
+    or for a MoE K5's: ``moe_check1``), and its negative control. Returns
+    the main run's launches."""
     cfg = registry.get(arch)
     prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
     target = SERVE_PROMPT + SERVE_NEW
@@ -955,8 +1077,9 @@ def serve_phase(arch):
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         at_prefill = read_launches()
-        cache0 = {k: v.clone() if torch.is_tensor(v) else v
-                  for k, v in cache.items()}
+        cache0 = ({k: v.clone() if torch.is_tensor(v) else v
+                   for k, v in cache.items()}
+                  if cfg.family == "dense" else None)
         first = logits.argmax(-1)[:, None]
         fed, step_logits, step_ms, prof, cache = greedy_decode(
             decode, params, cache, first, SERVE_NEW,
@@ -967,9 +1090,9 @@ def serve_phase(arch):
         assert bool(torch.isfinite(logits).all())
         assert bool(torch.isfinite(step_logits).all())
         assert cache["index"] == target
+        del cache
         steady = sorted(step_ms[1:])
         decode_ms = steady[len(steady) // 2]
-        mixer = "ssd_scan" if cfg.family == "ssm" else "decode_attention"
         emit(phase="serve", arch=arch, n_layers=cfg.n_layers,
              dtype=cfg.dtype, n_params=n_params, init_s=init_s,
              batch=SERVE_BATCH, prompt=SERVE_PROMPT, new_tokens=SERVE_NEW,
@@ -985,30 +1108,30 @@ def serve_phase(arch):
              greedy_tokens_row0=torch.cat([fed[0], step_logits[-1].argmax(
                  -1)[:1]]).tolist())
         emit(phase="serve_profile", arch=arch, step=SERVE_NEW // 2, **prof)
-        if cfg.family == "ssm":
-            assert at_prefill == launches == only(ssd_scan=cfg.n_layers), (
-                at_prefill, launches)
-        else:
-            assert at_prefill == only(flash_attention=cfg.n_layers), at_prefill
-            assert launches == only(
-                flash_attention=cfg.n_layers,
-                decode_attention=cfg.n_layers * SERVE_NEW), launches
+        assert at_prefill == expected_launches(cfg, 0), at_prefill
+        assert launches == expected_launches(cfg, SERVE_NEW), launches
 
+        if cfg.family == "moe":
+            moe_check1(arch, cfg, prefill, decode, params, batch, target,
+                       logits, fed, step_logits)
+            del params
+            torch.cuda.empty_cache()
+            return launches
         # check 1: the same decode (and, for the SSM, the prefill) with the
         # mixer kernel's plain version; then its negative control, the
         # first N_COMPARED steps with a wrong plain version, which check 1
         # must reject
         module = k6 if cfg.family == "ssm" else k4
-        cache_c = {k: v.clone() if torch.is_tensor(v) else v
-                   for k, v in cache0.items()}
         with plain_route(module):
             if cfg.family == "ssm":
-                del cache0
                 logits_p, cache0 = prefill(params, batch, target)
                 compare_logits(arch + " prefill", logits[None],
                                logits_p[None])
+            cache_c = {k: v.clone() if torch.is_tensor(v) else v
+                       for k, v in cache0.items()}
             plain_logits = forced_decode(decode, params, cache0, fed)
-        check = compare_logits(arch + " decode", step_logits, plain_logits)
+        compare_logits(arch + " decode", step_logits, plain_logits)
+        del cache0
         with plain_route(module, control=True):
             if cfg.family == "ssm":
                 del cache_c
@@ -1019,18 +1142,129 @@ def serve_phase(arch):
                             control_logits, plain_logits[:N_COMPARED],
                             phase="control_check")
         assert not check1_passes(control), control
-    del params, cache, cache0, cache_c
+    del params, cache_c
     torch.cuda.empty_cache()
-    return dict(launches=launches[mixer], check=check, control=control)
+    return launches
+
+
+@contextlib.contextmanager
+def moe_layers(check=False):
+    """Within the block, every MoE layer call appends to the list it
+    yields its tokens' top-k expert sets (ascending expert ids, (T, K); the
+    router's softmax and top-k computed again on the layer's input) and,
+    with ``check``, the layer's output computed twice more on the same
+    input — with K5's plain version and with the negative control
+    (``_k5_control``) — as max|Δ| over max|plain| of the layer's own
+    output and the control's. The layer's own output is returned, so the
+    run goes on as it would. For check 1 of the MoE path only, never
+    timed."""
+    rows = []
+    real = blocks.moe_apply
+
+    def recording(cfg, p, x, with_aux=True):
+        probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                              @ p["router"], dim=-1)
+        row = dict(routes=torch.topk(probs, cfg.moe.top_k, dim=-1)
+                   .indices.sort(-1).values)
+        y, aux = real(cfg, p, x, with_aux=with_aux)
+        if check:
+            outs = []
+            for control in (False, True):
+                with plain_route(k5, control=control):
+                    outs.append(real(cfg, p, x, with_aux=False)[0].float())
+            scale = outs[0].abs().max()
+            row.update(gap=(y.float() - outs[0]).abs().max() / scale,
+                       control_gap=(outs[1] - outs[0]).abs().max() / scale)
+        rows.append(row)
+        return y, aux
+
+    blocks.moe_apply = recording
+    try:
+        yield rows
+    finally:
+        blocks.moe_apply = real
+
+
+def moe_check1(arch, cfg, prefill, decode, params, batch, target, logits,
+               fed, step_logits):
+    """Check 1 of the MoE path.
+
+    The kernel run is repeated with every MoE layer checked on its own
+    input (``moe_layers(check=True)``): at prefill and at every decode
+    step, the layer with K5 against the layer with K5's plain version, max
+    |Δ| within ``MOE_LAYER_TOL`` of max|plain| at every call, and the
+    negative control, K5's plain version with the experts rolled by one,
+    rejected at every call. The repeated run's logits must be the main
+    run's bit for bit (the dispatch and its combine have a fixed order);
+    its routes give the share of routes dropped at prefill.
+
+    Then the whole run with K5's plain version, end to end: its logit gap
+    and the (layer, token) expert sets that differ from the kernel run's
+    are reported, not held to a tolerance. A near tie of the router, moved
+    by one bf16 ulp upstream, sends a token to another expert; with the
+    reference's draw (σ = 1/√E experts, ROADMAP R4) that moves the token's
+    state far, attention spreads it, and the sound end-to-end gap reads as
+    large as that of the rolled-experts control (PERF.md), so only the
+    layer-wise check decides."""
+    E, K = cfg.moe.n_routed, cfg.moe.top_k
+    with moe_layers(check=True) as kernel_rows:
+        logits_k, cache_k = prefill(params, batch, target)
+        n_pre = len(kernel_rows)
+        rerun = forced_decode(decode, params, cache_k, fed)
+    del cache_k
+    rerun_gap = max((logits_k - logits).abs().max().item(),
+                    (rerun - step_logits).abs().max().item())
+    T = SERVE_BATCH * SERVE_PROMPT
+    C = tmoe.capacity(T, cfg)
+    dropped = [int((torch.bincount(r["routes"].reshape(-1), minlength=E)
+                    - C).clamp_min(0).sum()) for r in kernel_rows[:n_pre]]
+    emit(phase="moe_prefill_drops", arch=arch, tokens=T, top_k=K,
+         capacity=C, slots=E * C, routes=T * K,
+         dropped_share=sum(dropped) / (n_pre * T * K),
+         dropped_share_by_layer=[d / (T * K) for d in dropped])
+    gaps = [r["gap"].item() for r in kernel_rows]
+    controls = [r["control_gap"].item() for r in kernel_rows]
+    layer = dict(phase="moe_layer_check", arch=arch, calls=len(gaps),
+                 prefill_calls=n_pre, tol=MOE_LAYER_TOL,
+                 max_gap_prefill=max(gaps[:n_pre]),
+                 max_gap_decode=max(gaps[n_pre:]),
+                 min_control_gap_prefill=min(controls[:n_pre]),
+                 min_control_gap_decode=min(controls[n_pre:]),
+                 max_control_gap=max(controls),
+                 kernel_rerun_max_abs_diff=rerun_gap)
+    emit(**layer)
+    assert rerun_gap == 0.0, rerun_gap
+    assert max(gaps) <= MOE_LAYER_TOL, layer
+    assert min(controls) > MOE_LAYER_TOL, layer
+
+    with plain_route(k5), moe_layers() as plain_rows:
+        logits_p, cache_p = prefill(params, batch, target)
+        plain_logits = forced_decode(decode, params, cache_p, fed)
+    del cache_p
+    differ = [int((a["routes"] != b["routes"]).any(-1).sum())
+              for a, b in zip(kernel_rows, plain_rows)]
+    emit(phase="moe_route_check", arch=arch, prefill_sets=n_pre * T,
+         prefill_sets_differ=sum(differ[:n_pre]),
+         decode_sets=(len(differ) - n_pre) * SERVE_BATCH,
+         decode_sets_differ=sum(differ[n_pre:]),
+         prefill_sets_differ_by_layer=differ[:n_pre])
+    logit_gap(arch + " prefill, end to end", logits[None], logits_p[None],
+              phase="plain_check_end_to_end")
+    logit_gap(arch + " decode, end to end", step_logits, plain_logits,
+              phase="plain_check_end_to_end")
 
 
 def consistency_phase(arch):
     """Check 2: full width at 2 layers in float32 — prefill of 24 tokens
     plus 8 decode steps reproduce ``lm_forward``'s logits within
     1e-3·max|logit| + 1e-3 (tests/test_decode_consistency.py's property,
-    on the card)."""
+    on the card), a MoE at capacity factor 8.0, as that test sets it, so
+    that no token is dropped."""
     cfg = dataclasses.replace(registry.get(arch), n_layers=2,
                               dtype="float32")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
     params = api.init(cfg, 1)
     tok = prompts(cfg, 2, 32, seed=1)
     with torch.inference_mode():
@@ -1053,16 +1287,26 @@ def consistency_phase(arch):
 def zoo_cuda_vs_cpu():
     """Reduced float32 configs on the GPU and the CPU from the same
     weights: starcoder2 decoding 48 tokens from scratch through its ring
-    cache (window 16), qwen2.5 and mamba2 greedy generation (8 prompt
-    tokens, 7 new; mamba2 32 prompt tokens, one chunk). The same tokens,
-    logits within 1e-4."""
-    for arch, mode in (("starcoder2-15b", "ring"), ("qwen2.5-32b", "greedy"),
-                       ("mamba2-370m", "greedy")):
+    cache (window 16); greedy generation (8 prompt tokens, 7 new; 32 prompt
+    tokens, one chunk, where there are SSM layers) of qwen2.5, mamba2,
+    qwen2-moe (also ``optimized``: group-local dispatch in 2 groups at
+    prefill), moonshot and the Jamba hybrid. The same tokens, logits
+    within 1e-4; every greedy GPU run launches what
+    ``expected_launches`` says (the Jamba run K3, K4, K5 and K6)."""
+    runs = [("starcoder2-15b", "ring", False), ("qwen2.5-32b", "greedy", False),
+            ("mamba2-370m", "greedy", False),
+            ("qwen2-moe-a2.7b", "greedy", False),
+            ("qwen2-moe-a2.7b", "greedy", True),
+            ("moonshot-v1-16b-a3b", "greedy", False),
+            ("jamba-1.5-large-398b", "greedy", False)]
+    for arch, mode, optimized in runs:
         cfg = dataclasses.replace(registry.reduced(registry.get(arch)),
                                   dtype="float32")
+        if optimized:
+            cfg = registry.optimized(cfg, 2)
         host = api.init(cfg, torch.Generator().manual_seed(0), device="cpu")
         rng = np.random.default_rng(4)
-        n_prompt = 32 if cfg.family == "ssm" else 8
+        n_prompt = 32 if cfg.ssm is not None else 8
         toks = rng.integers(0, cfg.vocab_size, (1 if mode == "ring" else 2,
                                                 48 if mode == "ring"
                                                 else n_prompt))
@@ -1071,6 +1315,7 @@ def zoo_cuda_vs_cpu():
             params = {k: v.to(dev) for k, v in host.items()}
             tt = torch.from_numpy(toks).to(dev)
             decode = steps.make_decode_step(cfg)
+            reset_launches()
             with torch.inference_mode():
                 if mode == "ring":
                     cache = api.cache_init(cfg, 1, 48, device=dev)
@@ -1084,25 +1329,36 @@ def zoo_cuda_vs_cpu():
                         decode, params, cache, first.argmax(-1)[:, None], 7)
                     tokens = torch.cat([fed, logits[-1].argmax(-1)[:, None]],
                                        1)
-            out[dev] = (tokens.cpu(), logits.float().cpu())
+            launches = read_launches()
+            out[dev] = (tokens.cpu(), logits.float().cpu(), launches)
         err = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
-        emit(phase="cuda_vs_cpu", run=f"{arch} reduced {mode}",
-             tokens=out["cuda"][0].tolist(), max_abs_logit_err=err)
+        label = f"{arch} reduced {mode}" + (", optimized" if optimized
+                                            else "")
+        emit(phase="cuda_vs_cpu", run=label, tokens=out["cuda"][0].tolist(),
+             max_abs_logit_err=err, launches=out["cuda"][2])
         assert torch.equal(out["cuda"][0], out["cpu"][0]), (arch, out)
         assert err <= 1e-4, (arch, err)
+        assert out["cpu"][2] == only(), out["cpu"][2]
+        if mode == "greedy":
+            assert out["cuda"][2] == expected_launches(cfg, 7), (
+                label, out["cuda"][2])
 
 
 def zoo_phases():
     """The serving path of the zoo: starcoder2-15b (dense, K3 at prefill,
     K4 at every decode step) and mamba2-370m (SSM, K6 at every prefill)
-    at full width with checks 1 and 2, then GPU against CPU. Returns the
-    launches of K4 and K6 in their main-path runs."""
+    at full width with checks 1 and 2, then qwen2-moe-a2.7b (K3, K4 and
+    K5 at prefill and every decode step) likewise, then GPU against CPU.
+    Returns the main-path launches of K4, K5 and K6 in their serving
+    runs."""
     dense = serve_phase("starcoder2-15b")
     consistency_phase("starcoder2-15b")
     ssm = serve_phase("mamba2-370m")
     consistency_phase("mamba2-370m")
+    moe = serve_phase("qwen2-moe-a2.7b")
+    consistency_phase("qwen2-moe-a2.7b")
     zoo_cuda_vs_cpu()
-    return dense["launches"], ssm["launches"]
+    return (dense["decode_attention"], moe["moe_gemm"], ssm["ssd_scan"])
 
 
 def quickstart(n_ues, n_malicious, n_train, n_test, device, seed=0):
@@ -1189,13 +1445,18 @@ def main():
             check_flash(b, h, s_, t_, d, causal, window, dt, label, reps=50)
     check_flash_grad(128, 4, 32, 16)
     # K3 at starcoder2-15b's prefill shape (its GQA heads repeated to 48)
+    # and at qwen2-moe-a2.7b's (16 heads, no GQA)
     check_flash(SERVE_BATCH, 48, SERVE_PROMPT, SERVE_PROMPT, 128, True, None,
                 bf16, "starcoder2-15b prefill", reps=5)
+    check_flash(SERVE_BATCH, 16, SERVE_PROMPT, SERVE_PROMPT, 128, True, None,
+                bf16, "qwen2-moe-a2.7b prefill", reps=5)
 
     # K4: tests/test_kernels.py's three shapes in both types; the GQA
     # serving shape of starcoder2-15b (48 query, 4 KV heads, D 128, bf16,
-    # a cache of 2,080) at the first, a middle and the last length; a
-    # window's view in the middle of a linear cache; a ring's prefix
+    # a cache of 2,080) and qwen2-moe-a2.7b's (16 query and KV heads: one
+    # query head a block, and B·Hkv, which sets the split count, 4x
+    # starcoder2's) at the first, a middle and the last length; a window's
+    # view in the middle of a linear cache; a ring's prefix
     for dt in (f32, bf16):
         for b, h, t_, d, length in ((2, 4, 512, 64, 300),
                                     (1, 8, 1024, 128, 1024),
@@ -1205,6 +1466,8 @@ def main():
     for length in (1, 2048, cap):
         check_decode("starcoder2-15b serving", SERVE_BATCH, 48, 4, cap, 128,
                      length, bf16)
+        check_decode("qwen2-moe-a2.7b serving", SERVE_BATCH, 16, 16, cap,
+                     128, length, bf16)
     check_decode("window 1,024 view of a linear cache", SERVE_BATCH, 48, 4,
                  cap, 128, 1024, bf16, lo=1024)
     check_decode("ring prefix (1,001 of 4,096 slots)", SERVE_BATCH, 48, 4,
@@ -1218,6 +1481,26 @@ def main():
         check_ssd("tests/test_kernels.py", b, length, h, p, n, g, chunk, f32)
     summary_k6 = check_ssd("mamba2-370m prefill", SERVE_BATCH, SERVE_PROMPT,
                            32, 64, 128, 1, 256, bf16, reps=10)
+
+    # K5: tests/test_kernels.py's three shapes in both types; ragged shapes
+    # (qwen2-moe's prefill capacity C = 1,368 at small E; K and N off the
+    # tiles); qwen2-moe-a2.7b's serving shapes (60 experts, d 2,048, f
+    # 1,408): the gate/up and down products at prefill (C 1,368 for 8 x
+    # 2,048 tokens) and at a decode step (C 8)
+    for dt in (f32, bf16):
+        for e, c, k, n in ((4, 128, 256, 128), (8, 64, 128, 384),
+                           (2, 256, 512, 256)):
+            check_moe("tests/test_kernels.py", e, c, k, n, dt)
+        for e, c, k, n in ((3, 1368, 200, 136), (2, 37, 100, 70),
+                           (5, 8, 33, 65), (1, 1, 7, 1)):
+            check_moe("ragged", e, c, k, n, dt)
+    e, d, f = 60, 2048, 1408
+    c_pre = tmoe.capacity(SERVE_BATCH * SERVE_PROMPT,
+                          registry.get("qwen2-moe-a2.7b"))
+    check_moe("qwen2-moe prefill gate/up", e, c_pre, d, f, bf16, reps=10)
+    check_moe("qwen2-moe prefill down", e, c_pre, f, d, bf16, reps=10)
+    summary_k5 = check_moe("qwen2-moe decode gate/up", e, 8, d, f, bf16)
+    check_moe("qwen2-moe decode down", e, 8, f, d, bf16)
 
     # 4. the undefended main path at the paper's §V scale
     reset_launches()
@@ -1321,8 +1604,9 @@ def main():
     # 8. the LM path
     launches["flash_attention"], summary["flash_attention"] = lm_phases()
 
-    # 9. serving the decoder-only zoo
-    launches["decode_attention"], launches["ssd_scan"] = zoo_phases()
+    # 9./10. serving the decoder-only zoo, experts included
+    (launches["decode_attention"], launches["moe_gemm"],
+     launches["ssd_scan"]) = zoo_phases()
     # K4 at the serving path's median cache length (2,049 to 2,080 valid
     # positions over the 32 steps)
     summary["decode_attention"] = check_decode(
@@ -1330,8 +1614,9 @@ def main():
         SERVE_PROMPT + SERVE_NEW, 128, SERVE_PROMPT + SERVE_NEW // 2,
         torch.bfloat16)
     summary["ssd_scan"] = summary_k6
+    summary["moe_gemm"] = summary_k5
 
-    # 10. summary and result
+    # 11. summary and result
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [dict(
         name=name, **KERNELS[name], launches=launches[name],

@@ -4,12 +4,16 @@ transformer of the LM task, ``lm_tiny``, and the decoder-only configs of
 the big-model zoo), ``SSMConfig`` and the zoo's ``InputShape`` values.
 
 ``ModelConfig`` keeps the JAX package's field names. The port runs the
-decoder-only families without experts: ``dense``, ``vlm`` (an
-early-fusion decoder over token ids, its image frontend a stub) and
-``ssm`` (Mamba2). The MoE, hybrid, MLA, encoder-decoder, multi-token
-prediction and leading-dense-layer fields exist so that a config reads as
-the reference's, but setting any of them raises ``NotImplementedError``
-naming the slice of the port that brings it.
+decoder-only families: ``dense``, ``vlm`` (an early-fusion decoder over
+token ids, its image frontend a stub), ``ssm`` (Mamba2), ``moe``
+(attention with mixture-of-experts MLPs, ``MoEConfig``) and ``hybrid``
+(Jamba: Mamba2 and attention layers interleaved, with experts). The MLA,
+encoder-decoder, multi-token prediction and leading-dense-layer fields
+exist so that a config reads as the reference's, but setting any of them
+raises ``NotImplementedError`` naming the slice of the port that brings
+it. A sub-config that does not fit the family raises at the config
+(``ValueError``, or ``TypeError`` for a sub-config of the wrong type),
+where the reference accepts some silently and fails later at init.
 """
 from __future__ import annotations
 
@@ -96,6 +100,22 @@ def dbm_to_watt(dbm: float) -> float:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts sub-config (GShard-style capacity, sort-based dispatch)."""
+    n_routed: int                 # routed experts
+    top_k: int
+    d_ff_expert: int              # hidden width of each routed expert
+    n_shared: int = 0             # always-active shared experts
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    normalize_gates: bool = True  # renormalize top-k gate probs (DeepSeek style)
+    # >1: group-local dispatch — tokens are grouped, sort/scatter happen
+    # within a group, and the expert products take every group's rows at
+    # once. 0/1 = single global dispatch (``models/moe.py``).
+    dispatch_groups: int = 0
+
+
+@dataclass(frozen=True)
 class SSMConfig:
     """Mamba2 / SSD sub-config."""
     d_state: int = 128            # N
@@ -111,7 +131,6 @@ class SSMConfig:
     compute_dtype: str = "float32"
 
 
-_MOE_SLICE = "the MoE slice of the port (K5 moe_gemm)"
 _LATER = "a later slice of the port"
 
 
@@ -119,10 +138,11 @@ _LATER = "a later slice of the port"
 class ModelConfig:
     """A decoder-only language model: pre-norm layers of a mixer (GQA
     attention with RoPE and an optional sliding window, or a Mamba2 SSD
-    block) and an MLP (SwiGLU, or none in the SSM family), stacked in
-    ``n_blocks`` super-blocks of ``block_len`` layers."""
+    block) and an MLP (SwiGLU, a mixture of experts, or none in the SSM
+    family), stacked in ``n_blocks`` super-blocks of ``block_len``
+    layers."""
     name: str
-    family: str                   # dense | vlm | ssm run in the port
+    family: str                   # dense | vlm | ssm | moe | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -142,13 +162,16 @@ class ModelConfig:
     sliding_window: Optional[int] = None
     long_context_window: Optional[int] = None
 
-    # planes of the zoo the port does not run yet (any non-default raises)
-    moe: Optional[object] = None
-    moe_layer_period: int = 1
+    # MoE; ``first_dense_layers`` is not ported (a non-default raises)
+    moe: Optional[MoEConfig] = None
+    moe_layer_period: int = 1     # apply MoE every p-th layer (Jamba: 2)
     first_dense_layers: int = 0
+    # SSM / hybrid
     ssm: Optional[SSMConfig] = None
     attn_layer_period: int = 0    # hybrid: one attention layer per p layers
-    attn_layer_offset: int = 4
+    attn_layer_offset: int = 4    # position of the attention layer in a block
+
+    # planes of the zoo the port does not run yet (any non-default raises)
     encoder_layers: int = 0
     is_encoder_decoder: bool = False
     frontend: str = "none"        # none | vlm (a stub: inputs are token ids)
@@ -156,15 +179,11 @@ class ModelConfig:
     mtp: bool = False
 
     dtype: str = "bfloat16"
-    block_len: int = 0            # 0 -> derived (1 without a hybrid / MoE)
+    block_len: int = 0            # 0 -> derived (the larger layer period)
     scan_unroll: int = 1
 
     # (field, default, the slice that brings it)
-    _UNPORTED = (("moe", None, _MOE_SLICE),
-                 ("moe_layer_period", 1, _MOE_SLICE),
-                 ("attn_layer_period", 0,
-                  "the MoE slice of the port (the Jamba hybrid)"),
-                 ("first_dense_layers", 0,
+    _UNPORTED = (("first_dense_layers", 0,
                   _LATER + " (DeepSeek's MLA, MTP and leading dense "
                   "layers)"),
                  ("mla", None, _LATER + " (DeepSeek's MLA)"),
@@ -172,15 +191,14 @@ class ModelConfig:
                  ("encoder_layers", 0, _LATER + " (the encoder-decoder)"),
                  ("is_encoder_decoder", False,
                   _LATER + " (the encoder-decoder)"))
-    _FAMILIES = {"dense": "none", "vlm": "vlm", "ssm": "none"}
+    _FAMILIES = {"dense": "none", "vlm": "vlm", "ssm": "none",
+                 "moe": "none", "hybrid": "none"}
 
     def __post_init__(self):
         if self.family not in self._FAMILIES:
-            slice_ = (_MOE_SLICE if self.family in ("moe", "hybrid")
-                      else _LATER)
             raise NotImplementedError(
                 f"{self.name}: the {self.family!r} family is not ported; "
-                f"it comes with {slice_}")
+                f"it comes with {_LATER}")
         for field, default, slice_ in self._UNPORTED:
             if getattr(self, field) != default:
                 raise NotImplementedError(
@@ -191,14 +209,7 @@ class ModelConfig:
                 f"{self.name}: frontend={self.frontend!r} with family "
                 f"{self.family!r} is not ported (the audio frontend comes "
                 f"with {_LATER}, the encoder-decoder)")
-        if (self.family == "ssm") != (self.ssm is not None):
-            raise NotImplementedError(
-                f"{self.name}: an ssm sub-config outside the ssm family is "
-                f"the hybrid, which comes with {_MOE_SLICE}"
-                if self.ssm is not None else
-                f"{self.name}: the ssm family needs an SSMConfig")
-        if self.ssm is not None and not isinstance(self.ssm, SSMConfig):
-            raise TypeError(f"{self.name}: ssm must be an SSMConfig")
+        self._check_sub_configs()
         if self.ssm is not None and self.ssm.compute_dtype != "float32":
             raise NotImplementedError(
                 f"{self.name}: ssm.compute_dtype="
@@ -208,10 +219,41 @@ class ModelConfig:
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
         if self.block_len == 0:
-            object.__setattr__(self, "block_len", 1)
+            p = max(1, self.attn_layer_period)
+            if self.moe is not None:
+                p = max(p, self.moe_layer_period)
+            object.__setattr__(self, "block_len", p)
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"{self.name}: n_heads {self.n_heads} is not a "
                              f"multiple of n_kv_heads {self.n_kv_heads}")
+
+    def _check_sub_configs(self):
+        """The MoE and SSM sub-configs and the layer periods against the
+        family."""
+        for field, cls in (("moe", MoEConfig), ("ssm", SSMConfig)):
+            value = getattr(self, field)
+            if value is not None and not isinstance(value, cls):
+                raise TypeError(f"{self.name}: {field} must be a "
+                                f"{cls.__name__}, got {type(value).__name__}")
+        if self.family == "moe" and self.moe is None:
+            raise ValueError(f"{self.name}: the moe family needs a MoEConfig")
+        if self.family == "ssm" and self.ssm is None:
+            raise ValueError(f"{self.name}: the ssm family needs an "
+                             "SSMConfig")
+        if self.family == "hybrid" and (self.ssm is None
+                                        or not self.attn_layer_period):
+            raise ValueError(f"{self.name}: the hybrid family needs an "
+                             "SSMConfig and an attn_layer_period")
+        if self.ssm is not None and self.family not in ("ssm", "hybrid"):
+            raise ValueError(f"{self.name}: an SSMConfig belongs to the ssm "
+                             f"or hybrid family, not {self.family!r}")
+        if self.attn_layer_period and self.ssm is None:
+            raise ValueError(f"{self.name}: attn_layer_period interleaves "
+                             "attention with SSM layers and needs an "
+                             "SSMConfig")
+        if self.moe_layer_period > 1 and self.moe is None:
+            raise ValueError(f"{self.name}: moe_layer_period "
+                             f"{self.moe_layer_period} needs a MoEConfig")
 
     @property
     def scanned_layers(self) -> int:
@@ -226,26 +268,47 @@ class ModelConfig:
 
     def layer_kind(self, idx_in_block: int) -> dict:
         """Sub-layer ``idx_in_block`` of a super-block: a Mamba2 mixer and
-        no MLP in the SSM family, else attention and a dense MLP."""
+        no MLP in the SSM family; else attention (in a hybrid, only at
+        ``attn_layer_offset`` mod ``attn_layer_period``, Mamba2 elsewhere)
+        and a dense MLP, or a MoE every ``moe_layer_period``-th layer."""
         if self.family == "ssm":
             return {"mixer": "ssm", "mlp": "none"}
-        return {"mixer": "attn", "mlp": "dense"}
+        mixer = "attn"
+        if self.attn_layer_period:
+            mixer = ("attn" if idx_in_block % self.attn_layer_period
+                     == self.attn_layer_offset % self.attn_layer_period
+                     else "ssm")
+        mlp = "dense"
+        if self.moe is not None and (idx_in_block % self.moe_layer_period
+                                     == self.moe_layer_period - 1):
+            mlp = "moe"
+        return {"mixer": mixer, "mlp": mlp}
 
     def block_pattern(self) -> Tuple[dict, ...]:
         return tuple(self.layer_kind(i) for i in range(self.block_len))
 
-    def param_count(self) -> int:
+    def param_count(self, active_only: bool = False) -> int:
         """Analytic parameter count, the reference's for the ported
         families: embedding and head (untied); a layer's mixer, its MLP and
         two norm scales (counted whatever the MLP, as the reference does:
-        an SSM layer has one); the final norm."""
+        an SSM layer has one); the final norm. ``active_only`` counts a
+        MoE layer's top-k routed experts instead of all of them."""
         n = 2 * self.vocab_size * self.d_model
         for _ in range(self.n_blocks):
             for kind in self.block_pattern():
                 n += self._mixer_params(kind["mixer"]) + 2 * self.d_model
-                if kind["mlp"] == "dense":
-                    n += 3 * self.d_model * self.d_ff
+                n += self._mlp_params(kind["mlp"], active_only)
         return n + self.d_model
+
+    def _mlp_params(self, kind: str, active_only: bool) -> int:
+        if kind == "none":
+            return 0
+        if kind == "dense":
+            return 3 * self.d_model * self.d_ff
+        m = self.moe
+        n_exp = (m.top_k if active_only else m.n_routed) + m.n_shared
+        return n_exp * 3 * self.d_model * m.d_ff_expert + (
+            self.d_model * m.n_routed)
 
     def _mixer_params(self, kind: str) -> int:
         d, hd = self.d_model, self.head_dim

@@ -7,7 +7,8 @@ kept.
 
 The JAX package's LM parameters are a nested tree of dicts and tuples;
 the port's are one flat dict keyed by the "/"-joined tree paths
-(``blocks/layers/0/mixer/wq``, ``embed``, ...). ``flatten_tree`` and
+(``blocks/layers/0/mixer/wq``, ``embed``, a MoE layer's
+``blocks/layers/1/mlp/router`` and ``.../mlp/shared/wg``, ...). ``flatten_tree`` and
 ``unflatten_tree`` convert between the two. The sorted order of the flat
 keys is the JAX package's leaf order (dict keys sorted, tuple items in
 order) for keys of letters, digits and underscores and tuples of at most
@@ -18,7 +19,9 @@ A decode cache crosses the same way: ``cache_from_numpy`` takes the JAX
 package's cache tree (``blocks``, an empty ``head_layers``, a traced
 ``index``, ``slot_pos`` for a ring) as numpy leaves into the port's flat
 cache (``index`` a host int), and ``cache_to_numpy`` gives the port's back
-as that tree, so either package can decode from the other's cache.
+as that tree, so either package can decode from the other's cache — a
+hybrid's too, whose layers hold attention k/v and SSM conv/state caches
+side by side.
 """
 from __future__ import annotations
 

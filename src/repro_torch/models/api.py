@@ -39,10 +39,10 @@ def init(cfg: ModelConfig, key: Union[int, torch.Generator] = 0,
 
 
 def loss(cfg, params, batch):
-    """(next-token cross-entropy, {"ce": it, "aux": 0.0}): the ported
-    families have no auxiliary loss."""
-    ce = tf.lm_loss(cfg, params, batch)
-    return ce, {"ce": ce, "aux": 0.0}
+    """(next-token cross-entropy + the MoE load-balance loss, {"ce": the
+    cross-entropy, "aux": the aux loss, 0.0 without a MoE layer})."""
+    ce, aux = tf.lm_loss_parts(cfg, params, batch)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def prefill(cfg, params, batch, target_len=None):

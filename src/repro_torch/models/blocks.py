@@ -1,21 +1,27 @@
 """Transformer super-blocks: init, full-sequence apply (train / prefill) and
 single-token decode of the pre-norm layers of the ported families —
-attention + SwiGLU MLP (dense, vlm) or a Mamba2 mixer alone (ssm) —
-stacked over ``cfg.n_blocks``, with their decode caches.
+attention + SwiGLU MLP (dense, vlm), attention + MoE MLP (moe), a Mamba2
+mixer alone (ssm), or the hybrid's interleave of Mamba2 and attention
+layers, each with a dense or MoE MLP — stacked over ``cfg.n_blocks``, with
+their decode caches.
 
-A super-block is ``cfg.block_len`` consecutive layers (1 in the ported
-families). Parameters are flat dicts: a layer's leaves are ``norm1``,
+A super-block is ``cfg.block_len`` consecutive layers (1 for homogeneous
+stacks; 8 for Jamba's 7 Mamba2 + 1 attention layers; 2 when MoE
+alternates with dense MLPs). Parameters are flat dicts: a layer's leaves are ``norm1``,
 ``mixer/<w>`` and, with an MLP, ``norm2`` and ``mlp/<w>``; a block's
 ``layers/<i>/<leaf>``; the stacked blocks carry a leading ``n_blocks``
 axis on every leaf (after the client axis, in a stacked cohort). Decode
 caches are flat dicts the same way: ``layers/<i>/k`` and ``v`` (B, C,
 Hkv, D) of an attention layer, ``layers/<i>/conv`` (B, K-1, ch) and
-``state`` (B, H, N, P) float32 of an SSM layer, stacked likewise.
-``scan_blocks`` and ``scan_blocks_decode`` are Python loops over the
-stacked axis — the JAX package's ``lax.scan``.
+``state`` (B, H, N, P) float32 of an SSM layer, stacked likewise (a
+hybrid block holds both kinds side by side). ``scan_blocks`` and
+``scan_blocks_decode`` are Python loops over the stacked axis — the JAX
+package's ``lax.scan``. The full-sequence functions return the MoE
+layers' load-balance loss summed in the reference's order (0.0 without a
+MoE layer); decode leaves it out, as the reference discards it there.
 
-The MoE, MLA and cross-attention branches of the JAX package come with
-later slices of the port: a config that would reach them raises in
+The MLA and cross-attention branches of the JAX package come with later
+slices of the port: a config that would reach them raises in
 ``ModelConfig``.
 """
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 from repro_torch.models.attention import attn_apply, attn_decode, attn_init
 from repro_torch.models.common import (dtype_of, ones, prefixed, rms_norm,
                                        subtree, swiglu_apply, swiglu_init)
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.ssm import ssm_apply, ssm_decode, ssm_init
 
 
@@ -41,7 +48,9 @@ def layer_init(generator: torch.Generator, cfg, kind):
         p.update(prefixed("mixer/", ssm_init(generator, cfg)))
     if kind["mlp"] != "none":
         p["norm2"] = ones((d,), dt, dev)
-        p.update(prefixed("mlp/", swiglu_init(generator, d, cfg.d_ff, dt)))
+        p.update(prefixed("mlp/", moe_init(generator, cfg)
+                          if kind["mlp"] == "moe"
+                          else swiglu_init(generator, d, cfg.d_ff, dt)))
     return p
 
 
@@ -111,9 +120,21 @@ def stacked_cache_init(cfg, batch: int, cache_len: int, device,
 # ---------------------------------------------------------------------- #
 # Apply: full sequence (train / prefill)
 # ---------------------------------------------------------------------- #
-def layer_apply(cfg, p, kind, h, *, window=None):
+def _mlp(cfg, p, kind, h, with_aux: bool):
+    """(mlp(norm2(h)), the MoE aux loss, or 0.0 without a MoE layer or
+    ``with_aux``); ``p`` the layer's."""
+    h2 = rms_norm(h, p["norm2"], cfg.norm_eps)
+    if kind["mlp"] == "moe":
+        y, aux = moe_apply(cfg, subtree(p, "mlp/"), h2, with_aux=with_aux)
+        return y, 0.0 if aux is None else aux
+    return swiglu_apply(subtree(p, "mlp/"), h2), 0.0
+
+
+def layer_apply(cfg, p, kind, h, *, window=None, with_aux=True):
     """Pre-norm layer: h + mixer(norm1(h)), then, with an MLP, +
-    mlp(norm2(h)). Returns (h, the layer's cache: the rotated k/v of an
+    mlp(norm2(h)). Returns (h, the MoE aux loss or 0.0 — 0.0 too without
+    ``with_aux``, which prefill leaves out, as the reference's jit drops
+    the unused loss — and the layer's cache: the rotated k/v of an
     attention layer, the conv and SSM states of an SSM layer)."""
     hin = rms_norm(h, p["norm1"], cfg.norm_eps)
     if kind["mixer"] == "attn":
@@ -123,37 +144,43 @@ def layer_apply(cfg, p, kind, h, *, window=None):
         y, (conv, state) = ssm_apply(cfg, subtree(p, "mixer/"), hin)
         cache = {"conv": conv, "state": state}
     h = h + y
+    aux = 0.0
     if kind["mlp"] != "none":
-        h = h + swiglu_apply(subtree(p, "mlp/"),
-                             rms_norm(h, p["norm2"], cfg.norm_eps))
-    return h, cache
+        y, aux = _mlp(cfg, p, kind, h, with_aux=with_aux)
+        h = h + y
+    return h, aux, cache
 
 
-def block_apply(cfg, bp, h, *, window=None):
-    caches = {}
+def block_apply(cfg, bp, h, *, window=None, with_aux=True):
+    aux_total, caches = 0.0, {}
     for i, kind in enumerate(cfg.block_pattern()):
-        h, c = layer_apply(cfg, subtree(bp, f"layers/{i}/"), kind, h,
-                           window=window)
+        h, aux, c = layer_apply(cfg, subtree(bp, f"layers/{i}/"), kind, h,
+                                window=window, with_aux=with_aux)
+        aux_total = aux_total + aux
         caches.update(prefixed(f"layers/{i}/", c))
-    return h, caches
+    return h, aux_total, caches
 
 
-def scan_blocks(cfg, stacked, h, *, window=None, return_cache=False):
+def scan_blocks(cfg, stacked, h, *, window=None, return_cache=False,
+                with_aux=True):
     """Apply the ``n_blocks`` stacked blocks in order. h (B, S, d), or (N,
     B, S, d) for a stacked cohort, whose leaves are (N, n_blocks, ...).
-    Returns (h, the caches stacked over blocks, or None without
+    Returns (h, the summed MoE aux loss, or 0.0 without a MoE layer or
+    ``with_aux``, the caches stacked over blocks, or None without
     ``return_cache``)."""
     axis = h.dim() - 3
-    caches = []
+    aux, caches = 0.0, []
     for i in range(cfg.n_blocks):
-        h, c = block_apply(cfg, {k: v.select(axis, i)
-                                 for k, v in stacked.items()}, h,
-                           window=window)
+        h, a, c = block_apply(cfg, {k: v.select(axis, i)
+                                    for k, v in stacked.items()}, h,
+                              window=window, with_aux=with_aux)
+        aux = aux + a
         if return_cache:
             caches.append(c)
     if not return_cache:
-        return h, None
-    return h, {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+        return h, aux, None
+    return h, aux, {k: torch.stack([c[k] for c in caches])
+                    for k in caches[0]}
 
 
 # ---------------------------------------------------------------------- #
@@ -176,8 +203,7 @@ def layer_decode(cfg, p, kind, h, cache, index: int, *, slot_pos=None,
         cache.update(conv=conv, state=state)
     h = h + y
     if kind["mlp"] != "none":
-        h = h + swiglu_apply(subtree(p, "mlp/"),
-                             rms_norm(h, p["norm2"], cfg.norm_eps))
+        h = h + _mlp(cfg, p, kind, h, with_aux=False)[0]
     return h, cache
 
 

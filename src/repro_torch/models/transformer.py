@@ -1,6 +1,7 @@
 """Decoder-only language models (the LM task's ``lm_tiny`` and the zoo's
-dense, vlm and ssm families): init, full-sequence forward, the next-token
-loss, the masked federated twins the cohort engine trains with, and
+dense, vlm, ssm, moe and hybrid families): init, full-sequence forward,
+the next-token loss (plus the MoE load-balance loss), the masked federated
+twins the cohort engine trains with (dense-only, as in the reference), and
 serving — prefill into a decode cache and single-token decode.
 
 Parameters are a flat dict under the JAX package's tree paths joined by
@@ -18,9 +19,9 @@ length is known without a synchronisation) — and, for a ring buffer,
 ``slot_pos`` (C,) int32. A decode step updates the cache's tensors in
 place and returns the cache with ``index`` advanced.
 
-The MoE router loss, multi-token prediction and DeepSeek's leading dense
-``head_layers`` of the JAX package come with later slices of the port (a
-config that needs them raises in ``ModelConfig``).
+Multi-token prediction and DeepSeek's leading dense ``head_layers`` of
+the JAX package come with a later slice of the port (a config that needs
+them raises in ``ModelConfig``).
 """
 from __future__ import annotations
 
@@ -61,26 +62,46 @@ def _embed(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return embed[clients.view(n, *([1] * (tokens.dim() - 1))), tokens]
 
 
+def _forward(cfg, params, tokens, window, return_cache, with_aux=False):
+    """(logits, the summed MoE aux loss — 0.0 without a MoE layer or
+    ``with_aux`` — and the caches or None)."""
+    h = _embed(params["embed"], tokens).to(dtype_of(cfg))
+    h, aux, caches = scan_blocks(cfg, subtree(params, "blocks/"), h,
+                                 window=window, return_cache=return_cache,
+                                 with_aux=with_aux)
+    logits = linear(rms_norm(h, params["final_norm"], cfg.norm_eps),
+                    params["lm_head"])
+    return logits, aux, caches
+
+
 def lm_forward(cfg, params, tokens, *, window=None, return_cache=False):
     """tokens (B, S) int64 -> logits (B, S, V); stacked: tokens (N, B, S)
     -> (N, B, S, V). With ``return_cache``: (logits, the stacked layer
-    caches of the sequence, under ``blocks.py``'s keys)."""
-    h = _embed(params["embed"], tokens).to(dtype_of(cfg))
-    h, caches = scan_blocks(cfg, subtree(params, "blocks/"), h,
-                            window=window, return_cache=return_cache)
-    logits = linear(rms_norm(h, params["final_norm"], cfg.norm_eps),
-                    params["lm_head"])
+    caches of the sequence, under ``blocks.py``'s keys). The MoE aux loss
+    is left out (``lm_loss_parts`` has it)."""
+    logits, _, caches = _forward(cfg, params, tokens, window, return_cache)
     return (logits, caches) if return_cache else logits
 
 
-def lm_loss(cfg, params, batch):
-    """Next-token cross-entropy (one per client for a stacked cohort). The
-    JAX package returns (loss, metrics); the dense family's only metric is
-    the loss itself, so the port returns the loss."""
+def lm_loss_parts(cfg, params, batch):
+    """(next-token cross-entropy, the MoE layers' summed load-balance
+    loss: a float32 scalar, 0.0 without a MoE layer) — the reference's
+    ``metrics["ce"]`` and ``metrics["aux"]``."""
     tokens = batch["tokens"]
-    logits = lm_forward(cfg, params, tokens, window=cfg.sliding_window)
-    return cross_entropy(logits[..., :-1, :], tokens[..., 1:],
-                         keep=tokens.dim() - 2)
+    logits, aux, _ = _forward(cfg, params, tokens, cfg.sliding_window, False,
+                              with_aux=True)
+    ce = cross_entropy(logits[..., :-1, :], tokens[..., 1:],
+                       keep=tokens.dim() - 2)
+    return ce, aux
+
+
+def lm_loss(cfg, params, batch):
+    """Next-token cross-entropy plus the MoE aux loss (one per client for
+    a stacked cohort, whose dense families have no aux loss). The JAX
+    package returns (loss, metrics); ``lm_loss_parts`` gives the metrics,
+    and the port's loss is the loss alone."""
+    ce, aux = lm_loss_parts(cfg, params, batch)
+    return ce + aux
 
 
 # ---------------------------------------------------------------------- #
@@ -193,8 +214,8 @@ def lm_prefill(cfg, params, tokens, target_len: Optional[int] = None):
     cache of the S positions, grown to ``target_len`` when it is
     longer)."""
     s = tokens.shape[1]
-    logits, caches = lm_forward(cfg, params, tokens,
-                                window=cfg.sliding_window, return_cache=True)
+    logits, _, caches = _forward(cfg, params, tokens, cfg.sliding_window,
+                                 True)
     cache = {**prefixed("blocks/", caches), "index": s}
     if target_len is not None and target_len > s:
         cache = grow_cache(cache, target_len - s)

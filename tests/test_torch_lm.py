@@ -106,13 +106,20 @@ def test_lm_tiny_config_matches_the_reference(ref):
     assert LM_TINY.param_count() == ref.lm.param_count() == 82_240
 
 
-@pytest.mark.parametrize("kw", [
-    dict(family="moe"), dict(moe=object()), dict(ssm=object()),
-    dict(mla=object()), dict(mtp=True), dict(first_dense_layers=1),
-    dict(attn_layer_period=2), dict(is_encoder_decoder=True),
-    dict(encoder_layers=2), dict(frontend="audio")])
-def test_model_config_raises_outside_the_dense_family(kw):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("kw,exc", [
+    # the MoE and hybrid fields are ported: on the dense LM_TINY they do
+    # not fit the family and fail the config's checks
+    (dict(family="moe"), ValueError), (dict(moe=object()), TypeError),
+    (dict(ssm=object()), TypeError), (dict(attn_layer_period=2), ValueError),
+    # the planes still to port
+    (dict(mla=object()), NotImplementedError),
+    (dict(mtp=True), NotImplementedError),
+    (dict(first_dense_layers=1), NotImplementedError),
+    (dict(is_encoder_decoder=True), NotImplementedError),
+    (dict(encoder_layers=2), NotImplementedError),
+    (dict(frontend="audio"), NotImplementedError)])
+def test_model_config_raises_outside_the_dense_family(kw, exc):
+    with pytest.raises(exc):
         dataclasses.replace(LM_TINY, **kw)
 
 

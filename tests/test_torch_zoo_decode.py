@@ -22,8 +22,9 @@ from repro_torch.convert import flatten_tree, params_from_numpy
 from repro_torch.models import api
 from repro_torch.models import transformer as ttr
 
-ARCHS = ["chameleon-34b", "mamba2-370m", "qwen2.5-32b", "starcoder2-15b",
-         "yi-34b"]
+ARCHS = ["chameleon-34b", "jamba-1.5-large-398b", "mamba2-370m",
+         "moonshot-v1-16b-a3b", "qwen2-moe-a2.7b", "qwen2.5-32b",
+         "starcoder2-15b", "yi-34b"]
 
 
 @pytest.fixture(scope="module")

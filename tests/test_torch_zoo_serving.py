@@ -1,17 +1,22 @@
-"""Port parity of the decoder-only zoo's serving path: the five ported
+"""Port parity of the decoder-only zoo's serving path: the eight ported
 configs and their registry, ``models/api.py`` (init, prefill, decode_step,
 cache_init) and ``launch/steps.py``, on the reduced float32 variants of
-``starcoder2-15b``, ``yi-34b``, ``qwen2.5-32b``, ``chameleon-34b`` and
-``mamba2-370m`` with the reference's ``api.init`` weights carried across
-(``convert.flatten_tree``).
+``starcoder2-15b``, ``yi-34b``, ``qwen2.5-32b``, ``chameleon-34b``,
+``mamba2-370m``, ``qwen2-moe-a2.7b``, ``moonshot-v1-16b-a3b`` and
+``jamba-1.5-large-398b`` with the reference's ``api.init`` weights carried
+across (``convert.flatten_tree``). A MoE config takes capacity factor 8.0,
+as ``tests/test_decode_consistency.py``'s ``_exact_cfg`` does, so that no
+token is dropped and prefill plus decode can reproduce the full forward.
 
 Within 1e-4: the prefill logits and every cache leaf, then 8 decode steps'
 logits and the caches after them, against the reference's (float32; the
-attention through K3's and K4's plain versions, the SSD through K6's).
-Within 1e-3: prefill plus decode against the port's own full forward
-(``tests/test_decode_consistency.py``'s property). The unported archs and
-fields raise ``NotImplementedError``; ``api.init`` and ``api.cache_init``
-default to the card and raise without one.
+attention through K3's and K4's plain versions, the SSD through K6's, the
+expert products through K5's). Within 1e-3: prefill plus decode against
+the port's own full forward (``tests/test_decode_consistency.py``'s
+property). The unported archs and fields raise ``NotImplementedError``, a
+sub-config that does not fit its family ``ValueError`` or ``TypeError``;
+``api.init`` and ``api.cache_init`` default to the card and raise without
+one.
 """
 import dataclasses
 import types
@@ -30,10 +35,10 @@ from repro_torch.launch import steps
 from repro_torch.models import api
 from repro_torch.models import transformer as ttr
 
-ARCHS = ["chameleon-34b", "mamba2-370m", "qwen2.5-32b", "starcoder2-15b",
-         "yi-34b"]
-UNPORTED = ["deepseek-v3-671b", "jamba-1.5-large-398b",
-            "moonshot-v1-16b-a3b", "qwen2-moe-a2.7b", "seamless-m4t-medium"]
+ARCHS = ["chameleon-34b", "jamba-1.5-large-398b", "mamba2-370m",
+         "moonshot-v1-16b-a3b", "qwen2-moe-a2.7b", "qwen2.5-32b",
+         "starcoder2-15b", "yi-34b"]
+UNPORTED = ["deepseek-v3-671b", "seamless-m4t-medium"]
 TOL = dict(atol=1e-4, rtol=1e-4)
 B, S, P = 2, 32, 24            # batch, full length, prefill length
 
@@ -49,11 +54,16 @@ def ref():
 
 
 def _cfgs(ref, arch):
-    """(the reference's reduced float32 config, the port's)."""
-    return (dataclasses.replace(ref.reg.reduced(ref.reg.get(arch)),
-                                dtype="float32"),
-            dataclasses.replace(registry.reduced(registry.get(arch)),
-                                dtype="float32"))
+    """(the reference's reduced float32 config, the port's), a MoE with
+    capacity for every token."""
+    out = []
+    for reg in (ref.reg, registry):
+        cfg = reg.reduced(reg.get(arch))
+        kw = {"dtype": "float32"}
+        if cfg.moe is not None:
+            kw["moe"] = dataclasses.replace(cfg.moe, capacity_factor=8.0)
+        out.append(dataclasses.replace(cfg, **kw))
+    return tuple(out)
 
 
 def _flat(ref, tree):
@@ -104,13 +114,14 @@ def test_configs_match_the_reference(ref, arch):
                       _cfgs(ref, arch)):
         for f in dataclasses.fields(want):
             w, g = getattr(want, f.name), getattr(got, f.name)
-            if f.name == "ssm" and w is not None:
+            if f.name in ("ssm", "moe") and w is not None:
                 w, g = dataclasses.asdict(w), dataclasses.asdict(g)
             assert g == w, (arch, f.name)
         assert (got.head_dim, got.block_len, got.n_blocks) == (
             want.head_dim, want.block_len, want.n_blocks)
         assert got.block_pattern() == want.block_pattern()
-        assert got.param_count() == want.param_count()
+        for active in (False, True):
+            assert got.param_count(active) == want.param_count(active)
     assert registry.list_archs() == ARCHS
     assert {k: (s.seq_len, s.global_batch, s.kind)
             for k, s in SHAPES.items()} == {
@@ -135,22 +146,61 @@ def test_unported_archs_raise(ref, arch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(family="moe"), dict(family="hybrid"), dict(family="audio"),
-    dict(moe=object()), dict(moe_layer_period=2), dict(mla=object()),
-    dict(mtp=True), dict(first_dense_layers=1), dict(attn_layer_period=8),
-    dict(is_encoder_decoder=True), dict(encoder_layers=2),
-    dict(frontend="audio"), dict(frontend="vlm")])
+    dict(family="audio"), dict(mla=object()), dict(mtp=True),
+    dict(first_dense_layers=1), dict(is_encoder_decoder=True),
+    dict(encoder_layers=2), dict(frontend="audio"), dict(frontend="vlm")])
 def test_unported_fields_raise(kw):
     with pytest.raises(NotImplementedError, match="slice"):
         dataclasses.replace(registry.get("yi-34b"), **kw)
 
 
+_SSM = registry.get("mamba2-370m").ssm
+_MOE = registry.get("qwen2-moe-a2.7b").moe
+
+
+@pytest.mark.parametrize("arch,kw,exc", [
+    # the MoE and hybrid fields, ported: a sub-config that does not fit
+    # its family raises at the config (the reference accepts some of
+    # these silently or fails later at init)
+    ("yi-34b", dict(family="moe"), ValueError),
+    ("yi-34b", dict(family="hybrid"), ValueError),
+    ("yi-34b", dict(moe=object()), TypeError),
+    ("yi-34b", dict(moe_layer_period=2), ValueError),
+    ("yi-34b", dict(attn_layer_period=8), ValueError),
+    ("yi-34b", dict(family="hybrid", ssm=_SSM), ValueError),
+    ("yi-34b", dict(family="hybrid", attn_layer_period=8), ValueError),
+    ("qwen2-moe-a2.7b", dict(moe=None), ValueError),
+    ("qwen2-moe-a2.7b", dict(ssm=_SSM), ValueError),
+    ("mamba2-370m", dict(ssm=object()), TypeError),
+    ("jamba-1.5-large-398b", dict(ssm=None), ValueError),
+    ("jamba-1.5-large-398b", dict(attn_layer_period=0), ValueError),
+    ("jamba-1.5-large-398b", dict(moe=None), ValueError),
+])
+def test_config_checks_raise(arch, kw, exc):
+    with pytest.raises(exc):
+        dataclasses.replace(registry.get(arch), **kw)
+
+
+def test_config_checks_admit_the_families():
+    """What the checks let through: a hybrid without experts, a dense
+    config with a MoE (the reference's MoE every ``moe_layer_period``-th
+    layer), and the derived block length (``block_len=0`` derives it
+    again, as ``registry.reduced`` does)."""
+    jamba = registry.get("jamba-1.5-large-398b")
+    assert dataclasses.replace(jamba, moe=None, moe_layer_period=1
+                               ).block_pattern()[4] == {"mixer": "attn",
+                                                        "mlp": "dense"}
+    cfg = dataclasses.replace(registry.get("yi-34b"), moe=_MOE,
+                              moe_layer_period=2, block_len=0)
+    assert cfg.block_len == 2 and [k["mlp"] for k in cfg.block_pattern()] \
+        == ["dense", "moe"]
+
+
 def test_ssm_family_needs_its_sub_config():
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs an SSMConfig"):
         dataclasses.replace(registry.get("mamba2-370m"), ssm=None)
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(registry.get("yi-34b"),
-                            ssm=registry.get("mamba2-370m").ssm)
+    with pytest.raises(ValueError, match="family"):
+        dataclasses.replace(registry.get("yi-34b"), ssm=_SSM)
 
 
 def test_ssm_compute_dtype_other_than_float32_raises():
@@ -206,7 +256,8 @@ def test_prefill_and_decode_match_the_reference(ref, arch):
     assert max(errs) < 1e-3, errs
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "starcoder2-15b"])
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "mamba2-370m",
+                                  "qwen2-moe-a2.7b", "starcoder2-15b"])
 def test_the_cache_crosses_both_ways(ref, arch):
     """The port decodes from the reference's prefill cache, and the
     reference from the port's, each giving the other's next logits."""
