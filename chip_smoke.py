@@ -6,24 +6,31 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
 
  1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
  2. build every kernel of the port from its source with nvcc (one process
-    a source, all at once), timed;
+    a source, all at once), timed, with each kernel's registers and spills;
+    the SASS of K3 and K5 read back (``cuobjdump``): K3's bf16 kernels must
+    issue HMMA (``mma.sync``), K5's wgmma kernels HGMMA fed by UTMALDG (TMA
+    tensor loads);
  3. hold each kernel against its plain PyTorch version on the card — the
     main paths' shapes, ragged and misaligned shapes, bf16 and one
     bandwidth-sized case — with its time, the plain version's, one PyTorch
     library call's (a yardstick the port never calls) and its bound.
     ``weighted_aggregate`` (K1) within 1e-6·max|x|, ``robust_aggregate``
     (K2) bit for bit, ``flash_attention`` (K3) within 2e-5 (f32) / 2e-2
-    (bf16), and K3's gradient through its autograd Function equal to the
-    plain version's within 1e-5 (and at starcoder2-15b's and
-    qwen2-moe-a2.7b's prefill shapes); ``decode_attention`` (K4) within
+    (bf16) — every head dim at a ragged S and T, windowed and not, with
+    grouped KV heads — and K3's gradient through its autograd Function
+    equal to the plain version's within 1e-5, grouped KV heads too (and at
+    starcoder2-15b's prefill shape, 48 query over 4 KV heads, and
+    qwen2-moe-a2.7b's); ``decode_attention`` (K4) within
     2e-5 / 2e-2 at tests/test_kernels.py's shapes, at starcoder2-15b's
     GQA and qwen2-moe-a2.7b's serving shapes, on a window's view and a
     ring's prefix;
     ``ssd_scan`` (K6) within 5e-4 (y and the final state) at
     tests/test_kernels.py's shapes and at mamba2-370m's prefill shape;
     ``moe_gemm`` (K5) within 1e-4 (f32) / 2e-1 (bf16) at
-    tests/test_kernels.py's shapes, ragged shapes and qwen2-moe-a2.7b's
-    prefill and decode shapes, with the largest difference in bf16 ulps;
+    tests/test_kernels.py's shapes, ragged shapes, either side of its
+    launcher's C threshold (the wgmma route from C = 128) and
+    qwen2-moe-a2.7b's prefill and decode shapes, with the largest
+    difference in bf16 ulps;
  4. the undefended main path at the paper's §V scale: K = 50 UEs,
     50,000/10,000 synthetic MNIST, 5 label flippers, DQS on the host
     control plane, the vectorized engine, 3 rounds on the GPU. Every
@@ -55,13 +62,14 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     greedy ``api.decode_step`` calls, every launch count set to 0 just before
     and read just after (K3 40 times at prefill and K4 40 times a step;
     K6 48 times at prefill), with prefill and per-token times, peak
-    memory and one decode step profiled; check 1 runs the same steps with
-    K4's (K6's) plain version (logits within 0.06·max|plain|, greedy
-    tokens equal but for near ties of 8 bf16 ulps) and must reject a
-    negative control, a deliberately wrong plain version (K4 with the
-    wrong GQA grouping, K6 without the inter-chunk term); check 2 runs
-    each at full width, 2 layers, float32, prefill plus decode against
-    ``lm_forward`` within 1e-3·max|logit| + 1e-3; then reduced configs on
+    memory, and one uncounted prefill and one decode step profiled; check
+    1 runs the same steps with K4's (K6's) plain version (logits within
+    0.06·max|plain|, greedy tokens equal but for near ties of 8 bf16
+    ulps) and must reject a negative control, a deliberately wrong plain
+    version (K4 with the wrong GQA grouping, K6 without the inter-chunk
+    term); check 2 runs each at full width, 2 layers, float32, prefill
+    plus decode against ``lm_forward`` within 1e-3·max|logit| + 1e-3;
+    then reduced configs on
     the GPU and the CPU (starcoder2's ring cache, qwen2.5 and mamba2
     greedy generation): the same tokens, logits within 1e-4;
 10. serving the mixture-of-experts zoo: ``qwen2-moe-a2.7b`` (all 24
@@ -91,6 +99,7 @@ launch overhead.
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import platform
@@ -183,6 +192,87 @@ COLLAPSE = atk.AttackScenario(
 
 def emit(**kw):
     print(json.dumps(kw), flush=True)
+
+
+_BUILTIN = {"f": "float", "d": "double", "i": "int", "b": "bool"}
+
+
+def _source_name(fn, i):
+    """The <source-name> of a mangled name at ``i`` (its length in digits,
+    then that many characters), and the index after it."""
+    j = i
+    while fn[j].isdigit():
+        j += 1
+    return fn[j:j + int(fn[i:j])], j + int(fn[i:j])
+
+
+def _short(fn):
+    """A kernel's name and template arguments from its mangled name
+    (Itanium ABI, as nvcc, ptxas and cuobjdump print it): the last
+    component of its nested name, e.g. ``flash_bf16_kernel<128>`` from
+    ``_ZN12_GLOBAL__N_117flash_bf16_kernelILi128EEEvPK...``."""
+    if not fn.startswith("_Z"):
+        return fn
+    nested = fn[2] == "N"
+    i, name = 3 if nested else 2, None
+    while fn[i].isdigit():
+        name, i = _source_name(fn, i)
+        if not nested:
+            break
+    args = []
+    if fn[i] == "I":
+        i += 1
+        while fn[i] != "E":
+            if fn[i] == "L":                # a literal: L <type> <value> E
+                end = fn.index("E", i)
+                args.append(fn[i + 2:end].replace("n", "-", 1)
+                            if fn[i + 2] == "n" else fn[i + 2:end])
+                i = end + 1
+            elif fn[i].isdigit():
+                arg, i = _source_name(fn, i)
+                args.append(arg)
+            else:
+                args.append(_BUILTIN.get(fn[i], fn[i]))
+                i += 1
+    return f"{name}<{','.join(args)}>" if args else name
+
+
+def ptxas_summary(log):
+    """{kernel: "R registers, S bytes spilled"} from nvcc's -Xptxas=-v."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = _short(line.split("'")[1])
+        elif fn and "spill stores" in line:
+            spill = line.split(",")[1].split()[0]
+        elif fn and "Used" in line and "registers" in line:
+            out[fn] = f"{line.split('Used')[1].split()[0]} registers, " \
+                      f"{spill} bytes spilled"
+            fn = None
+    return out
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDSM", "LDGSTS")
+
+
+def sass_ops(name):
+    """{kernel: {SASS op: count}} of the built library ``name``, from
+    ``cuobjdump -sass``: HGMMA is wgmma, UTMALDG a TMA tensor load, HMMA
+    mma.sync, LDSM ldmatrix, LDGSTS cp.async."""
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = _short(line.split("Function :")[1].strip())
+            out[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn:
+            op = line.split("*/", 1)[-1].split()
+            if op and op[0].split(".")[0] in out[fn]:
+                out[fn][op[0].split(".")[0]] += 1
+    return out
 
 
 def device_us(prof):
@@ -344,13 +434,14 @@ def check_robust(rows, n, m, mode, dtype, label, reps=200, nan=False):
     return row
 
 
-def flash_bound(b, h, s, t, d, causal, window, dtype):
-    """(least ms, what bounds it, bytes moved) of attention: q, k, v read
-    once and o written once at the memory rate, or 4·D flops for every
-    (query, key) pair inside the causal/window band at the peak rate of
-    the inputs' type, whichever takes longer."""
+def flash_bound(b, h, s, t, d, causal, window, dtype, hkv=None):
+    """(least ms, what bounds it, bytes moved) of attention: q read and o
+    written once (H heads), k and v read once (their Hkv heads) at the
+    memory rate, or 4·D flops for every (query head, key) pair inside the
+    causal/window band at the peak rate of the inputs' type, whichever
+    takes longer."""
     size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = b * h * d * (2 * s + 2 * t) * size
+    nbytes = b * d * (2 * h * s + 2 * (hkv or h) * t) * size
     pairs = int(k3.band_mask(s, t, causal, window).sum())
     flops = 4.0 * d * b * h * pairs
     peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
@@ -359,14 +450,17 @@ def flash_bound(b, h, s, t, d, causal, window, dtype):
             "bytes" if by_bytes >= by_ops else "operations", nbytes)
 
 
-def check_flash(b, h, s, t, d, causal, window, dtype, label, reps=100):
-    """K3 against its plain version on the card at one shape, within the
-    tolerances of tests/test_kernels.py (|err| <= tol + tol·|plain|);
-    returns the numbers. The library yardstick is PyTorch's
-    scaled_dot_product_attention with the same mask."""
+def check_flash(b, h, s, t, d, causal, window, dtype, label, reps=100,
+                hkv=None):
+    """K3 against its plain version on the card at one shape (``hkv`` KV
+    heads, H by default), within the tolerances of tests/test_kernels.py
+    (|err| <= tol + tol·|plain|); returns the numbers. The library
+    yardstick is PyTorch's scaled_dot_product_attention with the same mask
+    and the same KV heads (``enable_gqa``)."""
+    hkv = hkv or h
     g = torch.Generator(device="cuda").manual_seed(b * 7919 + s * 31 + d)
-    q, k, v = (torch.randn(b, h, n, d, device="cuda", generator=g).to(dtype)
-               for n in (s, t, t))
+    q, k, v = (torch.randn(b, n_h, n, d, device="cuda", generator=g).to(
+        dtype) for n_h, n in ((h, s), (hkv, t), (hkv, t)))
     kw = dict(causal=causal, window=window)
     got = k3.flash_attention(q, k, v, **kw)
     want = k3.flash_attention_ref(q, k, v, **kw)
@@ -381,38 +475,44 @@ def check_flash(b, h, s, t, d, causal, window, dtype, label, reps=100):
         lambda: k3.flash_attention(q, k, v, **kw), reps)
     plain_ms, plain_call_ms = time_ms(
         lambda: k3.flash_attention_ref(q, k, v, **kw), max(reps // 5, 5))
+    sdpa = functools.partial(
+        torch.nn.functional.scaled_dot_product_attention, q, k, v,
+        enable_gqa=hkv != h)
     if causal and s == t and window is None:
-        lib = lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True)
+        lib = lambda: sdpa(is_causal=True)
     elif causal or window is not None:
         mask = k3.band_mask(s, t, causal, window, "cuda")
-        lib = lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask)
+        lib = lambda: sdpa(attn_mask=mask)
     else:
-        lib = lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v)
+        lib = sdpa
     library_ms, library_call_ms = time_ms(lib, reps)
-    b_ms, b_by, nbytes = flash_bound(b, h, s, t, d, causal, window, dtype)
+    b_ms, b_by, nbytes = flash_bound(b, h, s, t, d, causal, window, dtype,
+                                     hkv)
     row = dict(phase="kernel_check", kernel="flash_attention", case=label,
-               b=b, h=h, s=s, t=t, d=d, causal=causal, window=window,
+               b=b, h=h, hkv=hkv, s=s, t=t, d=d, causal=causal,
+               window=window,
                dtype=str(dtype).split(".")[-1], max_abs_err=err, tol=tol,
                kernel_ms=kernel_ms, plain_ms=plain_ms,
                library="scaled_dot_product_attention",
                library_ms=library_ms, bound_ms=b_ms, bound_us=b_ms * 1e3,
                bound_by=b_by,
                attained_gbps=nbytes / (kernel_ms * 1e-3) / 1e9,
+               attained_tflops=4.0 * d * b * h * int(k3.band_mask(
+                   s, t, causal, window).sum()) / (kernel_ms * 1e-3) / 1e12,
                kernel_call_ms=kernel_call_ms, plain_call_ms=plain_call_ms,
                library_call_ms=library_call_ms)
     emit(**row)
     return row
 
 
-def check_flash_grad(b, h, s, d):
+def check_flash_grad(b, h, s, d, hkv=None):
     """The gradient through K3's autograd Function (kernel forward, plain
-    version's VJP) against the plain version's own, on the card."""
+    version's VJP) against the plain version's own, on the card; with
+    ``hkv`` < H, dk and dv of the Hkv KV heads."""
+    hkv = hkv or h
     g = torch.Generator(device="cuda").manual_seed(b + s + d)
-    qkv = [torch.randn(b, h, s, d, device="cuda", generator=g)
-           for _ in range(3)]
+    qkv = [torch.randn(b, n_h, s, d, device="cuda", generator=g)
+           for n_h in (h, hkv, hkv)]
     cot = torch.randn(b, h, s, d, device="cuda", generator=g)
     outs = {}
     for name, fn in (("kernel", k3.flash_attention),
@@ -421,8 +521,9 @@ def check_flash_grad(b, h, s, d):
         outs[name] = torch.autograd.grad(fn(*leaves), leaves, cot)
     err = max((a - b_).abs().max().item()
               for a, b_ in zip(outs["kernel"], outs["plain"]))
-    emit(phase="kernel_grad_check", kernel="flash_attention", b=b, h=h, s=s,
-         d=d, max_abs_err=err)
+    assert [x.shape for x in outs["kernel"]] == [x.shape for x in qkv]
+    emit(phase="kernel_grad_check", kernel="flash_attention", b=b, h=h,
+         hkv=hkv, s=s, d=d, max_abs_err=err)
     assert err <= 1e-5, err
 
 
@@ -686,7 +787,8 @@ def profile_round(server, t):
         wall_us = (time.perf_counter() - t0) * 1e6
     by_kernel = device_us(prof)
     busy_us = sum(by_kernel.values())
-    flash_us = sum(v for k, v in by_kernel.items() if "flash_kernel" in k)
+    flash_us = sum(v for k, v in by_kernel.items()
+                   if "flash_f32_kernel" in k or "flash_bf16_kernel" in k)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     return dict(round=t, wall_us=wall_us, device_busy_us=busy_us,
                 device_idle_share=1.0 - busy_us / wall_us,
@@ -818,7 +920,10 @@ def lm_phases():
          random_malicious_selected=lm_random["malicious_selected"])
     emit(phase="round_phases", run="lm", round=3,
          **round_phases(server_lm, 3))
-    emit(phase="profile_round", run="lm", **profile_round(server_lm, 4))
+    row = profile_round(server_lm, 4)
+    emit(phase="profile_round", run="lm", **row)
+    # every attention forward of the round is K3's: a renamed kernel fails
+    assert row["flash_kernel_us"] > 0, row
     (b, h, s_, d), _ = shapes.most_common(1)[0]
     k3_row = check_flash(b, h, s_, s_, d, True, None, torch.float32,
                          "LM path's most launched")
@@ -1070,6 +1175,12 @@ def serve_phase(arch):
     batch = {"tokens": tok}
     with torch.inference_mode():
         prefill(params, batch, target)              # warm-up, not counted
+        # not counted either: one prefill under the profiler, for the
+        # device's busy share and the prefill's time by kernel
+        out, prefill_prof = profile_fn(
+            lambda: prefill(params, batch, target))
+        del out
+        emit(phase="serve_prefill_profile", arch=arch, **prefill_prof)
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
@@ -1392,8 +1503,19 @@ def main():
     t0 = time.perf_counter()
     logs = build.build()
     emit(phase="build", seconds=time.perf_counter() - t0,
-         built=sorted(logs), ptxas={k: v.strip()[-600:]
+         built=sorted(logs), ptxas={k: ptxas_summary(v)
                                     for k, v in logs.items()})
+    # what the bf16 routes of K3 and K5 were compiled to: K3 on mma.sync
+    # (HMMA, fed by ldmatrix), K5's prefill route on wgmma (HGMMA) fed by
+    # TMA tensor loads (UTMALDG)
+    sass = {name: sass_ops(name) for name in ("flash_attention", "moe_gemm")}
+    emit(phase="sass", **sass)
+    # every expected kernel must be found by name, so a renamed one fails
+    for d in k3.HEAD_DIMS:
+        ops = sass["flash_attention"][f"flash_bf16_kernel<{d}>"]
+        assert ops["HMMA"] > 0, (d, ops)
+    ops = sass["moe_gemm"]["moe_gemm_wgmma_kernel"]
+    assert ops["HGMMA"] > 0 and ops["UTMALDG"] > 0, ops
 
     # 3. kernels against their plain versions
     for n in (8, 32, 56):
@@ -1443,11 +1565,21 @@ def main():
                 (3, 2, 37, 37, 16, True, None, "ragged S = 37"),
                 (2, 2, 100, 130, 32, False, 17, "window, not causal")):
             check_flash(b, h, s_, t_, d, causal, window, dt, label, reps=50)
+    # the bf16 tensor-core route at every head dim, a ragged S and T (S =
+    # 100 right-aligned in T = 130), windowed and not, with grouped KV
+    # heads; then f32 with grouped KV heads
+    for d in k3.HEAD_DIMS:
+        for causal, window in ((True, None), (True, 48), (False, 17)):
+            check_flash(2, 6, 100, 130, d, causal, window, bf16,
+                        "ragged T, GQA 6/2", reps=20, hkv=2)
+    check_flash(2, 12, 100, 130, 64, True, None, f32, "GQA 12/4", reps=20,
+                hkv=4)
     check_flash_grad(128, 4, 32, 16)
-    # K3 at starcoder2-15b's prefill shape (its GQA heads repeated to 48)
-    # and at qwen2-moe-a2.7b's (16 heads, no GQA)
+    check_flash_grad(4, 12, 64, 32, hkv=4)
+    # K3 at starcoder2-15b's prefill shape (48 query heads over its 4 KV
+    # heads, read in place) and at qwen2-moe-a2.7b's (16 heads, no GQA)
     check_flash(SERVE_BATCH, 48, SERVE_PROMPT, SERVE_PROMPT, 128, True, None,
-                bf16, "starcoder2-15b prefill", reps=5)
+                bf16, "starcoder2-15b prefill", reps=5, hkv=4)
     check_flash(SERVE_BATCH, 16, SERVE_PROMPT, SERVE_PROMPT, 128, True, None,
                 bf16, "qwen2-moe-a2.7b prefill", reps=5)
 
@@ -1484,9 +1616,11 @@ def main():
 
     # K5: tests/test_kernels.py's three shapes in both types; ragged shapes
     # (qwen2-moe's prefill capacity C = 1,368 at small E; K and N off the
-    # tiles); qwen2-moe-a2.7b's serving shapes (60 experts, d 2,048, f
-    # 1,408): the gate/up and down products at prefill (C 1,368 for 8 x
-    # 2,048 tokens) and at a decode step (C 8)
+    # tiles); bf16 on either side of the launcher's C threshold (128: the
+    # wgmma route at and above it, mma.sync below), N a multiple of its
+    # 256-wide tile and not; qwen2-moe-a2.7b's serving shapes
+    # (60 experts, d 2,048, f 1,408): the gate/up and down products at
+    # prefill (C 1,368 for 8 x 2,048 tokens) and at a decode step (C 8)
     for dt in (f32, bf16):
         for e, c, k, n in ((4, 128, 256, 128), (8, 64, 128, 384),
                            (2, 256, 512, 256)):
@@ -1494,6 +1628,9 @@ def main():
         for e, c, k, n in ((3, 1368, 200, 136), (2, 37, 100, 70),
                            (5, 8, 33, 65), (1, 1, 7, 1)):
             check_moe("ragged", e, c, k, n, dt)
+    for c in (127, 128, 129):
+        for n in (384, 512):
+            check_moe("C threshold", 4, c, 264, n, bf16)
     e, d, f = 60, 2048, 1408
     c_pre = tmoe.capacity(SERVE_BATCH * SERVE_PROMPT,
                           registry.get("qwen2-moe-a2.7b"))

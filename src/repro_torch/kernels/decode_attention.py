@@ -20,6 +20,10 @@ copy. ``length`` is a host int: the positions below it are read, the
 rest never (the serving path keeps the cache index on the host, so no
 call synchronises with the card).
 
+The kernel is forward-only, as the TPU kernel is (it has no VJP): on the
+card an input that requires grad raises ``NotImplementedError`` before
+any launch. On the CPU the plain version carries autograd as usual.
+
 ``length < 1`` raises ``ValueError`` (ROADMAP P5): with every logit at
 -1e30 the TPU kernel returns the mean of V, which a kernel that skips the
 tiles at or past ``length`` cannot; no caller passes one (a decode step's
@@ -120,6 +124,11 @@ def splits(blocks: int, length: int, n_sms: int):
 
 def _kernel(q, k, v, length: int) -> torch.Tensor:
     """One launch of the CUDA kernel; raises on what it does not take."""
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        raise NotImplementedError(
+            "decode_attention on the card is forward-only (the TPU kernel "
+            "has no VJP); its backward kernel comes with training the zoo "
+            "(ROADMAP Queue 1 item 9)")
     b, h, d = q.shape
     hkv = k.shape[2]
     if d not in HEAD_DIMS:

@@ -2,12 +2,14 @@
 
     o = softmax(scale * q k^T + mask) v
 
-q (B,H,S,D), k/v (B,H,T,D) -> (B,H,S,D), T >= S, queries right-aligned
-(query i sits at key position i + T - S). A key j is masked when
-``causal`` and j > i + T - S, or when ``window`` is given and
-(i + T - S) - j >= window — the window applies with or without ``causal``,
-as in the TPU kernel (the JAX package's oracle applies it only under
-``causal``). A masked logit is -1e30.
+q (B,H,S,D), k/v (B,Hkv,T,D) -> (B,H,S,D), T >= S, H a multiple of Hkv:
+query head h reads KV head h // (H/Hkv), the grouping of ``jnp.repeat``
+in the JAX package's attention (Hkv == H is the TPU kernel's own
+signature). Queries are right-aligned (query i sits at key position
+i + T - S). A key j is masked when ``causal`` and j > i + T - S, or when
+``window`` is given and (i + T - S) - j >= window — the window applies
+with or without ``causal``, as in the TPU kernel (the JAX package's oracle
+applies it only under ``causal``). A masked logit is -1e30.
 
 ``flash_attention`` launches the hand-written Hopper kernel
 ``csrc/flash_attention.cu`` on CUDA tensors and runs the plain PyTorch
@@ -16,11 +18,19 @@ replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``_flash_kernel`` / ``flash_attention``) and is differentiable as the
 JAX package's ``ops.flash_attention`` is: the kernel is the forward, the
 backward is the VJP of the plain version, recomputed (the TPU kernel has
-no backward kernel either).
+no backward kernel either); dk and dv come back (B,Hkv,T,D), each KV
+head's gradient summed over the query heads that read it.
+
+bfloat16 runs on the tensor cores (``mma.sync``, float32 accumulators and
+softmax, the probabilities rounded to bf16 before the second product, as
+the plain version rounds them to v's type); float32 on the CUDA cores
+(never TF32). The kernel reads each KV head in place for its G query
+heads, so grouped-query attention moves no repeated K or V.
 
 Bound on the card: memory at the LM task's shapes (S = T = 32, D = 16):
 q, k, v and o each move once, 4·B·H·S·D·bytes — 1.25 us at the training
 shape (B = 128, H = 4, f32), 63 us at the evaluation shape (B = 6,400).
+Operations at the serving prefill (S = T = 2,048, D = 128, bf16).
 """
 from __future__ import annotations
 
@@ -42,9 +52,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be 4-D (B, H, S|T, D)")
     b, h, s, d = q.shape
-    if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not match")
+    if h % k.shape[1]:
+        raise ValueError(f"{h} query heads are not a multiple of "
+                         f"{k.shape[1]} KV heads")
     if not 1 <= s <= k.shape[2]:
         raise ValueError(f"need 1 <= S <= T, got S = {s}, T = {k.shape[2]}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -72,11 +85,15 @@ def band_mask(s: int, t: int, causal: bool, window: Optional[int],
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: Optional[int] = None,
                         scale: Optional[float] = None) -> torch.Tensor:
-    """Plain PyTorch version: float32 logits, the -1e30 mask, softmax, the
-    probabilities cast to ``v.dtype`` before the second product (as
-    ``repro.kernels.ref.flash_attention_ref``)."""
+    """Plain PyTorch version: the KV heads repeated to H, float32 logits,
+    the -1e30 mask, softmax, the probabilities cast to ``v.dtype`` before
+    the second product (as ``repro.kernels.ref.flash_attention_ref``)."""
     _check(q, k, v, window)
     s, t, d = q.shape[2], k.shape[2], q.shape[3]
+    g = q.shape[1] // k.shape[1]
+    if g > 1:
+        k = k.repeat_interleave(g, dim=1)
+        v = v.repeat_interleave(g, dim=1)
     scale = scale if scale is not None else d ** -0.5
     logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale
     if causal or window is not None:
@@ -93,7 +110,7 @@ def _launchers():
     fns = {torch.float32: lib.flash_attention_f32,
            torch.bfloat16: lib.flash_attention_bf16}
     for fn in fns.values():
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fns
@@ -106,14 +123,18 @@ def _kernel(q, k, v, causal: bool, window: Optional[int],
         raise ValueError(f"head dim {q.shape[3]} not in {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16
+                                         for x in (q, k, v)):
+        raise ValueError("bfloat16 q, k, v must start on a 16-byte "
+                         "boundary")
     b, h, s, d = q.shape
     out = torch.empty_like(q)
     fn = _launchers()[q.dtype]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b * h, s, k.shape[2], d, int(causal), window or 0, scale,
-                 stream)
+                 b, h, k.shape[1], s, k.shape[2], d, int(causal),
+                 window or 0, scale, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError_t {err}")
@@ -154,11 +175,12 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q (B,H,S,D), k/v (B,H,T,D) float32/bfloat16 -> (B,H,S,D), the dtype
-    of q; differentiable (see the module docstring).
+    """q (B,H,S,D), k/v (B,Hkv,T,D) float32/bfloat16, H a multiple of Hkv
+    -> (B,H,S,D), the dtype of q; differentiable (see the module
+    docstring).
 
-    A CUDA tensor goes to the kernel (contiguous, D in ``HEAD_DIMS``; a
-    failed build or launch raises); a CPU tensor goes to
+    A CUDA tensor goes to the kernel (contiguous, bf16 16-byte aligned, D in
+    ``HEAD_DIMS``; a failed build or launch raises); a CPU tensor goes to
     ``flash_attention_ref``. Each kernel launch adds one to
     ``flash_attention.launches``.
     """

@@ -23,10 +23,14 @@ training. On the CPU the plain version carries autograd as usual.
 
 Bound on the card: operations at the MoE prefill (2·C flops a weight
 element, C in the thousands), bytes at decode (every expert's weights read
-once a launch). bfloat16 runs on the tensor cores (``mma.sync``, float32
-accumulator: a bf16 product is exact in float32, so this is the TPU
-kernel's cast-to-f32 dot), float32 on the CUDA cores (never TF32, which
-would round the inputs).
+once a launch). bfloat16 runs on the tensor cores with a float32
+accumulator (a bf16 product is exact in float32, so this is the TPU
+kernel's cast-to-f32 dot): from C = 128 up (the prefill) ``wgmma`` fed by
+TMA tensor copies, whose tensor maps the C launcher encodes for each call
+(K and N multiples of 8); below it, and for other K or N, ``mma.sync``
+(the decode at C = 8). The launcher picks the route by that fixed rule.
+float32 runs on the CUDA cores (never TF32, which would round the
+inputs).
 """
 from __future__ import annotations
 

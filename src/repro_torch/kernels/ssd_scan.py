@@ -21,6 +21,11 @@ keeps the state in VMEM scratch across a sequential chunk axis; the TPU
 kernel returns y only, while this one also writes the final state, which
 ``models/ssm.ssm_apply`` hands to the decode cache.
 
+The kernel is forward-only, as the TPU kernel is (it has no VJP): on the
+card an input that requires grad raises ``NotImplementedError`` before
+any launch, where it used to return a result that carried no gradient.
+On the CPU the plain version carries autograd as usual.
+
 Q = min(chunk, L) must divide L; otherwise ``ValueError`` (the JAX
 package asserts it, ROADMAP P3). x, B and C may be views whose last two
 axes are dense (``ssm_apply`` passes slices of the convolved projection
@@ -136,6 +141,12 @@ def _p_tile(b: int, h: int, p: int, n_sms: int) -> int:
 
 def _kernel(x, dt, A, B_, C_, q: int, initial_state):
     """One launch of the CUDA kernel; raises on what it does not take."""
+    if any(t is not None and t.requires_grad
+           for t in (x, dt, A, B_, C_, initial_state)):
+        raise NotImplementedError(
+            "ssd_scan on the card is forward-only (the TPU kernel has no "
+            "VJP); its backward kernel comes with training the zoo "
+            "(ROADMAP Queue 1 item 9)")
     b, length, h, p = x.shape
     g, n = B_.shape[2], B_.shape[3]
     if n > MAX_STATE:

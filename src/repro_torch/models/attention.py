@@ -104,17 +104,15 @@ def attn_apply(cfg, p, x, *, window=None, positions=None):
 def _full_attention(cfg, q, k, v, window):
     """Causal attention through K3. q (..., S, Hq, D), k/v (..., T, Hkv,
     D) -> (..., S, Hq*D). The leading axes (a stacked cohort's clients and
-    their batch) fold into the kernel's batch axis; the KV heads repeat
-    G = Hq/Hkv times (``jnp.repeat``: each head G times in a row) so query
-    head h reads KV head h // G, as the JAX package's GQA grouping does."""
+    their batch) fold into the kernel's batch axis. K3 takes the Hkv KV
+    heads as they are and reads KV head h // G for query head h (G =
+    Hq/Hkv), as the JAX package's GQA grouping (``jnp.repeat``) does; the
+    three transposes to its (B, H, S, D) layout are the only copies."""
     *lead, S, Hq, D = q.shape
     T, Hkv = k.shape[-3], k.shape[-2]
     q = q.reshape(-1, S, Hq, D)
     k = k.reshape(-1, T, Hkv, D)
     v = v.reshape(-1, T, Hkv, D)
-    if Hq != Hkv:
-        k = k.repeat_interleave(Hq // Hkv, dim=2)
-        v = v.repeat_interleave(Hq // Hkv, dim=2)
     out = flash_attention(q.transpose(1, 2).contiguous(),
                           k.transpose(1, 2).contiguous(),
                           v.transpose(1, 2).contiguous(),

@@ -23,6 +23,7 @@ from repro_torch.convert import flatten_tree, params_from_numpy
 from repro_torch.kernels.decode_attention import (TILE, decode_attention,
                                                   decode_attention_ref,
                                                   splits)
+from repro_torch.kernels import decode_attention as dattn
 from repro_torch.models import attention as tatt
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -233,6 +234,22 @@ def test_cpu_route_is_the_plain_version():
                        decode_attention(q, k[:, 5:40].contiguous(),
                                         v[:, 5:40].contiguous(), 35))
     assert decode_attention.launches == before
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_kernel_route_refuses_grad_before_any_launch(which):
+    """The CUDA route is forward-only: an input that requires grad raises
+    NotImplementedError before the kernel is built or launched (so CPU
+    tensors reach the guard), while the CPU route keeps its autograd."""
+    t = dict(zip("qkv", map(torch.from_numpy, _inputs(2, 4, 2, 32, 16))))
+    t[which] = t[which].clone().requires_grad_(True)
+    before = decode_attention.launches
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        dattn._kernel(t["q"], t["k"], t["v"], 20)
+    assert decode_attention.launches == before
+    decode_attention(t["q"], t["k"], t["v"], 20).sum().backward()
+    assert t[which].grad is not None
+    assert bool(torch.isfinite(t[which].grad).all())
 
 
 def test_sdpa_matches_reference(ref):

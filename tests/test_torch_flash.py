@@ -7,7 +7,9 @@ kernel runs only on the card; ``chip_smoke.py`` holds it against the plain
 version there.
 
 Shapes: the five of tests/test_kernels.py, the LM task's (S = T = 32,
-D = 16, 4 heads), a ragged S = 37 and a window without ``causal``.
+D = 16, 4 heads), a ragged S = 37 and a window without ``causal``; and
+grouped-query attention, (H, Hkv) = (4, 2), (4, 1), (12, 4), against the
+Pallas kernel on K/V repeated as the JAX package's attention repeats them.
 Tolerances, those of tests/test_kernels.py: 2e-5 for float32 (another
 summation order), 2e-2 for bfloat16 (the probabilities and the output
 rounded to 8 mantissa bits). Gradients (float32) within 1e-4: the two
@@ -20,6 +22,7 @@ import pytest
 import torch
 from torch_parity import reference, single_threaded  # noqa: F401
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.flash_attention import (band_mask, flash_attention,
                                                  flash_attention_ref)
 from repro_torch.models.attention import causal_window_mask
@@ -116,6 +119,87 @@ def test_window_without_causal_follows_the_kernel(ref, dtype):
     unwindowed = np.asarray(ref.kref.flash_attention_ref(
         *j, causal=False, window=17), np.float32)
     assert np.abs(got - unwindowed).max() > 0.1
+
+
+GQA = [(4, 2), (4, 1), (12, 4)]  # (H, Hkv)
+
+
+def _gqa_inputs(H, Hkv, D, seed):
+    """q (2, H, 40, D), k/v (2, Hkv, 64, D): right-aligned causal rows."""
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((2, H, 40, D), (2, Hkv, 64, D), (2, Hkv, 64, D))]
+
+
+def _repeated(ref, j, g):
+    """The JAX package's GQA grouping: each KV head ``jnp.repeat``ed g
+    times in a row."""
+    return [j[0]] + [ref.jnp.repeat(x, g, axis=1) for x in j[1:]]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [16, 128])
+@pytest.mark.parametrize("H,Hkv", GQA)
+def test_gqa_forward_matches_pallas_on_repeated_kv(ref, H, Hkv, D, dtype):
+    """K/V with Hkv < H heads go in as they are; the plain version and the
+    autograd Function give the Pallas kernel's output on ``jnp.repeat``ed
+    K/V."""
+    arrays = _gqa_inputs(H, Hkv, D, seed=4)
+    j = [ref.jnp.asarray(a).astype(getattr(ref.jnp, dtype)) for a in arrays]
+    want = np.asarray(ref.ops.flash_attention(*_repeated(ref, j, H // Hkv)),
+                      np.float32)
+    t = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays]
+    for got in (flash_attention(*t), flash_attention_ref(*t)):
+        assert got.shape == (2, H, 40, D) and got.dtype == t[0].dtype
+        np.testing.assert_allclose(got.float().numpy(), want,
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("D", [16, 128])
+@pytest.mark.parametrize("H,Hkv", GQA)
+def test_gqa_vjp_matches_pallas_on_repeated_kv(ref, H, Hkv, D):
+    """The Function's dk and dv come back (B, Hkv, T, D): the VJP of the
+    Pallas wrapper through ``jnp.repeat``, which sums each KV head's
+    gradient over the query heads that read it."""
+    arrays = _gqa_inputs(H, Hkv, D, seed=5)
+    g = np.random.default_rng(6).standard_normal(
+        (2, H, 40, D)).astype(np.float32)
+    t = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    got = torch.autograd.grad(flash_attention(*t), t, torch.from_numpy(g))
+    _, vjp = ref.jax.vjp(
+        lambda a, b, c: ref.ops.flash_attention(
+            *_repeated(ref, [a, b, c], H // Hkv)),
+        *(ref.jnp.asarray(a) for a in arrays))
+    for gg, want, a in zip(got, vjp(ref.jnp.asarray(g)), arrays):
+        assert gg.shape == a.shape
+        np.testing.assert_allclose(gg.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_gqa_rejects_heads_that_do_not_group():
+    q, k = torch.zeros(1, 6, 8, 16), torch.zeros(1, 4, 8, 16)
+    for fn in (flash_attention, flash_attention_ref):
+        with pytest.raises(ValueError, match="multiple of 4 KV heads"):
+            fn(q, k, k)
+
+
+@pytest.mark.parametrize("case", ["misaligned bf16", "head dim 48"])
+def test_kernel_route_rejects_before_any_launch(case):
+    """The CUDA route's own checks run before the kernel is built or
+    launched, so CPU tensors reach them: the bf16 kernel reads 16-byte
+    words, and only the head dims of ``HEAD_DIMS`` are instantiated."""
+    if case == "misaligned bf16":
+        buf = torch.zeros(1 + 2 * 32 * 16, dtype=torch.bfloat16)
+        q = buf[1:].view(1, 2, 32, 16)        # 2 bytes past the allocation
+        k = torch.zeros(1, 1, 32, 16, dtype=torch.bfloat16)
+        match = "16-byte"
+    else:
+        q = k = torch.zeros(1, 2, 32, 48)
+        match = "head dim"
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match=match):
+        fa._kernel(q, k, k, True, None, 0.25)
+    assert flash_attention.launches == before
 
 
 def test_gqa_heads_sum_back_through_repeat_interleave():

@@ -25,6 +25,7 @@ from torch_parity import reference, single_threaded  # noqa: F401
 
 from repro_torch.configs import registry
 from repro_torch.convert import flatten_tree, params_from_numpy
+from repro_torch.kernels import ssd_scan as kssd
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
 from repro_torch.models import ssm as tssm
 
@@ -149,6 +150,26 @@ def test_rejects_mismatched_inputs():
     with pytest.raises(ValueError, match="initial_state"):
         ssd_scan(x, dt, A, Bm, Cm, chunk=16,
                  initial_state=torch.zeros(1, 4, 8, 8))
+
+
+@pytest.mark.parametrize("which", ["x", "dt", "A", "B", "C", "state"])
+def test_kernel_route_refuses_grad_before_any_launch(which):
+    """The CUDA route is forward-only: an input that requires grad raises
+    NotImplementedError before the kernel is built or launched (so CPU
+    tensors reach the guard), while the CPU route keeps its autograd."""
+    t = dict(zip(("x", "dt", "A", "B", "C"),
+                 map(torch.from_numpy, _inputs(1, 32, 4, 16, 8, 2))))
+    t["state"] = torch.zeros(1, 4, 8, 16)
+    t[which] = t[which].clone().requires_grad_(True)
+    args = (t["x"], t["dt"], t["A"], t["B"], t["C"])
+    before = ssd_scan.launches
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        kssd._kernel(*args, 16, t["state"])
+    assert ssd_scan.launches == before
+    y, state = ssd_scan(*args, chunk=16, initial_state=t["state"])
+    (y.sum() + state.sum()).backward()
+    assert t[which].grad is not None
+    assert bool(torch.isfinite(t[which].grad).all())
 
 
 def _mamba(ref):
