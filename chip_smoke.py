@@ -7,9 +7,11 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
  1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
  2. build every kernel of the port from its source with nvcc (one process
     a source, all at once), timed, with each kernel's registers and spills;
-    the SASS of K3 and K5 read back (``cuobjdump``): K3's bf16 kernels must
+    the SASS of K3–K6 read back (``cuobjdump``): K3's bf16 kernels must
     issue HMMA (``mma.sync``), K5's wgmma kernels HGMMA fed by UTMALDG (TMA
-    tensor loads);
+    tensor loads), K4's tensor-core kernels HMMA fed by LDGSTS
+    (``cp.async``), K6's chunk-state and chunk-scan kernels HMMA, each
+    looked up by name;
  3. hold each kernel against its plain PyTorch version on the card — the
     main paths' shapes, ragged and misaligned shapes, bf16 and one
     bandwidth-sized case — with its time, the plain version's, one PyTorch
@@ -21,11 +23,15 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     equal to the plain version's within 1e-5, grouped KV heads too (and at
     starcoder2-15b's prefill shape, 48 query over 4 KV heads, and
     qwen2-moe-a2.7b's); ``decode_attention`` (K4) within
-    2e-5 / 2e-2 at tests/test_kernels.py's shapes, at starcoder2-15b's
-    GQA and qwen2-moe-a2.7b's serving shapes, on a window's view and a
-    ring's prefix;
-    ``ssd_scan`` (K6) within 5e-4 (y and the final state) at
-    tests/test_kernels.py's shapes and at mamba2-370m's prefill shape;
+    2e-5 / 2e-2 at tests/test_kernels.py's shapes, at every group size of
+    the zoo (G 1, 5, 7, 8, 12) and head dim (16–128) at a ragged length, at
+    starcoder2-15b's GQA and qwen2-moe-a2.7b's serving shapes, on a
+    window's view and a ring's prefix;
+    ``ssd_scan`` (K6) within 5e-4 (the final state; y too in float32,
+    2e-2 in bf16) at tests/test_kernels.py's shapes, at mamba2-370m's
+    prefill shape with and without an initial state, at Jamba's grouping
+    (8 B/C groups over 64 heads), at chunks of 64 and 128, and at a bf16
+    shape the tensor-core route does not take (N 8);
     ``moe_gemm`` (K5) within 1e-4 (f32) / 2e-1 (bf16) at
     tests/test_kernels.py's shapes, ragged shapes, either side of its
     launcher's C threshold (the wgmma route from C = 128) and
@@ -574,7 +580,8 @@ def check_decode(label, b, h, hkv, cap, d, length, dtype, lo=0, reps=100):
     b_ms, b_by, nbytes = decode_bound(b, h, hkv, length, d, dtype)
     row = dict(phase="kernel_check", kernel="decode_attention", case=label,
                b=b, h=h, hkv=hkv, cache=cap, d=d, length=length, lo=lo,
-               dtype=str(dtype).split(".")[-1], max_abs_err=err, tol=tol,
+               dtype=str(dtype).split(".")[-1],
+               route=k4.route(dtype, h // hkv), max_abs_err=err, tol=tol,
                kernel_ms=kernel_ms, plain_ms=plain_ms,
                library="scaled_dot_product_attention(bool mask, gqa)",
                library_ms=library_ms, bound_ms=b_ms, bound_us=b_ms * 1e3,
@@ -589,33 +596,34 @@ def check_decode(label, b, h, hkv, cap, d, length, dtype, lo=0, reps=100):
 def ssd_bound(b, length, h, p, n, g, q, dtype):
     """(least ms, what bounds it, bytes moved, flops) of the SSD scan: x,
     B, C and dt read once, y and the final state written once, at the
-    memory rate; or the flops at the peak rate of their operands' type,
-    whichever takes longer. Per (b, h, chunk) the causal C·Bᵀ scores are
-    Q·N·Q flops, on the bf16 tensor cores where B and C are bf16 (a bf16
-    product summed in float32 is exact there); the masked (C·Bᵀ∘L)·(x·dt)
-    product, Q·P·Q, and the inter-chunk term and state update, 4·Q·N·P,
-    take float32 operands, at the CUDA-core rate. The two times add."""
+    memory rate; or the flops at the peak rate of the inputs' type,
+    whichever takes longer. Per (b, h, chunk) the flops are counted once:
+    Q·N·Q for the causal C·Bᵀ scores, Q·P·Q for their product with x·dt
+    and 4·Q·N·P for the inter-chunk term and the state update. In bf16
+    every product can run on the tensor cores (989 TFLOP/s): a float32
+    operand split into a bf16 hi/lo pair doubles the tensor-core work but
+    not the function's flops; in float32 they run on the CUDA cores (67
+    TFLOP/s)."""
     size = torch.tensor([], dtype=dtype).element_size()
     nbytes = ((2 * b * length * h * p + 2 * b * length * g * n) * size
               + b * length * h * 4 + b * h * n * p * 4)
     units = b * h * (length // q)
-    scores = float(q) * n * q * units
-    rest = (float(q) * p * q + 4.0 * q * n * p) * units
-    scores_peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
-    by_bytes = nbytes / HBM_BYTES_PER_S
-    by_ops = scores / scores_peak + rest / F32_FLOPS
+    flops = (float(q) * n * q + float(q) * p * q + 4.0 * q * n * p) * units
+    peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return (max(by_bytes, by_ops) * 1e3,
-            "bytes" if by_bytes >= by_ops else "operations", nbytes,
-            scores + rest)
+            "bytes" if by_bytes >= by_ops else "operations", nbytes, flops)
 
 
-def check_ssd(label, b, length, h, p, n, g, chunk, dtype, reps=20):
+def check_ssd(label, b, length, h, p, n, g, chunk, dtype, reps=20,
+              init=False):
     """K6 against its plain version (the sequential recurrence) on the
     card, y and the final state, within 5e-4 + 5e-4·|plain|
     (tests/test_kernels.py's tolerance) in float32; a bfloat16 y within
-    2e-2 + 2e-2·|plain| (both round float32 results to 8 bits). No single
-    PyTorch call computes an SSD scan, so there is no library yardstick.
-    Returns the numbers."""
+    2e-2 + 2e-2·|plain| (both round float32 results to 8 bits), its final
+    state within 5e-4 + 5e-4·|plain| still. ``init`` starts from a random
+    initial state. No single PyTorch call computes an SSD scan, so there
+    is no library yardstick. Returns the numbers."""
     gen = torch.Generator(device="cuda").manual_seed(b * 7919 + length + n)
     x = torch.randn(b, length, h, p, device="cuda", generator=gen).to(dtype)
     dt = torch.nn.functional.softplus(
@@ -623,8 +631,11 @@ def check_ssd(label, b, length, h, p, n, g, chunk, dtype, reps=20):
     A = -torch.exp(0.2 * torch.randn(h, device="cuda", generator=gen))
     Bm, Cm = (torch.randn(b, length, g, n, device="cuda", generator=gen)
               .to(dtype) for _ in range(2))
-    y, state = k6.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
-    y_ref, s_ref = k6.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk)
+    s0 = (torch.randn(b, h, n, p, device="cuda", generator=gen) if init
+          else None)
+    y, state = k6.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=s0)
+    y_ref, s_ref = k6.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
+                                   initial_state=s0)
     torch.cuda.synchronize()
     assert y.shape == x.shape and y.dtype == dtype
     tol = 5e-4 if dtype == torch.float32 else 2e-2
@@ -635,14 +646,17 @@ def check_ssd(label, b, length, h, p, n, g, chunk, dtype, reps=20):
     assert bool((ds <= 5e-4 + 5e-4 * s_ref.abs()).all()), (
         label, ds.max().item())
     kernel_ms, kernel_call_ms = time_ms(
-        lambda: k6.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk), reps)
+        lambda: k6.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
+                            initial_state=s0), reps)
     plain_ms, plain_call_ms = time_ms(
-        lambda: k6.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk), 2)
+        lambda: k6.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
+                                initial_state=s0), 2)
     q = min(chunk, length)
     b_ms, b_by, nbytes, flops = ssd_bound(b, length, h, p, n, g, q, dtype)
     row = dict(phase="kernel_check", kernel="ssd_scan", case=label, b=b,
-               l=length, h=h, p=p, n=n, g=g, chunk=q,
+               l=length, h=h, p=p, n=n, g=g, chunk=q, init=init,
                dtype=str(dtype).split(".")[-1],
+               route=k6.route(dtype, p, n, q),
                max_abs_err=max(dy.max().item(), ds.max().item()),
                y_err=dy.max().item(), state_err=ds.max().item(), tol=tol,
                kernel_ms=kernel_ms, plain_ms=plain_ms, library=None,
@@ -1505,10 +1519,12 @@ def main():
     emit(phase="build", seconds=time.perf_counter() - t0,
          built=sorted(logs), ptxas={k: ptxas_summary(v)
                                     for k, v in logs.items()})
-    # what the bf16 routes of K3 and K5 were compiled to: K3 on mma.sync
-    # (HMMA, fed by ldmatrix), K5's prefill route on wgmma (HGMMA) fed by
-    # TMA tensor loads (UTMALDG)
-    sass = {name: sass_ops(name) for name in ("flash_attention", "moe_gemm")}
+    # what the bf16 routes were compiled to: K3 on mma.sync (HMMA, fed by
+    # ldmatrix), K5's prefill route on wgmma (HGMMA) fed by TMA tensor loads
+    # (UTMALDG), K4's tensor-core route on mma.sync fed by cp.async
+    # (LDGSTS), K6's chunk states and chunk scan on mma.sync
+    sass = {name: sass_ops(name) for name in (
+        "flash_attention", "moe_gemm", "decode_attention", "ssd_scan")}
     emit(phase="sass", **sass)
     # every expected kernel must be found by name, so a renamed one fails
     for d in k3.HEAD_DIMS:
@@ -1516,6 +1532,13 @@ def main():
         assert ops["HMMA"] > 0, (d, ops)
     ops = sass["moe_gemm"]["moe_gemm_wgmma_kernel"]
     assert ops["HGMMA"] > 0 and ops["UTMALDG"] > 0, ops
+    for d in k4.HEAD_DIMS:
+        ops = sass["decode_attention"][f"decode_mma_kernel<{d}>"]
+        assert ops["HMMA"] > 0 and ops["LDGSTS"] > 0, (d, ops)
+    for p in k6.MMA_HEAD_DIMS:
+        for kernel in ("ssd_state_kernel", "ssd_chunk_scan_kernel"):
+            ops = sass["ssd_scan"][f"{kernel}<{p}>"]
+            assert ops["HMMA"] > 0, (kernel, p, ops)
 
     # 3. kernels against their plain versions
     for n in (8, 32, 56):
@@ -1604,6 +1627,15 @@ def main():
                  cap, 128, 1024, bf16, lo=1024)
     check_decode("ring prefix (1,001 of 4,096 slots)", SERVE_BATCH, 48, 4,
                  4096, 128, 1001, bf16)
+    # the tensor-core route at every group size of the zoo (qwen2-moe and
+    # moonshot 1, qwen2.5 5, yi 7, chameleon and Jamba 8, starcoder2 12) and
+    # every head dim, at a ragged length (237 of 300 slots: a split's last
+    # 16-key step cut short)
+    for d in k4.HEAD_DIMS:
+        for g in (1, 5, 7, 8, 12):
+            row = check_decode(f"G {g}, D {d}, ragged", 3, 2 * g, 2, 300,
+                               d, 237, bf16, reps=20)
+            assert row["route"] == "tensor_cores", row
 
     # K6: tests/test_kernels.py's three shapes (grouped B/C included);
     # mamba2-370m's prefill shape in bf16
@@ -1613,6 +1645,20 @@ def main():
         check_ssd("tests/test_kernels.py", b, length, h, p, n, g, chunk, f32)
     summary_k6 = check_ssd("mamba2-370m prefill", SERVE_BATCH, SERVE_PROMPT,
                            32, 64, 128, 1, 256, bf16, reps=10)
+    # the tensor-core route: mamba2's shape from an initial state (the
+    # decode cache's prefill continued), Jamba's grouping (8 B/C groups over
+    # 64 heads, L cut to 1,024), chunks of 64 and 128; and a bf16 shape it
+    # does not take (N 8: the CUDA-core kernel)
+    check_ssd("mamba2-370m prefill, initial state", SERVE_BATCH,
+              SERVE_PROMPT, 32, 64, 128, 1, 256, bf16, reps=10, init=True)
+    check_ssd("Jamba grouping", 2, 1024, 64, 64, 128, 8, 256, bf16, reps=10)
+    check_ssd("chunk 64", 2, 512, 8, 64, 128, 1, 64, bf16, reps=10)
+    check_ssd("chunk 128, initial state", 2, 512, 8, 32, 64, 2, 128, bf16,
+              reps=10, init=True)
+    row = check_ssd("N 8 (the CUDA-core route)", 1, 128, 4, 32, 8, 1, 64,
+                    bf16, reps=10)
+    assert row["route"] == "cuda_cores", row
+    assert summary_k6["route"] == "tensor_cores", summary_k6
 
     # K5: tests/test_kernels.py's three shapes in both types; ragged shapes
     # (qwen2-moe's prefill capacity C = 1,368 at small E; K and N off the

@@ -7,6 +7,7 @@ CPU behind the caller's back. The CPU runs only when the caller passes
 """
 from __future__ import annotations
 
+import functools
 from typing import Union
 
 import torch
@@ -29,3 +30,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of CUDA ``device``, read once a device
+    (a kernel wrapper sizes its grid by it on every call)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _sm_count(index)

@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C interface. It is
-compiled for Hopper (``sm_90a``) into a shared library under the checkout's
+Each kernel is one ``csrc/<name>.cu`` with a plain C interface, which may
+include the shared ``csrc/*.cuh`` headers. It is compiled for Hopper
+(``sm_90a``) into a shared library under the checkout's
 ``build/repro_torch_kernels/`` directory (listed in ``.gitignore``), named
-by a hash of its source and flags, so an edit rebuilds it and an unchanged
-source is built once. ``nvcc`` is found through ``CUDA_HOME`` or, failing
-that, ``torch.utils.cpp_extension.CUDA_HOME``.
+by a hash of its source, the headers and the flags, so an edit rebuilds it
+and an unchanged source is built once. ``nvcc`` is found through
+``CUDA_HOME`` or, failing that, ``torch.utils.cpp_extension.CUDA_HOME``.
 
 Nothing is built when the module is imported: the first wrapper call that
 needs a kernel builds it (``load``), and ``build`` compiles a list of
@@ -41,8 +42,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the shared library of kernel ``name`` lives once built."""
+    """Where the shared library of kernel ``name`` lives once built: named
+    by a hash of its source, the headers beside it (``*.cuh``, which the
+    sources include) and the flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

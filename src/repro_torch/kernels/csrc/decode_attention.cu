@@ -12,41 +12,69 @@
 // rejects length < 1, where the TPU kernel returns the mean of V).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/decode_attention.py:22
-// (`_decode_kernel`, launched by `decode_attention`), whose grid (B, H,
-// n_kv) carries the online-softmax state in VMEM scratch across a
-// sequential cache axis and masks positions >= length inside each block.
-// Here one block owns one (b, KV head) and a contiguous split of the valid
-// cache, serving all G query heads of the group, so every cache byte is
-// read from device memory once (the TPU kernel's Hkv == H signature is
-// G = 1). Blocks run in no order, so nothing is carried between them: with
-// more than one split each block writes its partial state (running max,
-// sum and the unnormalised G x D accumulator) to a float32 workspace, and
-// a second kernel combines the splits of each (b, h) by the same
-// online-softmax rule.
+// (`_decode_kernel`, launched by `decode_attention` through the
+// `pallas_call` at :70), whose grid (B, H, n_kv) carries the online-softmax
+// state in VMEM scratch across a sequential cache axis and masks positions
+// >= length inside each block. Here one block owns one (b, KV head) and a
+// contiguous split of the valid cache, serving all G query heads of the
+// group, so every cache byte is read from device memory once (the TPU
+// kernel's Hkv == H signature is G = 1). Blocks run in no order, so nothing
+// is carried between them in the loop: each split ends with a partial
+// state (running max, sum and the unnormalised G x D accumulator), and the
+// splits of each (b, h) are combined by the same online-softmax rule (on
+// the tensor-core route inside a thread-block cluster; on the CUDA-core
+// route through a float32 workspace and a second kernel).
 //
 // Bound: memory. K and V move once, 2·length·Hkv·D elements per batch row,
 // against 4·G·D flops a key: 12 flops a byte at starcoder2-15b's serving
-// shape in bf16 (G = 12, D = 128), far below the card's balance point.
-// B·Hkv is small at serving (32 blocks at that shape), so the cache axis is
-// split until there are two blocks an SM; the dot products run on the
-// CUDA cores.
+// shape in bf16 (G = 12, D = 128), far below the card's balance point. So
+// what counts is keeping enough bytes in flight (3.35 TB/s at ~1 us of
+// latency is ~25 KB an SM) and spending little else a byte: B·Hkv is small
+// at serving (32 blocks at that shape), so the cache axis is split.
 //
-// Design: 256 threads. A tile of 64 positions of K and V is staged in
-// shared memory as float32 (K rows padded to D + 4 floats so the float4
-// reads of neighbouring rows fall in distinct banks), each thread's loads
-// issued together so one memory latency, not one a load, is paid a tile;
-// the G·64 logits of a tile are one thread a (head, key) pair, a float4
-// dot product against the group's queries (also in shared memory); one
-// warp a head then updates that head's running max and sum with
-// warp-shuffle reductions and writes the tile's probabilities back; last
-// each thread rescales and accumulates its (head, dim) outputs of the
-// G x D accumulator, which lives in shared memory. The tail tile is cut at
+// Design, bfloat16 with G <= 16 (every serving shape of the zoo; the
+// wrapper raises for G > 16): the tensor cores. The group's G query heads
+// are the 16 M rows of an mma.sync.m16n8k16 tile (rows G..15 zero), q
+// loaded once, straight into A-fragments in registers. Each of the block's four warps
+// owns its own run of 16-key steps of the split (steps w, w + 4, ...) and
+// streams them through its own ring of 3 (D = 128) or 4 stages in shared
+// memory, in bf16, by 16-byte cp.async, zero-filled past the split's end,
+// rows padded by 16 bytes so that ldmatrix reads no bank twice; a warp
+// waits only for its own copies, so no block barrier stands in the loop.
+// S = q·Kᵀ accumulates in float32 (plain ldmatrix of the key rows is the
+// "col" B operand), the scale applied to the float32 logits; the online
+// softmax runs on the accumulator fragments in the exp2 domain; P is
+// rounded to bf16 in registers (the plain version rounds the
+// probabilities to v's type) and, the C layout of two 8-key tiles being
+// the A layout of one 16-key step, is the A operand of O += P·V, V read by
+// ldmatrix.trans. Each warp keeps its own max, sum and 16 x D float32
+// accumulator; the four are merged in shared memory once, at the end of
+// the split. The splits of a (b, KV head), at most 8, are launched as one
+// thread-block cluster: after a cluster barrier each block merges a share
+// of the group's outputs from every split's state, read through
+// distributed shared memory, and writes them; no workspace, no second
+// kernel.
+//
+// Design, float32 (and a bfloat16 view not 16-byte aligned): the CUDA
+// cores, 256 threads. A tile of 64 positions of K and V is staged in shared memory as
+// float32 (K rows padded to D + 4 floats so the float4 reads of
+// neighbouring rows fall in distinct banks), each thread's loads issued
+// together so one memory latency, not one a load, is paid a tile; the G·64
+// logits of a tile are one thread a (head, key) pair, a float4 dot product
+// against the group's queries (also in shared memory); one warp a head
+// then updates that head's running max and sum with warp-shuffle
+// reductions and writes the tile's probabilities back; last each thread
+// rescales and accumulates its (head, dim) outputs of the G x D
+// accumulator, which lives in shared memory. The tail tile is cut at
 // `length`, so no position past it is loaded.
 //
 // Plain C interface, loaded with ctypes; the functions return the
 // cudaError_t of the launch (0 on success) and never synchronise.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "mma_sm90.cuh"
 
 #include <climits>
 #include <cstdint>
@@ -259,15 +287,18 @@ int launch_d(const T* q, const T* k, const T* v, T* o, float* ws, int b, int hkv
   return static_cast<int>(cudaGetLastError());
 }
 
+bool valid(int b, int h, int hkv, int length, int split_len, int n_split) {
+  return b >= 1 && hkv >= 1 && h % hkv == 0 && length >= 1 && n_split >= 1 &&
+         split_len >= 1 && split_len % kTK == 0 &&
+         static_cast<long long>(split_len) * (n_split - 1) < length &&
+         static_cast<long long>(split_len) * n_split >= length;
+}
+
 template <typename T>
 int launch(const T* q, const T* k, const T* v, T* o, float* ws, int b, int h, int hkv,
            int d, int length, int split_len, int n_split, long long sb, long long st,
            float scale, cudaStream_t stream) {
-  if (b < 1 || hkv < 1 || h % hkv != 0 || length < 1 || n_split < 1 ||
-      split_len < 1 || split_len % kTK != 0 ||
-      static_cast<long long>(split_len) * (n_split - 1) >= length ||
-      static_cast<long long>(split_len) * n_split < length ||
-      (n_split > 1 && ws == nullptr))
+  if (!valid(b, h, hkv, length, split_len, n_split) || (n_split > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int g = h / hkv;
   switch (d) {
@@ -277,6 +308,297 @@ int launch(const T* q, const T* k, const T* v, T* o, float* ws, int b, int h, in
     case 128: return launch_d<T, 128>(q, k, v, o, ws, b, hkv, g, length, split_len, n_split, sb, st, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16, G <= 16: mma.sync on the tensor cores, K/V from a cp.async ring
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+constexpr int kWarpsMma = 4;
+constexpr int kThreadsMma = 32 * kWarpsMma;
+constexpr int kKeysW = 16;   // keys a warp takes a step: the K depth of one P·V mma
+constexpr int kRowsMma = 16; // query heads a block at most: the M rows of the mma
+constexpr int kMaxCluster = 8;  // splits a (b, KV head) at most: one portable cluster
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct MmaShape {
+  static constexpr int kStride = D + 8;  // bf16 a shared-memory row (16 bytes of padding)
+  static constexpr int kStages = D >= 128 ? 3 : 4;
+  static constexpr int kTile = kKeysW * kStride;  // one stage of K or of V
+  static constexpr int kRed = D + 4;              // floats a row of the merge buffer
+  static constexpr size_t kRing =
+      static_cast<size_t>(kWarpsMma) * 2 * kStages * kTile * sizeof(bf16);
+  static constexpr size_t kMerge =  // the warps' states, the block's, the splits' weights
+      (static_cast<size_t>(kWarpsMma) * kRowsMma * (kRed + 2) + kRowsMma * (D + 3) +
+       kMaxCluster * kRowsMma) * sizeof(float);
+  static constexpr size_t kSmem = kRing > kMerge ? kRing : kMerge;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsMma)
+decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ o, int hkv, int g, int length,
+                  int split_len, int n_split, long long sb, long long st, float scale_log2) {
+  using S = MmaShape<D>;
+  constexpr int kDT = D / 16;                  // 16-wide steps along D
+  constexpr int kCopies = kKeysW * D / 8 / 32;  // 16-byte copies a lane a step, K and V each
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gr = lane >> 2, qd = lane & 3;  // the lane's row and column pair in an mma tile
+  bf16* kring = reinterpret_cast<bf16*>(smem_raw) + warp * 2 * S::kStages * S::kTile;
+  bf16* vring = kring + S::kStages * S::kTile;
+
+  const int split = blockIdx.x % n_split;
+  const int bk = blockIdx.x / n_split;
+  const int b = bk / hkv, kh = bk - b * hkv;
+  const int64_t head0 = static_cast<int64_t>(bk) * g;  // b·H + kh·G: the group's first head
+  const bf16* kb = k + b * sb + static_cast<int64_t>(kh) * D;
+  const bf16* vb = v + b * sb + static_cast<int64_t>(kh) * D;
+  const int first = split * split_len;
+  const int end = min(length, first + split_len);
+  const int n_steps = (end - first + kKeysW - 1) / kKeysW;
+  const int mine = warp < n_steps ? (n_steps - 1 - warp) / kWarpsMma + 1 : 0;
+
+  // this warp's i-th step (keys first + 16·(warp + 4i) ..) into its ring
+  auto load_step = [&](int i) {
+    const int k0 = first + (warp + i * kWarpsMma) * kKeysW;
+    bf16* kd = kring + (i % S::kStages) * S::kTile;
+    bf16* vd = vring + (i % S::kStages) * S::kTile;
+#pragma unroll
+    for (int u = 0; u < kCopies; ++u) {
+      const int c = lane + u * 32;
+      const int r = c / (D / 8), col = (c % (D / 8)) * 8;
+      const bool in = k0 + r < end;
+      const int64_t off = in ? static_cast<int64_t>(k0 + r) * st + col : 0;
+      cp_async16(kd + r * S::kStride + col, kb + off, in ? 16 : 0);
+      cp_async16(vd + r * S::kStride + col, vb + off, in ? 16 : 0);
+    }
+  };
+
+  // q as A-fragments: head gr (regs 0, 2) and gr + 8 (regs 1, 3) of the
+  // group, columns 2·qd (regs 0, 1) and + 8 (regs 2, 3) of each 16-wide step
+  uint32_t qf[kDT][4];
+#pragma unroll
+  for (int kk = 0; kk < kDT; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = gr + (r & 1) * 8;
+      const int col = kk * 16 + (r >> 1) * 8 + 2 * qd;
+      qf[kk][r] = row < g ? *reinterpret_cast<const uint32_t*>(q + (head0 + row) * D + col) : 0u;
+    }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // rows gr and gr + 8
+
+#pragma unroll
+  for (int s = 0; s < S::kStages - 1; ++s) {
+    if (s < mine) load_step(s);
+    cp_async_commit();  // an empty group keeps the count uniform
+  }
+  for (int i = 0; i < mine; ++i) {
+    if (i + S::kStages - 1 < mine) load_step(i + S::kStages - 1);  // into the stage freed at i - 1
+    cp_async_commit();
+    cp_async_wait<S::kStages - 1>();  // step i has landed (this lane's copies)
+    __syncwarp();                     // ... and the warp's
+    const bf16* kt = kring + (i % S::kStages) * S::kTile;
+    const bf16* vt = vring + (i % S::kStages) * S::kTile;
+    const int k0 = first + (warp + i * kWarpsMma) * kKeysW;
+
+    // S = q Kᵀ: two key tiles of 8, float32
+    float sc[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kDT; ++kk) {
+      // matrices (keys 0-7, d 0-7), (keys 0-7, d 8-15), (keys 8-15, d 0-7), (keys 8-15, d 8-15)
+      uint32_t bfr[4];
+      const int key = (lane & 7) + ((lane >> 4) << 3);
+      ldmatrix_x4(bfr, kt + key * S::kStride + kk * 16 + ((lane >> 3) & 1) * 8);
+      mma_bf16(sc[0], qf[kk], bfr[0], bfr[1]);
+      mma_bf16(sc[1], qf[kk], bfr[2], bfr[3]);
+    }
+
+    // logits in the exp2 domain; keys past the split's end masked on its last step
+    const bool edge = k0 + kKeysW > end;
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[n][e] * scale_log2;
+        if (edge && k0 + n * 8 + 2 * qd + (e & 1) >= end) x = kNegInf;
+        sc[n][e] = x;
+      }
+
+    // online softmax on the accumulator fragments; a row's four lanes agree
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = fmaxf(m[r], fmaxf(fmaxf(sc[0][2 * r], sc[0][2 * r + 1]),
+                                   fmaxf(sc[1][2 * r], sc[1][2 * r + 1])));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      alpha[r] = exp2f(m[r] - mx);
+      m[r] = mx;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[n][e] = exp2f(sc[n][e] - m[e >> 1]);
+        rs[e >> 1] += sc[n][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];  // this lane's share
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+
+    // O += P V: P in bf16 A-fragments straight from the accumulators
+    uint32_t pa[4];
+    pa[0] = pack_bf16(sc[0][0], sc[0][1]);  // row gr, keys 2qd
+    pa[1] = pack_bf16(sc[0][2], sc[0][3]);  // row gr + 8
+    pa[2] = pack_bf16(sc[1][0], sc[1][1]);  // row gr, keys 8 + 2qd
+    pa[3] = pack_bf16(sc[1][2], sc[1][3]);  // row gr + 8
+#pragma unroll
+    for (int dn = 0; dn < kDT; ++dn) {
+      // lanes 0-15: key rows 0-15 at d; lanes 16-31: the same at d + 8
+      uint32_t vf[4];
+      ldmatrix_x4_trans(vf, vt + (lane & 15) * S::kStride + dn * 16 + (lane >> 4) * 8);
+      mma_bf16(acc[2 * dn], pa, vf[0], vf[1]);
+      mma_bf16(acc[2 * dn + 1], pa, vf[2], vf[3]);
+    }
+    __syncwarp();  // this stage is consumed before the warp loads it again
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every ring is consumed: the merge buffer reuses it
+
+  // the four warps' states merged once: [warp][row][D] accumulators, max, sum
+  float* red = reinterpret_cast<float*>(smem_raw);
+  float* mw = red + kWarpsMma * kRowsMma * S::kRed;
+  float* lw = mw + kWarpsMma * kRowsMma;
+  float* bacc = lw + kWarpsMma * kRowsMma;  // [row][D]: the block's merged state
+  float* bm = bacc + kRowsMma * D;          // [row]
+  float* bl = bm + kRowsMma;                // [row]
+  float* fr = bl + kRowsMma;                // [split][row]: each split's weight
+  float* il = fr + kMaxCluster * kRowsMma;  // [row]: 1 / the merged sum
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const int row = gr + r * 8;
+    float* dst = red + (warp * kRowsMma + row) * S::kRed;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + j * 8 + 2 * qd) = make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
+    if (qd == 0) {
+      mw[warp * kRowsMma + row] = m[r];
+      lw[warp * kRowsMma + row] = lr;
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < g * D; e += kThreadsMma) {
+    const int row = e / D, c = e - row * D;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarpsMma; ++w) mx = fmaxf(mx, mw[w * kRowsMma + row]);
+    float sum = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarpsMma; ++w) {  // a warp with no step: max -1e30, weight 0
+      const float f = exp2f(mw[w * kRowsMma + row] - mx);
+      sum += lw[w * kRowsMma + row] * f;
+      a += red[(w * kRowsMma + row) * S::kRed + c] * f;
+    }
+    if (n_split == 1) {
+      store(o + (head0 + row) * D + c, a / fmaxf(sum, 1e-30f));
+    } else {
+      bacc[e] = a;
+      if (c == 0) {
+        bm[row] = mx;
+        bl[row] = sum;
+      }
+    }
+  }
+  if (n_split == 1) return;
+
+  // the splits of this (b, KV head) are the blocks of one cluster: merged by
+  // the same rule through distributed shared memory, each block a share of
+  // the outputs; no block leaves while another still reads its state
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (threadIdx.x < g) {  // a row's max over the splits, each split's weight, the sum
+    const int row = threadIdx.x;
+    float ms[kMaxCluster], mx = kNegInf;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < n_split) {
+        ms[r] = cluster.map_shared_rank(bm, r)[row];
+        mx = fmaxf(mx, ms[r]);
+      }
+    float sum = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < n_split) {
+        const float f = exp2f(ms[r] - mx);
+        fr[r * kRowsMma + row] = f;
+        sum += cluster.map_shared_rank(bl, r)[row] * f;
+      }
+    il[row] = 1.f / fmaxf(sum, 1e-30f);
+  }
+  __syncthreads();
+  for (int e = split * kThreadsMma + threadIdx.x; e < g * D; e += n_split * kThreadsMma) {
+    const int row = e / D, c = e - row * D;
+    float a = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)  // the splits' loads issued together
+      if (r < n_split) a += fr[r * kRowsMma + row] * cluster.map_shared_rank(bacc, r)[e];
+    store(o + (head0 + row) * D + c, a * il[row]);
+  }
+  cluster.sync();
+}
+
+template <int D>
+int launch_mma_d(const bf16* q, const bf16* k, const bf16* v, bf16* o, int b, int hkv, int g,
+                 int length, int split_len, int n_split, long long sb, long long st,
+                 float scale, cudaStream_t stream) {
+  const long long blocks = static_cast<long long>(b) * hkv * n_split;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = MmaShape<D>::kSmem;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // a cluster of the n_split blocks of each (b, KV head): blockIdx.x / n_split
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = static_cast<unsigned>(n_split);
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(kThreadsMma);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = n_split > 1 ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, decode_mma_kernel<D>, q, k, v, o, hkv, g,
+                                             length, split_len, n_split, sb, st,
+                                             scale * kLog2e));
 }
 
 }  // namespace
@@ -301,4 +623,29 @@ extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v
   return launch<B>(static_cast<const B*>(q), static_cast<const B*>(k),
                    static_cast<const B*>(v), static_cast<B*>(o), ws, b, h, hkv, d, length,
                    split_len, n_split, sb, st, scale, stream);
+}
+
+// the tensor-core route: bfloat16, G = h / hkv <= 16 query heads to a KV
+// head, at most 8 splits (one thread-block cluster merges them, so no
+// workspace and no second kernel); the other arguments as
+// decode_attention_bf16's
+extern "C" int decode_attention_bf16_mma(const void* q, const void* k, const void* v, void* o,
+                                         int b, int h, int hkv, int d, int length,
+                                         int split_len, int n_split, long long sb, long long st,
+                                         float scale, cudaStream_t stream) {
+  if (!valid(b, h, hkv, length, split_len, n_split) || h / hkv > kRowsMma ||
+      n_split > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int g = h / hkv;
+  const bf16* qq = static_cast<const bf16*>(q);
+  const bf16* kk = static_cast<const bf16*>(k);
+  const bf16* vv = static_cast<const bf16*>(v);
+  bf16* oo = static_cast<bf16*>(o);
+  switch (d) {
+    case 16: return launch_mma_d<16>(qq, kk, vv, oo, b, hkv, g, length, split_len, n_split, sb, st, scale, stream);
+    case 32: return launch_mma_d<32>(qq, kk, vv, oo, b, hkv, g, length, split_len, n_split, sb, st, scale, stream);
+    case 64: return launch_mma_d<64>(qq, kk, vv, oo, b, hkv, g, length, split_len, n_split, sb, st, scale, stream);
+    case 128: return launch_mma_d<128>(qq, kk, vv, oo, b, hkv, g, length, split_len, n_split, sb, st, scale, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -34,21 +34,39 @@ elements) against 4·G·D flops a key — at ``starcoder2-15b``'s serving
 shape (B 8, H 48, Hkv 4, D 128, bf16) 12 flops a byte, far below the H100's
 ~295 bf16 tensor-core flops a byte. The B·Hkv (b, KV head) pairs are too
 few blocks to read at that rate (32 at the serving shape), so ``splits``
-cuts the cache axis until every SM has two, and a second kernel merges
-the splits' partial softmax states from a float32 workspace.
+cuts the cache axis, and the splits' partial softmax states are merged by
+the same rule: on the tensor-core route inside one thread-block cluster,
+on the CUDA-core route by a second kernel from a float32 workspace.
+
+Two routes, chosen by ``route`` from the dtype and the alignment alone
+(never by a failure): bfloat16 — every serving shape of the zoo — runs on
+the tensor cores (the group's G <= 16 heads as the M rows of
+``mma.sync``, K and V streamed in bf16 through a ``cp.async`` ring a
+warp); float32, and a bfloat16 view not 16-byte aligned, run the
+CUDA-core kernel. bfloat16 with G > 16 raises.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)    # the kernel's instantiations
-TILE = 64                        # cache positions the kernel stages at once
+TILE = 64                        # split lengths are multiples of it
+MMA_ROWS = 16                    # query heads a KV head at most in bf16
+# blocks an SM the split count aims at: the CUDA-core kernel stalls on each
+# tile's loads and wants two; the tensor-core kernel keeps two 16-key steps
+# a warp in flight, so one block an SM reads at the memory rate (PERF.md §6)
+BLOCKS_PER_SM = {"cuda_cores": 2, "tensor_cores": 1}
+# the tensor-core route merges a (b, KV head)'s splits in one thread-block
+# cluster, at most 8 blocks
+MAX_SPLITS = {"cuda_cores": None, "tensor_cores": 8}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -96,28 +114,48 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @functools.cache
 def _launchers():
-    """{dtype: C launcher} of the built kernel, argument types declared."""
+    """{(route, dtype): C launcher} of the built kernel, argument types
+    declared."""
     lib = build.load("decode_attention")
-    fns = {torch.float32: lib.decode_attention_f32,
-           torch.bfloat16: lib.decode_attention_bf16}
-    for fn in fns.values():
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                       + [ctypes.c_longlong] * 2
+    fns = {("cuda_cores", torch.float32): lib.decode_attention_f32,
+           ("cuda_cores", torch.bfloat16): lib.decode_attention_bf16,
+           ("tensor_cores", torch.bfloat16): lib.decode_attention_bf16_mma}
+    for (path, _), fn in fns.items():
+        # the CUDA-core launchers take a workspace pointer after o
+        fn.argtypes = ([ctypes.c_void_p] * (5 if path == "cuda_cores" else 4)
+                       + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fns
+
+
+def route(dtype: torch.dtype, group: int, aligned: bool = True) -> str:
+    """The kernel a call takes: ``"tensor_cores"`` for bfloat16 with 16-byte
+    aligned q, k and v (the ``cp.async`` copies move 16 bytes), else
+    ``"cuda_cores"``. bfloat16 with more than 16 query heads a KV head
+    (more than one m-tile of the ``mma``; no arch of the zoo has one)
+    raises ``ValueError``."""
+    if dtype != torch.bfloat16:
+        return "cuda_cores"
+    if group > MMA_ROWS:
+        raise ValueError(f"bfloat16 decode takes at most {MMA_ROWS} query "
+                         f"heads a KV head, got {group}")
+    return "tensor_cores" if aligned else "cuda_cores"
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def splits(blocks: int, length: int, n_sms: int):
+def splits(blocks: int, length: int, n_sms: int, per_sm: int = 2,
+           most: Optional[int] = None):
     """(split_len, n_split): the valid positions cut into splits of a
-    multiple of 64 (the kernel's tile), as many as give every SM two
-    blocks of the ``blocks`` (b, KV head) pairs and every split one tile
-    at least."""
-    want = min(_cdiv(2 * n_sms, blocks), _cdiv(length, TILE))
+    multiple of 64, as many as give every SM ``per_sm`` blocks of the
+    ``blocks`` (b, KV head) pairs, every split 64 positions at least, and
+    no more than ``most``."""
+    want = min(_cdiv(per_sm * n_sms, blocks), _cdiv(length, TILE))
+    if most is not None:
+        want = min(want, most)
     split_len = _cdiv(_cdiv(length, want), TILE) * TILE
     return split_len, _cdiv(length, split_len)
 
@@ -139,18 +177,25 @@ def _kernel(q, k, v, length: int) -> torch.Tensor:
         raise ValueError("k and v must share strides, with (Hkv, D) dense "
                          f"in each position; got {k.stride()}, "
                          f"{v.stride()}")
+    aligned = (all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+               and k.stride(0) % 8 == 0 and k.stride(1) % 8 == 0)
+    path = route(q.dtype, h // hkv, aligned)
     out = torch.empty_like(q)
-    n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    split_len, n_split = splits(b * hkv, length, n_sms)
+    split_len, n_split = splits(b * hkv, length, sm_count(q.device),
+                                BLOCKS_PER_SM[path], MAX_SPLITS[path])
+    # the CUDA-core route merges its splits through a float32 workspace and
+    # a second kernel; the tensor-core route inside a thread-block cluster
     ws = (torch.empty((b * h * n_split * (d + 2),), dtype=torch.float32,
-                      device=q.device) if n_split > 1 else None)
-    fn = _launchers()[q.dtype]
+                      device=q.device)
+          if path == "cuda_cores" and n_split > 1 else None)
+    workspace = (() if path == "tensor_cores"
+                 else (0 if ws is None else ws.data_ptr(),))
+    fn = _launchers()[path, q.dtype]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 0 if ws is None else ws.data_ptr(), b, h, hkv, d, length,
-                 split_len, n_split, k.stride(0), k.stride(1), d ** -0.5,
-                 stream)
+                 *workspace, b, h, hkv, d, length, split_len, n_split,
+                 k.stride(0), k.stride(1), d ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"cudaError_t {err}")
@@ -163,10 +208,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B,H,D), k/v (B,T,Hkv,D) float32/bfloat16, 1 <= length <= T ->
     (B,H,D), the dtype of q.
 
-    A CUDA tensor goes to the kernel (q contiguous, D in ``HEAD_DIMS``, k
-    and v views whose (Hkv, D) are dense; a failed build or launch
-    raises); a CPU tensor goes to ``decode_attention_ref``. Each kernel
-    launch adds one to ``decode_attention.launches``.
+    A CUDA tensor goes to the kernel ``route`` names (q contiguous, D in
+    ``HEAD_DIMS``, k and v views whose (Hkv, D) are dense; a failed build
+    or launch raises); a CPU tensor goes to ``decode_attention_ref``. Each
+    kernel launch adds one to ``decode_attention.launches``.
     """
     _check(q, k, v, length)
     if q.device.type == "cpu":

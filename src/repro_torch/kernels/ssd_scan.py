@@ -8,9 +8,11 @@ over x (B,L,H,P), dt (B,L,H) float32, A (H,) float32 and grouped B/C
 signature), computed chunk by chunk: per chunk of Q positions the
 intra-chunk term (C Bᵀ ∘ tril(exp(cum_i − cum_j))) (x dt), the inter-chunk
 term C exp(cum) · state, and the state update. Returns y (B,L,H,P) in x's
-dtype and the final state (B,H,N,P) float32; every product and exponent
-is float32. ``initial_state`` (B,H,N,P) starts the recurrence (zero when
-None, as the TPU kernel's ``_init``).
+dtype and the final state (B,H,N,P) float32; every sum and exponent is
+float32, and every product is float32 or, on the tensor-core route, a
+bf16 product summed in float32 whose float32 operands enter as hi/lo
+pairs. ``initial_state`` (B,H,N,P) starts the recurrence (zero when None,
+as the TPU kernel's ``_init``).
 
 ``ssd_scan`` launches the hand-written Hopper kernel ``csrc/ssd_scan.cu``
 on CUDA tensors and runs the plain PyTorch version ``ssd_scan_ref`` (the
@@ -31,10 +33,22 @@ package asserts it, ROADMAP P3). x, B and C may be views whose last two
 axes are dense (``ssm_apply`` passes slices of the convolved projection
 without a copy).
 
-Bound on the card: operations, in float32 on the CUDA cores, at the
-serving shape (``mamba2-370m``: Q 256, N 128, P 64): per (b, h, chunk)
-2·Q·(N+P)·Q/2 flops for the causal intra-chunk products and 4·Q·N·P for
-the inter-chunk term and the state update, ~100 flops a byte moved.
+Two routes, chosen by ``route`` from the dtype, the shapes and the
+alignment alone (never by a failure). bfloat16 with P in {16, 32, 64, 128},
+N a multiple of 16 up to 128 and Q a multiple of 64 — ``mamba2-370m`` and
+Jamba — runs chunk-parallel on the tensor cores, Mamba2's own
+decomposition in three kernels: the chunks' local states, the state
+passing across chunks, and the chunk scan (every float32 operand of a
+product split into a bf16 hi/lo pair, so no operand is rounded once;
+the workspaces, 8·N·P + 8·Q bytes a (b, h, chunk), allocated here).
+float32, and any other bfloat16 shape, runs the CUDA-core kernel: a block
+a (b, h, P tile) walking the chunks in order.
+
+Bound on the card: per (b, h, chunk) Q·N·Q flops for the causal scores,
+Q·P·Q for their product with x·dt and 4·Q·N·P for the inter-chunk term and
+the state update. At the serving shape (``mamba2-370m``: Q 256, N 128, P
+64, bf16) that is ~290 flops a byte moved, level with the H100's bf16
+tensor-core balance point: bytes and operations bound it alike.
 """
 from __future__ import annotations
 
@@ -44,11 +58,14 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.kernels import build
 
 P_TILES = (64, 32, 16)      # the kernel's instantiations (columns of P)
 MAX_STATE = 128             # N the kernel's register tile holds
 MAX_CHUNK = 1024
+MMA_HEAD_DIMS = (16, 32, 64, 128)   # P of the tensor-core route
+MMA_TILE = 64               # its tile of positions: Q a multiple of it
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -116,14 +133,32 @@ def ssd_scan_ref(x, dt, A, B_, C_, *, chunk: int = 128,
 
 @functools.cache
 def _launchers():
-    """{dtype: C launcher} of the built kernel, argument types declared."""
+    """{(route, dtype): C launcher} of the built kernel, argument types
+    declared."""
     lib = build.load("ssd_scan")
-    fns = {torch.float32: lib.ssd_scan_f32, torch.bfloat16: lib.ssd_scan_bf16}
+    fns = {("cuda_cores", torch.float32): lib.ssd_scan_f32,
+           ("cuda_cores", torch.bfloat16): lib.ssd_scan_bf16}
     for fn in fns.values():
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                        + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    fn = fns["tensor_cores", torch.bfloat16] = lib.ssd_scan_bf16_chunked
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     return fns
+
+
+def route(dtype: torch.dtype, p: int, n: int, q: int,
+          aligned: bool = True) -> str:
+    """The kernel a call takes: ``"tensor_cores"`` for bfloat16 with P in
+    ``MMA_HEAD_DIMS``, N a multiple of 16 up to 128, the chunk Q a multiple
+    of 64 and 16-byte aligned inputs (the ``cp.async`` copies move 16
+    bytes), else ``"cuda_cores"``."""
+    if (dtype == torch.bfloat16 and p in MMA_HEAD_DIMS and n % 16 == 0
+            and 16 <= n <= MAX_STATE and q % MMA_TILE == 0 and aligned):
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def _p_tile(b: int, h: int, p: int, n_sms: int) -> int:
@@ -160,20 +195,38 @@ def _kernel(x, dt, A, B_, C_, q: int, initial_state):
     dt, A = dt.contiguous(), A.contiguous()
     if initial_state is not None:
         initial_state = initial_state.contiguous()
-    pt = _p_tile(b, h, p, torch.cuda.get_device_properties(
-        x.device).multi_processor_count)
+    strides = (x.stride(0), x.stride(1), B_.stride(0), B_.stride(1),
+               C_.stride(0), C_.stride(1))
+    aligned = (all(t.data_ptr() % 16 == 0 for t in (x, B_, C_))
+               and all(st % 8 == 0 for st in strides)
+               and (initial_state is None
+                    or initial_state.data_ptr() % 16 == 0))
+    path = route(x.dtype, p, n, q, aligned)
     y = torch.empty((b, length, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
-    fn = _launchers()[x.dtype]
+    init = 0 if initial_state is None else initial_state.data_ptr()
+    fn = _launchers()[path, x.dtype]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
-                 C_.data_ptr(),
-                 0 if initial_state is None else initial_state.data_ptr(),
-                 y.data_ptr(), state.data_ptr(),
-                 b, length, h, g, p, n, q, pt,
-                 x.stride(0), x.stride(1), B_.stride(0), B_.stride(1),
-                 C_.stride(0), C_.stride(1), stream)
+        if path == "tensor_cores":
+            units = b * h * (length // q)
+            states = torch.empty((units * n * p,), dtype=torch.float32,
+                                 device=x.device)
+            fac = torch.empty((units * 2 * q,), dtype=torch.float32,
+                              device=x.device)
+            prev = torch.empty((units * 2 * n * p,), dtype=torch.bfloat16,
+                               device=x.device)
+            err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                     B_.data_ptr(), C_.data_ptr(), init, y.data_ptr(),
+                     state.data_ptr(), states.data_ptr(), fac.data_ptr(),
+                     prev.data_ptr(), b, length, h, g, p, n, q, *strides,
+                     stream)
+        else:
+            pt = _p_tile(b, h, p, sm_count(x.device))
+            err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                     B_.data_ptr(), C_.data_ptr(), init, y.data_ptr(),
+                     state.data_ptr(), b, length, h, g, p, n, q, pt,
+                     *strides, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: cudaError_t {err}")
     ssd_scan.launches += 1
@@ -188,8 +241,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     B_/C_ (B,L,G,N) in x's dtype -> (y (B,L,H,P) in x's dtype, final state
     (B,H,N,P) float32).
 
-    A CUDA tensor goes to the kernel (N <= 128, P a multiple of 16; a
-    failed build or launch raises); a CPU tensor goes to ``ssd_scan_ref``.
+    A CUDA tensor goes to the kernel ``route`` names (N <= 128, P a
+    multiple of 16; a failed build or launch raises); a CPU tensor goes to
+    ``ssd_scan_ref``.
     Each kernel launch adds one to ``ssd_scan.launches``.
     """
     q = _check(x, dt, A, B_, C_, chunk, initial_state)

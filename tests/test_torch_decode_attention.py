@@ -20,7 +20,8 @@ from torch_parity import reference, single_threaded  # noqa: F401
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import flatten_tree, params_from_numpy
-from repro_torch.kernels.decode_attention import (TILE, decode_attention,
+from repro_torch.kernels.decode_attention import (NEG_INF, TILE,
+                                                  decode_attention,
                                                   decode_attention_ref,
                                                   splits)
 from repro_torch.kernels import decode_attention as dattn
@@ -262,3 +263,144 @@ def test_sdpa_matches_reference(ref):
     want = ref.att.sdpa(*map(ref.jnp.asarray, (q, k, v, mask)))
     got = tatt.sdpa(*map(torch.from_numpy, (q, k, v, mask)))
     _close(got.numpy(), want, 1e-5)
+
+
+# --- the tensor-core route's numerics (per-warp key runs merged once, bf16
+# P) and the route function ---------------------------------------------------
+
+LOG2E = 1.4426950408889634
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _tensor_core_emulation(q, k, v, length, n_sms=132, warps=4, step=16):
+    """The tensor-core route of ``csrc/decode_attention.cu`` in float32
+    torch: the valid positions cut by ``splits`` as the wrapper cuts them
+    for this route; in each split, warp w takes the 16-key steps w, w + 4,
+    ... with its own running max, sum and accumulator (logits in the exp2
+    domain, keys past the split's end at -1e30, P rounded to bf16 before
+    P·V); the warps merged once at the end of the split, then the splits
+    by the same rule, as the thread-block cluster merges them. q, k, v
+    hold bf16 values."""
+    b, h, d = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    qg = q.float().reshape(b, hkv, g, d)
+    kf, vf = k.float(), v.float()
+    split_len, n_split = splits(b * hkv, length, n_sms,
+                                dattn.BLOCKS_PER_SM["tensor_cores"],
+                                dattn.MAX_SPLITS["tensor_cores"])
+    parts = []
+    for s in range(n_split):
+        first, end = s * split_len, min(length, (s + 1) * split_len)
+        n_steps = -(-(end - first) // step)
+        states = []
+        for w in range(warps):
+            m = torch.full((b, hkv, g), NEG_INF)
+            l = torch.zeros(b, hkv, g)
+            acc = torch.zeros(b, hkv, g, d)
+            for i in range(w, n_steps, warps):
+                k0 = first + i * step
+                keys = torch.arange(k0, k0 + step)
+                kk = kf[:, k0:k0 + step].transpose(1, 2)    # (b,hkv,<=16,d)
+                logit = torch.einsum("bkgd,bkjd->bkgj", qg, kk) \
+                    * (d ** -0.5 * LOG2E)
+                logit = torch.cat([logit, torch.full(
+                    (b, hkv, g, step - kk.shape[2]), NEG_INF)], -1)
+                logit = logit.masked_fill(keys >= end, NEG_INF)
+                mx = torch.maximum(m, logit.amax(-1))
+                alpha = torch.exp2(m - mx)
+                p = torch.exp2(logit - mx[..., None])
+                l = l * alpha + p.sum(-1)
+                vv = vf[:, k0:k0 + step].transpose(1, 2)
+                pb = _bf16(p[..., :vv.shape[2]])
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "bkgj,bkjd->bkgd", pb, vv)
+                m = mx
+            states.append((m, l, acc))
+        mx = torch.stack([st[0] for st in states]).amax(0)
+        f = [torch.exp2(st[0] - mx) for st in states]
+        parts.append((mx, sum(st[1] * fi for st, fi in zip(states, f)),
+                      sum(st[2] * fi[..., None] for st, fi in zip(states, f))))
+    m = torch.stack([pt[0] for pt in parts]).amax(0)
+    f = [torch.exp2(pt[0] - m) for pt in parts]
+    lsum = sum(pt[1] * fi for pt, fi in zip(parts, f))
+    acc = sum(pt[2] * fi[..., None] for pt, fi in zip(parts, f))
+    out = acc / lsum.clamp_min(1e-30)[..., None]
+    return _bf16(out.reshape(b, h, d))
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,D,length", [
+    (2, 12, 1, 300, 64, 300),     # G = 12 (starcoder2's), five splits
+    (2, 12, 1, 300, 128, 237),    # a ragged tail inside a split
+    (8, 16, 16, 80, 32, 77),      # G = 1 (qwen2-moe's), one split
+    (1, 1, 1, 2100, 16, 2080),    # G = 1, warps of unequal runs
+])
+def test_tensor_core_emulation_matches_ref(B, H, Hkv, T, D, length):
+    """Per-warp key runs merged once at the end of each split, with P in
+    bf16, hold the plain version within the bf16 tolerance 2e-2."""
+    q, k, v = (_bf16(t) for t in map(torch.from_numpy,
+                                     _inputs(B, H, Hkv, T, D, seed=8)))
+    got = _tensor_core_emulation(q, k, v, length)
+    want = decode_attention_ref(*(t.to(torch.bfloat16) for t in (q, k, v)),
+                                length).float()
+    _close(got.numpy(), want.numpy(), TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("blocks,length", [
+    (32, 2064), (128, 2048), (32, 1), (32, 65), (1, 1024), (4, 4096),
+    (500, 3)])
+def test_tensor_core_splits_cover_the_valid_positions(blocks, length):
+    """The tensor-core route's cut of [0, length): the same covering, with
+    no more splits than give one block an SM, than there are tiles, or
+    than one thread-block cluster holds (8)."""
+    per_sm = dattn.BLOCKS_PER_SM["tensor_cores"]
+    most = dattn.MAX_SPLITS["tensor_cores"]
+    split_len, n = splits(blocks, length, 132, per_sm, most)
+    assert split_len % TILE == 0
+    assert split_len * (n - 1) < length <= split_len * n
+    assert 1 <= n <= min(-(-per_sm * 132 // blocks), -(-length // TILE),
+                         most)
+
+
+def test_route_sends_the_zoo_to_the_tensor_cores():
+    """Every attention arch of the zoo at its serving dtype (bf16) takes
+    the tensor-core route: G in {1, 5, 7, 8, 12}, D 128."""
+    from repro_torch.configs import registry
+    groups = set()
+    for name in registry.list_archs():
+        cfg = registry.get(name)
+        if cfg.family == "ssm":
+            continue
+        g = cfg.n_heads // cfg.n_kv_heads
+        groups.add(g)
+        assert cfg.head_dim in dattn.HEAD_DIMS, name
+        assert dattn.route(torch.bfloat16, g) == "tensor_cores", name
+    assert groups == {1, 5, 7, 8, 12}
+
+
+@pytest.mark.parametrize("dtype,group,aligned", [
+    (torch.float32, 12, True),     # float32: the CUDA cores
+    (torch.float32, 1, True),
+    (torch.float32, 17, True),
+    (torch.bfloat16, 12, False),   # not 16-byte aligned
+])
+def test_route_sends_other_shapes_to_the_cuda_cores(dtype, group, aligned):
+    assert dattn.route(dtype, group, aligned) == "cuda_cores"
+
+
+def test_bfloat16_beyond_one_mma_tile_of_heads_raises():
+    """bfloat16 with more than 16 query heads a KV head (no arch of the
+    zoo) raises in the wrapper before any build or launch, so CPU tensors
+    reach it; the CPU route still serves it."""
+    q, k, v = (t.to(torch.bfloat16) for t in map(torch.from_numpy,
+                                                 _inputs(1, 17, 1, 32, 16)))
+    with pytest.raises(ValueError, match="at most 16"):
+        dattn.route(torch.bfloat16, 17)
+    before = decode_attention.launches
+    with pytest.raises(ValueError, match="at most 16"):
+        dattn._kernel(q, k, v, 20)
+    assert decode_attention.launches == before
+    assert decode_attention(q, k, v, 20).shape == (1, 17, 16)

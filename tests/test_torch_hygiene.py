@@ -88,3 +88,20 @@ def test_kernel_build_goes_to_an_ignored_directory():
         assert (build.CSRC / f"{name}.cu").is_file()
     assert "build/" in (ROOT / ".gitignore").read_text().split()
     assert build.load.cache_info().currsize == 0
+
+
+def test_library_name_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A kernel's library name hashes the headers its source may include,
+    so an edit to csrc/*.cuh rebuilds every kernel; and each header a
+    kernel includes is one of those."""
+    for name in build.KERNELS:
+        for line in (build.CSRC / f"{name}.cu").read_text().splitlines():
+            if line.startswith('#include "'):
+                assert (build.CSRC / line.split('"')[1]).is_file(), line
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = build.library_path("k")
+    assert build.library_path("k") == before
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert build.library_path("k") != before

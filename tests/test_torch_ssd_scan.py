@@ -217,3 +217,146 @@ def test_ssm_apply_and_decode_match_reference(ref):
         _close(y.numpy(), y_ref, EXACT)
         _close(st.numpy(), st_ref, EXACT)
     _close(conv.numpy(), conv_ref, EXACT)
+
+
+# --- the tensor-core route's numerics (three stages, float32 operands split
+# into bf16 hi/lo pairs) and the route function ------------------------------
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _hi_lo(t):
+    """hi = bf16(t), lo = bf16(t - hi): the kernel's operand pair."""
+    hi = _bf16(t)
+    return hi, _bf16(t - hi)
+
+
+def _rounded_once(t):
+    """One bf16 rounding, the pair's lo left out."""
+    return _bf16(t), torch.zeros_like(t)
+
+
+def _chunked_emulation(x, dt, A, Bm, Cm, chunk, initial_state=None,
+                       operands=_hi_lo):
+    """The tensor-core route of ``csrc/ssd_scan.cu`` in float32 torch: (1)
+    the chunks' local states (B ∘ exp(cum_Q − cum)·dt)ᵀ x, (2) the state
+    passing, keeping the state that enters each chunk, (3) the chunk scan
+    diag(exp(cum))·C·S + (C·Bᵀ ∘ tril(exp(cum_i − cum_j)) ∘ dt_j)·x. x, B
+    and C hold bf16 values and enter the products as they are; every
+    float32 operand (the decayed B rows, the entering state, the masked
+    score matrix) enters as ``operands(v)``, a pair whose two products are
+    summed in float32, as the kernel's two mma are. Returns y rounded to
+    bf16 and the final state."""
+    b, length, h, p = x.shape
+    g, n = Bm.shape[2:]
+    q = min(chunk, length)
+    nc, rep = length // q, h // g
+    r = lambda t: t.reshape(b, nc, q, *t.shape[2:])
+    xc, dtc = r(x), r(dt)
+    bc, cc = r(Bm.repeat_interleave(rep, 2)), r(Cm.repeat_interleave(rep, 2))
+    cum = torch.cumsum(dtc * A, dim=2)                           # (b,nc,q,h)
+    pair = lambda eq, a, u: sum(torch.einsum(eq, o, u) for o in operands(a))
+    # 1. chunk states
+    w = torch.exp(cum[:, :, -1:] - cum) * dtc
+    s_local = pair("bcqhn,bcqhp->bchnp", bc * w[..., None], xc)
+    # 2. state passing
+    state = (torch.zeros(b, h, n, p) if initial_state is None
+             else initial_state)
+    entering = []
+    for c in range(nc):
+        entering.append(state)
+        state = state * torch.exp(cum[:, c, -1])[..., None, None] \
+            + s_local[:, c]
+    # 3. chunk scan
+    inter = pair("bchnp,bcihn->bcihp", torch.stack(entering, 1), cc)
+    scores = torch.einsum("bcihn,bcjhn->bchij", cc, bc)
+    ch = cum.permute(0, 1, 3, 2)                                 # (b,nc,h,q)
+    tril = torch.tril(torch.ones(q, q, dtype=torch.bool))
+    seg = torch.where(tril, ch[..., :, None] - ch[..., None, :], 0.0)
+    m = torch.where(tril, scores * torch.exp(seg)
+                    * dtc.permute(0, 1, 3, 2)[..., None, :], 0.0)
+    y = pair("bchij,bcjhp->bcihp", m, xc) + torch.exp(cum)[..., None] * inter
+    return _bf16(y.reshape(b, length, h, p)), state
+
+
+def _bf16_inputs(B, L, H, P, N, G, seed):
+    """check_ssd's draw: x, B and C rounded to bf16 (held as float32)."""
+    x, dt, A, Bm, Cm = map(torch.from_numpy,
+                           _inputs(B, L, H, P, N, G, seed=seed))
+    return _bf16(x), dt, A, _bf16(Bm), _bf16(Cm)
+
+
+def _state_holds(got, want):
+    return bool(((got - want).abs() <= 5e-4 + 5e-4 * want.abs()).all())
+
+
+def _y_holds(got, want):
+    return bool(((got - want).abs() <= 2e-2 + 2e-2 * want.abs()).all())
+
+
+@pytest.mark.parametrize("B,L,H,P,N,G,chunk,init", [
+    (1, 512, 4, 64, 128, 1, 256, False),   # mamba2's head, state and chunk
+    (1, 512, 4, 64, 128, 1, 256, True),
+    (1, 256, 8, 32, 64, 2, 64, True),      # grouped B/C, Q 64
+])
+def test_split_bf16_chunked_matches_ref_and_pallas(ref, B, L, H, P, N, G,
+                                                   chunk, init):
+    """The three stages with every float32 operand split hi/lo hold the
+    plain sequential scan (and the Pallas kernel in interpret mode) to the
+    card's tolerances: the final state within 5e-4 + 5e-4·|plain|, y (bf16)
+    within 2e-2 + 2e-2·|plain|."""
+    x, dt, A, Bm, Cm = _bf16_inputs(B, L, H, P, N, G, seed=11)
+    s0 = (torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (B, H, N, P)).astype(np.float32)) if init else None)
+    y, state = _chunked_emulation(x, dt, A, Bm, Cm, chunk, s0)
+    y_ref, s_ref = ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
+                                initial_state=s0)
+    assert _state_holds(state, s_ref)
+    assert _y_holds(y, _bf16(y_ref))
+    if not init:      # the Pallas kernel starts from a zero state
+        pallas = ref.ops.ssd_scan(*(ref.jnp.asarray(t.numpy())
+                                    for t in (x, dt, A, Bm, Cm)),
+                                  chunk=chunk)
+        assert _y_holds(y, _bf16(torch.from_numpy(np.array(pallas))))
+
+
+def test_one_bf16_rounding_of_the_float32_operands_does_not_hold():
+    """The same stages with each float32 operand rounded to bf16 once (no
+    lo half) miss both checks at mamba2's head, state and chunk: the split
+    is what holds them, before any time on the card."""
+    x, dt, A, Bm, Cm = _bf16_inputs(1, 512, 4, 64, 128, 1, seed=11)
+    y, state = _chunked_emulation(x, dt, A, Bm, Cm, 256,
+                                  operands=_rounded_once)
+    y_ref, s_ref = ssd_scan_ref(x, dt, A, Bm, Cm, chunk=256)
+    assert not _state_holds(state, s_ref)
+    assert not _y_holds(y, _bf16(y_ref))
+
+
+def test_route_sends_the_zoo_to_the_tensor_cores():
+    """Every SSM arch of the zoo at its serving dtype (bf16) takes the
+    tensor-core route at its own P, N and chunk, also with L below the
+    chunk when L is a multiple of 64."""
+    ssm_archs = [registry.get(a) for a in registry.list_archs()
+                 if registry.get(a).ssm is not None]
+    assert {c.name for c in ssm_archs} >= {"mamba2-370m",
+                                           "jamba-1.5-large-398b"}
+    for cfg in ssm_archs:
+        s = cfg.ssm
+        for q in (s.chunk, 64):
+            assert kssd.route(torch.bfloat16, s.head_dim, s.d_state,
+                              q) == "tensor_cores", (cfg.name, q)
+
+
+@pytest.mark.parametrize("dtype,p,n,q,aligned", [
+    (torch.float32, 64, 128, 256, True),      # float32: the CUDA cores
+    (torch.bfloat16, 64, 8, 256, True),       # N not a multiple of 16
+    (torch.bfloat16, 64, 144, 256, True),     # N past the register tile
+    (torch.bfloat16, 48, 128, 256, True),     # P not instantiated
+    (torch.bfloat16, 64, 128, 96, True),      # Q not a multiple of 64
+    (torch.bfloat16, 64, 128, 32, True),      # the reduced configs' chunk
+    (torch.bfloat16, 64, 128, 256, False),    # not 16-byte aligned
+])
+def test_route_sends_other_shapes_to_the_cuda_cores(dtype, p, n, q,
+                                                    aligned):
+    assert kssd.route(dtype, p, n, q, aligned) == "cuda_cores"
