@@ -7,17 +7,22 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
  1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
  2. build every kernel of the port from its source with nvcc (one process
     a source, all at once), timed, with each kernel's registers and spills;
-    the SASS of K3–K6 read back (``cuobjdump``): K3's bf16 kernels must
+    the SASS of K2–K6 read back (``cuobjdump``): K3's bf16 kernels must
     issue HMMA (``mma.sync``), K5's wgmma kernels HGMMA fed by UTMALDG (TMA
     tensor loads), K4's tensor-core kernels HMMA fed by LDGSTS
-    (``cp.async``), K6's chunk-state and chunk-scan kernels HMMA, each
-    looked up by name;
+    (``cp.async``), K6's chunk-state and chunk-scan kernels HMMA, and K2's
+    instances up to 64 rows no shared- or local-memory access (LDS, STS,
+    LDL, STL: the sort stays in registers), each looked up by name, K2's
+    with its registers and spills;
  3. hold each kernel against its plain PyTorch version on the card — the
     main paths' shapes, ragged and misaligned shapes, bf16 and one
     bandwidth-sized case — with its time, the plain version's, one PyTorch
     library call's (a yardstick the port never calls) and its bound.
     ``weighted_aggregate`` (K1) within 1e-6·max|x|, ``robust_aggregate``
-    (K2) bit for bit, ``flash_attention`` (K3) within 2e-5 (f32) / 2e-2
+    (K2) bit for bit — and to the bit, zero signs included, against its
+    algorithm in plain PyTorch — at its size-class boundaries, with NaN of
+    either sign, +-inf, +-0, ties and garbage in the unread rows,
+    ``flash_attention`` (K3) within 2e-5 (f32) / 2e-2
     (bf16) — every head dim at a ragged S and T, windowed and not, with
     grouped KV heads — and K3's gradient through its autograd Function
     equal to the plain version's within 1e-5, grouped KV heads too (and at
@@ -138,7 +143,8 @@ from repro_torch.kernels import flash_attention as k3  # noqa: E402
 from repro_torch.kernels import moe_gemm as k5  # noqa: E402
 from repro_torch.kernels import ssd_scan as k6  # noqa: E402
 from repro_torch.kernels.robust_aggregate import (  # noqa: E402
-    robust_aggregate, robust_aggregate_ref)
+    SIZE_CLASSES, robust_aggregate, robust_aggregate_network,
+    robust_aggregate_ref)
 from repro_torch.kernels.weighted_aggregate import (  # noqa: E402
     weighted_aggregate, weighted_aggregate_ref)
 from repro_torch.launch import steps  # noqa: E402
@@ -258,13 +264,16 @@ def ptxas_summary(log):
     return out
 
 
-SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDSM", "LDGSTS")
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDSM", "LDGSTS", "LDS", "STS",
+            "LDL", "STL")
 
 
 def sass_ops(name):
     """{kernel: {SASS op: count}} of the built library ``name``, from
     ``cuobjdump -sass``: HGMMA is wgmma, UTMALDG a TMA tensor load, HMMA
-    mma.sync, LDSM ldmatrix, LDGSTS cp.async."""
+    mma.sync, LDSM ldmatrix, LDGSTS cp.async, LDS/STS a shared-memory and
+    LDL/STL a local-memory (spill) load and store; a predicated
+    instruction counts as its op."""
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass",
                            str(build.library_path(name))],
@@ -276,6 +285,8 @@ def sass_ops(name):
             out[fn] = dict.fromkeys(SASS_OPS, 0)
         elif fn:
             op = line.split("*/", 1)[-1].split()
+            if op and op[0].startswith("@"):
+                op = op[1:]
             if op and op[0].split(".")[0] in out[fn]:
                 out[fn][op[0].split(".")[0]] += 1
     return out
@@ -283,21 +294,31 @@ def sass_ops(name):
 
 def device_us(prof):
     """{kernel name: summed GPU time in us} of a profiler run."""
+    return {name: us for name, (us, _) in device_events(prof).items()}
+
+
+def device_events(prof):
+    """{kernel name: (summed GPU time in us, number of events)} of a
+    profiler run."""
     out = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
-            out[ev.name] = out.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+            us, count = out.get(ev.name, (0.0, 0))
+            out[ev.name] = (us + ev.time_range.elapsed_us(), count + 1)
     return out
 
 
 def time_ms(fn, reps):
     """(device ms, call ms) per call of ``fn`` over ``reps`` back-to-back
     calls. Device ms is the GPU time of the kernels it launches (from
-    torch.profiler); call ms is the CUDA-event time per call, which the
-    host's launch overhead sets whenever the kernels are shorter. The
-    profiler now and then hands back no device events for a short run;
-    then the profiled calls are made again, at most twice more, and a
-    third empty reading raises."""
+    torch.profiler): for each kernel name, its mean time times its
+    launches a call (its events over ``reps``, rounded, at least 1), so a
+    few events the profiler drops (it does, after a profiled round) bias
+    nothing; call ms is the CUDA-event time per call, which the host's
+    launch overhead sets whenever the kernels are shorter. The profiler
+    now and then hands back no device events for a short run; then the
+    profiled calls are made again, at most twice more, and a third empty
+    reading raises."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -314,7 +335,8 @@ def time_ms(fn, reps):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        device_ms = sum(device_us(prof).values()) / reps / 1e3
+        device_ms = sum(us / count * max(1, round(count / reps))
+                        for us, count in device_events(prof).values()) / 1e3
         if device_ms > 0:
             return device_ms, call_ms
     raise RuntimeError("torch.profiler recorded no device time in 3 runs")
@@ -386,29 +408,75 @@ def robust_bound(n, m, trim, mode, dtype):
             "bytes" if by_bytes >= by_ops else "operations", nbytes)
 
 
-def check_robust(rows, n, m, mode, dtype, label, reps=200, nan=False):
-    """K2 against its plain version on the card at one shape, bit for bit;
-    rows >= n hold values the kernel must ignore. ``nan`` puts NaN in the
-    first 64 columns past the rank window (the result is NaN there) and
-    one NaN in the next 64 (trimmed or below the median). Returns the
-    numbers."""
+def robust_specials(x, n, g):
+    """Special values in the first n rows of x (rows, M), in place: the
+    values rounded to integers (ties, and -0 from small negatives), then in
+    column c a share (c % 8) * 3% of NaN with the sign bit set, quiet NaN,
+    +inf and -inf (more NaN than the trim in some columns, fewer in
+    others), and columns 128-191 all -0."""
+    rows, m = x.shape
+    real = (x[:n].float() * 2).round()
+    u = torch.rand(n, m, device="cuda", generator=g)
+    rate = (torch.arange(m, device="cuda") % 8) * 0.03
+    # bits 0xFFC00000, 0x7FC00000, +inf, -inf
+    values = torch.tensor([-0x400000, 0x7FC00000, 0x7F800000, -0x800000],
+                          dtype=torch.int32, device="cuda").view(
+                              torch.float32)
+    for lo, hi, v in zip((0.0, 0.5, 0.7, 0.85), (0.5, 0.7, 0.85, 1.0),
+                         values):
+        real[(u >= rate * lo) & (u < rate * hi)] = v
+    real[:, 128:192] = -0.0
+    x[:n] = real.to(x.dtype)
+
+
+def robust_garbage(x, n):
+    """Rows n.. of x hold NaN of both signs, +-3e38 and +inf, in place:
+    values the kernel must never read."""
+    junk = torch.tensor([float("nan"), -float("nan"), 3e38, -3e38,
+                         float("inf")], device="cuda")
+    x[n:] = junk[torch.arange(x[n:].numel(), device="cuda") % 5].view(
+        x[n:].shape).to(x.dtype)
+
+
+def check_robust(rows, n, m, mode, dtype, label, reps=200, nan=False,
+                 special=False, garbage=False):
+    """K2 against its plain version on the card at one shape, bit for bit
+    (NaN where it is NaN, equal values elsewhere: -0 and +0 are equal,
+    since equal values have no stated order), and against the kernel's
+    algorithm in plain PyTorch (``robust_aggregate_network``) to the bit,
+    the sign of a zero included; rows >= n hold values the kernel must
+    ignore. ``nan`` puts NaN in the first 64 columns past the rank window
+    (the result is NaN there) and one NaN in the next 64 (trimmed or below
+    the median); ``special`` puts in the values of ``robust_specials``,
+    ``garbage`` those of ``robust_garbage``. Returns the numbers."""
     g = torch.Generator(device="cuda").manual_seed(rows * 7919 + n * 31 + m)
     x = torch.randn(rows, m, device="cuda", generator=g).to(dtype)
     if nan:
         x[:n // 2 + 1, :64] = float("nan")
         x[0, 64:128] = float("nan")
+    if special:
+        robust_specials(x, n, g)
+    if garbage:
+        robust_garbage(x, n)
     trim = TrimmedMean(0.2).n_trim(n) if mode == "trimmed_mean" else 0
     kw = dict(trim=trim, mode=mode)
     got = robust_aggregate(x, n, **kw)
     want = robust_aggregate_ref(x, n, **kw)
+    net = robust_aggregate_network(x, n, **kw)
     torch.cuda.synchronize()
     assert got.shape == (m,) and got.dtype == dtype
     is_nan = got.isnan()
     assert torch.equal(is_nan, want.isnan()), (label, rows, n, m, mode)
-    assert bool(is_nan[:64].all()) == nan and not bool(is_nan[64:].any())
-    err = (got.float() - want.float())[~is_nan].abs().max().item()
-    assert err == 0 and torch.equal(got[~is_nan], want[~is_nan]), (
-        label, rows, n, m, mode, dtype, err)
+    assert torch.equal(is_nan, net.isnan()), (label, rows, n, m, mode)
+    if not special:
+        assert bool(is_nan[:64].all()) == nan and not bool(is_nan[64:].any())
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got[~is_nan], want[~is_nan]) and torch.equal(
+        got[~is_nan].view(bits), net[~is_nan].view(bits)), (
+        label, rows, n, m, mode, dtype)
+    finite = got.isfinite()
+    err = (got.float() - want.float())[finite].abs().max().item() \
+        if bool(finite.any()) else 0.0
     kernel_ms, kernel_call_ms = time_ms(
         lambda: robust_aggregate(x, n, **kw), reps)
     plain_ms, plain_call_ms = time_ms(
@@ -438,6 +506,41 @@ def check_robust(rows, n, m, mode, dtype, label, reps=200, nan=False):
                library_call_ms=library_call_ms)
     emit(**row)
     return row
+
+
+def robust_cases():
+    """Every ``check_robust`` call of phase 3, as (rows, n, m, mode, dtype,
+    label, options): the main path's rows in both modes and types, n = N,
+    n = 1, N = 128, NaN uploads, odd and even n, ragged M, one
+    bandwidth-sized case; the kernel's size-class boundaries (n = 8/9,
+    16/17, 32/33, 64/65, 127/128), each with n = N in the trimmed mean and
+    with 3 rows more (at most 128) in the median; and the special values
+    with garbage in the unread rows."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for mode in ("trimmed_mean", "median"):
+        cases += [(48, 44, M_MLP, mode, f32, "main path rows", {}),
+                  (8, 8, M_MLP, mode, f32, "n = N", {}),
+                  (8, 1, M_MLP, mode, f32, "n = 1", {}),
+                  (48, 44, M_MLP, mode, bf16, "bf16", {}),
+                  (128, 128, M_MLP, mode, f32, "N = 128", {}),
+                  (48, 44, M_MLP, mode, f32, "NaN uploads",
+                   dict(reps=20, nan=True)),
+                  (48, 44, M_MLP, mode, f32, "special values, garbage rows",
+                   dict(reps=20, special=True, garbage=True))]
+    cases += [(16, 13, M_MLP, "median", f32, "odd n", {}),
+              (16, 12, M_MLP, "median", f32, "even n", {}),
+              (16, 11, 4097, "trimmed_mean", f32, "ragged M", {}),
+              (16, 11, M_MLP + 1, "median", f32, "ragged M", {}),
+              (16, 11, 4097, "median", bf16, "bf16 ragged M", {}),
+              (64, 60, 1 << 22, "trimmed_mean", f32, "bandwidth",
+               dict(reps=5))]
+    for n in (8, 9, 16, 17, 32, 33, 64, 65, 127, 128):
+        cases += [(n, n, M_MLP, "trimmed_mean", f32, "class boundary, n = N",
+                   dict(reps=20)),
+                  (min(n + 3, 128), n, M_MLP, "median", f32,
+                   "class boundary", dict(reps=20))]
+    return cases
 
 
 def flash_bound(b, h, s, t, d, causal, window, dtype, hkv=None):
@@ -1524,8 +1627,22 @@ def main():
     # (UTMALDG), K4's tensor-core route on mma.sync fed by cp.async
     # (LDGSTS), K6's chunk states and chunk scan on mma.sync
     sass = {name: sass_ops(name) for name in (
-        "flash_attention", "moe_gemm", "decode_attention", "ssd_scan")}
+        "flash_attention", "moe_gemm", "decode_attention", "ssd_scan",
+        "robust_aggregate")}
     emit(phase="sass", **sass)
+    # K2 sorts each column in registers: no instance up to 64 rows may
+    # touch shared or local memory; each instance's registers and spills
+    k2_ptxas = ptxas_summary(logs.get("robust_aggregate", ""))
+    k2 = {}
+    for c in SIZE_CLASSES:
+        name = f"robust_kernel<{c}>"
+        ops = sass["robust_aggregate"][name]
+        k2[name] = dict(ptxas=k2_ptxas.get(name), **{
+            op: ops[op] for op in ("LDS", "STS", "LDL", "STL")})
+        if c <= 64:
+            assert not any(ops[op] for op in ("LDS", "STS", "LDL", "STL")), (
+                name, ops)
+    emit(phase="k2_instances", **k2)
     # every expected kernel must be found by name, so a renamed one fails
     for d in k3.HEAD_DIMS:
         ops = sass["flash_attention"][f"flash_bf16_kernel<{d}>"]
@@ -1555,21 +1672,10 @@ def main():
                     assume_normalized=False)
     check_aggregate(64, 1 << 22, torch.float32, "bandwidth", reps=20)
 
+    for rows, n, m, mode, dtype, label, opts in robust_cases():
+        check_robust(rows, n, m, mode, dtype, label, **opts)
+
     f32, bf16 = torch.float32, torch.bfloat16
-    for mode in ("trimmed_mean", "median"):
-        check_robust(48, 44, M_MLP, mode, f32, "main path rows")
-        check_robust(8, 8, M_MLP, mode, f32, "n = N")
-        check_robust(8, 1, M_MLP, mode, f32, "n = 1")
-        check_robust(48, 44, M_MLP, mode, bf16, "bf16")
-        check_robust(128, 128, M_MLP, mode, f32, "N = 128")
-        check_robust(48, 44, M_MLP, mode, f32, "NaN uploads", reps=20,
-                     nan=True)
-    check_robust(16, 13, M_MLP, "median", f32, "odd n")
-    check_robust(16, 12, M_MLP, "median", f32, "even n")
-    check_robust(16, 11, 4097, "trimmed_mean", f32, "ragged M")
-    check_robust(16, 11, M_MLP + 1, "median", f32, "ragged M")
-    check_robust(16, 11, 4097, "median", bf16, "bf16 ragged M")
-    check_robust(64, 60, 1 << 22, "trimmed_mean", f32, "bandwidth", reps=5)
 
     # lm_tiny's training shapes (8 windows a client row, a bucket's rows
     # padded to 1, 2, 4, 8, 16 or 24) and its evaluation shape (16 client

@@ -7,7 +7,8 @@ client updates flattened to (N, M).
 ``csrc/robust_aggregate.cu`` on a CUDA tensor and runs the plain PyTorch
 version ``robust_aggregate_ref`` on a CPU tensor; there is no other path.
 It replaces the Pallas TPU kernel ``repro/kernels/robust_aggregate.py:31``
-(``_robust_kernel``).
+(``_robust_kernel``), an odd-even transposition sort of all N rows of a
+VMEM tile with the padding rows set to +inf.
 
 Both sum the kept ranks in ascending order, one float32 add at a time, and
 divide once — the order of the reference's host oracle — so the kernel, the
@@ -15,10 +16,22 @@ plain version and ``TrimmedMean/Median.aggregate_host`` agree bit for bit.
 
 Bound on the card: memory. The kernel reads n*M values and writes M, so its
 least time is (n*M + M) * bytes / 3.35 TB/s — 2.73 us at the main path's
-n = 44, M = 50,890 in f32; the sort's log2(n!) comparisons a column take
-~0.3 us at the card's 32-bit instruction rate. The kernel sorts each column
-in shared memory by insertion sort, a simple first version (see the source
-note).
+n = 44, M = 50,890 in f32. What keeps a kernel from it is latency (a
+thread sorts a column, and one wave holds ~12 warps an SM) and the sort's
+integer min/max at half the float32 rate. So each thread issues all of its
+column's loads at once, maps the values to order-preserving signed 32-bit
+keys (every NaN, of either sign, above +inf; pad slots the largest) and
+sorts them in registers with Batcher's odd-even merge network of its size
+class (``SIZE_CLASSES``, the smallest class >= n), unrolled at compile
+time: no shared or local memory, an integer min and max a comparator (see
+the source note).
+
+``robust_aggregate_network`` is the kernel's algorithm in plain PyTorch —
+the key map (``to_keys``/``from_keys``), the pad keys, the network
+(``network``, generated by the loops of the kernel's
+``odd_even_merge_network``) and the predicated reductions
+(``sort_keys``, ``reduce_keys``) — for the tests to hold against the plain
+version; no route of the port calls it.
 """
 from __future__ import annotations
 
@@ -30,8 +43,14 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-MAX_ROWS = 128      # rows a column sorts in the kernel's shared memory
+# the kernel's size classes: a column of n values sorts as the smallest
+# class >= n (the launcher's ``launch_class`` list in the .cu)
+SIZE_CLASSES = (*range(4, 65, 4), 80, 96, 112, 128)
+MAX_ROWS = SIZE_CLASSES[-1]
 _MODES = {"trimmed_mean": 0, "median": 1}
+ROTATION = 0x007FFFFF   # -inf's flipped bits less INT_MIN
+PAD_KEY = 0x7FFFFFFF    # slots n .. C-1 of a size class C: the largest key
+ACC_START = -0.0        # the exact additive identity: -0 + x = x for every x
 
 
 def _check(stacked: torch.Tensor, n: int, trim: int, mode: str) -> None:
@@ -70,12 +89,16 @@ def _launchers():
 
 def robust_aggregate_ref(stacked: torch.Tensor, n: int, *, trim: int = 0,
                          mode: str = "trimmed_mean") -> torch.Tensor:
-    """Plain PyTorch version: ``torch.sort`` over the n real rows (NaN last,
-    as the kernel and numpy order it), then the kernel's arithmetic — the
-    ascending sequential sum of ranks [trim, n-trim) divided once, or the
-    midpoint of the middle ranks; cast to the input dtype."""
+    """Plain PyTorch version: ``torch.sort`` over the n real rows (every
+    NaN last, of either sign, as the kernel and numpy order it), then the
+    kernel's arithmetic — the ascending sequential sum of ranks
+    [trim, n-trim) divided once, or the midpoint of the middle ranks; cast
+    to the input dtype."""
     _check(stacked, n, trim, mode)
-    xs = torch.sort(stacked[:n].to(torch.float32), dim=0).values
+    xs = stacked[:n].to(torch.float32)
+    # every NaN made positive: torch.sort on the card puts a NaN with its
+    # sign bit set first, where numpy, the CPU and the kernel put it last
+    xs = torch.sort(torch.where(xs.isnan(), float("nan"), xs), dim=0).values
     if mode == "median":
         out = (xs[(n - 1) // 2] + xs[n // 2]) * 0.5
     else:
@@ -86,6 +109,120 @@ def robust_aggregate_ref(stacked: torch.Tensor, n: int, *, trim: int = 0,
         # with its reciprocal, which is not the IEEE quotient
         out = acc / torch.full_like(acc, float(n - 2 * trim))
     return out.to(stacked.dtype)
+
+
+def size_class(n: int) -> int:
+    """The kernel's size class for a column of n values: the smallest of
+    ``SIZE_CLASSES`` >= n; raises beyond the largest."""
+    for c in SIZE_CLASSES:
+        if 1 <= n <= c:
+            return c
+    raise ValueError(f"need 1 <= n <= {MAX_ROWS}, got n={n}")
+
+
+def network(c: int) -> list:
+    """The kernel's sorting network for size class ``c``: the comparators
+    (a, b), a < b, of Batcher's odd-even merge sort of the next power of two
+    >= c wires, those between wires < c only, as stages of disjoint
+    comparators in the order of the kernel's loops
+    (``odd_even_merge_network`` in the .cu, flattened there). Every
+    comparator puts its minimum on wire a, so pad keys on wires >= n stay
+    where they are and the cut network sorts."""
+    wires = 1
+    while wires < c:
+        wires <<= 1
+    stages = []
+    p = 1
+    while p < wires:
+        k = p
+        while k >= 1:
+            stage = []
+            j = k % p
+            while j + k < wires:
+                i = 0
+                while i < k and i + j + k < wires:
+                    if ((i + j) // (2 * p) == (i + j + k) // (2 * p)
+                            and i + j + k < c):
+                        stage.append((i + j, i + j + k))
+                    i += 1
+                j += 2 * k
+            if stage:
+                stages.append(stage)
+            k >>= 1
+        p <<= 1
+    return stages
+
+
+def _wrap32(v: torch.Tensor) -> torch.Tensor:
+    """int64 -> the int32 value it is congruent to mod 2**32 (as int64)."""
+    return ((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def _flip(s: torch.Tensor) -> torch.Tensor:
+    """The bits below the sign flipped where the sign is set: its own
+    inverse."""
+    return s ^ ((s >> 31) & 0x7FFFFFFF)
+
+
+def to_keys(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the kernel's keys, signed 32-bit integers (held in int64)
+    in the floats' order: the bits below the sign flipped in a negative
+    float, then rotated down by ``ROTATION`` (mod 2**32) so that -inf's key
+    is INT_MIN. A NaN with its sign bit set, whose key would lie below
+    -inf's, wraps round to the top; any other NaN's key stays above
+    +inf's."""
+    s = x.contiguous().view(torch.int32).to(torch.int64)
+    return _wrap32(_flip(s) - ROTATION)
+
+
+def from_keys(key: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``to_keys`` (a NaN's key gives a NaN) -> float32."""
+    return _flip(_wrap32(key + ROTATION)).to(torch.int32).view(torch.float32)
+
+
+def sort_keys(stacked: torch.Tensor, n: int) -> torch.Tensor:
+    """The kernel's keys of the first n rows of ``stacked``, widened to f32,
+    padded to the size class C with ``PAD_KEY`` and sorted by the class's
+    ``network``: (C, M) int64."""
+    c = size_class(n)
+    keys = torch.full((c, stacked.shape[1]), PAD_KEY, dtype=torch.int64,
+                      device=stacked.device)
+    keys[:n] = to_keys(stacked[:n].to(torch.float32))
+    for stage in network(c):
+        a = torch.tensor([ab[0] for ab in stage], device=keys.device)
+        b = torch.tensor([ab[1] for ab in stage], device=keys.device)
+        lo = torch.minimum(keys[a], keys[b])
+        keys[b] = torch.maximum(keys[a], keys[b])
+        keys[a] = lo
+    return keys
+
+
+def reduce_keys(keys: torch.Tensor, n: int, trim: int, mode: str,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The kernel's reduction of sorted keys (C, M): the trimmed mean's
+    ascending sum of ranks [trim, n - trim) from ``ACC_START``, one f32 add
+    a rank, divided once, or the median's midpoint of ranks (n-1)//2 and
+    n//2; cast to ``dtype``."""
+    xs = from_keys(keys)
+    if mode == "median":
+        out = (xs[(n - 1) // 2] + xs[n // 2]) * 0.5
+    else:
+        out = torch.full(keys.shape[1:], ACC_START, dtype=torch.float32,
+                         device=keys.device)
+        for r in range(trim, n - trim):
+            out = out + xs[r]
+        out = out / torch.full_like(out, float(n - 2 * trim))
+    return out.to(dtype)
+
+
+def robust_aggregate_network(stacked: torch.Tensor, n: int, *,
+                             trim: int = 0,
+                             mode: str = "trimmed_mean") -> torch.Tensor:
+    """The kernel's algorithm in plain PyTorch, step for step:
+    ``sort_keys`` then ``reduce_keys``. For the tests: no route of the
+    port calls it."""
+    _check(stacked, n, trim, mode)
+    return reduce_keys(sort_keys(stacked, n), n, trim, mode, stacked.dtype)
 
 
 def robust_aggregate(stacked: torch.Tensor, n: int, *, trim: int = 0,
