@@ -67,7 +67,25 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     split into phases, one profiled; K3 again at the shape the run
     launched it at most; and a K = 8 run on the GPU and the CPU: the same
     selections, loss and accuracy within 1e-3;
- 9. serving the decoder-only zoo: ``starcoder2-15b`` (all 40 layers, bf16,
+ 9. the batched control plane and the multi-run sweep: ``schedule_runs``
+    and ``finalize_runs`` (penalties on every other run) in the "device"
+    layout on the card against the "hybrid" layout on the host at R = 12
+    and 64 runs, K = 50, every policy, and a round where no UE is
+    feasible — integers exact, floats within 4 ulp — with the median ms a
+    call of each; then ``run_sweep`` on the card: the paper's Fig. 3
+    setting (``examples/poisoning_study.py``: dqs, random, best_channel
+    and max_count x seeds 0-2 under the (6, 2) label flip, K = 50,
+    50,000/10,000, the 5 MB update, 3 rounds), K1 launched 12 times a
+    round, each round timed and the last profiled, its four seed-0 runs
+    held against their sequential ``run_experiment`` (host control):
+    the same selections, accuracies within 1e-2; a defended sweep
+    (``sign_flip`` under none, ``trimmed_mean+validation`` and
+    ``median``, dqs and random x seeds 0-1, 12,000/2,000, 2 rounds) with
+    K1 4 and K2 8 times a round and two runs held the same way; an
+    ``lm_tiny`` sweep (K = 8, ``token_flip_1to5``, dqs and random, 2
+    rounds) launching K3 every round; and a K = 10 sweep on the GPU and
+    the CPU: the same selections, accuracies within 1e-4;
+10. serving the decoder-only zoo: ``starcoder2-15b`` (all 40 layers, bf16,
     22 B parameters drawn on the card) and ``mamba2-370m`` (48 layers)
     each take 8 prompts of 2,048 tokens through ``api.prefill`` and 32
     greedy ``api.decode_step`` calls, every launch count set to 0 just before
@@ -83,7 +101,7 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     then reduced configs on
     the GPU and the CPU (starcoder2's ring cache, qwen2.5 and mamba2
     greedy generation): the same tokens, logits within 1e-4;
-10. serving the mixture-of-experts zoo: ``qwen2-moe-a2.7b`` (all 24
+11. serving the mixture-of-experts zoo: ``qwen2-moe-a2.7b`` (all 24
     layers, bf16, 14.3 B parameters drawn on the card) with the same
     traffic, every launch count set to 0 just before and read just after
     (K3 24 times at prefill, K4 24 times a step, K5 72 times at prefill
@@ -99,7 +117,7 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     reduced qwen2-moe (also ``optimized``: group-local dispatch),
     moonshot and Jamba on the GPU and the CPU — the same tokens, logits
     within 1e-4, the Jamba run launching K3, K4, K5 and K6;
-11. one JSON line of per-kernel numbers, then the result line.
+12. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without printing a result where CUDA is absent. A kernel's
 time is its device time from ``torch.profiler`` over back-to-back calls
@@ -126,12 +144,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs.base import FeelConfig  # noqa: E402
 from repro_torch.core import attacks as atk  # noqa: E402
+from repro_torch.core import control as ctl  # noqa: E402
 from repro_torch.core.poisoning import (EASY_PAIR, LabelFlipAttack,  # noqa: E402
                                         pick_malicious)
 from repro_torch.data.partition import partition  # noqa: E402
 from repro_torch.data.synthetic_mnist import generate  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core.defenses import TrimmedMean  # noqa: E402
+from repro_torch.core.scheduler import POLICY_IDS  # noqa: E402
+from repro_torch.core.wireless import WirelessModel  # noqa: E402
 from repro_torch.data.tokens import make_stream  # noqa: E402
 from repro_torch.federated import simulation  # noqa: E402
 from repro_torch.federated.cohort import pad_count  # noqa: E402
@@ -317,8 +338,10 @@ def time_ms(fn, reps):
     nothing; call ms is the CUDA-event time per call, which the host's
     launch overhead sets whenever the kernels are shorter. The profiler
     now and then hands back no device events for a short run; then the
-    profiled calls are made again, at most twice more, and a third empty
-    reading raises."""
+    profiled calls are made again, at most four more times, and if the
+    fifth reading is empty too the CUDA-event time stands in for the
+    device time (a ``time_ms_fallback`` line says so): it includes the
+    launch overhead, so it can only read slower."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -329,7 +352,7 @@ def time_ms(fn, reps):
     end.record()
     end.synchronize()
     call_ms = start.elapsed_time(end) / reps
-    for _ in range(3):
+    for _ in range(5):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -339,7 +362,8 @@ def time_ms(fn, reps):
                         for us, count in device_events(prof).values()) / 1e3
         if device_ms > 0:
             return device_ms, call_ms
-    raise RuntimeError("torch.profiler recorded no device time in 3 runs")
+    emit(phase="time_ms_fallback", reps=reps, call_ms=call_ms)
+    return call_ms, call_ms
 
 
 def bound(n, m, dtype):
@@ -1063,6 +1087,308 @@ def lm_phases():
              selected=a.selected.tolist())
 
     return k3_launches, k3_row
+
+
+# ---------------------------------------------------------------------- #
+# The batched control plane and the multi-run sweep
+# ---------------------------------------------------------------------- #
+CTRL_K = 50             # the §V cell's UEs
+CTRL_ULPS = 4           # the "device" layout's floats against "hybrid"
+# Eq. 1's reputations live in [0, 1] and come out of a subtraction whose
+# terms (the old reputation, the update) can be far larger than the
+# result, so their gap is held to CTRL_ULPS ulp of 1.0, not of the result
+REP_TOL = CTRL_ULPS * float(np.spacing(1.0))
+
+
+def control_instance(seed, r, k, deadline=None):
+    """R runs x K UEs of random control state on the card (every policy in
+    turn, tests/test_torch_batched_control.py's generator) and one round of
+    draws: (state, gains, rand_rank, (w_rep, w_div))."""
+    rng = np.random.default_rng(seed)
+    cfg = FeelConfig(n_ues=k, **({} if deadline is None
+                                 else {"deadline_s": deadline}))
+    wms = [WirelessModel(cfg, np.random.default_rng(seed * 100 + i))
+           for i in range(r)]
+    sizes = (rng.integers(1, 31, (r, k)) * 50).astype(float)
+    cpu = rng.uniform(cfg.cpu_hz_min, cfg.cpu_hz_max, (r, k))
+    names = list(POLICY_IDS)
+    state = ctl.ControlState(
+        policy_id=np.array([i % len(names) for i in range(r)], np.int32),
+        sizes=sizes, divs=rng.uniform(0, 0.9, (r, k)),
+        r_min=np.stack([wms[i].min_rate(wms[i].train_time(sizes[i], cpu[i]))
+                        for i in range(r)]),
+        reputations=rng.uniform(0, 1, (r, k)),
+        ages=rng.integers(1, 6, (r, k)).astype(float), cfg=cfg,
+        device=torch.device("cuda"))
+    gains = np.stack([wm.draw_channels().gains for wm in wms])
+    rand_rank = np.stack([np.argsort(rng.permutation(k)) for _ in range(r)])
+    return state, gains, rand_rank, (rng.uniform(0.2, 0.8, r),
+                                     rng.uniform(0.2, 0.8, r))
+
+
+def ulp_gap(a, b):
+    """The largest |a - b| in ulps of the larger magnitude (0 where equal)."""
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    gap = np.abs(a - b) / np.spacing(np.maximum(np.abs(a), np.abs(b)))
+    return float(np.max(np.where(a == b, 0.0, gap), initial=0.0))
+
+
+def check_layouts(label, got, want):
+    """The "device" layout against "hybrid": integers exact, floats within
+    CTRL_ULPS ulp."""
+    gaps = {}
+    for name, a, b in zip(("x", "alpha", "costs", "values", "forced"),
+                          got, want):
+        if name in ("alpha", "values"):
+            gaps[name] = ulp_gap(a, b)
+            assert gaps[name] <= CTRL_ULPS, (label, name, gaps[name])
+        else:
+            assert np.array_equal(a, b), (label, name)
+    return gaps
+
+
+def median_ms(fn, reps=15):
+    """Median host ms of one call (the call returns host arrays, so it
+    ends synchronised)."""
+    fn()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def control_layouts():
+    """schedule_runs and finalize_runs in both layouts: "device" on the
+    card against "hybrid" on the host, on random instances at R = 12 and
+    64 runs, K = 50, every policy, and a round where every UE is
+    infeasible (integers exact, floats within CTRL_ULPS ulp, reputations
+    within REP_TOL); the median ms of a call of each layout."""
+    for r in (12, 64):
+        gaps = []
+        for seed in (0, 1, 2):
+            st, gains, rr, om = control_instance(seed, r, CTRL_K)
+            gaps.append(check_layouts(
+                f"R {r} seed {seed}",
+                ctl.schedule_runs(st, gains, rr, *om, kernel="device"),
+                ctl.schedule_runs(st, gains, rr, *om, kernel="hybrid")))
+        ms = {kern: median_ms(lambda kern=kern: ctl.schedule_runs(
+            st, gains, rr, *om, kernel=kern)) for kern in ctl.LAYOUTS}
+        # finalize_runs with penalties on every other run
+        rng = np.random.default_rng(r)
+        n_sel = rng.integers(1, CTRL_K, r)
+        sels = [rng.choice(CTRL_K, size=n, replace=False) for n in n_sel]
+        acc_l = [rng.uniform(0, 1, n) for n in n_sel]
+        acc_t = [rng.uniform(0, 1, n) for n in n_sel]
+        pens = [rng.uniform(0, 0.3, n) if i % 2 else None
+                for i, n in enumerate(n_sel)]
+        after = {}
+        for kern in ctl.LAYOUTS:
+            s = dataclasses.replace(st, reputations=st.reputations.copy(),
+                                    ages=st.ages.copy())
+            ctl.finalize_runs(s, sels, acc_l, acc_t, penalties=pens,
+                              kernel=kern)
+            after[kern] = s
+        fin_gap = float(np.max(np.abs(after["device"].reputations
+                                      - after["hybrid"].reputations)))
+        assert fin_gap <= REP_TOL, fin_gap
+        assert np.array_equal(after["device"].ages, after["hybrid"].ages)
+        fin_ms = {kern: median_ms(lambda kern=kern: ctl.finalize_runs(
+            dataclasses.replace(st), sels, acc_l, acc_t, penalties=pens,
+            kernel=kern)) for kern in ctl.LAYOUTS}
+        emit(phase="control_layouts", runs=r, ues=CTRL_K,
+             schedule_ms=ms, finalize_ms=fin_ms,
+             max_ulps={k: max(g[k] for g in gaps) for k in gaps[0]},
+             finalize_max_abs_gap=fin_gap)
+    st, gains, rr, om = control_instance(3, 12, CTRL_K, deadline=1e-6)
+    dev = ctl.schedule_runs(st, gains, rr, *om, kernel="device")
+    check_layouts("infeasible", dev,
+                  ctl.schedule_runs(st, gains, rr, *om, kernel="hybrid"))
+    x, alpha, costs, values, forced = dev
+    top = st.policy_id == POLICY_IDS["top_value"]
+    assert np.all(costs == CTRL_K + 1) and np.all(forced == ~top), forced
+    emit(phase="control_layouts", runs=12, ues=CTRL_K, all_infeasible=True,
+         forced=int(forced.sum()))
+
+
+def sweep_run(**kw):
+    """``simulation.run_sweep(**kw)`` with each round timed (ending in a
+    GPU synchronise) and its launches read by name. Returns (result, the
+    sweep's runs, per-round rows); the row of round ``profile_at`` comes
+    from a run under torch.profiler tracing the device alone (a sweep
+    round issues ~26,000 device events, and tracing the host's ops too
+    took the §V sweep's round on an H100 from 0.85 s to 12.5 s): its
+    wall, device busy time and idle share, its wall no timing of the
+    round."""
+    profile_at = kw.pop("profile_at", None)
+    real = simulation._sweep_round_stacked
+    seen, rounds = [], []
+
+    def timed(runs, t, sweep_ctrl=None):
+        if not seen:
+            seen.extend(runs)
+        cuda = runs[0].server.device.type == "cuda"
+        before = read_launches()
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prof = None
+        if t == profile_at:
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                real(runs, t, sweep_ctrl)
+                torch.cuda.synchronize()
+        else:
+            real(runs, t, sweep_ctrl)
+            if cuda:
+                torch.cuda.synchronize()
+        row = dict(round=t, wall_ms=(time.perf_counter() - t0) * 1e3,
+                   launches={k: v - before[k]
+                             for k, v in read_launches().items()},
+                   profiled=prof is not None)
+        if prof is not None:
+            busy_us = sum(device_us(prof).values())
+            row.update(device_busy_ms=busy_us / 1e3,
+                       device_idle_share=1.0 - busy_us / 1e3
+                       / row["wall_ms"],
+                       n_device_events=sum(
+                           1 for ev in prof.events() if ev.device_type
+                           == torch.autograd.DeviceType.CUDA))
+        rounds.append(row)
+
+    simulation._sweep_round_stacked = timed
+    try:
+        res = simulation.run_sweep(**kw)
+    finally:
+        simulation._sweep_round_stacked = real
+    return res, seen, rounds
+
+
+def hold_against_sequential(label, run, **kw):
+    """One sweep run against its own sequential run_experiment on the card
+    (host control plane): the same selections in every round, accuracies
+    within 1e-2. Returns the sequential run's round ms."""
+    out, server = experiment(
+        policy=run.policy, seed=run.seed, scenario=run.scenario,
+        defense=run.defense, task=run.task, control="host", device="cuda",
+        **kw)
+    for a, b in zip(run.server.logs, server.logs):
+        assert np.array_equal(a.selected, b.selected), (label, a.round)
+        assert abs(a.global_acc - b.global_acc) <= 1e-2, (
+            label, a.global_acc, b.global_acc)
+    assert len(server.logs) == len(run.server.logs), label
+    emit(phase="sweep_vs_sequential", run=label, policy=run.policy,
+         seed=run.seed, defense=run.defense.name,
+         sweep_acc=[l.global_acc for l in run.server.logs],
+         sequential_acc=out["acc"], sequential_round_ms=server.round_ms,
+         selected=[l.selected.tolist() for l in server.logs])
+    return server.round_ms
+
+
+def sweep_phases():
+    """The batched control plane's layouts, then run_sweep on the card:
+    the §V cell (12 runs, K1 twelve times a round), a defended sweep (K2
+    on every defended run's aggregation), an lm_tiny sweep (K3) and a
+    small sweep on the GPU and the CPU. Returns the launches of each."""
+    t_phase = time.perf_counter()
+    control_layouts()
+    emit(phase="control_layouts_seconds",
+         seconds=time.perf_counter() - t_phase)
+
+    # the paper's Fig. 3 setting, as examples/poisoning_study.py runs it:
+    # four policies x three seeds under the (6, 2) label flip, K = 50,
+    # the 5 MB update under which the knapsack binds
+    t_phase = time.perf_counter()
+    v_cfg = FeelConfig(model_size_bits=5e6 * 8)
+    v_kw = dict(cfg=v_cfg, n_train=50_000, n_test=10_000, rounds=3)
+    policies = ["dqs", "random", "best_channel", "max_count"]
+    reset_launches()
+    res, runs, rounds = sweep_run(
+        policies=policies, seeds=(0, 1, 2), scenarios=[atk.label_flip(6, 2)],
+        device="cuda", profile_at=2, **v_kw)
+    launches = {"sweep": read_launches()}
+    for row in rounds:
+        emit(phase="sweep", **row)
+        assert row["launches"] == only(weighted_aggregate=12), row
+    assert launches["sweep"] == only(weighted_aggregate=36), launches
+    assert len(res.runs) == 12 and all(
+        np.isfinite(r["acc"]).all() for r in res.runs)
+    seq_ms = [hold_against_sequential(
+        f"sweep {r.policy}", r, cfg=v_cfg, n_train=50_000, n_test=10_000,
+        rounds=3) for r in runs if r.seed == 0]
+    emit(phase="sweep_summary", runs=len(res.runs),
+         round_ms=[row["wall_ms"] for row in rounds],
+         sequential_seed0_round_ms=np.sum(seq_ms, axis=0).tolist(),
+         dqs_acc=res.mean_curve("acc", policy="dqs").tolist(),
+         random_acc=res.mean_curve("acc", policy="random").tolist(),
+         dqs_malicious_selected=res.mean_curve(
+             "malicious_selected", policy="dqs").tolist(),
+         seconds=time.perf_counter() - t_phase)
+
+    # defended: sign flip under none / trimmed mean + validation / median
+    t_phase = time.perf_counter()
+    d_kw = dict(cfg=FeelConfig(), n_train=12_000, n_test=2_000, rounds=2)
+    reset_launches()
+    res_d, runs_d, rounds_d = sweep_run(
+        policies=["dqs", "random"], seeds=(0, 1), scenarios=["sign_flip"],
+        defenses=["none", "trimmed_mean+validation", "median"],
+        device="cuda", **d_kw)
+    launches["sweep_defended"] = read_launches()
+    for row in rounds_d:
+        emit(phase="sweep_defended", **row)
+        assert row["launches"] == only(weighted_aggregate=4,
+                                       robust_aggregate=8), row
+    assert launches["sweep_defended"] == only(
+        weighted_aggregate=8, robust_aggregate=16), launches
+    for r in runs_d:
+        if ((r.policy, r.seed, r.defense.name)
+                in (("dqs", 0, "trimmed_mean+validation"),
+                    ("random", 1, "median"))):
+            hold_against_sequential(f"sweep_defended {r.defense.name}", r,
+                                    **d_kw)
+    emit(phase="sweep_defended_summary", runs=len(res_d.runs),
+         n_flagged=[sum(r["n_flagged"]) for r in res_d.runs],
+         n_rejected=[sum(r["n_rejected"]) for r in res_d.runs],
+         seconds=time.perf_counter() - t_phase)
+
+    # lm_tiny: every attention forward of the sweep through K3
+    t_phase = time.perf_counter()
+    reset_launches()
+    res_lm, _, rounds_lm = sweep_run(
+        policies=["dqs", "random"], seeds=(0,), tasks=["lm_tiny"],
+        scenarios=["token_flip_1to5"], cfg=FeelConfig(n_ues=8, n_malicious=2),
+        n_train=960, n_test=240, rounds=2, device="cuda")
+    launches["sweep_lm"] = read_launches()
+    for row in rounds_lm:
+        emit(phase="sweep_lm", **row)
+        got = row["launches"]
+        assert got == only(weighted_aggregate=2,
+                           flash_attention=got["flash_attention"]) \
+            and got["flash_attention"] > 0, row
+    assert all(np.isfinite(r["loss"]).all() for r in res_lm.runs)
+    emit(phase="sweep_lm_summary", loss=[r["loss"] for r in res_lm.runs],
+         seconds=time.perf_counter() - t_phase)
+
+    # the same small sweep on the GPU and on the CPU
+    t_phase = time.perf_counter()
+    small = {dev: sweep_run(policies=["dqs", "random"], seeds=(0, 1),
+                            cfg=FeelConfig(n_ues=10, n_malicious=2),
+                            n_train=3000, n_test=500, rounds=2, device=dev)
+             for dev in ("cuda", "cpu")}
+    for a, b in zip(small["cuda"][1], small["cpu"][1]):
+        for la, lb in zip(a.server.logs, b.server.logs):
+            assert np.array_equal(la.selected, lb.selected), (a.policy,
+                                                              la.round)
+            assert abs(la.global_acc - lb.global_acc) <= 1e-4, (
+                la.global_acc, lb.global_acc)
+        emit(phase="sweep_cuda_vs_cpu", policy=a.policy, seed=a.seed,
+             acc_cuda=[l.global_acc for l in a.server.logs],
+             acc_cpu=[l.global_acc for l in b.server.logs],
+             selected=[l.selected.tolist() for l in a.server.logs])
+    emit(phase="sweep_cuda_vs_cpu_seconds",
+         seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 # ---------------------------------------------------------------------- #
@@ -1893,7 +2219,10 @@ def main():
     # 8. the LM path
     launches["flash_attention"], summary["flash_attention"] = lm_phases()
 
-    # 9./10. serving the decoder-only zoo, experts included
+    # 9. the batched control plane and the multi-run sweep
+    emit(phase="sweep_launches", **sweep_phases())
+
+    # 10./11. serving the decoder-only zoo, experts included
     (launches["decode_attention"], launches["moe_gemm"],
      launches["ssd_scan"]) = zoo_phases()
     # K4 at the serving path's median cache length (2,049 to 2,080 valid
@@ -1905,7 +2234,7 @@ def main():
     summary["ssd_scan"] = summary_k6
     summary["moe_gemm"] = summary_k5
 
-    # 11. summary and result
+    # 12. summary and result
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [dict(
         name=name, **KERNELS[name], launches=launches[name],

@@ -19,10 +19,12 @@ from the host ``Generator`` (the stream of record) exactly as the reference
 does, so the same seed poisons the same samples byte for byte. The model
 attack is a torch op on ``{name: tensor}`` params: ``apply_loop`` for one
 client, ``apply_stacked`` for the whole stacked cohort (one masked
-``torch.where`` per leaf, bit-equal to the loop). The stacked twins of the
-data attacks (``LabelFlip.apply_rows``, ``FeatureNoise.apply_rows``) have no
-consumer in the round and are not ported yet. The scenario registry and the
-metric helpers (recovery rounds, reputation gap) live at the bottom.
+``torch.where`` per leaf, bit-equal to the loop). The data attacks' stacked
+twins (``LabelFlip.apply_rows``, ``FeatureNoise.apply_rows``) apply the
+same poisoning to the padded (K, S) client layout as torch ops, one masked
+``torch.where`` a flip pair, equal to the host path given the same draws.
+The scenario registry and the metric helpers (recovery rounds, reputation
+gap) live at the bottom.
 """
 from __future__ import annotations
 
@@ -97,6 +99,38 @@ class LabelFlip:
         """Partition entry point: draw + apply in one call."""
         return self.apply_host(x, y, self.draw(rng, x, y))
 
+    def apply_rows(self, x, y, valid, mal, u=None):
+        """Stacked twin over (K, S) padded client tensors.
+
+        x (K, S, D); y (K, S) int; valid (K, S) {0,1} real-sample mask;
+        mal (K,) bool malicious rows; u (K, S) float32 draws (row k is
+        ``draw``'s output for client k, zero-padded), None for a full flip.
+        Pairs resolve against the original labels. Returns (x, y).
+        """
+        y = torch.as_tensor(y)
+        y0 = y
+        mal_col = torch.as_tensor(mal, dtype=torch.bool,
+                                  device=y.device)[:, None]
+        valid_b = torch.as_tensor(valid, device=y.device) > 0
+        for s, t in self.pairs:
+            is_src = (y0 == s) & valid_b
+            if u is None:
+                flip = is_src
+            else:
+                # round() on the host in float64, as ``_n_flip`` does
+                S = y.shape[-1]
+                table = torch.as_tensor(np.round(
+                    self.flip_fraction * np.arange(S + 1, dtype=np.float64)
+                ).astype(np.int64), device=y.device)
+                n_flip = table[is_src.sum(-1)]
+                key = torch.where(is_src, torch.as_tensor(u, device=y.device),
+                                  torch.inf)
+                order = torch.argsort(key, dim=-1, stable=True)
+                rank = torch.argsort(order, dim=-1, stable=True)
+                flip = is_src & (rank < n_flip[:, None])
+            y = torch.where(mal_col & flip, t, y)
+        return torch.as_tensor(x), y
+
 
 @dataclasses.dataclass(frozen=True)
 class FeatureNoise:
@@ -118,6 +152,18 @@ class FeatureNoise:
 
     def poison(self, x, y, rng):
         return self.apply_host(x, y, self.draw(rng, x, y))
+
+    def apply_rows(self, x, y, valid, mal, eps):
+        """Stacked twin over (K, S, D) padded client tensors: the noise
+        lands only on malicious rows' REAL samples (padding stays exactly
+        zero, the cohort engine's contract). Returns (x, y)."""
+        x = torch.as_tensor(x)
+        m = (torch.as_tensor(mal, dtype=torch.bool, device=x.device)[:, None]
+             & (torch.as_tensor(valid, device=x.device) > 0))[..., None]
+        noisy = torch.clamp(
+            x + float(np.float32(self.sigma))
+            * torch.as_tensor(eps, device=x.device), *self.clip)
+        return torch.where(m, noisy, x), torch.as_tensor(y)
 
 
 @dataclasses.dataclass(frozen=True)

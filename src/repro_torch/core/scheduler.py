@@ -23,7 +23,9 @@ no wireless constraint. ``brute_force_schedule`` is the exact solver for
 small K (test oracle).
 
 A numpy copy of the host half of ``repro.core.scheduler``: the same inputs
-and RNG give the same schedules exactly.
+and RNG give the same schedules exactly. ``pack_scan`` and
+``greedy_pack_rows`` are the batched control plane's tensor twins of
+``greedy_pack`` (core/control.py), over (R, N) rows on any device.
 """
 from __future__ import annotations
 
@@ -31,10 +33,14 @@ import dataclasses
 import itertools
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import FeelConfig
 
 POLICY_NAMES = ("dqs", "random", "best_channel", "max_count", "top_value")
+# Integer ids the batched control plane (core/control.py) selects a run's
+# priority key by.
+POLICY_IDS = {name: i for i, name in enumerate(POLICY_NAMES)}
 
 
 @dataclasses.dataclass
@@ -67,6 +73,42 @@ def greedy_pack(order: np.ndarray, costs: np.ndarray, k: int):
             x[u] = True
             alpha[u] = c / k
             budget -= c
+    return x, alpha
+
+
+def pack_scan(c_sorted: torch.Tensor, k: int) -> torch.Tensor:
+    """Take-mask of the skipping greedy over PRE-SORTED costs (..., N).
+
+    Not a masked prefix sum: ``greedy_pack`` SKIPS a UE that does not fit
+    the remaining budget and walks on, so whether position i is packed
+    depends on every earlier decision. The remaining budget is carried
+    through the N sorted positions (N sequential steps, every row at
+    once).
+    """
+    budget = torch.full(c_sorted.shape[:-1], k, dtype=c_sorted.dtype,
+                        device=c_sorted.device)
+    takes = []
+    for c in c_sorted.unbind(-1):
+        take = (c <= k) & (c <= budget)
+        budget = budget - torch.where(take, c, 0)
+        takes.append(take)
+    return torch.stack(takes, -1)
+
+
+def greedy_pack_rows(sort_key: torch.Tensor, costs: torch.Tensor, k: int):
+    """``greedy_pack`` for every row of (R, N) tensors at once: the stable
+    ascending argsort of the float64 priority key, then the ``pack_scan``
+    budget walk. ``k`` is only the budget; the width is N. ``costs`` int32;
+    returns (x bool (R, N), alpha float64 (R, N)). A NaN key raises: the
+    card's sort orders NaN by its sign bit, numpy's puts it last."""
+    if bool(sort_key.isnan().any()):
+        raise ValueError("NaN priority key: the control plane's inputs "
+                         "hold a NaN")
+    order = torch.argsort(sort_key, dim=-1, stable=True)
+    take = pack_scan(torch.gather(costs, -1, order), k)
+    x = torch.zeros_like(take).scatter(-1, order, take)
+    alpha = torch.where(x, costs.to(torch.float64)
+                        / torch.full_like(sort_key, float(k)), 0.0)
     return x, alpha
 
 

@@ -16,14 +16,20 @@ test oracle.
 
 A copy of the host ``WirelessModel`` of ``repro.core.wireless``: the same
 RNG draws in the same order, and the same float64 arithmetic, so costs and
-channel gains are equal to the reference's exactly.
+channel gains are equal to the reference's exactly. ``rate_eq4`` and
+``cost_bisect`` are the batched control plane's tensor twins
+(core/control.py): float64 over (..., K) tensors on any device, every
+quotient by a tensor (CUDA divides by a host scalar as a product with its
+reciprocal, which is not the IEEE quotient numpy computes).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import FeelConfig
 
@@ -141,3 +147,43 @@ class WirelessModel:
         feasible = rates >= r_min[:, None]
         c = np.where(feasible.any(1), feasible.argmax(1) + 1, K + 1)
         return c.astype(int)
+
+
+# ---------------------------------------------------------------------- #
+# Tensor twins (batched control plane) — arbitrary leading batch axes.
+# ---------------------------------------------------------------------- #
+def rate_eq4(gains: torch.Tensor, alpha: torch.Tensor, bandwidth_hz: float,
+             p_watt: float, n0: float) -> torch.Tensor:
+    """Eq. 4 over float64 tensors, in ``WirelessModel.rate``'s operation
+    order; 0 where alpha == 0 (the inf/nan the division makes there is
+    discarded by the where)."""
+    snr = gains * p_watt / (alpha * bandwidth_hz * n0)
+    return torch.where(alpha > 0,
+                       alpha * bandwidth_hz * torch.log2(1.0 + snr), 0.0)
+
+
+def cost_bisect(gains: torch.Tensor, r_min: torch.Tensor, k: int,
+                bandwidth_hz: float, p_watt: float,
+                n0: float) -> torch.Tensor:
+    """Eq. 9 by monotone bisection over (..., K) float64 tensors -> int32.
+
+    ``k`` is the fraction denominator (cfg.n_ues). The loop runs a fixed
+    ceil(log2 k) + 1 rounds: once the bracket collapses the extra rounds
+    are no-ops for feasible UEs, and an infeasible UE (the whole band
+    misses r_min, a blown deadline included) gets k + 1 from the up-front
+    whole-band probe.
+    """
+    kt = torch.full((), float(k), dtype=torch.float64, device=gains.device)
+
+    def ok(c):
+        return rate_eq4(gains, c.to(torch.float64) / kt, bandwidth_hz,
+                        p_watt, n0) >= r_min
+
+    lo = torch.ones(gains.shape, dtype=torch.int32, device=gains.device)
+    hi = torch.full_like(lo, k)
+    feasible = ok(hi)
+    for _ in range(max(1, math.ceil(math.log2(max(k, 2)))) + 1):
+        mid = (lo + hi) // 2
+        hit = ok(mid)
+        lo, hi = torch.where(hit, lo, mid + 1), torch.where(hit, mid, hi)
+    return torch.where(feasible, lo, k + 1).to(torch.int32)

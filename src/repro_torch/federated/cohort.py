@@ -13,6 +13,10 @@ local trainings run together with an explicit client axis:
         gets its own gradient.
     cohort_eval  — one batched pass scoring every uploaded model on the
         (per-UE masked) public test set (Alg. 1 line 14).
+    cohort_train_multi / cohort_eval_rows — the sweep runner's twins
+        (federated/simulation.py): per-row params, so rows of different
+        runs train in one call, and per-row unit labels, so the attack
+        success rate scores beside the accuracy in one call.
 
 Shapes depend on the cohort, so the server pads the cohort axis to a stable
 multiple (``pad_count``) with null rows: all-zero data and mask, a strict
@@ -41,7 +45,21 @@ def cohort_train(task, params: Params, data: Dict[str, torch.Tensor],
     acc_local is each client's self-reported metric on its own (valid)
     samples after local training (Alg. 1 line 11).
     """
-    p = broadcast_params(params, mask.shape[0])
+    return cohort_train_multi(task, broadcast_params(params, mask.shape[0]),
+                              data, mask, lr, epochs, batch_size)
+
+
+def cohort_train_multi(task, stacked_params: Params,
+                       data: Dict[str, torch.Tensor], mask: torch.Tensor,
+                       lr: float, epochs: int, batch_size: int = 50):
+    """``cohort_train`` with per-client parameters (leaves (N, ...)).
+
+    Rows gathered from different runs (policy x seed x scenario) carry
+    different global models, so the run axis folds into the client axis:
+    one call trains any mix of runs whose padded (N, S) shapes match. Row
+    results are independent of the other rows.
+    """
+    p = stacked_params
     for _ in range(epochs):
         p = task.sgd_epoch(p, data, mask, lr, batch_size)
     return p, task.local_metric(p, data, mask)
@@ -102,6 +120,18 @@ def cohort_eval(task, stacked_params: Params, eval_inputs,
     """
     correct = (task.predict_units(stacked_params, eval_inputs)
                == y_units).float()
+    return (correct * masks).sum(-1) / masks.sum(-1).clamp_min(1.0)
+
+
+def cohort_eval_rows(task, stacked_params: Params, eval_inputs,
+                     y_rows: torch.Tensor,
+                     masks: torch.Tensor) -> torch.Tensor:
+    """``cohort_eval`` with per-row unit labels y_rows (N, U): the sweep
+    scores the attack success rate (a row's labels relabelled to the
+    attack's target over the watch mask) beside the accuracy rows in one
+    call."""
+    correct = (task.predict_units(stacked_params, eval_inputs)
+               == y_rows).float()
     return (correct * masks).sum(-1) / masks.sum(-1).clamp_min(1.0)
 
 

@@ -7,9 +7,13 @@ local accuracies, uploaded models evaluated on the public test set, and
 channel state. It never touches raw client data.
 
 The control plane (values -> Eq. 9 costs -> Alg. 2 selection -> Eq. 1
-reputation) runs on the host in float64 numpy (``control="host"``), drawing
-from the host RNG — the stream of record — at exactly the points the JAX
-package's server does. The data plane runs on ``device``:
+reputation) draws from the host RNG — the stream of record — at exactly the
+points the JAX package's server does, and runs in float64 as
+``control="batched"`` (default: ``core/control.py``'s batched plane for this
+one run, on ``device`` for a CUDA device and as batched numpy on the CPU;
+the sweep runner stacks all its runs into the same plane) or
+``control="host"`` (the sequential numpy oracle). The data plane runs on
+``device``:
 
     "vectorized" (default) — the cohort engine (federated/cohort.py): the
         round's scheduled UEs are split into ``n_buckets`` size buckets,
@@ -35,8 +39,12 @@ and its validation
 detector scores every upload on a held-out split in one extra batched
 evaluation, feeding a trust penalty into Eq. 1 in ``_finalize_round``.
 
-Not ported yet: the batched control plane (``control="batched"``), the
-population cut, async mode and the observability spans.
+The padded device-resident client arrays live in a ``CohortData`` that
+several servers on the same (dataset, partition) can share — the batched
+sweep runner (``federated/simulation.py::run_sweep``) builds it once per
+(task, seed, data attack) and hands it to every run on it.
+
+Not ported yet: the population cut, async mode and the observability spans.
 """
 from __future__ import annotations
 
@@ -49,6 +57,7 @@ import torch
 
 from repro_torch.configs.base import FeelConfig
 from repro_torch.core import attacks as atk
+from repro_torch.core import control as ctl
 from repro_torch.core import defenses as dfs
 from repro_torch.core.diversity import diversity_index
 from repro_torch.core.quality import adaptive_weights, data_quality_value
@@ -184,8 +193,8 @@ class FeelServer:
     'top_value' reproduces §V-B.1 (pure data-quality selection, no wireless).
 
     engine: 'vectorized' | 'loop' (see module docstring).
-    control: 'host' — the sequential numpy control plane; 'batched' is
-    ported with the batched-control-plane slice and raises here.
+    control: 'batched' (default) | 'host' — the control plane (see module
+    docstring).
     device: where the data plane runs; None means 'cuda', which raises when
     CUDA is absent (pass 'cpu' to run on the CPU).
     scenario: an ``core.attacks.AttackScenario`` (or registry name) — the
@@ -199,8 +208,16 @@ class FeelServer:
     defers to ``cfg.defense``.
     ``lr``/``batch_size`` default to the task's protocol values when None.
     n_buckets: number of max_samples size buckets for the vectorized
-    engine. ``params`` may be replaced after construction (the parity tests
-    inject the JAX package's initial params that way).
+    engine; cohort_data: a ``CohortData`` shared with other servers on the
+    same clients (None: built on first use). ``params`` may be replaced
+    after construction (the parity tests inject the JAX package's initial
+    params that way).
+
+    The underscore round-phase methods (_schedule_round, _cohort_parts,
+    _gather_bucket, _merge_cohort, _apply_attacks, _eval_masks,
+    _aggregate_cohort, _finalize_round, _log_round, draw_control_inputs)
+    are a semi-public contract: the batched sweep runner
+    (federated/simulation.py) interleaves them across runs.
     """
 
     _N_BUCKET = 8   # cohort sizes are padded to a multiple of this with
@@ -214,18 +231,16 @@ class FeelServer:
                  engine: str = "vectorized",
                  batch_size: Optional[int] = None,
                  pad_to: Optional[int] = None, n_buckets: int = 3,
-                 control: str = "host",
+                 cohort_data: Optional[CohortData] = None,
+                 control: str = "batched",
                  scenario=None, defense=None,
                  task: Optional[FeelTask] = None,
                  device: DeviceLike = None):
         if engine not in ("vectorized", "loop"):
             raise ValueError(f"unknown engine {engine!r}")
-        if control == "batched":
-            raise NotImplementedError(
-                "control='batched' (core/control.py) is ported with the "
-                "batched-control-plane slice; use control='host'")
-        if control != "host":
+        if control not in ("batched", "host"):
             raise ValueError(f"unknown control plane {control!r}")
+        self.control = control
         if policy not in POLICY_NAMES:
             raise KeyError(policy)
         if scenario is not None and (model_poison is not None or lie_boost
@@ -318,7 +333,10 @@ class FeelServer:
                 np.concatenate([arr, np.zeros_like(arr[:1])]),
                 device=self.device)
         self._def_stats = dfs.DefenseStats()   # refreshed every round
-        self._cohort_data: Optional[CohortData] = None   # built lazily
+        self._cohort_data = cohort_data   # shared, or built on first use
+        # batched control state of this one run, built on first use (the
+        # sweep runner builds one for all its runs instead)
+        self._ctrl: Optional[ctl.ControlState] = None
         self.pad_waste: List[float] = []   # per-round padded/real samples
         self.logs: List[RoundLog] = []
 
@@ -359,6 +377,12 @@ class FeelServer:
         channel draw: no UE met the deadline, so the server forces the
         single highest-value UE to keep training alive.
         """
+        if self.control == "batched":
+            return self._schedule_round_batched(t)
+        return self._schedule_round_host(t)
+
+    def _schedule_round_host(self, t: int):
+        """The sequential numpy oracle of ``_schedule_round``."""
         values = self._values(t)
         sched = self._schedule(values)
         sel = sched.selected
@@ -375,6 +399,37 @@ class FeelServer:
                              value=values)
             forced = True
         return values, sched, sel, forced
+
+    def _control_state(self) -> ctl.ControlState:
+        if self._ctrl is None:
+            self._ctrl = ctl.ControlState.from_servers([self])
+        return self._ctrl
+
+    def draw_control_inputs(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(gains, rand_rank) for one round, drawn from THIS server's RNG
+        in the oracle's order: the channel draw first, then — for the
+        ``random`` policy only — the packing permutation. The batched plane
+        is a deterministic function of these draws, which keeps every
+        run's stream equal to its sequential twin's."""
+        gains = self.wireless.draw_channels().gains
+        if self.policy == "random":
+            rand_rank = np.argsort(
+                self.rng.permutation(self.cfg.n_population))
+        else:
+            rand_rank = np.arange(self.cfg.n_population)
+        return gains, rand_rank
+
+    def _schedule_round_batched(self, t: int):
+        st = self._control_state()
+        st.pull([self])
+        gains, rand_rank = self.draw_control_inputs()
+        w_rep, w_div = self._omega(t)
+        x, alpha, costs, values, forced = ctl.schedule_runs(
+            st, gains[None], rand_rank[None], np.array([w_rep]),
+            np.array([w_div]))
+        sched = Schedule(x=x[0], alpha=alpha[0], cost=costs[0],
+                         value=values[0])
+        return values[0], sched, sched.selected, bool(forced[0])
 
     # ------------------------------------------------------------------ #
     # Per-cohort engines: both return the round's uploads WITHOUT
@@ -438,13 +493,14 @@ class FeelServer:
                 n_buckets=self.n_buckets)
         return self._cohort_data
 
-    def _cohort_parts(self, sel: np.ndarray, t: int):
+    def _cohort_parts(self, sel: np.ndarray, t: int, pad: bool = True):
         """Split round ``t``'s cohort per size bucket.
 
         Yields ``(bucket, positions_in_sel, row_ids)``. A malicious UE whose
-        data attack is INACTIVE in round t maps to its clean twin row. The
-        row ids are padded to ``cohort.pad_count`` rows with the bucket's
-        null client (mask all-zero -> training no-op).
+        data attack is INACTIVE in round t maps to its clean twin row. With
+        ``pad`` the row ids are padded to ``cohort.pad_count`` rows with the
+        bucket's null client (mask all-zero -> training no-op); the sweep
+        runner passes ``pad=False`` and pads its cross-run group once.
         """
         cd = self._ensure_cohort_data()
         rows_of = cd.row_of
@@ -456,10 +512,29 @@ class FeelServer:
             if pos.size == 0:
                 continue
             rows = rows_of[sel[pos]]
-            n_pad = cohort.pad_count(pos.size, self._N_BUCKET)
-            rows = np.concatenate(
-                [rows, np.full(n_pad - pos.size, bkt["null"], rows.dtype)])
+            if pad:
+                n_pad = cohort.pad_count(pos.size, self._N_BUCKET)
+                rows = np.concatenate(
+                    [rows, np.full(n_pad - pos.size, bkt["null"],
+                                   rows.dtype)])
             yield bkt, pos, rows
+
+    def _gather_bucket(self, bkt: Dict, rows: np.ndarray):
+        """Device-side gather of a bucket's (data, mask) rows."""
+        idx = torch.as_tensor(rows, device=self.device)
+        return ({f: a.index_select(0, idx) for f, a in bkt["data"].items()},
+                bkt["mask"].index_select(0, idx))
+
+    @staticmethod
+    def _merge_cohort(parts):
+        """Merge per-bucket results (pos, stacked_real_rows, acc_real) back
+        into selection order: FedAvg then accumulates in the loop oracle's
+        order."""
+        order = np.concatenate([p[0] for p in parts])
+        inv = np.argsort(order, kind="stable")
+        stacked = cohort.merge_stacks([p[1] for p in parts], inv)
+        acc_local = np.concatenate([p[2] for p in parts])[inv]
+        return stacked, acc_local
 
     def _active_malicious(self, t: int) -> np.ndarray:
         """(K,) bool — UEs whose malicious behaviour is ACTIVE in round t
@@ -514,16 +589,29 @@ class FeelServer:
             [sel, np.full(n_pad - sel.size, len(self.clients), sel.dtype)]),
             device=self.device)
 
+    def _eval_masks(self, sel: np.ndarray, n_pad: int) -> torch.Tensor:
+        """(n_pad, U) per-UE eval unit masks for a padded merged stack."""
+        return self._ensure_cohort_data().mask_dev.index_select(
+            0, self._pad_rows(sel, n_pad))
+
+    def _val_eval_masks(self, sel: np.ndarray, n_pad: int) -> torch.Tensor:
+        """(n_pad, U) per-UE class-masked validation-split eval masks."""
+        return self._val_mask_dev.index_select(0, self._pad_rows(sel, n_pad))
+
+    def _cohort_weights(self, sel: np.ndarray, stacked_p) -> np.ndarray:
+        """FedAvg sample-count weights for a padded merged stack: real rows
+        carry their dataset size, pad rows weight 0."""
+        weights = np.zeros(next(iter(stacked_p.values())).shape[0])
+        weights[:sel.size] = self._ensure_cohort_data().sizes[sel]
+        return weights
+
     def _run_cohort_vectorized(self, sel: np.ndarray, t: int):
         cfg = self.cfg
         cd = self._ensure_cohort_data()
         n = sel.size
         parts, pad_slots = [], 0
         for bkt, pos, rows in self._cohort_parts(sel, t):
-            idx = torch.as_tensor(rows, device=self.device)
-            data = {f: a.index_select(0, idx)
-                    for f, a in bkt["data"].items()}
-            ms = bkt["mask"].index_select(0, idx)
+            data, ms = self._gather_bucket(bkt, rows)
             stacked_b, acc_b = cohort.cohort_train(
                 self.task, self.params, data, ms, self.lr,
                 cfg.local_epochs, self.batch_size)
@@ -531,12 +619,7 @@ class FeelServer:
                           {k: v[:pos.size] for k, v in stacked_b.items()},
                           acc_b[:pos.size].cpu().numpy().astype(float)))
             pad_slots += rows.size * bkt["level"]
-        # merge the buckets back into selection order: FedAvg then
-        # accumulates in the loop oracle's order
-        order = np.concatenate([p[0] for p in parts])
-        inv = np.argsort(order, kind="stable")
-        stacked = cohort.merge_stacks([p[1] for p in parts], inv)
-        acc_local = np.concatenate([p[2] for p in parts])[inv]
+        stacked, acc_local = self._merge_cohort(parts)
         self.pad_waste.append(
             float(pad_slots) / max(float(cd.sizes[sel].sum()), 1.0))
 
@@ -547,14 +630,12 @@ class FeelServer:
         # contribute exactly 0 with weight 0)
         n_pad = cohort.pad_count(n, self._N_BUCKET)
         stacked_p = cohort.pad_stacked(stacked, n_pad)
-        masks = cd.mask_dev.index_select(0, self._pad_rows(sel, n_pad))
         acc_test = cohort.cohort_eval(self.task, stacked_p, self._ex,
-                                      self._ey, masks)
+                                      self._ey, self._eval_masks(sel, n_pad))
         acc_test = acc_test.cpu().numpy().astype(float)[:n]
         acc_val = self._eval_validation(stacked_p, sel)
-        weights = np.zeros(n_pad)
-        weights[:n] = cd.sizes[sel]
-        return stacked_p, weights, acc_local, acc_test, acc_val
+        return (stacked_p, self._cohort_weights(sel, stacked_p), acc_local,
+                acc_test, acc_val)
 
     def _eval_validation(self, stacked_p, sel: np.ndarray
                          ) -> Optional[np.ndarray]:
@@ -566,7 +647,7 @@ class FeelServer:
             return None
         n = sel.size
         n_pad = next(iter(stacked_p.values())).shape[0]
-        vm = self._val_mask_dev.index_select(0, self._pad_rows(sel, n_pad))
+        vm = self._val_eval_masks(sel, n_pad)
         both = cohort.merge_stacks(
             [stacked_p, cohort.broadcast_params(self.params, n_pad)])
         acc = cohort.cohort_eval(self.task, both, self._ex, self._ey,
@@ -581,28 +662,37 @@ class FeelServer:
             return self._run_cohort_vectorized(sel, t)
         return self._run_cohort_loop(sel, t)
 
+    def _aggregate_cohort(self, sel: np.ndarray, stacked_p,
+                          weights: Optional[np.ndarray] = None) -> None:
+        """Aggregate a stacked cohort (the n real rows first, any padding
+        weight 0) into ``self.params`` on ``device``: undefended, FedAvg
+        (one ``weighted_aggregate`` launch); under a robust aggregator,
+        ``defenses.aggregate_stacked`` over the (N, P) layout (the trimmed
+        mean and median through ``robust_aggregate``), its stats landing in
+        ``_def_stats`` for ``_log_round``. ``weights`` None means the
+        sample counts (``_cohort_weights``) — the sweep runner's form."""
+        if weights is None:
+            weights = self._cohort_weights(sel, stacked_p)
+        agg = self.defense.aggregator
+        if agg is None:
+            self._def_stats = dfs.DefenseStats()
+            self.params = fedavg_stacked(stacked_p, weights)
+        else:
+            self.params, self._def_stats = dfs.aggregate_stacked(
+                agg, stacked_p, weights, self.params, sel.size,
+                self.cfg.n_malicious)
+
     def _aggregate_uploads(self, sel: np.ndarray, uploads,
                            weights: np.ndarray) -> None:
         """Aggregate a cohort's uploads into ``self.params`` — the single
         write point of both engines. ``uploads`` is what ``_train_cohort``
         returned (params list / padded stack), ``weights`` the aligned
         FedAvg sample counts. The loop engine's list is stacked first, so
-        both engines aggregate on ``device`` through the same code:
-        undefended, FedAvg (one ``weighted_aggregate`` launch); under a
-        robust aggregator, ``defenses.aggregate_stacked`` over the (N, P)
-        layout (the trimmed mean and median through ``robust_aggregate``),
-        its stats landing in ``_def_stats``."""
+        both engines aggregate through ``_aggregate_cohort``."""
         if self.engine == "loop":
             uploads = {k: torch.stack([u[k] for u in uploads])
                        for k in uploads[0]}
-        agg = self.defense.aggregator
-        if agg is None:
-            self._def_stats = dfs.DefenseStats()
-            self.params = fedavg_stacked(uploads, weights)
-        else:
-            self.params, self._def_stats = dfs.aggregate_stacked(
-                agg, uploads, weights, self.params, sel.size,
-                self.cfg.n_malicious)
+        self._aggregate_cohort(sel, uploads, weights)
 
     def _detect(self, sel: np.ndarray, acc_val) -> Optional[np.ndarray]:
         """Validation-detector phase: anomaly scores -> Eq. 1 trust
@@ -627,6 +717,13 @@ class FeelServer:
                                         self._ey, self.watch_class,
                                         self.watch_target)
 
+    def _global_loss(self) -> float:
+        """The task's global loss metric alone (NaN for a task without
+        one); the stacked sweep computes the accuracies in its batched
+        eval and needs only this extra."""
+        loss = self.task.eval_loss(self.params, self._ex)
+        return float("nan") if loss is None else float(loss)
+
     def _finalize_round(self, t: int, values, sched, sel, forced,
                         acc_local, acc_test, g_acc, src_acc,
                         atk_succ=float("nan"), acc_val=None,
@@ -634,10 +731,27 @@ class FeelServer:
         """Alg. 1 lines 15-16 + logging: detector penalty, reputation,
         staleness, RoundLog."""
         penalty = self._detect(sel, acc_val)
-        self.reputation.update(sel, acc_local, acc_test, penalty=penalty)
-        # ages: selected reset, others grow (staleness of Eq. 2)
-        self.ages += 1.0
-        self.ages[sel] = 1.0
+        if self.control == "batched":
+            st = self._control_state()
+            st.pull([self])
+            ctl.finalize_runs(st, [sel], [acc_local], [acc_test],
+                              penalties=[penalty])
+            st.push([self])
+        else:
+            self.reputation.update(sel, acc_local, acc_test,
+                                   penalty=penalty)
+            # ages: selected reset, others grow (staleness of Eq. 2)
+            self.ages += 1.0
+            self.ages[sel] = 1.0
+        return self._log_round(t, values, sched, sel, forced, g_acc,
+                               src_acc, atk_succ, g_loss)
+
+    def _log_round(self, t: int, values, sched, sel, forced, g_acc,
+                   src_acc, atk_succ=float("nan"),
+                   g_loss=float("nan")) -> RoundLog:
+        """Append the RoundLog of a finalized round (reputations and ages
+        already updated — the sweep runner updates every run in one
+        ``control.finalize_runs`` call, then logs per run)."""
         ds = self._def_stats
         log = RoundLog(
             round=t, selected=sel, global_acc=g_acc, global_loss=g_loss,

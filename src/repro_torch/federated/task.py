@@ -118,6 +118,9 @@ class MnistTask(FeelTask):
     def predict_units(self, params, ei) -> torch.Tensor:
         return torch.argmax(mlp_apply(params, ei["x"]), -1)
 
+    def eval_loss(self, params, ei):
+        return None          # accuracy is the task's only global metric
+
     # -- loop oracle ----------------------------------------------------- #
     def local_train(self, client, global_params, epochs: int, lr: float,
                     batch_size: int) -> ClientReport:

@@ -79,6 +79,73 @@ def test_feature_noise_same_bytes_and_draws(ref, sigma):
     assert (x1 >= 0).all() and (x1 <= 1).all() and np.any(x1 != x)
 
 
+def _padded_rows(seed, k=4):
+    """The stacked padded layout of k clients of the partition (data
+    pre-poison), as tests/test_attacks.py builds it."""
+    from repro_torch.data.partition import pad_clients
+    rng = np.random.default_rng(seed)
+    train, _ = generate(800, 50, seed=seed % 7)
+    clients = partition(train, k, rng)
+    return clients, pad_clients(clients, multiple_of=50), rng
+
+
+@pytest.mark.parametrize("pairs,frac", [(((6, 2), (8, 4)), 1.0),
+                                        (((6, 2), (8, 4)), 0.3),
+                                        (((6, 2), (2, 8)), 0.7)])
+@pytest.mark.parametrize("seed", [0, 5])
+def test_label_flip_apply_rows_equals_host_and_reference(ref, pairs, frac,
+                                                         seed):
+    """The stacked twin on the padded (K, S) layout equals the per-client
+    host oracle given the same float32 draws, and the reference's twin,
+    exactly; honest rows and padding untouched."""
+    clients, padded, rng = _padded_rows(seed)
+    mal = np.array([True, False, True, False])
+    attack = atk.LabelFlip(pairs, frac)
+    u = np.zeros(padded.y.shape, np.float32)
+    want = padded.y.copy()
+    for i, c in enumerate(clients):
+        ui = attack.draw(rng, c.data.x, c.data.y)
+        if ui is not None:
+            u[i, :c.size] = ui
+        if mal[i]:
+            want[i, :c.size] = attack.apply_host(c.data.x, c.data.y, ui)[1]
+    uu = None if frac >= 1.0 else u
+    x, got = attack.apply_rows(torch.from_numpy(padded.x),
+                               torch.from_numpy(padded.y),
+                               torch.from_numpy(padded.mask),
+                               torch.from_numpy(mal),
+                               None if uu is None else torch.from_numpy(uu))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(x.numpy(), padded.x)
+    _, want_r = ref.at.LabelFlip(pairs, frac).apply_rows(
+        padded.x, padded.y, padded.mask, mal, uu)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_r))
+
+
+@pytest.mark.parametrize("sigma", [0.3, 0.8, 2.0])
+def test_feature_noise_apply_rows_equals_host_and_reference(ref, sigma):
+    """Noise lands only on malicious rows' real samples, equal to the host
+    oracle there and to the reference's twin everywhere, bit for bit."""
+    clients, padded, _ = _padded_rows(3)
+    mal = np.array([True, False, False, True])
+    attack = atk.FeatureNoise(sigma)
+    eps = attack.draw(np.random.default_rng(11), padded.x, None)
+    got_x, got_y = attack.apply_rows(
+        torch.from_numpy(padded.x), torch.from_numpy(padded.y),
+        torch.from_numpy(padded.mask), torch.from_numpy(mal),
+        torch.from_numpy(eps))
+    got_x = got_x.numpy()
+    for i, c in enumerate(clients):
+        want = (attack.apply_host(c.data.x, c.data.y, eps[i, :c.size])[0]
+                if mal[i] else c.data.x)
+        np.testing.assert_array_equal(got_x[i, :c.size], want)
+        np.testing.assert_array_equal(got_x[i, c.size:], 0.0)
+    np.testing.assert_array_equal(got_y.numpy(), padded.y)
+    want_r, _ = ref.at.FeatureNoise(sigma).apply_rows(
+        padded.x, padded.y, padded.mask, mal, eps)
+    np.testing.assert_array_equal(got_x, np.asarray(want_r))
+
+
 @pytest.mark.parametrize("make", ["flip", "flip_frac", "noise"])
 def test_token_attacks_same_bytes_and_draws(ref, make):
     tokens = np.random.default_rng(5).integers(0, 64, (30, 16)).astype(

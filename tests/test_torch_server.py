@@ -183,7 +183,7 @@ def test_scheduled_flip_and_watch_pair_match_reference():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(control="batched"), NotImplementedError),
+    (dict(control="jax"), ValueError),
     (dict(defense="no_such_defense"), KeyError),
     (dict(task="no_such_task"), KeyError),
     (dict(engine="sharded"), ValueError),

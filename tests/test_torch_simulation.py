@@ -116,7 +116,7 @@ def test_result_dict_has_the_reference_keys(scenario_runs):
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(control="batched"), NotImplementedError),
+    (dict(control="jax"), ValueError),
     (dict(population=16), NotImplementedError),
     (dict(cfg=FeelConfig(n_ues=8, n_malicious=2, mode="async")),
      NotImplementedError),
