@@ -85,7 +85,37 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     ``lm_tiny`` sweep (K = 8, ``token_flip_1to5``, dqs and random, 2
     rounds) launching K3 every round; and a K = 10 sweep on the GPU and
     the CPU: the same selections, accuracies within 1e-4;
-10. serving the decoder-only zoo: ``starcoder2-15b`` (all 40 layers, bf16,
+10. the population plane and the async plane: (a) the top-M prefilter at
+    the reference bench's grid (benchmarks/bench_round.py's population
+    instance: R = 5 runs cycling the five policies, K = 64, N = 10^4, 10^5
+    and 10^6, 3 rounds each after a warm-up; first the budget walk
+    ``pack_scan`` against the N-step walk it replaced, in turns, at
+    K = 50 and at N = 10^4), the "device" layout on the
+    card held against the exact "device" schedule (every output bit for
+    bit) and against both layouts on the host (integers exact, floats
+    within 4 ulp, the same escalations), with the ms a round of each path,
+    M, the escalations, the budget walk's steps, the state's bytes and the
+    peak device memory, one more call of each "device" path at N = 10^6
+    under the profiler (the device traced alone: busy, copies, idle), then
+    one round at N = 10^6 forced to escalate (M = min_selected); (b) ``run_experiment(population=500)`` at the §V
+    scale (K = 50, 50,000/10,000, the (6, 2) label flip, DQS, 3 rounds, K1
+    once a round) with the selections of its ``control="host"`` run,
+    ``population=50`` equal to ``population=None`` on every curve, and a
+    ``run_sweep`` of dqs, random, best_channel and max_count at seed 0 over
+    500 candidates (K1 4 times a round), each run held against its
+    sequential run; (c) the async plane at the §V scale: zero-latency wave
+    runs equal to the sync runs on acc, loss, rep_gap, objective and
+    malicious_selected under both control planes (K1 once an
+    aggregation), the CLI's documented run (``launch.serve.main``: 8
+    aggregations, buffer 4, ``stale_rider_2`` under ``validation``, K1 8
+    times) with its simulated clock, triggers, mean ages and wall ms an
+    aggregation, a deadline run whose deadline trigger fires, a
+    ``trimmed_mean`` run (K2 once an aggregation, K1 never), a zero-latency
+    ``lm_tiny`` run (K = 8, ``token_flip_1to5``, K3 every aggregation)
+    equal to its sync twin, and a K = 10 async run on the GPU and the CPU:
+    the same selections, triggers, ages and simulated clock, accuracies
+    within 1e-2;
+11. serving the decoder-only zoo: ``starcoder2-15b`` (all 40 layers, bf16,
     22 B parameters drawn on the card) and ``mamba2-370m`` (48 layers)
     each take 8 prompts of 2,048 tokens through ``api.prefill`` and 32
     greedy ``api.decode_step`` calls, every launch count set to 0 just before
@@ -101,7 +131,7 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     then reduced configs on
     the GPU and the CPU (starcoder2's ring cache, qwen2.5 and mamba2
     greedy generation): the same tokens, logits within 1e-4;
-11. serving the mixture-of-experts zoo: ``qwen2-moe-a2.7b`` (all 24
+12. serving the mixture-of-experts zoo: ``qwen2-moe-a2.7b`` (all 24
     layers, bf16, 14.3 B parameters drawn on the card) with the same
     traffic, every launch count set to 0 just before and read just after
     (K3 24 times at prefill, K4 24 times a step, K5 72 times at prefill
@@ -117,7 +147,7 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     reduced qwen2-moe (also ``optimized``: group-local dispatch),
     moonshot and Jamba on the GPU and the CPU — the same tokens, logits
     within 1e-4, the Jamba run launching K3, K4, K5 and K6;
-12. one JSON line of per-kernel numbers, then the result line.
+13. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without printing a result where CUDA is absent. A kernel's
 time is its device time from ``torch.profiler`` over back-to-back calls
@@ -129,6 +159,8 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import gc
+import io
 import json
 import math
 import platform
@@ -145,6 +177,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs.base import FeelConfig  # noqa: E402
 from repro_torch.core import attacks as atk  # noqa: E402
 from repro_torch.core import control as ctl  # noqa: E402
+from repro_torch.core import population as tpop  # noqa: E402
+from repro_torch.core import scheduler as tsc  # noqa: E402
 from repro_torch.core.poisoning import (EASY_PAIR, LabelFlipAttack,  # noqa: E402
                                         pick_malicious)
 from repro_torch.data.partition import partition  # noqa: E402
@@ -152,9 +186,10 @@ from repro_torch.data.synthetic_mnist import generate  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core.defenses import TrimmedMean  # noqa: E402
 from repro_torch.core.scheduler import POLICY_IDS  # noqa: E402
-from repro_torch.core.wireless import WirelessModel  # noqa: E402
+from repro_torch.core.wireless import WirelessModel, cost_bisect  # noqa: E402
 from repro_torch.data.tokens import make_stream  # noqa: E402
 from repro_torch.federated import simulation  # noqa: E402
+from repro_torch.federated.async_engine import AsyncFeelEngine  # noqa: E402
 from repro_torch.federated.cohort import pad_count  # noqa: E402
 from repro_torch.federated.server import FeelServer  # noqa: E402
 from repro_torch.federated.task import LM_TINY  # noqa: E402
@@ -168,7 +203,7 @@ from repro_torch.kernels.robust_aggregate import (  # noqa: E402
     robust_aggregate_ref)
 from repro_torch.kernels.weighted_aggregate import (  # noqa: E402
     weighted_aggregate, weighted_aggregate_ref)
-from repro_torch.launch import steps  # noqa: E402
+from repro_torch.launch import serve, steps  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import blocks  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
@@ -1392,6 +1427,431 @@ def sweep_phases():
 
 
 # ---------------------------------------------------------------------- #
+# The population plane and the async plane
+# ---------------------------------------------------------------------- #
+POP_K, POP_RUNS, POP_ROUNDS = 64, 5, 3
+POP_NS = (10_000, 100_000, 1_000_000)
+POP_PATHS = ("exact_device", "prefilter_device", "prefilter_hybrid",
+             "exact_hybrid")
+
+
+def population_instance(n):
+    """benchmarks/bench_round.py's population instance (its population
+    worker): R = 5 runs cycling the five policies, K = 64, N candidates,
+    ages 1, the state on the card; and its per-round draw of every run's
+    gains and random-policy ranks. Returns (state, omega, draw)."""
+    cfg = FeelConfig(n_ues=POP_K, n_malicious=max(POP_K // 10, 1),
+                     population=n)
+    rng = np.random.default_rng(0)
+    wm = WirelessModel(cfg, np.random.default_rng(1))
+    r = POP_RUNS
+    sizes = (rng.integers(1, 31, (r, n)) * 50).astype(float)
+    cpu = rng.uniform(cfg.cpu_hz_min, cfg.cpu_hz_max, (r, n))
+    state = ctl.ControlState(
+        policy_id=np.array([i % len(POLICY_IDS) for i in range(r)],
+                           np.int32),
+        sizes=sizes, divs=rng.uniform(0.0, 0.9, (r, n)),
+        r_min=np.stack([wm.min_rate(wm.train_time(sizes[i], cpu[i]))
+                        for i in range(r)]),
+        reputations=rng.uniform(0.0, 1.0, (r, n)),
+        ages=np.ones((r, n)), cfg=cfg, device=torch.device("cuda"))
+    omega = (np.full(r, cfg.omega_rep), np.full(r, cfg.omega_div))
+
+    def draw(t):
+        g = np.stack([wm.rng.exponential(1.0, n)
+                      * wm.distances ** (-cfg.pathloss_exp)
+                      for _ in range(r)])
+        rr = np.stack([np.argsort(np.random.default_rng((t, i))
+                                  .permutation(n)) for i in range(r)])
+        return g, rr
+
+    return state, omega, draw
+
+
+class WalkSteps:
+    """Counts the budget walk's steps: a ``pack_scan`` call (the scheduler's,
+    imported by name into the control plane and the prefilter) ends after
+    the most takes of a row + 1 steps."""
+    MODULES = (tsc, ctl, tpop)
+
+    def __init__(self):
+        self.steps = []
+
+    def __enter__(self):
+        real = self._real = tsc.pack_scan
+
+        def counted(c, k):
+            take = real(c, k)
+            self.steps.append(int(take.sum(-1).max()) + 1)
+            return take
+
+        for mod in self.MODULES:
+            mod.pack_scan = counted
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self.MODULES:
+            mod.pack_scan = self._real
+
+
+def population_round(state, g, rr, omega, m=None):
+    """One round of every path: (outputs by path, ms by path, info by
+    prefilter layout, walk steps by path)."""
+    outs, ms, info, steps = {}, {}, {}, {}
+    for path in POP_PATHS:
+        kern = path.split("_")[1]
+        with WalkSteps() as ws:
+            t0 = time.perf_counter()
+            if path.startswith("exact"):
+                out = ctl.schedule_runs(state, g, rr, *omega, kernel=kern)
+            else:
+                *out, info[kern] = tpop.prefilter_schedule_runs(
+                    state, g, rr, *omega, m=m, kernel=kern)
+            ms[path] = (time.perf_counter() - t0) * 1e3
+        outs[path], steps[path] = out, ws.steps
+    return outs, ms, info, steps
+
+
+def n_step_walk(c_sorted, k):
+    """The budget walk ``scheduler.pack_scan`` replaced: the remaining
+    budget carried through every sorted position, N steps of 4 launches
+    (tests/test_torch_population.py keeps it as its oracle)."""
+    budget = torch.full(c_sorted.shape[:-1], k, dtype=c_sorted.dtype,
+                        device=c_sorted.device)
+    takes = []
+    for c in c_sorted.unbind(-1):
+        take = (c <= k) & (c <= budget)
+        budget = budget - torch.where(take, c, 0)
+        takes.append(take)
+    return torch.stack(takes, -1)
+
+
+def walk_ab():
+    """The budget walk on the card, the N-step walk against
+    ``pack_scan``, in turns (N-step, pack_scan, pack_scan, N-step): Eq. 9
+    costs of ``control_layouts``' instances (K = 50, R = 12 and 64) and of
+    the population grid at N = 10^4 (R = 5, K = 64), in a random visit
+    order; the same take mask, the median ms of a call of each."""
+    cases = []
+    for r in (12, 64):
+        st, gains, _, _ = control_instance(0, r, CTRL_K)
+        cases.append((f"K {CTRL_K}, R {r}", CTRL_K, st.r_min, gains))
+    state, _, draw = population_instance(POP_NS[0])
+    cases.append((f"K {POP_K}, R {POP_RUNS}, N {POP_NS[0]}", POP_K,
+                  state.r_min, draw(0)[0]))
+    for label, k, r_min, gains in cases:
+        cfg = FeelConfig(n_ues=k)
+        dev = torch.device("cuda")
+        costs = cost_bisect(
+            torch.as_tensor(gains, device=dev),
+            torch.as_tensor(r_min, device=dev), k, cfg.bandwidth_hz,
+            cfg.p_watt, cfg.n0_watt_hz)
+        order = torch.argsort(torch.rand(
+            costs.shape, generator=torch.Generator(dev).manual_seed(0),
+            device=dev), dim=-1)
+        c = costs.gather(-1, order)
+        assert torch.equal(tsc.pack_scan(c, k), n_step_walk(c, k)), label
+        reps = 3 if c.shape[-1] > 1000 else 15
+        ms = {"n_step": [], "pack_scan": []}
+        for name in ("n_step", "pack_scan", "pack_scan", "n_step"):
+            fn = n_step_walk if name == "n_step" else tsc.pack_scan
+            ms[name].append(median_ms(
+                lambda fn=fn: (fn(c, k), torch.cuda.synchronize()), reps))
+        emit(phase="walk_ab", case=label, width=int(c.shape[-1]),
+             most_takes=int(tsc.pack_scan(c, k).sum(-1).max()),
+             ms={name: v for name, v in ms.items()})
+
+
+def check_population_round(label, outs, info):
+    """The prefilter on the card against the exact schedule on the card
+    (every output bit for bit) and against both layouts on the host
+    (integers exact, floats within CTRL_ULPS ulp); the two prefilter
+    layouts escalate the same number of rows."""
+    got = outs["prefilter_device"]
+    for name, a, b in zip(("x", "alpha", "costs", "values", "forced"),
+                          got, outs["exact_device"]):
+        assert np.array_equal(a, b), (label, name)
+    gaps = {path: check_layouts(f"{label} {path}", got, outs[path])
+            for path in ("prefilter_hybrid", "exact_hybrid")}
+    assert info["device"] == info["hybrid"], (label, info)
+    return gaps
+
+
+def population_control():
+    """Phase (a): the budget walk old and new (``walk_ab``), then the
+    prefilter at the reference bench's grid (R = 5,
+    K = 64, N = 10^4, 10^5, 10^6), held round by round against the exact
+    schedule on the card and both layouts on the host; ms a round of each
+    path, M, the escalations, the walk's steps, the state's bytes and the
+    peak device memory; then one round at N = 10^6 forced to escalate
+    (M = min_selected)."""
+    walk_ab()
+    for n in POP_NS:
+        state, omega, draw = population_instance(n)
+        torch.cuda.reset_peak_memory_stats()
+        g, rr = draw(0)                  # warm-up round, checked
+        outs, _, info, _ = population_round(state, g, rr, omega)
+        check_population_round(f"N {n} warm-up", outs, info)
+        rows = []
+        for t in range(POP_ROUNDS):
+            g, rr = draw(t + 1)
+            outs, ms, info, steps = population_round(state, g, rr, omega)
+            gaps = check_population_round(f"N {n} round {t}", outs, info)
+            rows.append(ms)
+            emit(phase="population_round", n=n, round=t, ms=ms,
+                 m=info["device"]["m"],
+                 n_escalated=info["device"]["n_escalated"],
+                 walk_steps=steps, max_ulps=gaps,
+                 forced=int(outs["exact_device"][4].sum()),
+                 n_selected=outs["exact_device"][0].sum(-1).tolist())
+        emit(phase="population_control", n=n, runs=POP_RUNS, ues=POP_K,
+             ms_a_round={p: float(np.mean([r[p] for r in rows]))
+                         for p in POP_PATHS},
+             state_bytes=tpop.PopulationState.from_control(state).nbytes(),
+             peak_device_bytes=torch.cuda.max_memory_allocated())
+    # where a round on the card goes at N = 10^6: each "device" path once
+    # more, the device traced alone
+    for kern, fn in (("exact_device", lambda: ctl.schedule_runs(
+            state, g, rr, *omega, kernel="device")),
+                     ("prefilter_device", lambda: tpop.prefilter_schedule_runs(
+                         state, g, rr, *omega, kernel="device"))):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = device_events(prof)
+        busy_us = sum(us for us, _ in events.values())
+        copy_us = sum(us for name, (us, _) in events.items()
+                      if name.startswith("Memcpy"))
+        top = sorted(events.items(), key=lambda kv: -kv[1][0])[:6]
+        emit(phase="population_profile", n=POP_NS[-1], path=kern,
+             wall_us=wall_us, device_busy_us=busy_us, memcpy_us=copy_us,
+             device_idle_share=1.0 - busy_us / wall_us,
+             n_device_events=sum(c for _, c in events.values()),
+             top_us=[[name[:60], us, c] for name, (us, c) in top])
+    # N = 10^6 at M = min_selected: the certificate fails, the rows
+    # escalate to the exact schedule on the card
+    m = state.cfg.min_selected
+    outs, ms, info, steps = population_round(state, g, rr, omega, m=m)
+    check_population_round("forced escalation", outs, info)
+    assert info["device"]["n_escalated"] > 0, info
+    emit(phase="population_forced_escalation", n=POP_NS[-1], m=m, ms=ms,
+         n_escalated=info["device"]["n_escalated"], walk_steps=steps)
+
+
+def curves_equal(a, b, fields):
+    """NaN-aware equality of result curves."""
+    return {f: bool(np.array_equal(np.asarray(a[f], float),
+                                   np.asarray(b[f], float), equal_nan=True))
+            for f in fields}
+
+
+V_KW = dict(n_train=50_000, n_test=10_000, rounds=3, device="cuda")
+CURVES = ("acc", "loss", "source_acc", "attack_success",
+          "malicious_selected", "objective", "rep_gap")
+
+
+def population_end_to_end():
+    """Phase (b): the population cut through run_experiment and run_sweep
+    at the §V scale, K1 once a round a run."""
+    # N = 500 candidates, DQS on the card's prefilter, against the same
+    # run on the host control plane
+    runs = {}
+    for control in ("batched", "host"):
+        reset_launches()
+        out, server = experiment(policy="dqs", seed=0, population=500,
+                                 control=control, **V_KW)
+        runs[control] = (out, server, read_launches())
+    (out, server, launches), (_, host, _) = runs["batched"], runs["host"]
+    assert launches == only(weighted_aggregate=3), launches
+    for a, b in zip(server.logs, host.logs):
+        assert np.array_equal(a.selected, b.selected), a.round
+    assert np.isfinite(out["acc"]).all(), out["acc"]
+    emit(phase="population_run", population=500, round_ms=server.round_ms,
+         host_round_ms=host.round_ms, acc=out["acc"],
+         n_selected=[int(l.selected.size) for l in server.logs],
+         malicious_selected=out["malicious_selected"], launches=launches)
+    # N == K is the paper's regime, curve for curve
+    legacy = {p: simulation.run_experiment(policy="dqs", seed=0,
+                                           population=p, **V_KW)
+              for p in (50, None)}
+    same = curves_equal(legacy[50], legacy[None], CURVES)
+    assert all(same.values()), same
+    emit(phase="population_equal_k", equal=same)
+    # the sweep: four policies at seed 0 over N = 500, each run against its
+    # sequential run
+    reset_launches()
+    res, sweep, rounds = sweep_run(
+        policies=["dqs", "random", "best_channel", "max_count"], seeds=(0,),
+        population=500, cfg=FeelConfig(), n_train=50_000, n_test=10_000,
+        rounds=3, device="cuda")
+    for row in rounds:
+        emit(phase="population_sweep", **row)
+        assert row["launches"] == only(weighted_aggregate=4), row
+    for r in sweep:
+        hold_against_sequential(f"population sweep {r.policy}", r,
+                                population=500, cfg=FeelConfig(),
+                                n_train=50_000, n_test=10_000, rounds=3)
+
+
+class TimedEngine(AsyncFeelEngine):
+    """An AsyncFeelEngine that records each aggregation's wall time since
+    the previous one (ending in a GPU synchronise) and its launches, and
+    itself."""
+    made = []
+
+    def __init__(self, server):
+        super().__init__(server)
+        self.agg_ms, self.agg_launches = [], []
+        self._t0, self._before = time.perf_counter(), read_launches()
+        TimedEngine.made.append(self)
+
+    def _aggregate(self, trigger):
+        log = super()._aggregate(trigger)
+        torch.cuda.synchronize()
+        now, launches = time.perf_counter(), read_launches()
+        self.agg_ms.append((now - self._t0) * 1e3)
+        self.agg_launches.append({k: v - self._before[k]
+                                  for k, v in launches.items()})
+        self._t0, self._before = now, launches
+        return log
+
+
+@contextlib.contextmanager
+def timed_engine():
+    real, simulation.AsyncFeelEngine = (simulation.AsyncFeelEngine,
+                                        TimedEngine)
+    try:
+        yield
+    finally:
+        simulation.AsyncFeelEngine = real
+
+
+def async_run(label, cfg, expect, **kw):
+    """One async run through run_experiment on the card, every launch count
+    set to 0 just before and read just after; each aggregation must launch
+    ``expect``. Returns (result, engine)."""
+    reset_launches()
+    with timed_engine():
+        out = simulation.run_experiment(cfg=cfg, device="cuda", **kw)
+    eng = TimedEngine.made[-1]
+    launches = read_launches()
+    for row in eng.agg_launches:
+        assert row == expect, (label, row)
+    emit(phase="async_run", run=label, agg_ms=eng.agg_ms,
+         launches=launches, acc=out["acc"], sim_time=out["sim_time"],
+         trigger=out["trigger"], n_uploads=out["n_uploads"],
+         mean_age=out["mean_age"])
+    return out, eng
+
+
+ZERO_LATENCY = dict(mode="async", async_buffer=None, async_deadline=None,
+                    async_latency_scale=0.0)
+PARITY = ("acc", "loss", "rep_gap", "objective", "malicious_selected")
+
+
+def async_phases():
+    """Phase (c): the async plane at the §V scale."""
+    k1 = only(weighted_aggregate=1)
+    # zero-latency wave triggers reproduce the sync runs, both planes
+    for control in ("batched", "host"):
+        sync = simulation.run_experiment(policy="dqs", seed=0,
+                                         control=control, **V_KW)
+        kw = {k: v for k, v in V_KW.items() if k != "device"}
+        azero, _ = async_run(f"zero latency, {control}",
+                             FeelConfig(**ZERO_LATENCY), k1, policy="dqs",
+                             seed=0, control=control, **kw)
+        same = curves_equal(sync, azero, PARITY)
+        assert all(same.values()), (control, same)
+        assert azero["trigger"] == ["wave"] * 3, azero["trigger"]
+        emit(phase="async_zero_latency_parity", control=control, equal=same)
+    # the CLI's documented run
+    buf = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with timed_engine(), contextlib.redirect_stdout(buf):
+        rc = serve.main(["--rounds", "8", "--buffer", "4", "--scenario",
+                         "stale_rider_2", "--defense", "validation",
+                         "--json"])
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    assert rc == 0, rc
+    res, eng = json.loads(buf.getvalue()), TimedEngine.made[-1]
+    assert read_launches() == only(weighted_aggregate=8), read_launches()
+    assert len(res["acc"]) == 8 and np.isfinite(res["acc"]).all()
+    emit(phase="async_cli", argv="--rounds 8 --buffer 4 --scenario "
+         "stale_rider_2 --defense validation", sim_time=res["sim_time"],
+         trigger=res["trigger"], n_uploads=res["n_uploads"],
+         mean_age=res["mean_age"], acc=res["acc"], agg_ms=eng.agg_ms,
+         wall_ms=wall_ms)
+    # a deadline shorter than the wave's spread of latencies
+    out, _ = async_run("deadline 30 s",
+                       FeelConfig(mode="async", async_deadline=30.0), k1,
+                       scenario="flip_6to2", n_train=50_000, n_test=10_000,
+                       rounds=3)
+    assert "deadline" in out["trigger"], out["trigger"]
+    # a robust aggregator: K2 once an aggregation, K1 never
+    async_run("trimmed_mean", FeelConfig(mode="async"),
+              only(robust_aggregate=1), scenario="sign_flip",
+              defense="trimmed_mean", n_train=50_000, n_test=10_000,
+              rounds=3)
+    # lm_tiny at zero latency: K3 every aggregation, equal to its sync twin
+    lm_kw = dict(task="lm_tiny", scenario="token_flip_1to5", n_train=960,
+                 n_test=240, rounds=2, seed=0)
+    lm_cfg = dict(n_ues=8, n_malicious=2)
+    reset_launches()
+    sync = simulation.run_experiment(cfg=FeelConfig(**lm_cfg),
+                                     device="cuda", **lm_kw)
+    reset_launches()
+    with timed_engine():
+        azero = simulation.run_experiment(
+            cfg=FeelConfig(**lm_cfg, **ZERO_LATENCY), device="cuda",
+            **lm_kw)
+    eng = TimedEngine.made[-1]
+    for row in eng.agg_launches:
+        assert (row["weighted_aggregate"] == 1 and row["flash_attention"] > 0
+                and row == only(weighted_aggregate=1,
+                                flash_attention=row["flash_attention"])), row
+    same = curves_equal(sync, azero, PARITY)
+    assert all(same.values()), same
+    emit(phase="async_lm_zero_latency", equal=same, loss=azero["loss"],
+         agg_launches=eng.agg_launches, agg_ms=eng.agg_ms)
+    # the same small async run on the GPU and on the CPU
+    small_cfg = FeelConfig(n_ues=10, n_malicious=2, mode="async",
+                           async_buffer=3)
+    small = {dev: experiment(cfg=small_cfg, scenario="flip_6to2",
+                             n_train=3000, n_test=500, rounds=3, device=dev)
+             for dev in ("cuda", "cpu")}
+    (a, sa), (b, sb) = small["cuda"], small["cpu"]
+    for la, lb in zip(sa.logs, sb.logs):
+        assert np.array_equal(la.selected, lb.selected), la.round
+    for f in ("trigger", "n_uploads", "mean_age", "sim_time"):
+        assert a[f] == b[f], (f, a[f], b[f])
+    assert np.allclose(a["acc"], b["acc"], rtol=0, atol=1e-2), (a["acc"],
+                                                                b["acc"])
+    emit(phase="async_cuda_vs_cpu", acc_cuda=a["acc"], acc_cpu=b["acc"],
+         trigger=a["trigger"], mean_age=a["mean_age"],
+         selected=[l.selected.tolist() for l in sa.logs])
+
+
+def population_async_phases():
+    """The population plane (a, b) and the async plane (c), each timed.
+    The servers and engines these phases record are let go at the end, so
+    that the serving phases' peak memory counts no FEEL run's tensors."""
+    n_servers = len(TimedServer.made)
+    for name, fn in (("population_control", population_control),
+                     ("population_end_to_end", population_end_to_end),
+                     ("async", async_phases)):
+        t0 = time.perf_counter()
+        fn()
+        emit(phase=f"{name}_seconds", seconds=time.perf_counter() - t0)
+    del TimedServer.made[n_servers:]
+    TimedEngine.made.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------- #
 # Serving the decoder-only zoo
 # ---------------------------------------------------------------------- #
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
@@ -2222,7 +2682,10 @@ def main():
     # 9. the batched control plane and the multi-run sweep
     emit(phase="sweep_launches", **sweep_phases())
 
-    # 10./11. serving the decoder-only zoo, experts included
+    # 10. the population plane and the async plane
+    population_async_phases()
+
+    # 11./12. serving the decoder-only zoo, experts included
     (launches["decode_attention"], launches["moe_gemm"],
      launches["ssd_scan"]) = zoo_phases()
     # K4 at the serving path's median cache length (2,049 to 2,080 valid
@@ -2234,7 +2697,7 @@ def main():
     summary["ssd_scan"] = summary_k6
     summary["moe_gemm"] = summary_k5
 
-    # 12. summary and result
+    # 13. summary and result
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [dict(
         name=name, **KERNELS[name], launches=launches[name],

@@ -26,11 +26,7 @@ class FeelConfig:
     """Federated-edge-learning round configuration (the paper's Table I)."""
     n_ues: int = 50               # K
     n_malicious: int = 5
-    # Fields of the planes the port does not run yet (population, the
-    # defense and LM task planes, async mode) are kept so that a config
-    # matches the JAX package's field for field; the port's server raises
-    # on any value it cannot run.
-    # Candidate population size N; None pins N == K.
+    # Candidate population size N (core/population.py); None pins N == K.
     population: Optional[int] = None
     rounds: int = 15              # t_max
     local_epochs: int = 3         # epsilon (paper leaves it unspecified)
@@ -54,6 +50,13 @@ class FeelConfig:
     recovery_threshold: float = 0.5
     defense: str = "none"
     task: str = "mnist_mlp"
+    # execution mode (federated/async_engine.py): "sync" runs lockstep
+    # rounds, "async" the event-driven engine, which aggregates once
+    # ``async_buffer`` uploads are buffered (None: the whole wave), also at
+    # dispatch + ``async_deadline`` sim-seconds (None: no deadline), with
+    # weights discounted by ``async_staleness`` ** age; every simulated
+    # latency is scaled by ``async_latency_scale`` (0.0: the zero-latency
+    # limit, where async reproduces sync exactly)
     mode: str = "sync"
     async_buffer: Optional[int] = None
     async_deadline: Optional[float] = None
@@ -73,15 +76,25 @@ class FeelConfig:
     cpu_hz_max: float = 5e8
     sample_bits: float = 28 * 28 * 8
 
+    def __post_init__(self):
+        if self.mode not in ("sync", "async"):
+            raise ValueError(f"unknown mode {self.mode!r}")
+        if self.async_buffer is not None and self.async_buffer < 1:
+            raise ValueError(f"async_buffer must be >= 1: "
+                             f"{self.async_buffer}")
+        if self.async_latency_scale < 0.0:
+            raise ValueError(f"async_latency_scale must be >= 0: "
+                             f"{self.async_latency_scale}")
+
     # Derived linear-scale wireless constants: Eq. 4/9 read the dBm -> watt
     # conversion from here, once.
     @property
     def n_population(self) -> int:
         """Candidate population size N (defaults to the budget K)."""
         n = self.population if self.population is not None else self.n_ues
-        assert n >= self.n_ues, (
-            f"population {n} smaller than the bandwidth budget K="
-            f"{self.n_ues}")
+        if n < self.n_ues:
+            raise ValueError(f"population {n} smaller than the bandwidth "
+                             f"budget K={self.n_ues}")
         return n
 
     @property

@@ -81,18 +81,36 @@ def pack_scan(c_sorted: torch.Tensor, k: int) -> torch.Tensor:
 
     Not a masked prefix sum: ``greedy_pack`` SKIPS a UE that does not fit
     the remaining budget and walks on, so whether position i is packed
-    depends on every earlier decision. The remaining budget is carried
-    through the N sorted positions (N sequential steps, every row at
-    once).
+    depends on every earlier decision. But the budget changes only at a
+    take, so the next take is the first later position whose cost is at
+    most min(k, remaining budget). The walk jumps from take to take, every
+    row at once: one masked first-true over all N positions a step, until
+    no row finds one. Eq. 9's costs are at least 1, so a row takes at most
+    k UEs and the walk ends within k + 1 steps whatever N is. The mask is
+    the N-step walk's bit for bit, for any non-negative costs.
     """
-    budget = torch.full(c_sorted.shape[:-1], k, dtype=c_sorted.dtype,
-                        device=c_sorted.device)
-    takes = []
-    for c in c_sorted.unbind(-1):
-        take = (c <= k) & (c <= budget)
-        budget = budget - torch.where(take, c, 0)
-        takes.append(take)
-    return torch.stack(takes, -1)
+    lead, n = c_sorted.shape[:-1], c_sorted.shape[-1]
+    c = c_sorted.reshape(-1, n)
+    rows, dev = c.shape[0], c.device
+    # position n stands for "no take": it costs 0 and is dropped at the end
+    c_or_0 = torch.cat([c, c.new_zeros((rows, 1))], -1)
+    pos = torch.arange(n, device=dev)
+    last = torch.full((rows, 1), -1, dtype=pos.dtype, device=dev)
+    # the budget starts at k and only falls, so c <= budget implies c <= k
+    budget = torch.full((rows, 1), k, dtype=c.dtype, device=dev)
+    taken = []
+    while True:
+        nxt = torch.where((c <= budget) & (pos > last), pos,
+                          n).amin(-1, keepdim=True)
+        if int(nxt.amin()) >= n:        # no row takes again
+            break
+        taken.append(nxt)
+        budget = budget - c_or_0.gather(-1, nxt)
+        last = nxt
+    take = torch.zeros((rows, n + 1), dtype=torch.bool, device=dev)
+    if taken:
+        take.scatter_(-1, torch.cat(taken, -1), True)
+    return take[:, :n].reshape(*lead, n)
 
 
 def greedy_pack_rows(sort_key: torch.Tensor, costs: torch.Tensor, k: int):

@@ -44,7 +44,13 @@ several servers on the same (dataset, partition) can share — the batched
 sweep runner (``federated/simulation.py::run_sweep``) builds it once per
 (task, seed, data attack) and hands it to every run on it.
 
-Not ported yet: the population cut, async mode and the observability spans.
+Under a population cut (``cfg.population = N > K``) every per-UE control
+array spans the N candidates and the batched control plane schedules
+through the top-M prefilter (core/population.py). In async mode the event
+engine (federated/async_engine.py) drives the round phases itself and
+masks the UEs with an upload in flight (``unavailable``).
+
+Not ported yet: the observability spans.
 """
 from __future__ import annotations
 
@@ -59,6 +65,7 @@ from repro_torch.configs.base import FeelConfig
 from repro_torch.core import attacks as atk
 from repro_torch.core import control as ctl
 from repro_torch.core import defenses as dfs
+from repro_torch.core import population
 from repro_torch.core.diversity import diversity_index
 from repro_torch.core.quality import adaptive_weights, data_quality_value
 from repro_torch.core.reputation import ReputationTracker
@@ -250,9 +257,6 @@ class FeelServer:
                 "watch_class knobs (set AttackScenario.watch instead)")
         self.defense = dfs.as_defense(cfg.defense if defense is None
                                       else defense)
-        if cfg.population is not None or cfg.mode != "sync":
-            raise NotImplementedError(
-                "the population cut and async mode are not ported yet")
         if len(clients) != cfg.n_population:
             raise ValueError(f"{len(clients)} clients for "
                              f"{cfg.n_population} UEs")
@@ -337,6 +341,12 @@ class FeelServer:
         # batched control state of this one run, built on first use (the
         # sweep runner builds one for all its runs instead)
         self._ctrl: Optional[ctl.ControlState] = None
+        # async busy mask (federated/async_engine.py): these UEs have an
+        # upload in flight and must not be scheduled again. Their channel
+        # gains are zeroed for the draw, an arithmetic mask and no RNG
+        # draw, so the host stream of record is untouched. None in sync
+        # mode.
+        self.unavailable: Optional[np.ndarray] = None
         self.pad_waste: List[float] = []   # per-round padded/real samples
         self.logs: List[RoundLog] = []
 
@@ -353,9 +363,18 @@ class FeelServer:
         return data_quality_value(self.reputation.values, I, cfg,
                                   omega=self._omega(round_t))
 
+    def _mask_unavailable(self, gains: np.ndarray) -> np.ndarray:
+        """Zero the gains of busy UEs: a zero gain makes Eq. 9 infeasible
+        (cost K + 1), so every channel-aware packing skips them. The async
+        engine drops busy UEs from channel-blind selections (top_value,
+        the forced rewrite) itself."""
+        if self.unavailable is not None:
+            gains = np.where(self.unavailable, 0.0, gains)
+        return gains
+
     def _schedule(self, values: np.ndarray) -> Schedule:
         cfg = self.cfg
-        gains = self.wireless.draw_channels().gains
+        gains = self._mask_unavailable(self.wireless.draw_channels().gains)
         t_train = self.wireless.train_time(self.sizes, self.cpu_hz)
         costs = self.wireless.cost(gains, t_train)
         if self.policy == "dqs":
@@ -410,8 +429,9 @@ class FeelServer:
         in the oracle's order: the channel draw first, then — for the
         ``random`` policy only — the packing permutation. The batched plane
         is a deterministic function of these draws, which keeps every
-        run's stream equal to its sequential twin's."""
-        gains = self.wireless.draw_channels().gains
+        run's stream equal to its sequential twin's. Busy UEs' gains come
+        back zeroed (``_mask_unavailable``)."""
+        gains = self._mask_unavailable(self.wireless.draw_channels().gains)
         if self.policy == "random":
             rand_rank = np.argsort(
                 self.rng.permutation(self.cfg.n_population))
@@ -424,9 +444,17 @@ class FeelServer:
         st.pull([self])
         gains, rand_rank = self.draw_control_inputs()
         w_rep, w_div = self._omega(t)
-        x, alpha, costs, values, forced = ctl.schedule_runs(
-            st, gains[None], rand_rank[None], np.array([w_rep]),
-            np.array([w_div]))
+        if self.cfg.population is not None:
+            # population cut: the top-M prefilter, whose selection is the
+            # exact one (core/population.py)
+            x, alpha, costs, values, forced, _ = \
+                population.prefilter_schedule_runs(
+                    st, gains[None], rand_rank[None], np.array([w_rep]),
+                    np.array([w_div]))
+        else:
+            x, alpha, costs, values, forced = ctl.schedule_runs(
+                st, gains[None], rand_rank[None], np.array([w_rep]),
+                np.array([w_div]))
         sched = Schedule(x=x[0], alpha=alpha[0], cost=costs[0],
                          value=values[0])
         return values[0], sched, sched.selected, bool(forced[0])
@@ -780,6 +808,9 @@ class FeelServer:
                                     atk_succ, acc_val, g_loss)
 
     def run(self, rounds: Optional[int] = None) -> List[RoundLog]:
+        if self.cfg.mode != "sync":
+            raise ValueError("mode='async' runs through "
+                             "federated.async_engine.AsyncFeelEngine")
         for t in range(rounds or self.cfg.rounds):
             self.run_round(t)
         return self.logs

@@ -13,7 +13,11 @@ Protocol (paper §V-A): synthetic-MNIST 50k/10k; sort-by-label groups of 50;
 A copy of ``repro.federated.simulation`` on the port: the same parameters
 and results, plus ``device=`` (the data plane's device and the batched
 control plane's; None means ``"cuda"``, which raises without CUDA).
-``mode="async"`` and ``population=`` raise until their planes are ported.
+``population=N`` schedules each round from N candidates through the top-M
+prefilter (core/population.py); ``cfg.mode="async"`` runs the event-driven
+engine (federated/async_engine.py), one event loop a run, and adds the
+simulated clock's curves (``sim_time``, ``trigger``, ``n_uploads``,
+``mean_age``) to the result.
 
 ``run_sweep`` runs a whole (tasks x policies x seeds x scenarios x
 defenses) grid: it generates each (task, seed) dataset once, builds each
@@ -40,21 +44,14 @@ from repro_torch.configs.base import FeelConfig
 from repro_torch.core import attacks as atk
 from repro_torch.core import control as ctl
 from repro_torch.core import defenses as dfs
+from repro_torch.core import population as pop
 from repro_torch.core.poisoning import pick_malicious
 from repro_torch.core.scheduler import Schedule
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.federated import cohort
+from repro_torch.federated.async_engine import AsyncFeelEngine
 from repro_torch.federated.server import FeelServer, build_cohort_data
 from repro_torch.federated.task import FeelTask, as_task
-
-
-def _check_planes(cfg: FeelConfig, population) -> None:
-    if population is not None:
-        raise NotImplementedError(
-            "population= (core/population.py) is not ported yet")
-    if cfg.mode != "sync":
-        raise NotImplementedError(
-            "mode='async' (federated/async_engine.py) is not ported yet")
 
 
 def _scenarios(scenarios, attack_pairs, no_attack, model_poison_scale,
@@ -145,12 +142,16 @@ def run_experiment(policy: str = "dqs",
     ``defense`` — a ``core.defenses.DefensePolicy`` spec (object or
     registry name; None defers to ``cfg.defense``). ``control`` —
     ``"batched"`` (default) or ``"host"`` (see ``FeelServer``).
+    ``population`` — the candidate population N (None: N == K, the
+    paper's regime); the partition, the wireless draws and the control
+    plane span all N candidates.
     """
     cfg = cfg or FeelConfig()
-    _check_planes(cfg, population)
     device = resolve_device(device)     # raises before any work without CUDA
     tsk = as_task(task if task is not None else cfg.task)
     cfg = dataclasses.replace(cfg, task=tsk.name)
+    if population is not None:
+        cfg = dataclasses.replace(cfg, population=int(population))
     if omega is not None:
         cfg = dataclasses.replace(cfg, omega_rep=omega[0], omega_div=omega[1])
     n_train = tsk.default_n_train if n_train is None else n_train
@@ -170,8 +171,20 @@ def run_experiment(policy: str = "dqs",
                         adaptive_omega=adaptive_omega, scenario=scn,
                         engine=engine, control=control, defense=defense,
                         task=tsk, device=device)
+    if cfg.mode == "async":
+        # one RoundLog an aggregation, plus the simulated clock's curves
+        eng = AsyncFeelEngine(server)
+        eng.run(rounds)
+        return {**_summary(server, malicious), **_async_curves(eng)}
     server.run(rounds)
     return _summary(server, malicious)
+
+
+def _async_curves(eng: AsyncFeelEngine) -> Dict:
+    return {"sim_time": [a.sim_time for a in eng.agg_logs],
+            "trigger": [a.trigger for a in eng.agg_logs],
+            "n_uploads": [a.n_uploads for a in eng.agg_logs],
+            "mean_age": [float(np.mean(a.ages)) for a in eng.agg_logs]}
 
 
 # ---------------------------------------------------------------------- #
@@ -306,13 +319,20 @@ def run_sweep(policies: Sequence[str], seeds: Sequence[int],
     oracle. ``stack_runs=False`` (or ``engine="loop"``) runs the runs one
     after the other on the shared caches — the stacked path's oracle.
 
+    ``population`` — the candidate population N of every run (the
+    stacked round schedules through the prefilter). Under
+    ``cfg.mode="async"`` every run gets its own event loop (a wave is a
+    run's own decision, so rounds cannot interleave across runs), on the
+    shared data, partition and cohort caches.
+
     ``n_train``/``n_test`` default per task; ``device`` — where every
     run's data plane and the batched control plane run (None means
     ``"cuda"``, which raises without CUDA).
     """
     cfg = cfg or FeelConfig()
-    _check_planes(cfg, population)
     device = resolve_device(device)
+    if population is not None:
+        cfg = dataclasses.replace(cfg, population=int(population))
     if omega is not None:
         cfg = dataclasses.replace(cfg, omega_rep=omega[0],
                                   omega_div=omega[1])
@@ -401,7 +421,10 @@ def run_sweep(policies: Sequence[str], seeds: Sequence[int],
                             torch.as_tensor(target, device=device).long()))
 
     n_rounds = rounds or cfg.rounds
-    if stack_runs and engine == "vectorized":
+    if cfg.mode == "async":
+        for run in runs:
+            AsyncFeelEngine(run.server).run(n_rounds)
+    elif stack_runs and engine == "vectorized":
         sweep_ctrl = (ctl.ControlState.from_servers(
             [r.server for r in runs]) if control == "batched" else None)
         for t in range(n_rounds):
@@ -445,8 +468,12 @@ def _schedule_runs_stacked(runs: List[_SweepRun],
     for i, s in enumerate(servers):
         gains[i], rand_rank[i] = s.draw_control_inputs()
         omega[i] = s._omega(t)
-    x, alpha, costs, values, forced = ctl.schedule_runs(
-        sweep_ctrl, gains, rand_rank, omega[:, 0], omega[:, 1])
+    if sweep_ctrl.cfg.population is not None:
+        x, alpha, costs, values, forced, _ = pop.prefilter_schedule_runs(
+            sweep_ctrl, gains, rand_rank, omega[:, 0], omega[:, 1])
+    else:
+        x, alpha, costs, values, forced = ctl.schedule_runs(
+            sweep_ctrl, gains, rand_rank, omega[:, 0], omega[:, 1])
     for i, run in enumerate(runs):
         sched = Schedule(x=x[i], alpha=alpha[i], cost=costs[i],
                          value=values[i])

@@ -105,3 +105,36 @@ def test_library_name_follows_the_shared_headers(tmp_path, monkeypatch):
     assert build.library_path("k") == before
     (tmp_path / "h.cuh").write_text("// two\n")
     assert build.library_path("k") != before
+
+
+@pytest.mark.parametrize("entry", ["population_mesh", "population_run",
+                                   "async_run", "serve_cli"])
+def test_population_and_async_entry_points_default_to_cuda(monkeypatch,
+                                                           entry):
+    """The population plane, the async engine's runs and the serve CLI
+    build on the GPU unless the caller asks for the CPU, and raise where
+    CUDA is absent, before any work."""
+    from repro_torch.core import population
+    from repro_torch.federated import simulation
+    from repro_torch.launch import serve
+    _no_cuda(monkeypatch)
+    calls = {
+        "population_mesh": lambda: population.population_mesh(),
+        "population_run": lambda: simulation.run_experiment(
+            cfg=FeelConfig(n_ues=4, n_malicious=0), population=12,
+            n_train=600, n_test=100, rounds=1),
+        "async_run": lambda: simulation.run_experiment(
+            cfg=FeelConfig(n_ues=4, n_malicious=0, mode="async"),
+            n_train=600, n_test=100, rounds=1),
+        "serve_cli": lambda: serve.main(["--rounds", "1", "--ues", "4"])}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+
+
+@pytest.mark.parametrize("name", ["federated/async_engine.py",
+                                  "launch/serve.py", "core/population.py"])
+def test_the_simulated_clock_reads_no_wall_clock(name):
+    """The async engine's clock is simulated: the engine, its CLI and the
+    population plane import no clock module."""
+    mods = set(_imported_modules(ROOT / "src" / "repro_torch" / name))
+    assert not mods & {"time", "datetime", "timeit"}, mods

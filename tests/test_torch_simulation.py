@@ -117,18 +117,19 @@ def test_result_dict_has_the_reference_keys(scenario_runs):
 
 @pytest.mark.parametrize("kw,err", [
     (dict(control="jax"), ValueError),
-    (dict(population=16), NotImplementedError),
-    (dict(cfg=FeelConfig(n_ues=8, n_malicious=2, mode="async")),
-     NotImplementedError),
+    (dict(population=4), ValueError),          # fewer candidates than K
+    (dict(cfg=dict(mode="async", async_buffer=0)), ValueError),
     (dict(defense="no_such_defense"), KeyError),
     (dict(scenario="no_such_scenario"), KeyError),
     (dict(scenario="token_noise_0.3"), TypeError),
 ])
 def test_run_experiment_rejects_what_the_port_does_not_run(kw, err):
-    kw = {"cfg": FeelConfig(n_ues=8, n_malicious=2), **kw}
+    kw = dict(kw)
+    cfg_kw = kw.pop("cfg", {})
     with pytest.raises(err):
-        simulation.run_experiment(n_train=600, n_test=100, rounds=1,
-                                  device="cpu", **kw)
+        simulation.run_experiment(
+            cfg=FeelConfig(n_ues=8, n_malicious=2, **cfg_kw), n_train=600,
+            n_test=100, rounds=1, device="cpu", **kw)
 
 
 def test_run_experiment_without_device_raises_when_cuda_is_absent(

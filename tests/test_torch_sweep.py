@@ -259,17 +259,18 @@ def test_two_task_sweep_matches_reference():
 # What the sweep refuses
 # ---------------------------------------------------------------------- #
 @pytest.mark.parametrize("kw,err", [
-    (dict(population=16), NotImplementedError),
-    (dict(cfg=FeelConfig(n_ues=8, n_malicious=2, mode="async")),
-     NotImplementedError),
+    (dict(population=4), ValueError),          # fewer candidates than K
+    (dict(cfg=dict(mode="async", async_latency_scale=-1.0)), ValueError),
     (dict(scenarios=["sign_flip"], lie_boost=0.2), ValueError),
     (dict(tasks=["mnist_mlp", "mnist_mlp"]), ValueError),
 ])
 def test_run_sweep_rejects_what_the_port_does_not_run(kw, err):
-    kw = {"cfg": FeelConfig(n_ues=8, n_malicious=2), **kw}
+    kw = dict(kw)
+    cfg_kw = kw.pop("cfg", {})
     with pytest.raises(err):
-        run_sweep(["dqs"], seeds=[0], n_train=600, n_test=100, rounds=1,
-                  device="cpu", **kw)
+        run_sweep(["dqs"], seeds=[0],
+                  cfg=FeelConfig(n_ues=8, n_malicious=2, **cfg_kw),
+                  n_train=600, n_test=100, rounds=1, device="cpu", **kw)
 
 
 def test_run_sweep_without_device_raises_when_cuda_is_absent(monkeypatch):
