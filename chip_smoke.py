@@ -115,7 +115,19 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     equal to its sync twin, and a K = 10 async run on the GPU and the CPU:
     the same selections, triggers, ages and simulated clock, accuracies
     within 1e-2;
-11. serving the decoder-only zoo: ``starcoder2-15b`` (all 40 layers, bf16,
+11. the observability plane (``repro_torch.obs``), each traced run beside
+    its untraced twin: two §V main paths (``quickstart``, 2 rounds under
+    the profiler, one untraced and one traced) with equal selections,
+    bit-equal params, K1 launched twice in each and the same host waits,
+    then 4 more rounds of each in turns for their walls, with the host
+    cost of one span; the traced rounds' phase summary and the schedule
+    and train phases on the H100's roofline (``obs.report``); defended run
+    (a) traced (3 ``defense.aggregate``, ``defense.detect`` and
+    ``eval.validation`` spans, K2 3 times, the untraced run's
+    selections); and the serve CLI's documented run with ``--trace``: the
+    untraced run's result, the simulated clock on every span of the event
+    loop, well-formed nesting, ``python -m repro_torch.obs.report`` exit 0;
+12. serving the decoder-only zoo: ``starcoder2-15b`` (all 40 layers, bf16,
     22 B parameters drawn on the card) and ``mamba2-370m`` (48 layers)
     each take 8 prompts of 2,048 tokens through ``api.prefill`` and 32
     greedy ``api.decode_step`` calls, every launch count set to 0 just before
@@ -131,7 +143,7 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     then reduced configs on
     the GPU and the CPU (starcoder2's ring cache, qwen2.5 and mamba2
     greedy generation): the same tokens, logits within 1e-4;
-12. serving the mixture-of-experts zoo: ``qwen2-moe-a2.7b`` (all 24
+13. serving the mixture-of-experts zoo: ``qwen2-moe-a2.7b`` (all 24
     layers, bf16, 14.3 B parameters drawn on the card) with the same
     traffic, every launch count set to 0 just before and read just after
     (K3 24 times at prefill, K4 24 times a step, K5 72 times at prefill
@@ -147,7 +159,7 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     reduced qwen2-moe (also ``optimized``: group-local dispatch),
     moonshot and Jamba on the GPU and the CPU — the same tokens, logits
     within 1e-4, the Jamba run launching K3, K4, K5 and K6;
-13. one JSON line of per-kernel numbers, then the result line.
+14. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without printing a result where CUDA is absent. A kernel's
 time is its device time from ``torch.profiler`` over back-to-back calls
@@ -163,10 +175,12 @@ import gc
 import io
 import json
 import math
+import os
 import platform
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -204,14 +218,20 @@ from repro_torch.kernels.robust_aggregate import (  # noqa: E402
 from repro_torch.kernels.weighted_aggregate import (  # noqa: E402
     weighted_aggregate, weighted_aggregate_ref)
 from repro_torch.launch import serve, steps  # noqa: E402
+from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
+                                     PEAK_FLOPS_F32)
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import blocks  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.obs import report as obs_report  # noqa: E402
+from repro_torch.obs import trace  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
-BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
+# the H100 SXM5's data-sheet peaks: device memory, float32 outside the
+# tensor cores, bf16 on the tensor cores (dense)
+HBM_BYTES_PER_S = HBM_BW
+F32_FLOPS = PEAK_FLOPS_F32
+BF16_FLOPS = PEAK_FLOPS_BF16
 # one 32-bit instruction (a comparison, an add) a lane a clock: half the
 # float32 FLOP rate, which counts an FMA as two
 INSTR_PER_S = F32_FLOPS / 2
@@ -1752,7 +1772,8 @@ PARITY = ("acc", "loss", "rep_gap", "objective", "malicious_selected")
 
 
 def async_phases():
-    """Phase (c): the async plane at the §V scale."""
+    """Phase (c): the async plane at the §V scale. Returns the CLI run's
+    result and wall ms (the untraced twin of the obs phase's CLI run)."""
     k1 = only(weighted_aggregate=1)
     # zero-latency wave triggers reproduce the sync runs, both planes
     for control in ("batched", "host"):
@@ -1832,23 +1853,215 @@ def async_phases():
     emit(phase="async_cuda_vs_cpu", acc_cuda=a["acc"], acc_cpu=b["acc"],
          trigger=a["trigger"], mean_age=a["mean_age"],
          selected=[l.selected.tolist() for l in sa.logs])
+    return res, wall_ms
 
 
 def population_async_phases():
     """The population plane (a, b) and the async plane (c), each timed.
     The servers and engines these phases record are let go at the end, so
-    that the serving phases' peak memory counts no FEEL run's tensors."""
+    that the serving phases' peak memory counts no FEEL run's tensors.
+    Returns what ``async_phases`` returns."""
     n_servers = len(TimedServer.made)
     for name, fn in (("population_control", population_control),
                      ("population_end_to_end", population_end_to_end),
                      ("async", async_phases)):
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         emit(phase=f"{name}_seconds", seconds=time.perf_counter() - t0)
+    release_runs(n_servers)
+    return out
+
+
+def release_runs(n_servers):
+    """Let go of the servers recorded since ``n_servers`` and every engine,
+    and of their tensors on the card."""
     del TimedServer.made[n_servers:]
     TimedEngine.made.clear()
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------- #
+# The observability plane
+# ---------------------------------------------------------------------- #
+OBS_DIR = build.BUILD_DIR.parent / "obs_traces"
+
+
+def traced_main_path(traced, rounds=2):
+    """The §V main path (``quickstart``: K = 50, 50,000/10,000, DQS, host
+    control) with the tracer on or off: ``rounds`` rounds under
+    ``profile_fn`` with every launch count set to 0 just before and read
+    just after. Returns a namespace: the server, the launches, the profile
+    row, the params after the rounds and the next round's index."""
+    server = quickstart(50, 5, 50_000, 10_000, "cuda")
+    trace.configure(enabled=traced)
+    try:
+        reset_launches()
+        _, prof = profile_fn(lambda: [server.run_round(t)
+                                      for t in range(rounds)])
+        launches = read_launches()
+        params = {k: v.clone() for k, v in server.params.items()}
+    finally:
+        trace.configure(enabled=False)
+    return types.SimpleNamespace(server=server, launches=launches,
+                                 prof=prof, params=params, next_round=rounds)
+
+
+def rounds_in_turns(off, on, turns=2):
+    """Round walls of the untraced and the traced server, one round at a
+    time in turns (off, on, on, off, ...), each ending in a synchronise
+    (the order of two runs moves a wall more than tracing does), and the
+    traced rounds' spans and JSONL trace: (walls off, walls on, spans,
+    path)."""
+    walls = {False: [], True: []}
+    trace.configure(enabled=False)
+    try:
+        for traced in (False, True, True, False) * turns:
+            run = on if traced else off
+            trace.configure(enabled=traced, reset=False)
+            t0 = time.perf_counter()
+            run.server.run_round(run.next_round)
+            torch.cuda.synchronize()
+            walls[traced].append((time.perf_counter() - t0) * 1e3)
+            run.next_round += 1
+        trace.configure(enabled=False, reset=False)
+        spans = list(trace.tracer().spans)
+        path = trace.flush_jsonl(str(OBS_DIR / "main_path.jsonl"))
+    finally:
+        trace.configure(enabled=False)
+    return walls[False], walls[True], spans, path
+
+
+def span_cost_us(n=20_000):
+    """Host µs of one enabled span with two attributes, the mean of n."""
+    trace.configure(enabled=True)
+    try:
+        t0 = time.perf_counter()
+        for i in range(n):
+            with trace.span("probe") as sp:
+                sp.set(t=i, n=2)
+        return (time.perf_counter() - t0) / n * 1e6
+    finally:
+        trace.configure(enabled=False)
+
+
+def check_nesting(spans):
+    """Span dicts from ``load_jsonl`` nest: each child's parent was kept,
+    one level up, and its interval holds the child's."""
+    by_sid = {s["sid"]: s for s in spans}
+    for s in spans:
+        assert s["t1"] >= s["t0"], s
+        if s["parent"] == -1:
+            assert s["depth"] == 0, s
+            continue
+        p = by_sid[s["parent"]]
+        assert p["depth"] == s["depth"] - 1, (p, s)
+        assert p["t0"] <= s["t0"] and s["t1"] <= p["t1"], (p, s)
+
+
+def obs_phases(out_a, server_a, cli_untraced):
+    """The observability plane on the card, each traced run beside its
+    untraced twin: the §V main path (equal selections, bit-equal params,
+    K1 twice in 2 rounds, the same host waits under the profiler; its
+    phase summary and the schedule and train phases on the H100's
+    roofline), defended run (a) (its defense spans, K2 three times, the
+    untraced run's selections) and the serve CLI's documented run with
+    ``--trace`` (the untraced run's result, both clocks on every span of
+    the event loop, well-formed nesting, the report CLI exits 0)."""
+    OBS_DIR.mkdir(parents=True, exist_ok=True)
+    n_servers = len(TimedServer.made)
+    off, on = traced_main_path(False), traced_main_path(True)
+    untraced_ms, traced_ms, spans, path = rounds_in_turns(off, on)
+    for a, b in zip(off.server.logs, on.server.logs, strict=True):
+        assert np.array_equal(a.selected, b.selected), a.round
+        assert a.global_acc == b.global_acc, (a.round, a.global_acc,
+                                              b.global_acc)
+    for snap_off, snap_on in ((off.params, on.params),
+                              (off.server.params, on.server.params)):
+        for k in snap_off:
+            assert torch.equal(snap_off[k], snap_on[k]), k
+    assert off.launches == on.launches == only(weighted_aggregate=2), (
+        off.launches, on.launches)
+    assert off.prof["host_waits"] == on.prof["host_waits"], (
+        off.prof["host_waits"], on.prof["host_waits"])
+    per_span_us = span_cost_us()
+    spans_a_round = len(spans) / len(traced_ms)
+    emit(phase="obs_main_path", rounds=2, spans=len(spans),
+         host_waits=on.prof["host_waits"],
+         profiled_wall_us_untraced=off.prof["wall_us"],
+         profiled_wall_us_traced=on.prof["wall_us"],
+         device_busy_us_untraced=off.prof["device_busy_us"],
+         device_busy_us_traced=on.prof["device_busy_us"],
+         round_ms_in_turns_untraced=untraced_ms,
+         round_ms_in_turns_traced=traced_ms,
+         median_round_ms_untraced=float(np.median(untraced_ms)),
+         median_round_ms_traced=float(np.median(traced_ms)),
+         span_cost_us=per_span_us, spans_a_round=spans_a_round,
+         span_ms_a_round=spans_a_round * per_span_us / 1e3,
+         launches=on.launches)
+    emit(phase="obs_phase_summary", **trace.phase_summary(spans))
+    rep = obs_report.summarize(path)
+    assert {"schedule", "train"} <= set(rep["roofline"]), rep["roofline"]
+    emit(phase="obs_roofline", **{k: rep["roofline"][k]
+                                  for k in ("schedule", "train")})
+
+    # defended run (a), traced
+    trace.configure(enabled=True)
+    try:
+        out, server = defended_run("a, traced", scenario="sign_flip",
+                                   defense="trimmed_mean+validation")
+        names = collections.Counter(s.name for s in trace.tracer().spans)
+        snap = trace.tracer().metrics.snapshot()
+    finally:
+        trace.configure(enabled=False)
+    for name in ("defense.aggregate", "defense.detect", "eval.validation"):
+        assert names[name] == 3, (name, names)
+    assert snap["gauges"]["launches.robust_aggregate"]["value"] == 3.0, snap
+    for a, b in zip(server_a.logs, server.logs):
+        assert np.array_equal(a.selected, b.selected), a.round
+    emit(phase="obs_defended", run="a", spans=dict(names),
+         round_ms_untraced=server_a.round_ms[:3],
+         round_ms_traced=server.round_ms, acc_untraced=out_a["acc"],
+         acc_traced=out["acc"])
+
+    # the serve CLI's documented run, traced, and its report
+    path = OBS_DIR / "serve.jsonl"
+    buf = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with timed_engine(), contextlib.redirect_stdout(buf):
+            rc = serve.main(["--rounds", "8", "--buffer", "4", "--scenario",
+                             "stale_rider_2", "--defense", "validation",
+                             "--trace", str(path), "--json"])
+    finally:
+        trace.configure(enabled=False)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    assert rc == 0, rc
+    assert read_launches() == only(weighted_aggregate=8), read_launches()
+    res, (res_untraced, wall_ms_untraced) = json.loads(buf.getvalue()), \
+        cli_untraced
+    # as JSON text, so that the NaN curves (MNIST has no loss) compare
+    assert json.dumps(res) == json.dumps(res_untraced), (res, res_untraced)
+    meta, spans, metrics = trace.load_jsonl(str(path))
+    assert meta["gpu"] == torch.cuda.get_device_name(0), meta
+    check_nesting(spans)
+    for s in spans:
+        if s["name"] != "experiment":
+            assert s["sim_t0"] <= s["sim_t1"], s
+    rep = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.report", str(path)],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent
+                                             / "src")})
+    assert rep.returncode == 0, rep.stderr[-2000:]
+    emit(phase="obs_serve_cli", spans=len(spans), wall_ms_untraced=
+         wall_ms_untraced, wall_ms_traced=wall_ms,
+         agg_ms_traced=TimedEngine.made[-1].agg_ms,
+         sim_time=res["sim_time"], report=[
+             line for line in rep.stdout.splitlines()
+             if line.startswith(("phase,", "async.", "roofline,"))])
+    release_runs(n_servers)
 
 
 # ---------------------------------------------------------------------- #
@@ -2683,9 +2896,14 @@ def main():
     emit(phase="sweep_launches", **sweep_phases())
 
     # 10. the population plane and the async plane
-    population_async_phases()
+    cli_untraced = population_async_phases()
 
-    # 11./12. serving the decoder-only zoo, experts included
+    # 11. the observability plane
+    t0 = time.perf_counter()
+    obs_phases(out_a, server_a, cli_untraced)
+    emit(phase="obs_seconds", seconds=time.perf_counter() - t0)
+
+    # 12./13. serving the decoder-only zoo, experts included
     (launches["decode_attention"], launches["moe_gemm"],
      launches["ssd_scan"]) = zoo_phases()
     # K4 at the serving path's median cache length (2,049 to 2,080 valid
@@ -2697,7 +2915,7 @@ def main():
     summary["ssd_scan"] = summary_k6
     summary["moe_gemm"] = summary_k5
 
-    # 13. summary and result
+    # 14. summary and result
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [dict(
         name=name, **KERNELS[name], launches=launches[name],

@@ -52,6 +52,7 @@ from repro_torch.core.reputation import reputation_update_eq1
 from repro_torch.core.scheduler import (POLICY_IDS, greedy_pack_rows,
                                         pack_scan, priority_key)
 from repro_torch.core.wireless import cost_bisect
+from repro_torch.obs import trace
 
 LAYOUTS = ("hybrid", "device")
 
@@ -296,9 +297,14 @@ def schedule_runs(state: ControlState, gains: np.ndarray,
     rand_rank = np.asarray(rand_rank)
     w_rep = np.asarray(w_rep, float)
     w_div = np.asarray(w_div, float)
-    if _layout(kernel, state.device) == "hybrid":
-        return _schedule_hybrid(state, gains, rand_rank, w_rep, w_div)
-    return _schedule_device(state, gains, rand_rank, w_rep, w_div)
+    kern = _layout(kernel, state.device)
+    with trace.span("schedule.pack") as sp:
+        if trace.enabled():
+            sp.set(kernel=kern, runs=int(state.n_runs),
+                   width=int(state.reputations.shape[1]))
+        if kern == "hybrid":
+            return _schedule_hybrid(state, gains, rand_rank, w_rep, w_div)
+        return _schedule_device(state, gains, rand_rank, w_rep, w_div)
 
 
 def finalize_runs(state: ControlState, sels: List[np.ndarray],
@@ -321,36 +327,40 @@ def finalize_runs(state: ControlState, sels: List[np.ndarray],
     """
     cfg = state.cfg
     R, K = state.reputations.shape
-    mask = np.zeros((R, K))
-    al = np.zeros((R, K))
-    at = np.zeros((R, K))
-    pen = np.zeros((R, K))
-    for i, (sel, a, t) in enumerate(zip(sels, acc_locals, acc_tests)):
-        mask[i, sel] = 1.0
-        al[i, sel] = a
-        at[i, sel] = t
-        if penalties is not None and penalties[i] is not None:
-            pen[i, sel] = penalties[i]
-    if _layout(kernel, state.device) == "hybrid":
-        avg = np.array([[np.mean(a) if len(a) else 0.0]
-                        for a in acc_locals])
-        delta = cfg.eta * (cfg.beta1 * (al - avg)
-                           + cfg.beta2 * (al - at)) + pen
-        new = np.clip(state.reputations - delta, 0.0, 1.0)
-        state.reputations = np.where(mask > 0, new, state.reputations)
-        state.ages = np.where(mask > 0, 1.0, state.ages + 1.0)
-        return
+    with trace.span("schedule.finalize") as sp:
+        if trace.enabled():
+            sp.set(runs=int(R), width=int(K))
+        mask = np.zeros((R, K))
+        al = np.zeros((R, K))
+        at = np.zeros((R, K))
+        pen = np.zeros((R, K))
+        for i, (sel, a, t) in enumerate(zip(sels, acc_locals, acc_tests)):
+            mask[i, sel] = 1.0
+            al[i, sel] = a
+            at[i, sel] = t
+            if penalties is not None and penalties[i] is not None:
+                pen[i, sel] = penalties[i]
+        if _layout(kernel, state.device) == "hybrid":
+            avg = np.array([[np.mean(a) if len(a) else 0.0]
+                            for a in acc_locals])
+            delta = cfg.eta * (cfg.beta1 * (al - avg)
+                               + cfg.beta2 * (al - at)) + pen
+            new = np.clip(state.reputations - delta, 0.0, 1.0)
+            state.reputations = np.where(mask > 0, new, state.reputations)
+            state.ages = np.where(mask > 0, 1.0, state.ages + 1.0)
+            return
 
-    def f64(a):
-        return torch.as_tensor(a, dtype=torch.float64, device=state.device)
+        def f64(a):
+            return torch.as_tensor(a, dtype=torch.float64,
+                                   device=state.device)
 
-    m = f64(mask)
-    rep = reputation_update_eq1(f64(state.reputations), m, f64(al), f64(at),
-                                cfg.eta, cfg.beta1, cfg.beta2,
-                                penalty=f64(pen))
-    ages = torch.where(m > 0, 1.0, f64(state.ages) + 1.0)
-    state.reputations = rep.cpu().numpy()
-    state.ages = ages.cpu().numpy()
+        m = f64(mask)
+        rep = reputation_update_eq1(f64(state.reputations), m, f64(al),
+                                    f64(at), cfg.eta, cfg.beta1, cfg.beta2,
+                                    penalty=f64(pen))
+        ages = torch.where(m > 0, 1.0, f64(state.ages) + 1.0)
+        state.reputations = rep.cpu().numpy()
+        state.ages = ages.cpu().numpy()
 
 
 def staleness_discount(ages: np.ndarray, decay: float) -> np.ndarray:

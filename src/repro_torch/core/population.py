@@ -69,6 +69,7 @@ from repro_torch.core.quality import data_quality_value
 from repro_torch.core.scheduler import POLICY_IDS, pack_scan, priority_key
 from repro_torch.core.wireless import cost_bisect
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs import trace
 
 # Default M = PREFILTER_HEADROOM * K candidates survive the top-M cut. The
 # walk takes at most K UEs, so K of headroom covers the selection and the
@@ -384,6 +385,14 @@ def _prefilter_device(state: ctl.ControlState, gains, rand_rank, w_rep,
 # ---------------------------------------------------------------------- #
 # Entry point
 # ---------------------------------------------------------------------- #
+def _state_nbytes(state: ctl.ControlState) -> int:
+    """Resident bytes of the (R, N) control-plane state, the accounting of
+    ``PopulationState.nbytes`` (the ``population.nbytes`` gauge only)."""
+    return sum(np.asarray(a).nbytes
+               for a in (state.sizes, state.divs, state.r_min,
+                         state.reputations, state.ages))
+
+
 def prefilter_schedule_runs(state: ctl.ControlState, gains, rand_rank,
                             w_rep, w_div, m: Optional[int] = None,
                             kernel: Optional[str] = None):
@@ -408,31 +417,43 @@ def prefilter_schedule_runs(state: ctl.ControlState, gains, rand_rank,
         raise ValueError(f"prefilter width {m_eff} below min_selected="
                          f"{cfg.min_selected}")
     kern = ctl._layout(kernel, state.device)
-    if m_eff >= N:      # no cut: the exact path is the prefilter
-        out = ctl.schedule_runs(state, gains, rand_rank, w_rep, w_div,
-                                kernel=kern)
-        return (*out, {"m": N, "n_escalated": 0})
+    R = state.n_runs
+    with trace.span("schedule.prefilter") as sp:
+        if m_eff >= N:      # no cut: the exact path is the prefilter
+            out = ctl.schedule_runs(state, gains, rand_rank, w_rep, w_div,
+                                    kernel=kern)
+            if trace.enabled():
+                sp.set(m=N, runs=int(R), width=int(N), n_escalated=0)
+                trace.gauge_set("population.nbytes",
+                                float(_state_nbytes(state)))
+            return (*out, {"m": N, "n_escalated": 0})
 
-    layout = _prefilter_hybrid if kern == "hybrid" else _prefilter_device
-    x, alpha, costs, values, forced, cert = layout(
-        state, gains, rand_rank, w_rep, w_div, m_eff)
+        layout = _prefilter_hybrid if kern == "hybrid" else _prefilter_device
+        x, alpha, costs, values, forced, cert = layout(
+            state, gains, rand_rank, w_rep, w_div, m_eff)
 
-    # escalate the rows whose certificate fails to the exact path, in one
-    # batched call over just those rows
-    bad = np.flatnonzero(~cert)
-    if bad.size:
-        sub = ctl.ControlState(
-            policy_id=state.policy_id[bad], sizes=state.sizes[bad],
-            divs=state.divs[bad], r_min=state.r_min[bad],
-            reputations=state.reputations[bad], ages=state.ages[bad],
-            cfg=cfg, device=state.device)
-        xs, als, cs, vs, fs = ctl.schedule_runs(
-            sub, gains[bad], rand_rank[bad], w_rep[bad], w_div[bad],
-            kernel=kern)
-        x[bad], alpha[bad], forced[bad] = xs, als, fs
-        costs[bad], values[bad] = cs, vs
-    return (x, alpha, costs, values, forced,
-            {"m": m_eff, "n_escalated": int(bad.size)})
+        # escalate the rows whose certificate fails to the exact path, in
+        # one batched call over just those rows
+        bad = np.flatnonzero(~cert)
+        if bad.size:
+            sub = ctl.ControlState(
+                policy_id=state.policy_id[bad], sizes=state.sizes[bad],
+                divs=state.divs[bad], r_min=state.r_min[bad],
+                reputations=state.reputations[bad], ages=state.ages[bad],
+                cfg=cfg, device=state.device)
+            xs, als, cs, vs, fs = ctl.schedule_runs(
+                sub, gains[bad], rand_rank[bad], w_rep[bad], w_div[bad],
+                kernel=kern)
+            x[bad], alpha[bad], forced[bad] = xs, als, fs
+            costs[bad], values[bad] = cs, vs
+        if trace.enabled():
+            sp.set(m=m_eff, runs=int(R), width=int(N),
+                   n_escalated=int(bad.size))
+            trace.counter_inc("population.escalations", int(bad.size))
+            trace.gauge_set("population.nbytes",
+                            float(_state_nbytes(state)))
+        return (x, alpha, costs, values, forced,
+                {"m": m_eff, "n_escalated": int(bad.size)})
 
 
 # ---------------------------------------------------------------------- #

@@ -47,6 +47,10 @@ and both tasks.
 
 The clock is SIMULATED: it advances only by the latency model on the
 seeded channel and compute draws. The engine never reads the wall clock.
+Telemetry: each dispatch and each aggregation is a span (``async.dispatch``,
+``async.aggregate``) beside the ``async.heap_depth`` gauge and the
+``async.upload_age`` observation, and while the event loop runs every span
+is stamped with the simulated clock too (``trace.set_sim_clock``).
 """
 from __future__ import annotations
 
@@ -61,6 +65,7 @@ import torch
 from repro_torch.core import control as ctl
 from repro_torch.federated import cohort
 from repro_torch.federated.server import FeelServer, RoundLog
+from repro_torch.obs import trace
 
 
 @dataclasses.dataclass
@@ -123,40 +128,50 @@ class AsyncFeelEngine:
         """Schedule and train the next wave over the idle UEs and push its
         arrival events."""
         srv = self.server
-        srv.unavailable = self._busy.copy() if self._busy.any() else None
-        try:
-            values, sched, sel, forced = srv._schedule_round(self.wave)
-        finally:
-            srv.unavailable = None
-        # channel-blind selections ignore the zeroed gains: drop busy UEs
-        sel = sel[~self._busy[sel]]
-        self._plan = (values, sched, forced)
-        self._dispatch_t = self.t_sim
-        wave = self.wave
-        self.wave += 1
-        if sel.size == 0:
-            return
-        uploads, weights, acc_local, acc_test, acc_val = \
-            srv._train_cohort(sel, wave)
-        # the Eq. 7 upload time on the wave's unmasked channel draw
-        lat = (self._t_train[sel]
-               + srv.wireless.upload_time(srv.wireless.last_gains,
-                                          sched.alpha)[sel]) \
-            * srv.cfg.async_latency_scale
-        if not np.all(np.isfinite(lat)):
-            raise RuntimeError("non-finite upload latency for a scheduled UE")
-        self._store[wave] = {"uploads": uploads, "weights": weights,
-                             "left": sel.size}
-        self._busy[sel] = True
-        for i, ue in enumerate(sel):
-            e = _Upload(ue=int(ue), wave=wave, version=self.version, row=i,
-                        latency=float(lat[i]),
-                        acc_local=float(acc_local[i]),
-                        acc_test=float(acc_test[i]),
-                        acc_val=(None if acc_val is None
-                                 else np.asarray(acc_val[:, i])))
-            heapq.heappush(self._heap, (self.t_sim + e.latency, self._seq, e))
-            self._seq += 1
+        with trace.span("async.dispatch") as sp:
+            srv.unavailable = (self._busy.copy() if self._busy.any()
+                               else None)
+            try:
+                values, sched, sel, forced = srv._schedule_round(self.wave)
+            finally:
+                srv.unavailable = None
+            # channel-blind selections ignore the zeroed gains: drop busy
+            # UEs
+            sel = sel[~self._busy[sel]]
+            self._plan = (values, sched, forced)
+            self._dispatch_t = self.t_sim
+            wave = self.wave
+            self.wave += 1
+            if trace.enabled():
+                sp.set(wave=wave, n_selected=int(sel.size),
+                       n_busy=int(self._busy.sum()))
+            if sel.size == 0:
+                return
+            uploads, weights, acc_local, acc_test, acc_val = \
+                srv._train_cohort(sel, wave)
+            # the Eq. 7 upload time on the wave's unmasked channel draw
+            lat = (self._t_train[sel]
+                   + srv.wireless.upload_time(srv.wireless.last_gains,
+                                              sched.alpha)[sel]) \
+                * srv.cfg.async_latency_scale
+            if not np.all(np.isfinite(lat)):
+                raise RuntimeError("non-finite upload latency for a "
+                                   "scheduled UE")
+            self._store[wave] = {"uploads": uploads, "weights": weights,
+                                 "left": sel.size}
+            self._busy[sel] = True
+            for i, ue in enumerate(sel):
+                e = _Upload(ue=int(ue), wave=wave, version=self.version,
+                            row=i, latency=float(lat[i]),
+                            acc_local=float(acc_local[i]),
+                            acc_test=float(acc_test[i]),
+                            acc_val=(None if acc_val is None
+                                     else np.asarray(acc_val[:, i])))
+                heapq.heappush(self._heap,
+                               (self.t_sim + e.latency, self._seq, e))
+                self._seq += 1
+            if trace.enabled():
+                trace.gauge_set("async.heap_depth", len(self._heap))
 
     # ------------------------------------------------------------------ #
     def _gather(self, entries: List[_Upload]):
@@ -200,31 +215,38 @@ class AsyncFeelEngine:
         FedAvg or the defense's robust aggregator), finalise Eq. 1 for the
         aggregated UEs, log the RoundLog and the AggregationLog."""
         srv = self.server
-        entries, self._buffer = self._buffer, []
-        sel = np.array([e.ue for e in entries])
-        uploads, weights, ages, disc = self._gather(entries)
-        srv._aggregate_uploads(sel, uploads, weights)
-        for e in entries:
-            st = self._store[e.wave]
-            st["left"] -= 1
-            if st["left"] == 0:
-                del self._store[e.wave]
-        self._busy[sel] = False
-        acc_local = np.array([e.acc_local for e in entries])
-        acc_test = np.array([e.acc_test for e in entries])
-        acc_val = (None if entries[0].acc_val is None
-                   else np.stack([e.acc_val for e in entries], axis=1))
-        g_acc, g_loss, src_acc, atk_succ = srv._global_metrics()
-        values, sched, forced = self._plan
-        log = srv._finalize_round(self.version, values, sched, sel, forced,
-                                  acc_local, acc_test, g_acc, src_acc,
-                                  atk_succ, acc_val, g_loss)
-        self.agg_logs.append(AggregationLog(
-            version=self.version, sim_time=self.t_sim, trigger=trigger,
-            n_uploads=len(entries), ages=ages, discounts=disc,
-            waves=np.array([e.wave for e in entries])))
-        self.version += 1
-        return log
+        with trace.span("async.aggregate") as sp:
+            entries, self._buffer = self._buffer, []
+            sel = np.array([e.ue for e in entries])
+            uploads, weights, ages, disc = self._gather(entries)
+            if trace.enabled():
+                sp.set(version=self.version, trigger=trigger,
+                       n_uploads=len(entries), mean_age=float(ages.mean()))
+                for a in ages:
+                    trace.observe("async.upload_age", float(a))
+                trace.gauge_set("async.heap_depth", len(self._heap))
+            srv._aggregate_uploads(sel, uploads, weights)
+            for e in entries:
+                st = self._store[e.wave]
+                st["left"] -= 1
+                if st["left"] == 0:
+                    del self._store[e.wave]
+            self._busy[sel] = False
+            acc_local = np.array([e.acc_local for e in entries])
+            acc_test = np.array([e.acc_test for e in entries])
+            acc_val = (None if entries[0].acc_val is None
+                       else np.stack([e.acc_val for e in entries], axis=1))
+            g_acc, g_loss, src_acc, atk_succ = srv._global_metrics()
+            values, sched, forced = self._plan
+            log = srv._finalize_round(self.version, values, sched, sel,
+                                      forced, acc_local, acc_test, g_acc,
+                                      src_acc, atk_succ, acc_val, g_loss)
+            self.agg_logs.append(AggregationLog(
+                version=self.version, sim_time=self.t_sim, trigger=trigger,
+                n_uploads=len(entries), ages=ages, discounts=disc,
+                waves=np.array([e.wave for e in entries])))
+            self.version += 1
+            return log
 
     # ------------------------------------------------------------------ #
     def _trigger(self) -> bool:
@@ -237,8 +259,18 @@ class AsyncFeelEngine:
     def run(self, rounds: Optional[int] = None) -> List[RoundLog]:
         """Run ``rounds`` aggregations (default cfg.rounds) and return the
         server's RoundLogs, one an aggregation."""
+        n_agg = rounds or self.server.cfg.rounds
+        # while the event loop drives, every span records the simulated
+        # clock beside the wall clock; reading ``t_sim`` is telemetry only
+        trace.set_sim_clock(lambda: self.t_sim)
+        try:
+            self._run(n_agg)
+        finally:
+            trace.set_sim_clock(None)
+        return self.server.logs
+
+    def _run(self, n_agg: int) -> None:
         cfg = self.server.cfg
-        n_agg = rounds or cfg.rounds
         self._dispatch()
         while self.version < n_agg:
             deadline = (math.inf if cfg.async_deadline is None
@@ -267,4 +299,3 @@ class AsyncFeelEngine:
                                    "and empty buffer")
             self._aggregate(trig)
             self._dispatch()
-        return self.server.logs

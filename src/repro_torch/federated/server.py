@@ -50,7 +50,15 @@ through the top-M prefilter (core/population.py). In async mode the event
 engine (federated/async_engine.py) drives the round phases itself and
 masks the UEs with an upload in flight (``unavailable``).
 
-Not ported yet: the observability spans.
+Telemetry (``obs/trace.py``): every round phase runs inside a span of the
+reference's name (``round``, ``schedule``, ``train``, ``train.bucket``,
+``attack.apply``, ``eval``, ``eval.validation``, ``defense.aggregate``,
+``defense.detect``, ``finalize``, ``eval.global``), with the
+``train.pad_waste`` and ``train.bucket_occupancy`` observations and the
+analytic ``est_flops`` / ``est_bytes`` attributes of ``_schedule_estimates``
+and ``_train_estimates``. Every attribute is a value the host already
+holds, so tracing adds no host read of a device value, and with tracing
+off each span is the shared no-op.
 """
 from __future__ import annotations
 
@@ -80,6 +88,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.federated import cohort
 from repro_torch.federated.aggregation import fedavg_stacked
 from repro_torch.federated.task import FeelTask, as_task
+from repro_torch.obs import trace
 
 
 @dataclasses.dataclass
@@ -349,6 +358,7 @@ class FeelServer:
         self.unavailable: Optional[np.ndarray] = None
         self.pad_waste: List[float] = []   # per-round padded/real samples
         self.logs: List[RoundLog] = []
+        self._n_params: Optional[int] = None   # telemetry-only param count
 
     # ------------------------------------------------------------------ #
     def _omega(self, round_t: int) -> Tuple[float, float]:
@@ -396,9 +406,16 @@ class FeelServer:
         channel draw: no UE met the deadline, so the server forces the
         single highest-value UE to keep training alive.
         """
-        if self.control == "batched":
-            return self._schedule_round_batched(t)
-        return self._schedule_round_host(t)
+        with trace.span("schedule") as sp:
+            if self.control == "batched":
+                out = self._schedule_round_batched(t)
+            else:
+                out = self._schedule_round_host(t)
+            if trace.enabled():
+                values, sched, sel, forced = out
+                sp.set(t=t, n_selected=int(sel.size), forced=bool(forced),
+                       **self._schedule_estimates())
+            return out
 
     def _schedule_round_host(self, t: int):
         """The sequential numpy oracle of ``_schedule_round``."""
@@ -585,12 +602,16 @@ class FeelServer:
         masked ``torch.where`` per leaf over the malicious rows
         (``ModelAttack.apply_stacked``) — no per-client dispatch."""
         scn = self.scenario
-        ref = self._attack_ref_params()
-        mal = self._active_malicious(t)[sel]
-        if scn.model is not None and mal.any():
-            stacked = scn.model.apply_stacked(stacked, self.params, mal, ref)
-        if scn.report is not None:
-            acc_local = scn.report.apply(acc_local, mal)
+        with trace.span("attack.apply") as sp:
+            ref = self._attack_ref_params()
+            mal = self._active_malicious(t)[sel]
+            if scn.model is not None and mal.any():
+                stacked = scn.model.apply_stacked(stacked, self.params, mal,
+                                                  ref)
+            if scn.report is not None:
+                acc_local = scn.report.apply(acc_local, mal)
+            if trace.enabled():
+                sp.set(scenario=scn.name, n_active=int(mal.sum()))
         return stacked, acc_local
 
     def _apply_attacks_loop(self, sel, stacked, acc_local, t):
@@ -640,9 +661,17 @@ class FeelServer:
         parts, pad_slots = [], 0
         for bkt, pos, rows in self._cohort_parts(sel, t):
             data, ms = self._gather_bucket(bkt, rows)
-            stacked_b, acc_b = cohort.cohort_train(
-                self.task, self.params, data, ms, self.lr,
-                cfg.local_epochs, self.batch_size)
+            with trace.span("train.bucket") as bsp:
+                probe0 = trace.kernels_loaded() if trace.enabled() else 0
+                stacked_b, acc_b = cohort.cohort_train(
+                    self.task, self.params, data, ms, self.lr,
+                    cfg.local_epochs, self.batch_size)
+                if trace.enabled():
+                    bsp.set(level=int(bkt["level"]), rows=int(rows.size),
+                            real=int(pos.size),
+                            compiled=trace.kernels_loaded() > probe0)
+                    trace.observe("train.bucket_occupancy",
+                                  pos.size / rows.size)
             parts.append((pos,
                           {k: v[:pos.size] for k, v in stacked_b.items()},
                           acc_b[:pos.size].cpu().numpy().astype(float)))
@@ -650,6 +679,8 @@ class FeelServer:
         stacked, acc_local = self._merge_cohort(parts)
         self.pad_waste.append(
             float(pad_slots) / max(float(cd.sizes[sel].sum()), 1.0))
+        if trace.enabled():
+            trace.observe("train.pad_waste", self.pad_waste[-1])
 
         stacked, acc_local = self._apply_attacks(sel, stacked, acc_local, t)
 
@@ -658,9 +689,15 @@ class FeelServer:
         # contribute exactly 0 with weight 0)
         n_pad = cohort.pad_count(n, self._N_BUCKET)
         stacked_p = cohort.pad_stacked(stacked, n_pad)
-        acc_test = cohort.cohort_eval(self.task, stacked_p, self._ex,
-                                      self._ey, self._eval_masks(sel, n_pad))
-        acc_test = acc_test.cpu().numpy().astype(float)[:n]
+        with trace.span("eval") as esp:
+            probe0 = trace.kernels_loaded() if trace.enabled() else 0
+            acc_test = cohort.cohort_eval(self.task, stacked_p, self._ex,
+                                          self._ey,
+                                          self._eval_masks(sel, n_pad))
+            acc_test = acc_test.cpu().numpy().astype(float)[:n]
+            if trace.enabled():
+                esp.set(rows=int(n_pad),
+                        compiled=trace.kernels_loaded() > probe0)
         acc_val = self._eval_validation(stacked_p, sel)
         return (stacked_p, self._cohort_weights(sel, stacked_p), acc_local,
                 acc_test, acc_val)
@@ -673,22 +710,29 @@ class FeelServer:
         uploads row, global row."""
         if self.defense.detector is None:
             return None
-        n = sel.size
-        n_pad = next(iter(stacked_p.values())).shape[0]
-        vm = self._val_eval_masks(sel, n_pad)
-        both = cohort.merge_stacks(
-            [stacked_p, cohort.broadcast_params(self.params, n_pad)])
-        acc = cohort.cohort_eval(self.task, both, self._ex, self._ey,
-                                 torch.cat([vm, vm]))
-        acc = acc.cpu().numpy().astype(float)
-        return np.stack([acc[:n], acc[n_pad:n_pad + n]])
+        with trace.span("eval.validation") as sp:
+            n = sel.size
+            n_pad = next(iter(stacked_p.values())).shape[0]
+            vm = self._val_eval_masks(sel, n_pad)
+            both = cohort.merge_stacks(
+                [stacked_p, cohort.broadcast_params(self.params, n_pad)])
+            acc = cohort.cohort_eval(self.task, both, self._ex, self._ey,
+                                     torch.cat([vm, vm]))
+            acc = acc.cpu().numpy().astype(float)
+            if trace.enabled():
+                sp.set(rows=int(2 * n_pad))
+            return np.stack([acc[:n], acc[n_pad:n_pad + n]])
 
     def _train_cohort(self, sel: np.ndarray, t: int):
         """(uploads, weights, acc_local, acc_test, acc_val) of the round's
         cohort — no aggregation (see the engines' section comment)."""
-        if self.engine == "vectorized":
-            return self._run_cohort_vectorized(sel, t)
-        return self._run_cohort_loop(sel, t)
+        with trace.span("train") as sp:
+            if trace.enabled():
+                sp.set(t=t, engine=self.engine, n=int(sel.size),
+                       **self._train_estimates(sel))
+            if self.engine == "vectorized":
+                return self._run_cohort_vectorized(sel, t)
+            return self._run_cohort_loop(sel, t)
 
     def _aggregate_cohort(self, sel: np.ndarray, stacked_p,
                           weights: Optional[np.ndarray] = None) -> None:
@@ -702,13 +746,18 @@ class FeelServer:
         if weights is None:
             weights = self._cohort_weights(sel, stacked_p)
         agg = self.defense.aggregator
-        if agg is None:
-            self._def_stats = dfs.DefenseStats()
-            self.params = fedavg_stacked(stacked_p, weights)
-        else:
-            self.params, self._def_stats = dfs.aggregate_stacked(
-                agg, stacked_p, weights, self.params, sel.size,
-                self.cfg.n_malicious)
+        with trace.span("defense.aggregate") as sp:
+            probe0 = trace.kernels_loaded() if trace.enabled() else 0
+            if agg is None:
+                self._def_stats = dfs.DefenseStats()
+                self.params = fedavg_stacked(stacked_p, weights)
+            else:
+                self.params, self._def_stats = dfs.aggregate_stacked(
+                    agg, stacked_p, weights, self.params, sel.size,
+                    self.cfg.n_malicious)
+            if trace.enabled():
+                sp.set(defense=self.defense.name, n=int(sel.size),
+                       compiled=trace.kernels_loaded() > probe0)
 
     def _aggregate_uploads(self, sel: np.ndarray, uploads,
                            weights: np.ndarray) -> None:
@@ -730,20 +779,25 @@ class FeelServer:
         det = self.defense.detector
         if det is None or acc_val is None or sel.size == 0:
             return None
-        anomaly = det.anomaly(acc_val)
-        flags = anomaly > 0
-        st = self._def_stats
-        st.n_flagged = int(flags.sum())
-        st.det_precision, st.det_recall = dfs.detection_stats(
-            flags, self._mal_mask[sel])
-        return det.weight * anomaly
+        with trace.span("defense.detect") as sp:
+            anomaly = det.anomaly(acc_val)
+            flags = anomaly > 0
+            st = self._def_stats
+            st.n_flagged = int(flags.sum())
+            st.det_precision, st.det_recall = dfs.detection_stats(
+                flags, self._mal_mask[sel])
+            if trace.enabled():
+                sp.set(n_flagged=st.n_flagged)
+            return det.weight * anomaly
 
     def _global_metrics(self) -> Tuple[float, float, float, float]:
         """(global unit accuracy, global loss, watch accuracy, attack
         success rate) of the current params."""
-        return self.task.global_metrics(self.params, self.test, self._ex,
-                                        self._ey, self.watch_class,
-                                        self.watch_target)
+        with trace.span("eval.global"):
+            return self.task.global_metrics(self.params, self.test,
+                                            self._ex, self._ey,
+                                            self.watch_class,
+                                            self.watch_target)
 
     def _global_loss(self) -> float:
         """The task's global loss metric alone (NaN for a task without
@@ -758,21 +812,22 @@ class FeelServer:
                         g_loss=float("nan")) -> RoundLog:
         """Alg. 1 lines 15-16 + logging: detector penalty, reputation,
         staleness, RoundLog."""
-        penalty = self._detect(sel, acc_val)
-        if self.control == "batched":
-            st = self._control_state()
-            st.pull([self])
-            ctl.finalize_runs(st, [sel], [acc_local], [acc_test],
-                              penalties=[penalty])
-            st.push([self])
-        else:
-            self.reputation.update(sel, acc_local, acc_test,
-                                   penalty=penalty)
-            # ages: selected reset, others grow (staleness of Eq. 2)
-            self.ages += 1.0
-            self.ages[sel] = 1.0
-        return self._log_round(t, values, sched, sel, forced, g_acc,
-                               src_acc, atk_succ, g_loss)
+        with trace.span("finalize"):
+            penalty = self._detect(sel, acc_val)
+            if self.control == "batched":
+                st = self._control_state()
+                st.pull([self])
+                ctl.finalize_runs(st, [sel], [acc_local], [acc_test],
+                                  penalties=[penalty])
+                st.push([self])
+            else:
+                self.reputation.update(sel, acc_local, acc_test,
+                                       penalty=penalty)
+                # ages: selected reset, others grow (staleness of Eq. 2)
+                self.ages += 1.0
+                self.ages[sel] = 1.0
+            return self._log_round(t, values, sched, sel, forced, g_acc,
+                                   src_acc, atk_succ, g_loss)
 
     def _log_round(self, t: int, values, sched, sel, forced, g_acc,
                    src_acc, atk_succ=float("nan"),
@@ -797,15 +852,48 @@ class FeelServer:
         self.logs.append(log)
         return log
 
+    # ------------------------------------------------------------------ #
+    # Telemetry-only analytic cost estimates: host arithmetic on sizes and
+    # shapes, never a tensor value or an RNG draw; obs.report places the
+    # schedule and train phases on the roofline with them.
+    # ------------------------------------------------------------------ #
+    def _param_count(self) -> int:
+        if self._n_params is None:
+            self._n_params = int(sum(v.numel() for v in self.params.values()))
+        return self._n_params
+
+    def _schedule_estimates(self) -> Dict[str, float]:
+        """~flops/bytes of one control-plane round over N candidates:
+        Eq. 2/3 elementwise (~40 flops a candidate), the ~64-probe Eq. 9
+        bisection, the N log N pack sort; ~12 float64 passes over the (N,)
+        control arrays."""
+        n = float(self.cfg.n_population)
+        flops = n * (40.0 + 64.0 * 8.0) + 2.0 * n * max(np.log2(n), 1.0)
+        return {"est_flops": float(flops), "est_bytes": float(8.0 * n * 12.0)}
+
+    def _train_estimates(self, sel: np.ndarray) -> Dict[str, float]:
+        """~flops/bytes of the round's local training: 6*P a sample-step
+        (forward 2P + backward 4P) over every real scheduled sample x
+        epochs; ~3 float32 parameter passes a batch step."""
+        p = float(self._param_count())
+        steps = float(self.sizes[sel].sum()) * self.cfg.local_epochs
+        batches = steps / max(self.batch_size, 1)
+        return {"est_flops": 6.0 * p * steps,
+                "est_bytes": 12.0 * p * max(batches, 1.0)}
+
     def run_round(self, t: int) -> RoundLog:
-        values, sched, sel, forced = self._schedule_round(t)
-        uploads, weights, acc_local, acc_test, acc_val = \
-            self._train_cohort(sel, t)
-        self._aggregate_uploads(sel, uploads, weights)
-        g_acc, g_loss, src_acc, atk_succ = self._global_metrics()
-        return self._finalize_round(t, values, sched, sel, forced,
-                                    acc_local, acc_test, g_acc, src_acc,
-                                    atk_succ, acc_val, g_loss)
+        with trace.span("round") as sp:
+            if trace.enabled():
+                sp.set(t=t, policy=self.policy, engine=self.engine,
+                       control=self.control)
+            values, sched, sel, forced = self._schedule_round(t)
+            uploads, weights, acc_local, acc_test, acc_val = \
+                self._train_cohort(sel, t)
+            self._aggregate_uploads(sel, uploads, weights)
+            g_acc, g_loss, src_acc, atk_succ = self._global_metrics()
+            return self._finalize_round(t, values, sched, sel, forced,
+                                        acc_local, acc_test, g_acc, src_acc,
+                                        atk_succ, acc_val, g_loss)
 
     def run(self, rounds: Optional[int] = None) -> List[RoundLog]:
         if self.cfg.mode != "sync":

@@ -31,6 +31,13 @@ one ``cohort_eval`` per (task, seed), each run's aggregation through
 defense's ``robust_aggregate``), and one batched Eq. 1 update. Every run
 reproduces its sequential ``run_experiment`` twin: the same RNG streams,
 selections and curves.
+
+Telemetry: ``run_experiment`` runs inside an ``experiment`` span, a stacked
+sweep round's phases inside the reference's spans (``schedule``, ``train``
+a task, ``eval``, ``eval.validation``, ``eval.global``, ``finalize``), and
+both leave the ``launches.<kernel>`` and ``compile.kernels_loaded`` gauges
+at the end of the run — the port's counterpart of the reference's jit
+cache sizes.
 """
 from __future__ import annotations
 
@@ -52,6 +59,17 @@ from repro_torch.federated import cohort
 from repro_torch.federated.async_engine import AsyncFeelEngine
 from repro_torch.federated.server import FeelServer, build_cohort_data
 from repro_torch.federated.task import FeelTask, as_task
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.moe_gemm import moe_gemm
+from repro_torch.kernels.robust_aggregate import robust_aggregate
+from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.weighted_aggregate import weighted_aggregate
+from repro_torch.obs import trace
+
+# every kernel wrapper; each counts its launches in ``.launches``
+_KERNELS = (weighted_aggregate, robust_aggregate, flash_attention,
+            decode_attention, moe_gemm, ssd_scan)
 
 
 def _scenarios(scenarios, attack_pairs, no_attack, model_poison_scale,
@@ -68,6 +86,15 @@ def _scenarios(scenarios, attack_pairs, no_attack, model_poison_scale,
             "scenario supersedes the legacy attack knobs (incl. "
             "attack_pair — set AttackScenario.watch instead)")
     return [atk.as_scenario(s) for s in scenarios]
+
+
+def _gauge_kernels() -> None:
+    """End-of-run gauges: each kernel's launches in this process so far
+    and the kernel libraries loaded (the reference's ``compile.*`` gauges
+    read its jit caches; the port's compile step is the kernel build)."""
+    for fn in _KERNELS:
+        trace.gauge_set(f"launches.{fn.__name__}", float(fn.launches))
+    trace.gauge_set("compile.kernels_loaded", float(trace.kernels_loaded()))
 
 
 def _summary(server: FeelServer, malicious: np.ndarray) -> Dict:
@@ -171,13 +198,21 @@ def run_experiment(policy: str = "dqs",
                         adaptive_omega=adaptive_omega, scenario=scn,
                         engine=engine, control=control, defense=defense,
                         task=tsk, device=device)
-    if cfg.mode == "async":
-        # one RoundLog an aggregation, plus the simulated clock's curves
-        eng = AsyncFeelEngine(server)
-        eng.run(rounds)
-        return {**_summary(server, malicious), **_async_curves(eng)}
-    server.run(rounds)
-    return _summary(server, malicious)
+    with trace.span("experiment") as sp:
+        if trace.enabled():
+            sp.set(policy=policy, task=tsk.name, mode=cfg.mode,
+                   engine=engine, control=control)
+        if cfg.mode == "async":
+            # one RoundLog an aggregation, plus the simulated clock's curves
+            eng = AsyncFeelEngine(server)
+            eng.run(rounds)
+        else:
+            eng = None
+            server.run(rounds)
+        if trace.enabled():
+            _gauge_kernels()
+    out = _summary(server, malicious)
+    return out if eng is None else {**out, **_async_curves(eng)}
 
 
 def _async_curves(eng: AsyncFeelEngine) -> Dict:
@@ -432,6 +467,8 @@ def run_sweep(policies: Sequence[str], seeds: Sequence[int],
     else:
         for run in runs:
             run.server.run(n_rounds)
+    if trace.enabled():
+        _gauge_kernels()
 
     rows = [
         {"task": run.task.name,
@@ -566,42 +603,57 @@ def _sweep_round_stacked(runs: List[_SweepRun], t: int,
     """
     # -- phase A: schedules ---------------------------------------------- #
     if sweep_ctrl is not None:
-        _schedule_runs_stacked(runs, sweep_ctrl, t)
+        with trace.span("schedule") as sp:
+            _schedule_runs_stacked(runs, sweep_ctrl, t)
+            if trace.enabled():
+                est = runs[0].server._schedule_estimates()
+                sp.set(t=t, runs=len(runs),
+                       est_flops=est["est_flops"] * len(runs),
+                       est_bytes=est["est_bytes"] * len(runs))
     else:
         for run in runs:
             run.plan = run.server._schedule_round(t)
 
     # -- phase B: train, per task ----------------------------------------- #
     for group in _by_task(runs):
-        _train_runs_stacked(group, t)
+        with trace.span("train") as sp:
+            _train_runs_stacked(group, t)
+            if trace.enabled():
+                ests = [r.server._train_estimates(r.plan[2]) for r in group]
+                sp.set(task=group[0].task.name, runs=len(group),
+                       est_flops=sum(e["est_flops"] for e in ests),
+                       est_bytes=sum(e["est_bytes"] for e in ests))
 
     # -- phase C: evaluate the uploads, one call per (task, seed) -------- #
-    for group in _by_task_seed(runs):
-        stacks = [run.stacked for run in group]
-        masks = [run.server._eval_masks(run.plan[2], run.plan[2].size)
-                 for run in group]
-        counts = [run.plan[2].size for run in group]
-        for run, a in zip(group, _eval_stacked(group[0].server, stacks,
-                                               masks, counts)):
-            run.acc_test = a
+    with trace.span("eval"):
+        for group in _by_task_seed(runs):
+            stacks = [run.stacked for run in group]
+            masks = [run.server._eval_masks(run.plan[2], run.plan[2].size)
+                     for run in group]
+            counts = [run.plan[2].size for run in group]
+            for run, a in zip(group, _eval_stacked(group[0].server, stacks,
+                                                   masks, counts)):
+                run.acc_test = a
 
     # -- phase C2: the detector runs' uploads AND their start-of-round
     # global models on the held-out split, one extra call per (task, seed)
-    for group in _by_task_seed(runs):
-        det_runs = [r for r in group if r.server.defense.detector is not None]
-        if not det_runs:
-            continue
-        stacks, masks, counts = [], [], []
-        for run in det_runs:
-            n = run.plan[2].size
-            vm = run.server._val_eval_masks(run.plan[2], n)
-            stacks += [run.stacked,
-                       cohort.broadcast_params(run.server.params, n)]
-            masks += [vm, vm]
-            counts += [n, n]
-        accs = _eval_stacked(det_runs[0].server, stacks, masks, counts)
-        for run, v, g in zip(det_runs, accs[::2], accs[1::2]):
-            run.acc_val = np.stack([v, g])
+    with trace.span("eval.validation"):
+        for group in _by_task_seed(runs):
+            det_runs = [r for r in group
+                        if r.server.defense.detector is not None]
+            if not det_runs:
+                continue
+            stacks, masks, counts = [], [], []
+            for run in det_runs:
+                n = run.plan[2].size
+                vm = run.server._val_eval_masks(run.plan[2], n)
+                stacks += [run.stacked,
+                           cohort.broadcast_params(run.server.params, n)]
+                masks += [vm, vm]
+                counts += [n, n]
+            accs = _eval_stacked(det_runs[0].server, stacks, masks, counts)
+            for run, v, g in zip(det_runs, accs[::2], accs[1::2]):
+                run.acc_val = np.stack([v, g])
 
     # -- phase D: each run's aggregation (weights span its buckets) ------ #
     for run in runs:
@@ -614,44 +666,47 @@ def _sweep_round_stacked(runs: List[_SweepRun], t: int,
     # test accuracy, watched-unit accuracy, the share of watched units
     # predicted as the attack's target), a watch-less run one; the task's
     # loss metric is one extra evaluation a run (none for the MLP).
-    for group in _by_task_seed(runs):
-        ty = group[0].server._ey
-        ones = torch.ones_like(ty, dtype=torch.float32)
-        counts = [3 if run.scenario.watch else 1 for run in group]
-        stacks = [cohort.broadcast_params(run.server.params, c)
-                  for run, c in zip(group, counts)]
-        masks, ys = [], []
-        for run, c in zip(group, counts):
-            if c == 3:
-                masks.append(torch.stack([ones, run.watch_mask,
-                                          run.watch_mask]))
-                ys.append(torch.stack([ty, ty, run.ty_target]))
-            else:
-                masks.append(ones[None])
-                ys.append(ty[None])
-        accs = _eval_stacked(group[0].server, stacks, masks, counts, ys=ys)
-        for run, c, a in zip(group, counts, accs):
-            run.g_acc = float(a[0])
-            run.g_loss = run.server._global_loss()
-            watched = c == 3 and bool(run.watch_mask.any())
-            run.src_acc = float(a[1]) if watched else float("nan")
-            run.atk_succ = float(a[2]) if watched else float("nan")
+    with trace.span("eval.global"):
+        for group in _by_task_seed(runs):
+            ty = group[0].server._ey
+            ones = torch.ones_like(ty, dtype=torch.float32)
+            counts = [3 if run.scenario.watch else 1 for run in group]
+            stacks = [cohort.broadcast_params(run.server.params, c)
+                      for run, c in zip(group, counts)]
+            masks, ys = [], []
+            for run, c in zip(group, counts):
+                if c == 3:
+                    masks.append(torch.stack([ones, run.watch_mask,
+                                              run.watch_mask]))
+                    ys.append(torch.stack([ty, ty, run.ty_target]))
+                else:
+                    masks.append(ones[None])
+                    ys.append(ty[None])
+            accs = _eval_stacked(group[0].server, stacks, masks, counts,
+                                 ys=ys)
+            for run, c, a in zip(group, counts, accs):
+                run.g_acc = float(a[0])
+                run.g_loss = run.server._global_loss()
+                watched = c == 3 and bool(run.watch_mask.any())
+                run.src_acc = float(a[1]) if watched else float("nan")
+                run.atk_succ = float(a[2]) if watched else float("nan")
 
     # -- phase F: detector penalties, Eq. 1 + staleness, logs ------------ #
     if sweep_ctrl is not None:
         # the state was pulled in phase A and nothing touched it since:
         # one finalize_runs call for every run, pushed back, then each run
         # logs against its refreshed state
-        ctl.finalize_runs(sweep_ctrl, [run.plan[2] for run in runs],
-                          [run.acc_local for run in runs],
-                          [run.acc_test for run in runs],
-                          penalties=[run.server._detect(run.plan[2],
-                                                        run.acc_val)
-                                     for run in runs])
-        sweep_ctrl.push([run.server for run in runs])
-        for run in runs:
-            run.server._log_round(t, *run.plan, run.g_acc, run.src_acc,
-                                  run.atk_succ, run.g_loss)
+        with trace.span("finalize"):
+            ctl.finalize_runs(sweep_ctrl, [run.plan[2] for run in runs],
+                              [run.acc_local for run in runs],
+                              [run.acc_test for run in runs],
+                              penalties=[run.server._detect(run.plan[2],
+                                                            run.acc_val)
+                                         for run in runs])
+            sweep_ctrl.push([run.server for run in runs])
+            for run in runs:
+                run.server._log_round(t, *run.plan, run.g_acc, run.src_acc,
+                                      run.atk_succ, run.g_loss)
     else:
         for run in runs:
             run.server._finalize_round(t, *run.plan, run.acc_local,

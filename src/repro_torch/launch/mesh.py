@@ -1,0 +1,18 @@
+"""Hardware constants of the port's device, one NVIDIA H100 SXM5 80GB.
+
+Constants only: the mesh builders come with the sharded plane. Each value
+is the H100 SXM5 80GB data-sheet figure (dense rates, no sparsity, at the
+full 700 W power limit), not a measurement; ``launch/roofline.py`` and
+``chip_smoke.py``'s kernel bounds read them from here.
+"""
+from __future__ import annotations
+
+# H100 SXM5 80GB spec value: bf16 on the tensor cores, dense (FLOP/s)
+PEAK_FLOPS_BF16 = 989e12
+# H100 SXM5 80GB spec value: float32 outside the tensor cores (FLOP/s)
+PEAK_FLOPS_F32 = 67e12
+# H100 SXM5 80GB spec value: HBM3 bandwidth (bytes/s)
+HBM_BW = 3.35e12
+# H100 SXM5 80GB spec value: NVLink 4, 900 GB/s both ways, so 450e9
+# bytes/s a direction
+ICI_BW = 450e9

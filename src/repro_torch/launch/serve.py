@@ -10,11 +10,15 @@ the axis the synchronous engine cannot produce.
     python -m repro_torch.launch.serve --sync        # lockstep oracle run
     python -m repro_torch.launch.serve --json        # machine-readable
     python -m repro_torch.launch.serve --device cpu  # without a GPU
+    python -m repro_torch.launch.serve --trace run.jsonl
+    python -m repro_torch.obs.report run.jsonl       # its phases
 
 The clock is simulated (Eq. 6 train time + Eq. 7 upload time on seeded
 draws): the CLI never reads the wall clock, so a run is a function of
 its flags and seed. The data plane runs on ``--device`` (default ``cuda``,
-which raises without CUDA).
+which raises without CUDA). ``--trace PATH`` turns the span tracer on
+(obs/trace.py) and writes the run's JSONL trace to PATH: every span inside
+the event loop carries the simulated clock beside the wall clock.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from typing import Dict, Optional
 from repro_torch.configs.base import FeelConfig
 from repro_torch.device import DeviceLike
 from repro_torch.federated.simulation import run_experiment
+from repro_torch.obs import trace
 
 
 def simulate(policy: str = "dqs", task: Optional[str] = None,
@@ -89,13 +94,13 @@ def main(argv=None) -> int:
                     help="where the data plane runs (default: cuda, which "
                          "raises without CUDA)")
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help="the span tracer (not in the port yet)")
+                    help="enable the span tracer and write the JSONL trace "
+                         "to PATH; inspect it with python -m "
+                         "repro_torch.obs.report PATH")
     args = ap.parse_args(argv)
 
     if args.trace:
-        raise NotImplementedError(
-            "--trace needs the span tracer (obs/), which the port does not "
-            "have yet")
+        trace.configure(enabled=True)
 
     cfg = FeelConfig()
     over = {}
@@ -115,6 +120,8 @@ def main(argv=None) -> int:
                    latency_scale=args.latency_scale,
                    channel_corr=args.channel_corr, cfg=cfg,
                    device=args.device)
+    if args.trace:
+        trace.flush_jsonl(args.trace)
     if args.as_json:
         print(json.dumps(res))
         return 0

@@ -16,8 +16,9 @@ Tolerances, as tests/test_async.py holds the reference's:
   1e-2 and ``rep_gap`` within 5e-2 (tests/test_torch_simulation.py's),
   ``loss`` within 1e-3 (tests/test_torch_lm_task.py's);
 - the buffer, deadline and wave triggers; the async sweep matrix; the CLI
-  in JSON and table form, and as ``python -m``.
+  in JSON and table form, with ``--trace``, and as ``python -m``.
 """
+import io
 import json
 import pathlib
 import subprocess
@@ -36,6 +37,8 @@ from repro_torch.federated import simulation
 from repro_torch.federated.async_engine import AsyncFeelEngine
 from repro_torch.federated.server import FeelServer
 from repro_torch.launch import serve
+from repro_torch.obs import report as obs_report
+from repro_torch.obs import trace
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CFG = dict(n_ues=10, n_malicious=2, min_selected=3, rounds=3)
@@ -248,9 +251,35 @@ def test_serve_cli_table_output(capsys):
     assert "round,acc" in capsys.readouterr().out
 
 
-def test_serve_cli_refuses_trace():
-    with pytest.raises(NotImplementedError, match="obs/"):
-        serve.main(["--trace", "t.jsonl", "--device", "cpu"])
+def test_serve_cli_writes_a_trace(tmp_path, capsys):
+    """``--trace PATH`` writes the run's JSONL trace: the async spans carry
+    both clocks, and the report renders it."""
+    path = str(tmp_path / "serve.jsonl")
+    try:
+        assert serve.main(["--rounds", "2", "--ues", "10", "--malicious",
+                           "2", "--n-train", "1500", "--n-test", "300",
+                           "--buffer", "4", "--trace", path,
+                           "--device", "cpu"]) == 0
+    finally:
+        trace.configure(enabled=False)
+    capsys.readouterr()
+    meta, spans, metrics = trace.load_jsonl(path)
+    assert meta["kind"] == "meta" and meta["torch"]
+    names = {s["name"] for s in spans}
+    assert {"experiment", "async.dispatch", "async.aggregate"} <= names
+    for s in spans:
+        assert s["t1"] >= s["t0"]
+        if s["name"] != "experiment":      # every span of the event loop
+            assert s["sim_t1"] >= s["sim_t0"] >= 0.0, s
+    aggs = [s for s in spans if s["name"] == "async.aggregate"]
+    assert len(aggs) == 2 and aggs[-1]["sim_t1"] > 0.0
+    assert metrics["observations"]["async.upload_age"]["count"] == 8
+    rep = obs_report.summarize(path)
+    assert rep["phases"]["async.aggregate"]["count"] == 2
+    out = io.StringIO()
+    obs_report.render(rep, out=out)
+    assert "async.dispatch," in out.getvalue()
+    assert "roofline,train," in out.getvalue()
 
 
 def test_serve_runs_as_a_module():

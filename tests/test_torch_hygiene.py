@@ -1,7 +1,8 @@
 """The port stands alone: no module under src/repro_torch/ and not
 chip_smoke.py imports jax or the JAX package; importing the port's server
 pulls no jax into the process; entry points run on the GPU unless the
-caller asks for the CPU, and raise where CUDA is absent."""
+caller asks for the CPU, and raise where CUDA is absent; only
+``obs/clock.py`` reads the wall clock."""
 import ast
 import pathlib
 import subprocess
@@ -138,3 +139,23 @@ def test_the_simulated_clock_reads_no_wall_clock(name):
     population plane import no clock module."""
     mods = set(_imported_modules(ROOT / "src" / "repro_torch" / name))
     assert not mods & {"time", "datetime", "timeit"}, mods
+
+
+CLOCK_SITE = ROOT / "src" / "repro_torch" / "obs" / "clock.py"
+CLOCK_MODULES = {"time", "datetime", "timeit"}
+
+
+@pytest.mark.parametrize(
+    "path", [p for p in PORT_FILES if "repro_torch" in p.parts],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_only_the_clock_module_reads_the_wall_clock(path):
+    """The counterpart of the reference's wall-clock lint
+    (``repro.check.lints.lint_wall_clock``): every wall-clock read of the
+    port goes through ``obs/clock.py``, so no other module under
+    src/repro_torch/ imports ``time``, ``datetime`` or ``timeit``, at any
+    depth of the module."""
+    mods = {m.split(".")[0] for m in _imported_modules(path)}
+    if path == CLOCK_SITE:
+        assert {"time", "datetime"} <= mods
+    else:
+        assert not mods & CLOCK_MODULES, (path, mods & CLOCK_MODULES)
