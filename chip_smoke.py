@@ -27,10 +27,13 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     grouped KV heads — and K3's gradient through its autograd Function
     equal to the plain version's within 1e-5, grouped KV heads too (and at
     starcoder2-15b's prefill shape, 48 query over 4 KV heads, and
-    qwen2-moe-a2.7b's); ``decode_attention`` (K4) within
+    qwen2-moe-a2.7b's), at seamless-m4t-medium's prefill causal and
+    bidirectional, and with S > T unmasked (the cross-attention of a target
+    longer than its source); ``decode_attention`` (K4) within
     2e-5 / 2e-2 at tests/test_kernels.py's shapes, at every group size of
     the zoo (G 1, 5, 7, 8, 12) and head dim (16–128) at a ragged length, at
-    starcoder2-15b's GQA and qwen2-moe-a2.7b's serving shapes, on a
+    starcoder2-15b's GQA, qwen2-moe-a2.7b's and seamless-m4t-medium's
+    serving shapes (its cross-attention over 2,048 frames), on a
     window's view and a ring's prefix;
     ``ssd_scan`` (K6) within 5e-4 (the final state; y too in float32,
     2e-2 in bf16) at tests/test_kernels.py's shapes, at mamba2-370m's
@@ -39,8 +42,9 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     shape the tensor-core route does not take (N 8);
     ``moe_gemm`` (K5) within 1e-4 (f32) / 2e-1 (bf16) at
     tests/test_kernels.py's shapes, ragged shapes, either side of its
-    launcher's C threshold (the wgmma route from C = 128) and
-    qwen2-moe-a2.7b's prefill and decode shapes, with the largest
+    launcher's C threshold (the wgmma route from C = 128),
+    qwen2-moe-a2.7b's prefill and decode shapes and deepseek-v3-671b's
+    (256 experts, d 7,168, f 2,048, C 640 at prefill), with the largest
     difference in bf16 ulps;
  4. the undefended main path at the paper's §V scale: K = 50 UEs,
     50,000/10,000 synthetic MNIST, 5 label flippers, DQS on the host
@@ -155,11 +159,31 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     by one) at every layer; the whole run with K5's plain version is
     reported beside it (logit gap, the (layer, token) expert sets that
     differ), not held to a tolerance; check 2
-    at full width, 2 layers, float32, capacity factor 8.0; then the
+    at full width, 2 layers, float32, capacity factor 15 (E/top_k: every
+    route kept, ``consistency_phase``); then the
     reduced qwen2-moe (also ``optimized``: group-local dispatch),
     moonshot and Jamba on the GPU and the CPU — the same tokens, logits
     within 1e-4, the Jamba run launching K3, K4, K5 and K6;
-14. one JSON line of per-kernel numbers, then the result line.
+14. serving the rest of the zoo with the same traffic, every launch count
+    set to 0 just before and read just after each path:
+    ``deepseek-v3-671b`` at full width (d 7,168, 128 MLA heads, 256
+    experts top-8 + 1 shared, vocab 129,280, the MTP head initialised),
+    its depth cut from 61 to 4 (the 3 leading dense layers and 1 MoE
+    layer, 15.8 B parameters, bf16): MLA in plain PyTorch as in the
+    reference, K5 3 times a prefill and 3 a step; check 1 layer by layer
+    as for qwen2-moe, check 2 at 1 dense + 1 MoE layer in float32
+    (14.6 B parameters) at capacity factor 32 (E/top_k: at 8.0 its full
+    forward over 64 tokens drops routes that decode keeps); then
+    ``seamless-m4t-medium``, all 12 encoder and 12 decoder layers (bf16,
+    0.98 B parameters) after 8 x 2,048 source frames from a seed: K3 36
+    times a prefill (12 encoder bidirectional, 12 decoder causal, 12
+    cross), K4 24 times a step (12 self, 12 cross over the 2,048 frames);
+    check 1 with K3's and K4's plain versions (within 0.06·max|plain|)
+    and its negative control (K3's plain version causal everywhere),
+    check 2 at all 24 layers in float32 against ``encdec_forward``; then
+    both reduced on the GPU and the CPU (the same tokens, logits within
+    1e-4);
+15. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without printing a result where CUDA is absent. A kernel's
 time is its device time from ``torch.profiler`` over back-to-back calls
@@ -222,6 +246,7 @@ from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
                                      PEAK_FLOPS_F32)
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import blocks  # noqa: E402
+from repro_torch.models import encdec as ted  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.obs import report as obs_report  # noqa: E402
@@ -2119,14 +2144,18 @@ def _k5_control(x, w):
 
 @contextlib.contextmanager
 def plain_route(module, control=False):
-    """Within the block, the wrapper of ``module`` (K4, K5 or K6) runs its
-    plain version on CUDA tensors, for check 1 of the serving phases; with
-    ``control``, a deliberately wrong one (``_k4_control``,
-    ``_k5_control``, ``_k6_control``), the negative control that check 1
-    must reject. Nothing else in the script or the port routes a CUDA
-    tensor so."""
+    """Within the block, the wrapper of ``module`` (K3, K4, K5 or K6) runs
+    its plain version on CUDA tensors, for check 1 of the serving phases;
+    with ``control``, a deliberately wrong one (K3's causal at every call,
+    ``_k4_control``, ``_k5_control``, ``_k6_control``), the negative
+    control that check 1 must reject. Nothing else in the script or the
+    port routes a CUDA tensor so."""
     real = module._kernel
-    if module is k4:
+    if module is k3:
+        module._kernel = lambda q, k, v, causal, window, scale: (
+            k3.flash_attention_ref(q, k, v, causal=causal or control,
+                                   window=window, scale=scale))
+    elif module is k4:
         module._kernel = _k4_control if control else (
             lambda q, k, v, n: k4.decode_attention_ref(q, k, v, n))
     elif module is k5:
@@ -2258,29 +2287,50 @@ def compare_logits(label, got, want, tol=LOGIT_TOL):
 
 def expected_launches(cfg, steps):
     """The kernel launches of a prefill and ``steps`` decode steps of
-    ``cfg``: K3 at every attention layer's prefill, K6 at every SSM
-    layer's, K4 at every attention layer a step, K5 three times (gate, up,
-    down) at every MoE layer of the prefill and of every step."""
+    ``cfg``: K3 at every attention layer's prefill (the leading dense
+    layers' too; an encoder-decoder's encoder layers and each decoder
+    layer's cross-attention besides), K6 at every SSM layer's, K4 at every
+    attention layer a step (an encoder-decoder's twice: self and cross),
+    K5 three times (gate, up, down) at every MoE layer of the prefill and
+    of every step. MLA is plain PyTorch, as in the reference: no K3 or
+    K4."""
     pattern, nb = cfg.block_pattern(), cfg.n_blocks
-    n_attn = nb * sum(k["mixer"] == "attn" for k in pattern)
+    n_attn = (0 if cfg.mla is not None else
+              nb * sum(k["mixer"] == "attn" for k in pattern)
+              + cfg.first_dense_layers)
     n_ssm = nb * sum(k["mixer"] == "ssm" for k in pattern)
     n_moe = nb * sum(k["mlp"] == "moe" for k in pattern)
-    return only(flash_attention=n_attn, ssd_scan=n_ssm,
-                decode_attention=n_attn * steps,
+    n_k3, n_k4 = n_attn, n_attn
+    if cfg.is_encoder_decoder:
+        n_k3, n_k4 = cfg.encoder_layers + 2 * n_attn, 2 * n_attn
+    return only(flash_attention=n_k3, ssd_scan=n_ssm,
+                decode_attention=n_k4 * steps,
                 moe_gemm=3 * n_moe * (1 + steps))
 
 
-def serve_phase(arch):
-    """The serving main path of ``arch`` at full width: weights drawn on
-    the card (seed 0), 8 prompts of 2,048 tokens through ``api.prefill``
-    (target 2,080) and 32 greedy ``api.decode_step`` calls, every launch count
-    set to 0 just before and read just after; one decode step profiled;
-    then check 1, the same run with a kernel's plain version (K4's, K6's,
-    or for a MoE K5's: ``moe_check1``), and its negative control. Returns
-    the main run's launches."""
-    cfg = registry.get(arch)
+def source_frames(cfg, b, s_src, seed=0):
+    """An encoder-decoder's source: b x s_src frame embeddings (the
+    reference's frontend stub), float32 on the card from a seed."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(b, s_src, cfg.d_model, device="cuda", generator=gen)
+
+
+def serve_phase(arch, cfg=None):
+    """The serving main path of ``arch`` (``cfg``, by default the
+    registry's, at full width): weights drawn on the card (seed 0), 8
+    prompts of 2,048 tokens (an encoder-decoder's after 2,048 source
+    frames, ``source_frames``) through ``api.prefill`` (target 2,080) and
+    32 greedy ``api.decode_step`` calls, every launch count set to 0 just
+    before and read just after; one decode step profiled; then check 1,
+    the same run with a kernel's plain version (K4's, K6's, for a MoE K5's:
+    ``moe_check1``, for an encoder-decoder K3's and K4's:
+    ``encdec_check1``), and its negative control. Returns the main run's
+    launches."""
+    cfg = cfg or registry.get(arch)
     prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
     target = SERVE_PROMPT + SERVE_NEW
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = api.init(cfg, 0)
@@ -2289,6 +2339,9 @@ def serve_phase(arch):
     n_params = sum(v.numel() for v in params.values())
     tok = prompts(cfg, SERVE_BATCH, SERVE_PROMPT)
     batch = {"tokens": tok}
+    if cfg.is_encoder_decoder:
+        batch["src"] = source_frames(
+            cfg, SERVE_BATCH, api._default_src_len(cfg, SERVE_PROMPT))
     with torch.inference_mode():
         prefill(params, batch, target)              # warm-up, not counted
         # not counted either: one prefill under the profiler, for the
@@ -2321,6 +2374,9 @@ def serve_phase(arch):
         steady = sorted(step_ms[1:])
         decode_ms = steady[len(steady) // 2]
         emit(phase="serve", arch=arch, n_layers=cfg.n_layers,
+             first_dense_layers=cfg.first_dense_layers,
+             encoder_layers=cfg.encoder_layers,
+             src_frames=batch["src"].shape[1] if "src" in batch else 0,
              dtype=cfg.dtype, n_params=n_params, init_s=init_s,
              batch=SERVE_BATCH, prompt=SERVE_PROMPT, new_tokens=SERVE_NEW,
              prefill_ms=prefill_ms,
@@ -2338,9 +2394,10 @@ def serve_phase(arch):
         assert at_prefill == expected_launches(cfg, 0), at_prefill
         assert launches == expected_launches(cfg, SERVE_NEW), launches
 
-        if cfg.family == "moe":
-            moe_check1(arch, cfg, prefill, decode, params, batch, target,
-                       logits, fed, step_logits)
+        if cfg.moe is not None or cfg.is_encoder_decoder:
+            check1 = moe_check1 if cfg.moe is not None else encdec_check1
+            check1(arch, cfg, prefill, decode, params, batch, target, logits,
+                   fed, step_logits)
             del params
             torch.cuda.empty_cache()
             return launches
@@ -2481,51 +2538,107 @@ def moe_check1(arch, cfg, prefill, decode, params, batch, target, logits,
               phase="plain_check_end_to_end")
 
 
-def consistency_phase(arch):
-    """Check 2: full width at 2 layers in float32 — prefill of 24 tokens
-    plus 8 decode steps reproduce ``lm_forward``'s logits within
-    1e-3·max|logit| + 1e-3 (tests/test_decode_consistency.py's property,
-    on the card), a MoE at capacity factor 8.0, as that test sets it, so
-    that no token is dropped."""
-    cfg = dataclasses.replace(registry.get(arch), n_layers=2,
-                              dtype="float32")
+def encdec_check1(arch, cfg, prefill, decode, params, batch, target,
+                  logits, fed, step_logits):
+    """Check 1 of the encoder-decoder: the same run — prefill, then the
+    fed tokens — with K3's and K4's plain versions; the prefill's and the
+    decode steps' logits within ``LOGIT_TOL``·max|plain|. Then the negative
+    control, K3's plain version causal at every call (the encoder's and
+    the cross-attention masked as the decoder's is), which check 1 must
+    reject on the first ``N_COMPARED`` decode steps."""
+    with plain_route(k3), plain_route(k4):
+        logits_p, cache_p = prefill(params, batch, target)
+        plain_logits = forced_decode(decode, params, cache_p, fed)
+    del cache_p
+    compare_logits(arch + " prefill", logits[None], logits_p[None])
+    compare_logits(arch + " decode", step_logits, plain_logits)
+    with plain_route(k3, control=True), plain_route(k4):
+        _, cache_c = prefill(params, batch, target)
+        control_logits = forced_decode(decode, params, cache_c,
+                                       fed[:, :N_COMPARED])
+    del cache_c
+    control = logit_gap(arch + " decode, negative control", control_logits,
+                        plain_logits[:N_COMPARED], phase="control_check")
+    assert not check1_passes(control), control
+
+
+def consistency_phase(arch, **kw):
+    """Check 2: full width in float32 at 2 layers (or the layers ``kw``
+    sets) — prefill of 24 tokens plus 8 decode steps reproduce the full
+    forward's logits (``lm_forward``, an encoder-decoder's
+    ``encdec_forward`` after 24 source frames) within 1e-3·max|logit| +
+    1e-3 (tests/test_decode_consistency.py's property, on the card), so
+    that no route is dropped a MoE at capacity factor 8.0, as that test
+    sets it, or E/top_k where that is larger: the least at which an
+    expert's slots (C = cf·T·top_k/E) hold all T tokens, which a random
+    router may send to one expert (qwen2-moe's 60 experts top-4: 15;
+    DeepSeek's 256 top-8: 32, where at 8.0 one expert drew 19 of the full
+    forward's 64 tokens against 16 slots, and decode, which keeps every
+    route, then disagreed with it). The most tokens any expert drew in
+    the full forward are reported beside its capacity."""
+    cfg = dataclasses.replace(registry.get(arch),
+                              **{"n_layers": 2, "dtype": "float32", **kw})
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, capacity_factor=8.0))
+            cfg.moe, capacity_factor=max(
+                8.0, cfg.moe.n_routed / cfg.moe.top_k)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     params = api.init(cfg, 1)
     tok = prompts(cfg, 2, 32, seed=1)
+    batch = {"tokens": tok[:, :24]}
     with torch.inference_mode():
-        full = tf.lm_forward(cfg, params, tok, window=cfg.sliding_window)
-        logits, cache = api.prefill(cfg, params, {"tokens": tok[:, :24]},
-                                    target_len=32)
+        if cfg.is_encoder_decoder:
+            batch["src"] = source_frames(cfg, 2, 24, seed=1)
+            full = ted.encdec_forward(cfg, params, batch["src"], tok)[0]
+        else:
+            with moe_layers() as rows:
+                full = tf.lm_forward(cfg, params, tok,
+                                     window=cfg.sliding_window)
+        loads = {}
+        if cfg.moe is not None:
+            loads = dict(capacity=tmoe.capacity(tok.numel(), cfg),
+                         max_expert_load=max(int(torch.bincount(
+                             r["routes"].reshape(-1)).max()) for r in rows))
+        logits, cache = api.prefill(cfg, params, batch, target_len=32)
         errs = [(logits - full[:, 23]).abs().max().item()]
         for t in range(24, 32):
             logits, cache = api.decode_step(cfg, params, cache,
                                             tok[:, t:t + 1])
             errs.append((logits - full[:, t]).abs().max().item())
     tol = 1e-3 * full.abs().max().item() + 1e-3
-    emit(phase="prefill_decode_vs_forward", arch=arch, n_layers=2,
-         dtype="float32", max_abs_err=max(errs), tol=tol, errs=errs)
+    emit(phase="prefill_decode_vs_forward", arch=arch,
+         n_layers=cfg.n_layers, first_dense_layers=cfg.first_dense_layers,
+         encoder_layers=cfg.encoder_layers, dtype="float32",
+         n_params=sum(v.numel() for v in params.values()),
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         capacity_factor=cfg.moe.capacity_factor if cfg.moe else None,
+         **loads, max_abs_err=max(errs), tol=tol, errs=errs)
     assert max(errs) <= tol, (arch, errs, tol)
-    del params
+    del params, cache, full
     torch.cuda.empty_cache()
 
 
-def zoo_cuda_vs_cpu():
+ZOO_CUDA_VS_CPU = [("starcoder2-15b", "ring", False),
+                   ("qwen2.5-32b", "greedy", False),
+                   ("mamba2-370m", "greedy", False),
+                   ("qwen2-moe-a2.7b", "greedy", False),
+                   ("qwen2-moe-a2.7b", "greedy", True),
+                   ("moonshot-v1-16b-a3b", "greedy", False),
+                   ("jamba-1.5-large-398b", "greedy", False)]
+
+
+def zoo_cuda_vs_cpu(runs=ZOO_CUDA_VS_CPU):
     """Reduced float32 configs on the GPU and the CPU from the same
     weights: starcoder2 decoding 48 tokens from scratch through its ring
     cache (window 16); greedy generation (8 prompt tokens, 7 new; 32 prompt
-    tokens, one chunk, where there are SSM layers) of qwen2.5, mamba2,
-    qwen2-moe (also ``optimized``: group-local dispatch in 2 groups at
-    prefill), moonshot and the Jamba hybrid. The same tokens, logits
-    within 1e-4; every greedy GPU run launches what
-    ``expected_launches`` says (the Jamba run K3, K4, K5 and K6)."""
-    runs = [("starcoder2-15b", "ring", False), ("qwen2.5-32b", "greedy", False),
-            ("mamba2-370m", "greedy", False),
-            ("qwen2-moe-a2.7b", "greedy", False),
-            ("qwen2-moe-a2.7b", "greedy", True),
-            ("moonshot-v1-16b-a3b", "greedy", False),
-            ("jamba-1.5-large-398b", "greedy", False)]
+    tokens, one chunk, where there are SSM layers; an encoder-decoder's
+    after 12 source frames) of qwen2.5, mamba2, qwen2-moe (also
+    ``optimized``: group-local dispatch in 2 groups at prefill), moonshot
+    and the Jamba hybrid, or of ``runs``. The same tokens, logits within
+    1e-4; every greedy GPU run launches what ``expected_launches`` says
+    (the Jamba run K3, K4, K5 and K6)."""
     for arch, mode, optimized in runs:
         cfg = dataclasses.replace(registry.reduced(registry.get(arch)),
                                   dtype="float32")
@@ -2537,10 +2650,14 @@ def zoo_cuda_vs_cpu():
         toks = rng.integers(0, cfg.vocab_size, (1 if mode == "ring" else 2,
                                                 48 if mode == "ring"
                                                 else n_prompt))
+        src = rng.standard_normal((2, 12, cfg.d_model)).astype(np.float32)
         out = {}
         for dev in ("cuda", "cpu"):
             params = {k: v.to(dev) for k, v in host.items()}
             tt = torch.from_numpy(toks).to(dev)
+            batch = {"tokens": tt}
+            if cfg.is_encoder_decoder:
+                batch["src"] = torch.from_numpy(src).to(dev)
             decode = steps.make_decode_step(cfg)
             reset_launches()
             with torch.inference_mode():
@@ -2550,7 +2667,7 @@ def zoo_cuda_vs_cpu():
                     logits = forced_decode(decode, params, cache, tt)
                     tokens = logits.argmax(-1)
                 else:
-                    first, cache = api.prefill(cfg, params, {"tokens": tt},
+                    first, cache = api.prefill(cfg, params, batch,
                                                target_len=n_prompt + 8)
                     fed, logits, _, _, _ = greedy_decode(
                         decode, params, cache, first.argmax(-1)[:, None], 7)
@@ -2586,6 +2703,26 @@ def zoo_phases():
     consistency_phase("qwen2-moe-a2.7b")
     zoo_cuda_vs_cpu()
     return (dense["decode_attention"], moe["moe_gemm"], ssm["ssd_scan"])
+
+
+def zoo_rest_phases():
+    """The rest of the zoo at full width (phase 14): DeepSeek-V3 cut to its
+    3 leading dense layers and 1 MoE layer (MLA in plain PyTorch, K5 3
+    times a prefill and 3 a step), check 1 layer by layer, check 2 at 1
+    dense + 1 MoE layer in float32; Seamless-M4T's encoder-decoder, all 12
+    + 12 layers (K3 36 times a prefill, K4 24 a step), check 1 with K3's
+    and K4's plain versions, check 2 at all 24 layers in float32; then
+    both reduced on the GPU and the CPU. Returns each serving run's
+    launches."""
+    deepseek = dataclasses.replace(registry.get("deepseek-v3-671b"),
+                                   n_layers=4)
+    out = {"deepseek-v3-671b": serve_phase("deepseek-v3-671b", deepseek)}
+    consistency_phase("deepseek-v3-671b", first_dense_layers=1)
+    out["seamless-m4t-medium"] = serve_phase("seamless-m4t-medium")
+    consistency_phase("seamless-m4t-medium", n_layers=12)
+    zoo_cuda_vs_cpu([("deepseek-v3-671b", "greedy", False),
+                     ("seamless-m4t-medium", "greedy", False)])
+    return out
 
 
 def quickstart(n_ues, n_malicious, n_train, n_test, device, seed=0):
@@ -2710,6 +2847,20 @@ def main():
                 bf16, "starcoder2-15b prefill", reps=5, hkv=4)
     check_flash(SERVE_BATCH, 16, SERVE_PROMPT, SERVE_PROMPT, 128, True, None,
                 bf16, "qwen2-moe-a2.7b prefill", reps=5)
+    # seamless-m4t-medium's prefill (16 heads of 64): the decoder's causal
+    # self-attention, the encoder's bidirectional one and the
+    # cross-attention (2,048 frames); then the cross-attention of a target
+    # longer than its source, unmasked S > T (the negative shift feeds no
+    # mask), at the serving width and ragged in both types
+    check_flash(SERVE_BATCH, 16, SERVE_PROMPT, SERVE_PROMPT, 64, True, None,
+                bf16, "seamless-m4t-medium decoder prefill", reps=5)
+    check_flash(SERVE_BATCH, 16, SERVE_PROMPT, SERVE_PROMPT, 64, False, None,
+                bf16, "seamless-m4t-medium encoder / cross prefill", reps=5)
+    check_flash(SERVE_BATCH, 16, SERVE_PROMPT, SERVE_PROMPT // 2, 64, False,
+                None, bf16, "unmasked S > T (2,048 over 1,024)", reps=5)
+    for dt in (f32, bf16):
+        check_flash(2, 4, 100, 37, 32, False, None, dt,
+                    "unmasked S > T, ragged", reps=20, hkv=2)
 
     # K4: tests/test_kernels.py's three shapes in both types; the GQA
     # serving shape of starcoder2-15b (48 query, 4 KV heads, D 128, bf16,
@@ -2730,6 +2881,13 @@ def main():
                      128, length, bf16)
     check_decode("window 1,024 view of a linear cache", SERVE_BATCH, 48, 4,
                  cap, 128, 1024, bf16, lo=1024)
+    # seamless-m4t-medium's decode (16 / 16 heads of 64): the
+    # cross-attention over all 2,048 frames, the self-attention at the
+    # serving path's median length
+    check_decode("seamless-m4t-medium cross", SERVE_BATCH, 16, 16,
+                 SERVE_PROMPT, 64, SERVE_PROMPT, bf16)
+    check_decode("seamless-m4t-medium self, median length", SERVE_BATCH, 16,
+                 16, cap, 64, SERVE_PROMPT + SERVE_NEW // 2, bf16)
     check_decode("ring prefix (1,001 of 4,096 slots)", SERVE_BATCH, 48, 4,
                  4096, 128, 1001, bf16)
     # the tensor-core route at every group size of the zoo (qwen2-moe and
@@ -2789,6 +2947,14 @@ def main():
     check_moe("qwen2-moe prefill down", e, c_pre, f, d, bf16, reps=10)
     summary_k5 = check_moe("qwen2-moe decode gate/up", e, 8, d, f, bf16)
     check_moe("qwen2-moe decode down", e, 8, f, d, bf16)
+    # deepseek-v3-671b's (256 experts, d 7,168, f 2,048): gate/up and down at
+    # prefill (C 640 for 8 x 2,048 tokens), gate/up at a decode step (C 8)
+    e, d, f = 256, 7168, 2048
+    c_pre = tmoe.capacity(SERVE_BATCH * SERVE_PROMPT,
+                          registry.get("deepseek-v3-671b"))
+    check_moe("deepseek-v3 prefill gate/up", e, c_pre, d, f, bf16, reps=10)
+    check_moe("deepseek-v3 prefill down", e, c_pre, f, d, bf16, reps=10)
+    check_moe("deepseek-v3 decode gate/up", e, 8, d, f, bf16, reps=20)
 
     # 4. the undefended main path at the paper's §V scale
     reset_launches()
@@ -2915,7 +3081,13 @@ def main():
     summary["ssd_scan"] = summary_k6
     summary["moe_gemm"] = summary_k5
 
-    # 14. summary and result
+    # 14. the rest of the zoo: DeepSeek-V3 and Seamless-M4T
+    t0 = time.perf_counter()
+    rest = zoo_rest_phases()
+    emit(phase="zoo_rest_seconds", seconds=time.perf_counter() - t0,
+         launches=rest)
+
+    # 15. summary and result
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [dict(
         name=name, **KERNELS[name], launches=launches[name],

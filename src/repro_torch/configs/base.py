@@ -1,19 +1,20 @@
 """FEEL round configuration: ``FeelConfig`` (the paper's Table I), the
 dBm -> watt conversion its wireless constants share, ``ModelConfig`` (the
-transformer of the LM task, ``lm_tiny``, and the decoder-only configs of
-the big-model zoo), ``SSMConfig`` and the zoo's ``InputShape`` values.
+transformer of the LM task, ``lm_tiny``, and the configs of the big-model
+zoo), its ``MoEConfig``, ``SSMConfig`` and ``MLAConfig`` sub-configs and
+the zoo's ``InputShape`` values.
 
-``ModelConfig`` keeps the JAX package's field names. The port runs the
-decoder-only families: ``dense``, ``vlm`` (an early-fusion decoder over
-token ids, its image frontend a stub), ``ssm`` (Mamba2), ``moe``
-(attention with mixture-of-experts MLPs, ``MoEConfig``) and ``hybrid``
-(Jamba: Mamba2 and attention layers interleaved, with experts). The MLA,
-encoder-decoder, multi-token prediction and leading-dense-layer fields
-exist so that a config reads as the reference's, but setting any of them
-raises ``NotImplementedError`` naming the slice of the port that brings
-it. A sub-config that does not fit the family raises at the config
-(``ValueError``, or ``TypeError`` for a sub-config of the wrong type),
-where the reference accepts some silently and fails later at init.
+``ModelConfig`` keeps the JAX package's field names and families:
+``dense``, ``vlm`` (an early-fusion decoder over token ids, its image
+frontend a stub), ``ssm`` (Mamba2), ``moe`` (attention with
+mixture-of-experts MLPs; DeepSeek-V3 adds multi-head latent attention,
+leading dense layers and a multi-token-prediction head), ``hybrid``
+(Jamba: Mamba2 and attention layers interleaved, with experts) and
+``audio`` (an encoder-decoder over precomputed frame embeddings, its
+speech frontend a stub). A field that does not fit the family raises at
+the config (``ValueError``, or ``TypeError`` for a sub-config of the wrong
+type), where the reference accepts some silently and fails later at
+init.
 """
 from __future__ import annotations
 
@@ -144,18 +145,28 @@ class SSMConfig:
     compute_dtype: str = "float32"
 
 
-_LATER = "a later slice of the port"
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V3 multi-head latent attention sub-config [arXiv:2412.19437]."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """A decoder-only language model: pre-norm layers of a mixer (GQA
-    attention with RoPE and an optional sliding window, or a Mamba2 SSD
-    block) and an MLP (SwiGLU, a mixture of experts, or none in the SSM
-    family), stacked in ``n_blocks`` super-blocks of ``block_len``
-    layers."""
+    """A language model of the zoo: pre-norm layers of a mixer (GQA
+    attention with RoPE and an optional sliding window, DeepSeek's
+    multi-head latent attention, or a Mamba2 SSD block) and an MLP
+    (SwiGLU, a mixture of experts, or none in the SSM family), stacked in
+    ``n_blocks`` super-blocks of ``block_len`` layers after
+    ``first_dense_layers`` unrolled attention + SwiGLU layers; with
+    ``is_encoder_decoder``, an encoder of ``encoder_layers`` bidirectional
+    layers before a decoder whose layers also cross-attend to it."""
     name: str
-    family: str                   # dense | vlm | ssm | moe | hybrid
+    family: str                   # dense | vlm | ssm | moe | hybrid | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -175,60 +186,48 @@ class ModelConfig:
     sliding_window: Optional[int] = None
     long_context_window: Optional[int] = None
 
-    # MoE; ``first_dense_layers`` is not ported (a non-default raises)
+    # MoE
     moe: Optional[MoEConfig] = None
     moe_layer_period: int = 1     # apply MoE every p-th layer (Jamba: 2)
-    first_dense_layers: int = 0
+    first_dense_layers: int = 0   # DeepSeek: first k layers use dense MLP
     # SSM / hybrid
     ssm: Optional[SSMConfig] = None
     attn_layer_period: int = 0    # hybrid: one attention layer per p layers
     attn_layer_offset: int = 4    # position of the attention layer in a block
 
-    # planes of the zoo the port does not run yet (any non-default raises)
+    # Encoder-decoder (audio)
     encoder_layers: int = 0
     is_encoder_decoder: bool = False
-    frontend: str = "none"        # none | vlm (a stub: inputs are token ids)
-    mla: Optional[object] = None
-    mtp: bool = False
+    frontend: str = "none"        # none | audio | vlm (stubs: the inputs are
+                                  # frame embeddings or token ids)
+    # DeepSeek extras
+    mla: Optional[MLAConfig] = None
+    mtp: bool = False             # depth-1 multi-token-prediction head
 
     dtype: str = "bfloat16"
     block_len: int = 0            # 0 -> derived (the larger layer period)
     scan_unroll: int = 1
 
-    # (field, default, the slice that brings it)
-    _UNPORTED = (("first_dense_layers", 0,
-                  _LATER + " (DeepSeek's MLA, MTP and leading dense "
-                  "layers)"),
-                 ("mla", None, _LATER + " (DeepSeek's MLA)"),
-                 ("mtp", False, _LATER + " (DeepSeek's MTP head)"),
-                 ("encoder_layers", 0, _LATER + " (the encoder-decoder)"),
-                 ("is_encoder_decoder", False,
-                  _LATER + " (the encoder-decoder)"))
+    # the frontend of each family
     _FAMILIES = {"dense": "none", "vlm": "vlm", "ssm": "none",
-                 "moe": "none", "hybrid": "none"}
+                 "moe": "none", "hybrid": "none", "audio": "audio"}
 
     def __post_init__(self):
         if self.family not in self._FAMILIES:
-            raise NotImplementedError(
-                f"{self.name}: the {self.family!r} family is not ported; "
-                f"it comes with {_LATER}")
-        for field, default, slice_ in self._UNPORTED:
-            if getattr(self, field) != default:
-                raise NotImplementedError(
-                    f"{self.name}: {field}={getattr(self, field)!r} is not "
-                    f"ported; it comes with {slice_}")
+            raise ValueError(f"{self.name}: unknown family {self.family!r}; "
+                             f"known: {sorted(self._FAMILIES)}")
         if self.frontend != self._FAMILIES[self.family]:
-            raise NotImplementedError(
-                f"{self.name}: frontend={self.frontend!r} with family "
-                f"{self.family!r} is not ported (the audio frontend comes "
-                f"with {_LATER}, the encoder-decoder)")
+            raise ValueError(
+                f"{self.name}: frontend={self.frontend!r} does not fit the "
+                f"{self.family!r} family (its frontend is "
+                f"{self._FAMILIES[self.family]!r})")
         self._check_sub_configs()
         if self.ssm is not None and self.ssm.compute_dtype != "float32":
             raise NotImplementedError(
                 f"{self.name}: ssm.compute_dtype="
                 f"{self.ssm.compute_dtype!r} is not ported; the SSD scan "
-                f"computes in float32 until {_LATER} brings a lower "
-                f"precision")
+                f"computes in float32 until a later slice of the port "
+                f"brings a lower precision")
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
         if self.block_len == 0:
@@ -241,9 +240,10 @@ class ModelConfig:
                              f"multiple of n_kv_heads {self.n_kv_heads}")
 
     def _check_sub_configs(self):
-        """The MoE and SSM sub-configs and the layer periods against the
-        family."""
-        for field, cls in (("moe", MoEConfig), ("ssm", SSMConfig)):
+        """The sub-configs, the layer periods, the leading dense layers
+        and the encoder against the family."""
+        for field, cls in (("moe", MoEConfig), ("ssm", SSMConfig),
+                           ("mla", MLAConfig)):
             value = getattr(self, field)
             if value is not None and not isinstance(value, cls):
                 raise TypeError(f"{self.name}: {field} must be a "
@@ -267,6 +267,17 @@ class ModelConfig:
         if self.moe_layer_period > 1 and self.moe is None:
             raise ValueError(f"{self.name}: moe_layer_period "
                              f"{self.moe_layer_period} needs a MoEConfig")
+        if self.is_encoder_decoder != (self.encoder_layers > 0):
+            raise ValueError(
+                f"{self.name}: is_encoder_decoder={self.is_encoder_decoder} "
+                f"with encoder_layers={self.encoder_layers}; an "
+                "encoder-decoder needs encoder layers, and only an "
+                "encoder-decoder has them")
+        if not 0 <= self.first_dense_layers < self.n_layers:
+            raise ValueError(
+                f"{self.name}: first_dense_layers={self.first_dense_layers} "
+                f"must leave at least one of the {self.n_layers} layers to "
+                "the scanned blocks")
 
     @property
     def scanned_layers(self) -> int:
@@ -301,17 +312,29 @@ class ModelConfig:
         return tuple(self.layer_kind(i) for i in range(self.block_len))
 
     def param_count(self, active_only: bool = False) -> int:
-        """Analytic parameter count, the reference's for the ported
-        families: embedding and head (untied); a layer's mixer, its MLP and
-        two norm scales (counted whatever the MLP, as the reference does:
-        an SSM layer has one); the final norm. ``active_only`` counts a
-        MoE layer's top-k routed experts instead of all of them."""
-        n = 2 * self.vocab_size * self.d_model
+        """Analytic parameter count, the reference's: embedding and head
+        (untied); a layer's mixer, its MLP and two norm scales (counted
+        whatever the MLP, as the reference does: an SSM layer has one);
+        the leading dense layers; the encoder's layers and a
+        cross-attention (and its norm) a decoder layer; the final norm;
+        the MTP head. ``active_only`` counts a MoE layer's top-k routed
+        experts instead of all of them."""
+        d = self.d_model
+        n = 2 * self.vocab_size * d
         for _ in range(self.n_blocks):
             for kind in self.block_pattern():
-                n += self._mixer_params(kind["mixer"]) + 2 * self.d_model
+                n += self._mixer_params(kind["mixer"]) + 2 * d
                 n += self._mlp_params(kind["mlp"], active_only)
-        return n + self.d_model
+        dense_layer = (self._mixer_params("attn")
+                       + self._mlp_params("dense", active_only))
+        n += self.first_dense_layers * (dense_layer + 2 * d)
+        if self.is_encoder_decoder:
+            n += self.encoder_layers * (dense_layer + 2 * d)
+            n += self.n_layers * (self._mixer_params("attn") + d)
+        n += d
+        if self.mtp:       # a layer, the (2d, d) combine and three norms
+            n += dense_layer + 2 * d * d + 3 * d
+        return n
 
     def _mlp_params(self, kind: str, active_only: bool) -> int:
         if kind == "none":
@@ -325,6 +348,14 @@ class ModelConfig:
 
     def _mixer_params(self, kind: str) -> int:
         d, hd = self.d_model, self.head_dim
+        if kind == "attn" and self.mla is not None:
+            m, h = self.mla, self.n_heads
+            qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+            return (d * m.q_lora_rank + m.q_lora_rank * h * qk_hd
+                    + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                    + m.kv_lora_rank * h * (m.qk_nope_head_dim
+                                            + m.v_head_dim)
+                    + h * m.v_head_dim * d)
         if kind == "attn":
             return (d * self.n_heads * hd * 2
                     + 2 * d * self.n_kv_heads * hd)

@@ -5,23 +5,29 @@ The parity tests take the JAX package's parameters as numpy arrays
 bring the port's back with ``params_to_numpy``; keys, shapes and dtypes are
 kept.
 
-The JAX package's LM parameters are a nested tree of dicts and tuples;
-the port's are one flat dict keyed by the "/"-joined tree paths
+The JAX package's model parameters are a nested tree of dicts and
+tuples; the port's are one flat dict keyed by the "/"-joined tree paths
 (``blocks/layers/0/mixer/wq``, ``embed``, a MoE layer's
-``blocks/layers/1/mlp/router`` and ``.../mlp/shared/wg``, ...). ``flatten_tree`` and
-``unflatten_tree`` convert between the two. The sorted order of the flat
-keys is the JAX package's leaf order (dict keys sorted, tuple items in
-order) for keys of letters, digits and underscores and tuples of at most
-10 items, as the LM's are, so ``aggregation.flatten_stacked`` lays the
-updates out in the reference's column order.
+``blocks/layers/1/mlp/router`` and ``.../mlp/shared/wg``, DeepSeek's
+``head_layers/0/mixer/wdq`` and ``mtp/layer/...``, an encoder-decoder's
+``src_proj``, ``enc_blocks/...`` and ``dec_blocks/layers/0/cross/wq``,
+...). ``flatten_tree`` and ``unflatten_tree`` convert between the two. The
+sorted order of the flat keys is the JAX package's leaf order (dict keys
+sorted, tuple items in order) for keys of letters, digits and underscores
+and tuples of at most 10 items, as the zoo's are, so
+``aggregation.flatten_stacked`` lays the updates out in the reference's
+column order.
 
 A decode cache crosses the same way: ``cache_from_numpy`` takes the JAX
-package's cache tree (``blocks``, an empty ``head_layers``, a traced
-``index``, ``slot_pos`` for a ring) as numpy leaves into the port's flat
-cache (``index`` a host int), and ``cache_to_numpy`` gives the port's back
-as that tree, so either package can decode from the other's cache — a
-hybrid's too, whose layers hold attention k/v and SSM conv/state caches
-side by side.
+package's cache tree (``blocks``, ``head_layers`` — empty but for
+DeepSeek's leading dense layers —, a traced ``index``, ``slot_pos`` for a
+ring) as numpy leaves into the port's flat cache (``index`` a host int),
+and ``cache_to_numpy`` gives the port's back as that tree, so either
+package can decode from the other's cache — a hybrid's too, whose layers
+hold attention k/v and SSM conv/state caches side by side, an MLA
+layer's latent ``ckv`` and rope key ``kr``, and an encoder-decoder's
+(``blocks`` with the encoder's ``xk``/``xv``, and ``index``: no
+``head_layers``).
 """
 from __future__ import annotations
 
@@ -86,9 +92,13 @@ def cache_from_numpy(tree, device) -> Dict[str, Any]:
 
 def cache_to_numpy(cache: Mapping[str, Any]):
     """The port's flat cache -> the JAX package's cache tree, numpy
-    leaves (``index`` int32, as the reference traces it)."""
+    leaves (``index`` int32, as the reference traces it). A decoder-only
+    cache has a ``head_layers`` tuple, empty without leading dense layers;
+    an encoder-decoder's, recognised by its cross-attention leaves, has
+    none."""
     flat = {k: v for k, v in cache.items() if k != "index"}
     tree = unflatten_tree(params_to_numpy(flat))
     tree["index"] = np.asarray(cache["index"], np.int32)
-    tree["head_layers"] = ()
+    if not any(k.endswith("/xk") for k in flat):
+        tree.setdefault("head_layers", ())
     return tree

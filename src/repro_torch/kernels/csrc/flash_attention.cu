@@ -2,7 +2,8 @@
 //
 //     o[b,h,i,:] = sum_j softmax_j(scale * q[b,h,i,:] . k[b,h//G,j,:]) v[b,h//G,j,:]
 //
-// q (B,H,S,D), k/v (B,Hkv,T,D), o (B,H,S,D), T >= S, H a multiple of Hkv,
+// q (B,H,S,D), k/v (B,Hkv,T,D), o (B,H,S,D), T >= S unless nothing is
+// masked (not `causal`, no window: any S and T), H a multiple of Hkv,
 // G = H / Hkv query heads to a KV head (jnp.repeat's grouping: query head h
 // reads KV head h // G), float32 or bfloat16. Queries are right-aligned
 // (query i sits at position i + T - S); a key j is masked when `causal` and
@@ -409,8 +410,11 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int b, int
   return static_cast<int>(cudaGetLastError());
 }
 
-bool valid(int b, int h, int hkv, int s, int t, int window) {
-  return b >= 1 && hkv >= 1 && h >= hkv && h % hkv == 0 && s >= 1 && t >= s && window >= 0;
+// S > T only without a mask: then `shift` (negative) feeds nothing, since
+// first, last and qi are read only under `causal` or a window
+bool valid(int b, int h, int hkv, int s, int t, int causal, int window) {
+  return b >= 1 && hkv >= 1 && h >= hkv && h % hkv == 0 && s >= 1 && t >= 1 && window >= 0 &&
+         (t >= s || (!causal && window == 0));
 }
 
 }  // namespace
@@ -421,7 +425,7 @@ bool valid(int b, int h, int hkv, int s, int t, int window) {
 extern "C" int flash_attention_f32(const float* q, const float* k, const float* v, float* o,
                                    int b, int h, int hkv, int s, int t, int d, int causal,
                                    int window, float scale, cudaStream_t stream) {
-  if (!valid(b, h, hkv, s, t, window)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(b, h, hkv, s, t, causal, window)) return static_cast<int>(cudaErrorInvalidValue);
   const int group = h / hkv;
   switch (d) {
     case 16: return launch_f32<16>(q, k, v, o, b, h, group, s, t, causal, window, scale, stream);
@@ -435,7 +439,7 @@ extern "C" int flash_attention_f32(const float* q, const float* k, const float* 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int b,
                                     int h, int hkv, int s, int t, int d, int causal, int window,
                                     float scale, cudaStream_t stream) {
-  if (!valid(b, h, hkv, s, t, window)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(b, h, hkv, s, t, causal, window)) return static_cast<int>(cudaErrorInvalidValue);
   const int group = h / hkv;
   const bf16* qq = static_cast<const bf16*>(q);
   const bf16* kk = static_cast<const bf16*>(k);

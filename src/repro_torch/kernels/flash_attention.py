@@ -2,14 +2,17 @@
 
     o = softmax(scale * q k^T + mask) v
 
-q (B,H,S,D), k/v (B,Hkv,T,D) -> (B,H,S,D), T >= S, H a multiple of Hkv:
-query head h reads KV head h // (H/Hkv), the grouping of ``jnp.repeat``
-in the JAX package's attention (Hkv == H is the TPU kernel's own
-signature). Queries are right-aligned (query i sits at key position
-i + T - S). A key j is masked when ``causal`` and j > i + T - S, or when
-``window`` is given and (i + T - S) - j >= window — the window applies
-with or without ``causal``, as in the TPU kernel (the JAX package's oracle
-applies it only under ``causal``). A masked logit is -1e30.
+q (B,H,S,D), k/v (B,Hkv,T,D) -> (B,H,S,D), H a multiple of Hkv: query
+head h reads KV head h // (H/Hkv), the grouping of ``jnp.repeat`` in the
+JAX package's attention (Hkv == H is the TPU kernel's own signature).
+Queries are right-aligned (query i sits at key position i + T - S). A key
+j is masked when ``causal`` and j > i + T - S, or when ``window`` is given
+and (i + T - S) - j >= window — the window applies with or without
+``causal``, as in the TPU kernel (the JAX package's oracle applies it only
+under ``causal``). A masked logit is -1e30. With a mask, S <= T (a query
+past the keys' end would see none); without one (``causal=False``, no
+window: the encoder's and the cross-attention) S and T are free, as in the
+TPU kernel, which takes any S and T.
 
 ``flash_attention`` launches the hand-written Hopper kernel
 ``csrc/flash_attention.cu`` on CUDA tensors and runs the plain PyTorch
@@ -48,7 +51,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: Optional[int]) -> None:
+           causal: bool, window: Optional[int]) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be 4-D (B, H, S|T, D)")
     b, h, s, d = q.shape
@@ -58,8 +61,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if h % k.shape[1]:
         raise ValueError(f"{h} query heads are not a multiple of "
                          f"{k.shape[1]} KV heads")
-    if not 1 <= s <= k.shape[2]:
-        raise ValueError(f"need 1 <= S <= T, got S = {s}, T = {k.shape[2]}")
+    if s < 1 or k.shape[2] < 1:
+        raise ValueError(f"need S, T >= 1, got S = {s}, T = {k.shape[2]}")
+    if s > k.shape[2] and (causal or window is not None):
+        raise ValueError(f"a causal or windowed mask needs S <= T, got "
+                         f"S = {s}, T = {k.shape[2]}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share one dtype, float32 or "
                         f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -88,7 +94,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain PyTorch version: the KV heads repeated to H, float32 logits,
     the -1e30 mask, softmax, the probabilities cast to ``v.dtype`` before
     the second product (as ``repro.kernels.ref.flash_attention_ref``)."""
-    _check(q, k, v, window)
+    _check(q, k, v, causal, window)
     s, t, d = q.shape[2], k.shape[2], q.shape[3]
     g = q.shape[1] // k.shape[1]
     if g > 1:
@@ -184,7 +190,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``flash_attention_ref``. Each kernel launch adds one to
     ``flash_attention.launches``.
     """
-    _check(q, k, v, window)
+    _check(q, k, v, causal, window)
     scale = scale if scale is not None else q.shape[3] ** -0.5
     return _FlashAttention.apply(q, k, v, causal, window, scale)
 

@@ -1,7 +1,9 @@
-"""Prefill and decode steps of the decoder-only zoo (the JAX package's
+"""Prefill and decode steps of the zoo (the JAX package's
 ``launch/steps.py``; its train step and ``init_state`` need ``optim/`` and
 come with training). PyTorch runs eagerly, so a step is a plain closure
-over the config."""
+over the config. A prefill batch holds ``tokens`` (B, S) and, for an
+encoder-decoder, ``src`` (B, S_src, d) frame embeddings (``api.prefill``
+reads both)."""
 from __future__ import annotations
 
 from typing import Callable

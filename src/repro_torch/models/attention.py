@@ -1,5 +1,7 @@
 """GQA attention (train / evaluation / prefill / decode) with RoPE, optional
-QKV bias, QK-norm, sliding window and ring-buffer decode caches.
+QKV bias, QK-norm, sliding window and ring-buffer decode caches; the
+encoder's bidirectional self-attention and the decoder's cross-attention
+of the encoder-decoder.
 
 Parameters are a flat dict (``wq``, ``wk``, ``wv``, ``wo``; ``bq``/``bk``/
 ``bv`` with ``qkv_bias``, ``q_norm``/``k_norm`` with ``qk_norm``) in the
@@ -9,12 +11,15 @@ leading client axis and activations (N, B, S, d).
 
 Every attention forward goes through ``kernels.flash_attention`` (K3):
 the hand-written CUDA kernel on a CUDA tensor, its plain version on a CPU
-tensor. The JAX package sends only sequences of a multiple of 8 to its
-Pallas kernel (a TPU tiling constraint); the port's kernel masks the
-ragged edge, so every sequence length takes K3. Every decode step's
-attention goes through ``kernels.decode_attention`` (K4) the same way.
-``sdpa`` is the JAX package's plain masked attention with GQA grouping,
-kept for the tests.
+tensor. The JAX package sends only causal sequences of a multiple of 8 to
+its Pallas kernel (a TPU tiling constraint) and computes the encoder's
+attention and the cross-attention with its plain ``sdpa``; the port's
+kernel masks the ragged edge and takes ``causal=False`` (the same function
+without a mask), so every sequence length and both of those take K3.
+Every decode step's attention, the cross-attention over the encoder's
+cached keys and values included, goes through ``kernels.decode_attention``
+(K4) the same way. ``sdpa`` is the JAX package's plain masked attention
+with GQA grouping, kept for the tests.
 """
 from __future__ import annotations
 
@@ -89,25 +94,27 @@ def causal_window_mask(S: int, window: Optional[int], device=None):
     return band_mask(S, S, True, window, device)[None, None, None]
 
 
-def attn_apply(cfg, p, x, *, window=None, positions=None):
-    """x (..., S, d) -> (attention output (..., S, d), (k, v))."""
+def attn_apply(cfg, p, x, *, window=None, positions=None, causal=True):
+    """x (..., S, d) -> (attention output (..., S, d), (k, v)); causal, or
+    bidirectional with ``causal=False`` (the encoder's self-attention,
+    the JAX package's ``encdec._encode`` with its all-true mask)."""
     S = x.shape[-2]
     q, k, v = _project_qkv(cfg, p, x)
     if positions is None:
         positions = torch.arange(S, device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = _full_attention(cfg, q, k, v, window)
+    out = _full_attention(q, k, v, window, causal)
     return linear(out, p["wo"]), (k, v)
 
 
-def _full_attention(cfg, q, k, v, window):
-    """Causal attention through K3. q (..., S, Hq, D), k/v (..., T, Hkv,
-    D) -> (..., S, Hq*D). The leading axes (a stacked cohort's clients and
-    their batch) fold into the kernel's batch axis. K3 takes the Hkv KV
-    heads as they are and reads KV head h // G for query head h (G =
-    Hq/Hkv), as the JAX package's GQA grouping (``jnp.repeat``) does; the
-    three transposes to its (B, H, S, D) layout are the only copies."""
+def _full_attention(q, k, v, window, causal=True):
+    """Attention through K3. q (..., S, Hq, D), k/v (..., T, Hkv, D) ->
+    (..., S, Hq*D). The leading axes (a stacked cohort's clients and their
+    batch) fold into the kernel's batch axis. K3 takes the Hkv KV heads as
+    they are and reads KV head h // G for query head h (G = Hq/Hkv), as
+    the JAX package's GQA grouping (``jnp.repeat``) does; the three
+    transposes to its (B, H, S, D) layout are the only copies."""
     *lead, S, Hq, D = q.shape
     T, Hkv = k.shape[-3], k.shape[-2]
     q = q.reshape(-1, S, Hq, D)
@@ -116,8 +123,49 @@ def _full_attention(cfg, q, k, v, window):
     out = flash_attention(q.transpose(1, 2).contiguous(),
                           k.transpose(1, 2).contiguous(),
                           v.transpose(1, 2).contiguous(),
-                          causal=True, window=window)
+                          causal=causal, window=window)
     return out.transpose(1, 2).reshape(*lead, S, Hq * D)
+
+
+def _cross_queries(cfg, p, x):
+    """x (B, S, d) -> q (B, S, Hq, D): no bias and no RoPE, as in the
+    reference's cross-attention."""
+    q = linear(x, p["wq"]).reshape(*x.shape[:-1], cfg.n_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    return q
+
+
+def cross_attn_apply(cfg, p, x, kv_cache):
+    """The decoder's cross-attention over a whole target sequence: x (B,
+    S, d), kv_cache = the encoder's (k, v), each (B, S_src, Hkv, D), from
+    ``encoder_kv`` -> (B, S, d). No mask: K3 with ``causal=False``, S and
+    S_src in either order."""
+    k, v = kv_cache
+    out = _full_attention(_cross_queries(cfg, p, x), k, v, None,
+                          causal=False)
+    return linear(out, p["wo"])
+
+
+def cross_attn_decode(cfg, p, x, xk, xv):
+    """The cross-attention of one decode step: x (B, 1, d) over the
+    encoder's cached xk/xv (B, S_src, Hkv, D), every position valid ->
+    (B, 1, d); K4 with ``length = S_src``."""
+    q = _cross_queries(cfg, p, x)
+    out = decode_attention(q[:, 0], xk, xv, xk.shape[1])
+    return linear(out.reshape(x.shape[0], 1, -1), p["wo"])
+
+
+def encoder_kv(cfg, p, enc_out):
+    """The cross-attention's keys and values from the encoder's output
+    (B, S_src, d): (k, v), each (B, S_src, Hkv, D); no bias and no RoPE,
+    as in the reference."""
+    lead, hd = enc_out.shape[:-1], cfg.head_dim
+    k = linear(enc_out, p["wk"]).reshape(*lead, cfg.n_kv_heads, hd)
+    v = linear(enc_out, p["wv"]).reshape(*lead, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return k, v
 
 
 def attn_decode(cfg, p, x, cache_k, cache_v, index: int, *, slot_pos=None,

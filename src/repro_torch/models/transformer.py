@@ -1,27 +1,29 @@
 """Decoder-only language models (the LM task's ``lm_tiny`` and the zoo's
 dense, vlm, ssm, moe and hybrid families): init, full-sequence forward,
-the next-token loss (plus the MoE load-balance loss), the masked federated
-twins the cohort engine trains with (dense-only, as in the reference), and
-serving — prefill into a decode cache and single-token decode.
+the next-token loss (plus the MoE load-balance loss and DeepSeek's
+multi-token-prediction loss), the masked federated twins the cohort
+engine trains with (dense-only, as in the reference), and serving —
+prefill into a decode cache and single-token decode.
 
 Parameters are a flat dict under the JAX package's tree paths joined by
 "/": ``embed`` (V, d), ``blocks/layers/0/...`` (each leaf with a leading
-``n_blocks`` axis), ``final_norm`` (d,), ``lm_head`` (d, V). Every
-function also takes a *stacked* cohort: params with a leading client axis
-(N, ...) and tokens (N, B, S); the embedding lookup is then a per-client
-gather, the products one batched matmul per layer, and losses and
-accuracies come back per client, shape (N,).
+``n_blocks`` axis), ``final_norm`` (d,), ``lm_head`` (d, V); with
+``first_dense_layers``, DeepSeek's unrolled attention + SwiGLU layers
+``head_layers/<i>/...`` run before the blocks; with ``mtp``, the depth-1
+multi-token-prediction head ``mtp/{proj,norm_h,norm_e,layer/...}``, which
+only the loss runs. Every function also takes a *stacked* cohort of the
+dense families: params with a leading client axis (N, ...) and tokens (N,
+B, S); the embedding lookup is then a per-client gather, the products one
+batched matmul per layer, and losses and accuracies come back per client,
+shape (N,).
 
 A decode cache is a flat dict: ``blocks/layers/0/...`` (the stacked layer
-caches of ``blocks.py``), ``index`` — the position of the next token, a
-host int (the JAX package's is a traced int32; on the host, K4's cache
-length is known without a synchronisation) — and, for a ring buffer,
-``slot_pos`` (C,) int32. A decode step updates the cache's tensors in
-place and returns the cache with ``index`` advanced.
-
-Multi-token prediction and DeepSeek's leading dense ``head_layers`` of
-the JAX package come with a later slice of the port (a config that needs
-them raises in ``ModelConfig``).
+caches of ``blocks.py``), ``head_layers/<i>/...`` (the leading dense
+layers' caches), ``index`` — the position of the next token, a host int
+(the JAX package's is a traced int32; on the host, K4's cache length is
+known without a synchronisation) — and, for a ring buffer, ``slot_pos``
+(C,) int32. A decode step updates the cache's tensors in place and
+returns the cache with ``index`` advanced.
 """
 from __future__ import annotations
 
@@ -30,26 +32,46 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.blocks import (scan_blocks, scan_blocks_decode,
+from repro_torch.models.blocks import (layer_apply, layer_cache_init,
+                                       layer_decode, layer_init, scan_blocks,
+                                       scan_blocks_decode,
                                        stacked_blocks_init, stacked_cache_init)
 from repro_torch.models.common import (cross_entropy, dense_init, dtype_of,
                                        embed_init, linear, ones, prefixed,
                                        rms_norm, sgd_step, subtree)
 
 
+HEAD_KIND = {"mixer": "attn", "mlp": "dense"}   # a leading dense layer's
+
+
 def lm_init(generator: torch.Generator, cfg, device=None):
     """The LM's parameters on ``device`` (default: the generator's), drawn
     from ``generator`` on its own device in a fixed order: embedding,
-    blocks (block by block), head."""
+    blocks (block by block), head, the leading dense layers, the MTP
+    head."""
     device = generator.device if device is None else torch.device(device)
     dt, d = dtype_of(cfg), cfg.d_model
-    embed = embed_init(generator, (cfg.vocab_size, d), dt).to(device)
-    blocks = stacked_blocks_init(generator, cfg, device=device)
-    return {"embed": embed,
-            **prefixed("blocks/", blocks),
-            "final_norm": ones((d,), dt, device),
-            "lm_head": dense_init(generator, (d, cfg.vocab_size),
+    params = {"embed": embed_init(generator, (cfg.vocab_size, d),
                                   dt).to(device)}
+    params.update(prefixed("blocks/", stacked_blocks_init(generator, cfg,
+                                                          device=device)))
+    params["final_norm"] = ones((d,), dt, device)
+    params["lm_head"] = dense_init(generator, (d, cfg.vocab_size),
+                                   dt).to(device)
+    for i in range(cfg.first_dense_layers):
+        params.update(prefixed(f"head_layers/{i}/", _to(layer_init(
+            generator, cfg, HEAD_KIND), device)))
+    if cfg.mtp:
+        mtp = {"proj": dense_init(generator, (2 * d, d), dt, fan_in=2 * d),
+               "norm_h": ones((d,), dt, generator.device),
+               "norm_e": ones((d,), dt, generator.device),
+               **prefixed("layer/", layer_init(generator, cfg, HEAD_KIND))}
+        params.update(prefixed("mtp/", _to(mtp, device)))
+    return params
+
+
+def _to(params, device):
+    return {k: v.to(device) for k, v in params.items()}
 
 
 def _embed(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -64,44 +86,77 @@ def _embed(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def _forward(cfg, params, tokens, window, return_cache, with_aux=False):
     """(logits, the summed MoE aux loss — 0.0 without a MoE layer or
-    ``with_aux`` — and the caches or None)."""
+    ``with_aux`` —, the caches under their cache keys or None, and the
+    last hidden state before the final norm)."""
     h = _embed(params["embed"], tokens).to(dtype_of(cfg))
-    h, aux, caches = scan_blocks(cfg, subtree(params, "blocks/"), h,
-                                 window=window, return_cache=return_cache,
-                                 with_aux=with_aux)
+    aux, caches = 0.0, {}
+    for i in range(cfg.first_dense_layers):
+        h, a, c = layer_apply(cfg, subtree(params, f"head_layers/{i}/"),
+                              HEAD_KIND, h, window=window, with_aux=with_aux)
+        aux = aux + a
+        caches.update(prefixed(f"head_layers/{i}/", c))
+    h, a, blocks = scan_blocks(cfg, subtree(params, "blocks/"), h,
+                               window=window, return_cache=return_cache,
+                               with_aux=with_aux)
+    aux = aux + a
     logits = linear(rms_norm(h, params["final_norm"], cfg.norm_eps),
                     params["lm_head"])
-    return logits, aux, caches
+    if not return_cache:
+        return logits, aux, None, h
+    return logits, aux, {**caches, **prefixed("blocks/", blocks)}, h
 
 
 def lm_forward(cfg, params, tokens, *, window=None, return_cache=False):
     """tokens (B, S) int64 -> logits (B, S, V); stacked: tokens (N, B, S)
-    -> (N, B, S, V). With ``return_cache``: (logits, the stacked layer
-    caches of the sequence, under ``blocks.py``'s keys). The MoE aux loss
-    is left out (``lm_loss_parts`` has it)."""
-    logits, _, caches = _forward(cfg, params, tokens, window, return_cache)
+    -> (N, B, S, V). With ``return_cache``: (logits, the layer caches of
+    the sequence, under a decode cache's keys). The MoE aux loss is left
+    out (``lm_loss_metrics`` has it)."""
+    logits, _, caches, _ = _forward(cfg, params, tokens, window,
+                                    return_cache)
     return (logits, caches) if return_cache else logits
 
 
-def lm_loss_parts(cfg, params, batch):
-    """(next-token cross-entropy, the MoE layers' summed load-balance
-    loss: a float32 scalar, 0.0 without a MoE layer) — the reference's
-    ``metrics["ce"]`` and ``metrics["aux"]``."""
+def _mtp_ce(cfg, params, tokens, h, window):
+    """The depth-1 MTP loss: the running hidden state combined with the
+    embedding of the *next* token, one more attention + SwiGLU layer, and
+    the cross-entropy of predicting token t + 2."""
+    mtp = subtree(params, "mtp/")
+    nxt = F.pad(tokens[..., 1:], (0, 1))
+    e = _embed(params["embed"], nxt).to(h.dtype)
+    z = torch.cat([rms_norm(h, mtp["norm_h"], cfg.norm_eps),
+                   rms_norm(e, mtp["norm_e"], cfg.norm_eps)], -1)
+    z, _, _ = layer_apply(cfg, subtree(mtp, "layer/"), HEAD_KIND,
+                          linear(z, mtp["proj"]), window=window)
+    logits = linear(rms_norm(z, params["final_norm"], cfg.norm_eps),
+                    params["lm_head"])
+    return cross_entropy(logits[..., :-2, :], tokens[..., 2:],
+                         keep=tokens.dim() - 2)
+
+
+def lm_loss_metrics(cfg, params, batch):
+    """(next-token cross-entropy + 0.3 x the MTP loss + the MoE layers'
+    summed load-balance loss, {"ce", "mtp_ce" (with ``mtp``), "aux": a
+    float32 scalar, 0.0 without a MoE layer}) — the reference's
+    ``lm_loss``."""
     tokens = batch["tokens"]
-    logits, aux, _ = _forward(cfg, params, tokens, cfg.sliding_window, False,
-                              with_aux=True)
+    window = cfg.sliding_window
+    logits, aux, _, h = _forward(cfg, params, tokens, window, False,
+                                 with_aux=True)
     ce = cross_entropy(logits[..., :-1, :], tokens[..., 1:],
                        keep=tokens.dim() - 2)
-    return ce, aux
+    loss, metrics = ce, {"ce": ce}
+    if cfg.mtp:
+        metrics["mtp_ce"] = _mtp_ce(cfg, params, tokens, h, window)
+        loss = loss + 0.3 * metrics["mtp_ce"]
+    metrics["aux"] = aux
+    return loss + aux, metrics
 
 
 def lm_loss(cfg, params, batch):
-    """Next-token cross-entropy plus the MoE aux loss (one per client for
-    a stacked cohort, whose dense families have no aux loss). The JAX
-    package returns (loss, metrics); ``lm_loss_parts`` gives the metrics,
-    and the port's loss is the loss alone."""
-    ce, aux = lm_loss_parts(cfg, params, batch)
-    return ce + aux
+    """The loss of ``lm_loss_metrics`` alone (one per client for a stacked
+    cohort, whose dense families have no aux loss); the JAX package
+    returns (loss, metrics)."""
+    return lm_loss_metrics(cfg, params, batch)[0]
 
 
 # ---------------------------------------------------------------------- #
@@ -200,9 +255,12 @@ def decode_cache_len(cfg, seq_len: int):
 def lm_cache_init(cfg, batch: int, seq_len: int, device):
     """A zero decode cache for ``seq_len`` positions, index 0."""
     cache_len, ring = decode_cache_len(cfg, seq_len)
-    cache = {**prefixed("blocks/", stacked_cache_init(cfg, batch, cache_len,
-                                                       device)),
-             "index": 0}
+    cache = prefixed("blocks/", stacked_cache_init(cfg, batch, cache_len,
+                                                   device))
+    for i in range(cfg.first_dense_layers):
+        cache.update(prefixed(f"head_layers/{i}/", layer_cache_init(
+            cfg, HEAD_KIND, batch, cache_len, device)))
+    cache["index"] = 0
     if ring:
         cache["slot_pos"] = torch.full((cache_len,), -1, dtype=torch.int32,
                                        device=device)
@@ -214,20 +272,28 @@ def lm_prefill(cfg, params, tokens, target_len: Optional[int] = None):
     cache of the S positions, grown to ``target_len`` when it is
     longer)."""
     s = tokens.shape[1]
-    logits, _, caches = _forward(cfg, params, tokens, cfg.sliding_window,
-                                 True)
-    cache = {**prefixed("blocks/", caches), "index": s}
+    logits, _, caches, _ = _forward(cfg, params, tokens, cfg.sliding_window,
+                                    True)
+    cache = {**caches, "index": s}
     if target_len is not None and target_len > s:
         cache = grow_cache(cache, target_len - s)
     return logits[:, -1], cache
 
 
+_POSITION_AXIS = {"k": -3, "v": -3, "ckv": -2, "kr": -2}
+
+
 def grow_cache(cache, extra: int):
-    """The cache with its attention k/v padded by ``extra`` zero positions
-    (their position axis, -3); every other leaf as it is."""
-    return {key: (F.pad(x, (0, 0, 0, 0, 0, extra))
-                  if key.rsplit("/", 1)[-1] in ("k", "v") else x)
-            for key, x in cache.items()}
+    """The cache with its self-attention caches padded by ``extra`` zero
+    positions on their position axis (-3 of k/v, -2 of the MLA latent
+    and rope key); every other leaf (SSM states, the encoder's xk/xv) as
+    it is."""
+    out = {}
+    for key, x in cache.items():
+        axis = _POSITION_AXIS.get(key.rsplit("/", 1)[-1])
+        out[key] = x if axis is None else F.pad(x, (0, 0) * (-axis - 1)
+                                                + (0, extra))
+    return out
 
 
 def lm_decode_step(cfg, params, cache, token):
@@ -237,12 +303,18 @@ def lm_decode_step(cfg, params, cache, token):
     slot_pos = cache.get("slot_pos")
     window = cfg.sliding_window if slot_pos is None else None
     h = _embed(params["embed"], token).to(dtype_of(cfg))
+    new_cache = dict(cache)
+    for i in range(cfg.first_dense_layers):
+        pre = f"head_layers/{i}/"
+        h, c = layer_decode(cfg, subtree(params, pre), HEAD_KIND, h,
+                            subtree(cache, pre), index, slot_pos=slot_pos,
+                            window=window)
+        new_cache.update(prefixed(pre, c))
     h, blocks = scan_blocks_decode(cfg, subtree(params, "blocks/"), h,
                                    subtree(cache, "blocks/"), index,
                                    slot_pos=slot_pos, window=window)
+    new_cache.update(prefixed("blocks/", blocks))
     hn = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = linear(hn[:, 0], params["lm_head"])
-    new_cache = {**prefixed("blocks/", blocks), "index": index + 1}
-    if slot_pos is not None:
-        new_cache["slot_pos"] = slot_pos
+    new_cache["index"] = index + 1
     return logits, new_cache

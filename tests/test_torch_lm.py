@@ -111,16 +111,29 @@ def test_lm_tiny_config_matches_the_reference(ref):
     # not fit the family and fail the config's checks
     (dict(family="moe"), ValueError), (dict(moe=object()), TypeError),
     (dict(ssm=object()), TypeError), (dict(attn_layer_period=2), ValueError),
-    # the planes still to port
-    (dict(mla=object()), NotImplementedError),
-    (dict(mtp=True), NotImplementedError),
-    (dict(first_dense_layers=1), NotImplementedError),
-    (dict(is_encoder_decoder=True), NotImplementedError),
-    (dict(encoder_layers=2), NotImplementedError),
-    (dict(frontend="audio"), NotImplementedError)])
+    # MLA, the encoder-decoder and the audio frontend: an MLA sub-config
+    # of the wrong type, an encoder without the encoder-decoder flag or the
+    # reverse, a frontend that does not fit the family
+    (dict(mla=object()), TypeError),
+    (dict(is_encoder_decoder=True), ValueError),
+    (dict(encoder_layers=2), ValueError),
+    (dict(frontend="audio"), ValueError),
+    # every layer a leading dense layer, none left to the blocks
+    (dict(first_dense_layers=2), ValueError)])
 def test_model_config_raises_outside_the_dense_family(kw, exc):
     with pytest.raises(exc):
         dataclasses.replace(LM_TINY, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(mtp=True), dict(first_dense_layers=1)])
+def test_model_config_admits_deepseek_fields(ref, kw):
+    """DeepSeek's MTP head and leading dense layers on LM_TINY: the config
+    builds, equals the reference's and counts its parameters alike."""
+    got, want = (dataclasses.replace(c, **kw) for c in (LM_TINY, ref.lm))
+    for f in dataclasses.fields(want):
+        assert getattr(got, f.name) == getattr(want, f.name), f.name
+    assert got.n_blocks == want.n_blocks
+    assert got.param_count() == want.param_count()
 
 
 # ---------------------------------------------------------------------- #

@@ -1,10 +1,11 @@
 """Port parity of the zoo's decode loop over many steps: the sliding-window
 ring cache against the linear window and against the reference's ring
 (``tests/test_decode_consistency.py:45-63``), ``grow_cache`` padding only
-the KV axes (``tests/test_serving_extra.py:15-23``), and greedy generation
-equal to the reference's for each ported arch
-(``tests/test_serving_extra.py:33-51``), on the reduced float32 variants
-with the reference's weights carried across.
+the KV axes (``tests/test_serving_extra.py:15-23``) — the MLA latent's too,
+and not the encoder's cross-attention K/V —, and greedy generation equal to
+the reference's for each arch (``tests/test_serving_extra.py:33-51``; the
+encoder-decoder from 12 frames of source embeddings), on the reduced
+float32 variants with the reference's weights carried across.
 
 Tolerances: 1e-3 for a decode against the full forward (the reference's
 own test's), 1e-4 against the reference's decode; greedy tokens equal.
@@ -22,9 +23,9 @@ from repro_torch.convert import flatten_tree, params_from_numpy
 from repro_torch.models import api
 from repro_torch.models import transformer as ttr
 
-ARCHS = ["chameleon-34b", "jamba-1.5-large-398b", "mamba2-370m",
-         "moonshot-v1-16b-a3b", "qwen2-moe-a2.7b", "qwen2.5-32b",
-         "starcoder2-15b", "yi-34b"]
+ARCHS = ["chameleon-34b", "deepseek-v3-671b", "jamba-1.5-large-398b",
+         "mamba2-370m", "moonshot-v1-16b-a3b", "qwen2-moe-a2.7b",
+         "qwen2.5-32b", "seamless-m4t-medium", "starcoder2-15b", "yi-34b"]
 
 
 @pytest.fixture(scope="module")
@@ -96,17 +97,50 @@ def test_grow_cache_pads_only_kv_axes(ref):
         assert v is ssm_cache[key], key
 
 
+def test_grow_cache_pads_the_mla_latent_and_not_the_cross_kv(ref):
+    """The reference's ``grow_cache`` pads ``ckv``/``kr`` on axis -2 and
+    k/v on -3, and leaves an encoder-decoder's xk/xv as they are; the
+    port's cache grows to the reference's shapes."""
+    for arch, kw in (("deepseek-v3-671b", {}),
+                     ("seamless-m4t-medium", dict(src_len=6))):
+        cfg_ref, cfg, _, _ = _setup(ref, arch, 0)
+        got = ttr.grow_cache(api.cache_init(cfg, 2, 8, device="cpu", **kw),
+                             4)
+        want = ref.tr.grow_cache(ref.api.cache_init(cfg_ref, 2, 8, **kw), 4)
+        want = flatten_tree(ref.jax.tree.map(np.asarray, want))
+        assert sorted(got) == sorted(want)
+        for key, w in want.items():
+            if key != "index":
+                assert tuple(got[key].shape) == w.shape, key
+        leaves = {k.rsplit("/", 1)[-1]: v.shape for k, v in got.items()
+                  if k != "index"}
+        if cfg.mla is not None:
+            assert leaves["ckv"][-2] == leaves["kr"][-2] == 12
+        else:
+            assert leaves["k"][-3] == 12 and leaves["xk"][-3] == 6
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_greedy_generation_matches_reference(ref, arch):
     """Prefill 8 prompt tokens, then 7 greedy steps: the port's tokens are
     the reference's, and the port's own second run repeats them."""
     cfg_ref, cfg, params_ref, params = _setup(ref, arch, 0)
     prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 8))
+    # an encoder-decoder's 12 frames of source embeddings
+    src = (np.random.default_rng(3).standard_normal(
+        (2, 12, cfg.d_model)).astype(np.float32)
+        if cfg.is_encoder_decoder else None)
+
+    def batch(tokens, asarray):
+        out = {"tokens": tokens}
+        if src is not None:
+            out["src"] = asarray(src)
+        return out
 
     def generate_port():
-        logits, cache = api.prefill(cfg, params,
-                                    {"tokens": torch.from_numpy(prompts)},
-                                    target_len=16)
+        logits, cache = api.prefill(
+            cfg, params, batch(torch.from_numpy(prompts), torch.from_numpy),
+            target_len=16)
         tok = logits.argmax(-1)[:, None]
         outs = [tok]
         for _ in range(7):
@@ -118,7 +152,8 @@ def test_greedy_generation_matches_reference(ref, arch):
     def generate_ref():
         jnp = ref.jnp
         logits, cache = ref.api.prefill(
-            cfg_ref, params_ref, {"tokens": jnp.asarray(prompts, jnp.int32)},
+            cfg_ref, params_ref,
+            batch(jnp.asarray(prompts, jnp.int32), jnp.asarray),
             target_len=16)
         tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
         outs = [tok]

@@ -2,11 +2,12 @@
 ``tests/test_torch_zoo_serving.py`` (which holds the three MoE archs'
 configs, prefill, caches and decode against the reference at capacity for
 every token): on the reduced float32 ``qwen2-moe-a2.7b``,
-``moonshot-v1-16b-a3b`` and ``jamba-1.5-large-398b`` with the reference's
-weights carried across —
+``moonshot-v1-16b-a3b``, ``jamba-1.5-large-398b`` and ``deepseek-v3-671b``
+with the reference's weights carried across —
 
-- ``api.loss``: the cross-entropy and the MoE load-balance loss against
-  the reference's ``metrics["ce"]`` and ``metrics["aux"]``, at the
+- ``api.loss``: the cross-entropy, the MoE load-balance loss and
+  DeepSeek's multi-token-prediction loss against the reference's
+  ``metrics["ce"]``, ``metrics["aux"]`` and ``metrics["mtp_ce"]``, at the
   configs' own capacity factor (tokens dropped) and with room for all;
 - serving at capacity factor 0.5, where the prefill must drop routes:
   prefill logits and 8 decode steps within 1e-4 of the reference's, so
@@ -31,7 +32,8 @@ from repro_torch.convert import flatten_tree, params_from_numpy
 from repro_torch.models import api
 from repro_torch.models import moe as tmoe
 
-ARCHS = ["jamba-1.5-large-398b", "moonshot-v1-16b-a3b", "qwen2-moe-a2.7b"]
+ARCHS = ["deepseek-v3-671b", "jamba-1.5-large-398b", "moonshot-v1-16b-a3b",
+         "qwen2-moe-a2.7b"]
 TOL = dict(atol=1e-4, rtol=1e-4)
 B, S, P = 2, 24, 16            # batch, full length, prefill length
 
@@ -94,11 +96,13 @@ def test_loss_matches_the_reference(ref, arch, cf):
                                  {"tokens": ref.jnp.asarray(tok,
                                                             ref.jnp.int32)})
     got, parts = api.loss(cfg, params, {"tokens": torch.from_numpy(tok)})
-    assert sorted(parts) == ["aux", "ce"]
+    assert sorted(parts) == sorted(metrics)
+    assert ("mtp_ce" in parts) == cfg.mtp
     assert parts["aux"].dtype == torch.float32 and parts["aux"].dim() == 0
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
-    np.testing.assert_allclose(parts["ce"].item(), float(metrics["ce"]),
-                               rtol=1e-5)
+    for key in set(parts) - {"aux"}:
+        np.testing.assert_allclose(parts[key].item(), float(metrics[key]),
+                                   rtol=1e-5, err_msg=key)
     np.testing.assert_allclose(parts["aux"].item(), float(metrics["aux"]),
                                rtol=1e-5, atol=1e-7)
     assert parts["aux"].item() > 0
@@ -127,9 +131,7 @@ def test_optimized_and_grid_match_the_reference(ref):
                 assert dataclasses.asdict(got.moe) == dataclasses.asdict(
                     want.moe)
                 assert got.moe.dispatch_groups == size
-    ported = set(registry.list_archs())
-    assert registry.grid() == [(a, s) for a, s in ref.reg.grid()
-                               if a in ported]
+    assert registry.grid() == ref.reg.grid()
 
 
 @pytest.mark.parametrize("arch", ARCHS)

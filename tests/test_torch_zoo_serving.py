@@ -1,22 +1,24 @@
-"""Port parity of the decoder-only zoo's serving path: the eight ported
-configs and their registry, ``models/api.py`` (init, prefill, decode_step,
-cache_init) and ``launch/steps.py``, on the reduced float32 variants of
+"""Port parity of the zoo's serving path: the ten configs and their
+registry, ``models/api.py`` (init, prefill, decode_step, cache_init) and
+``launch/steps.py``, on the reduced float32 variants of
 ``starcoder2-15b``, ``yi-34b``, ``qwen2.5-32b``, ``chameleon-34b``,
-``mamba2-370m``, ``qwen2-moe-a2.7b``, ``moonshot-v1-16b-a3b`` and
-``jamba-1.5-large-398b`` with the reference's ``api.init`` weights carried
-across (``convert.flatten_tree``). A MoE config takes capacity factor 8.0,
-as ``tests/test_decode_consistency.py``'s ``_exact_cfg`` does, so that no
-token is dropped and prefill plus decode can reproduce the full forward.
+``mamba2-370m``, ``qwen2-moe-a2.7b``, ``moonshot-v1-16b-a3b``,
+``jamba-1.5-large-398b``, ``deepseek-v3-671b`` (MLA, a leading dense
+layer, the MTP head) and ``seamless-m4t-medium`` (the encoder-decoder,
+with 16 frames of ``src``) with the reference's ``api.init`` weights
+carried across (``convert.flatten_tree``). A MoE config takes capacity
+factor 8.0, as ``tests/test_decode_consistency.py``'s ``_exact_cfg`` does,
+so that no token is dropped and prefill plus decode can reproduce the full
+forward.
 
 Within 1e-4: the prefill logits and every cache leaf, then 8 decode steps'
 logits and the caches after them, against the reference's (float32; the
 attention through K3's and K4's plain versions, the SSD through K6's, the
 expert products through K5's). Within 1e-3: prefill plus decode against
 the port's own full forward (``tests/test_decode_consistency.py``'s
-property). The unported archs and fields raise ``NotImplementedError``, a
-sub-config that does not fit its family ``ValueError`` or ``TypeError``;
-``api.init`` and ``api.cache_init`` default to the card and raise without
-one.
+property). A field that does not fit its family raises ``ValueError`` or
+``TypeError``; an unknown arch ``KeyError``; ``api.init`` and
+``api.cache_init`` default to the card and raise without one.
 """
 import dataclasses
 import types
@@ -33,14 +35,15 @@ from repro_torch.convert import (cache_from_numpy, cache_to_numpy,
                                  unflatten_tree)
 from repro_torch.launch import steps
 from repro_torch.models import api
+from repro_torch.models import encdec as ted
 from repro_torch.models import transformer as ttr
 
-ARCHS = ["chameleon-34b", "jamba-1.5-large-398b", "mamba2-370m",
-         "moonshot-v1-16b-a3b", "qwen2-moe-a2.7b", "qwen2.5-32b",
-         "starcoder2-15b", "yi-34b"]
-UNPORTED = ["deepseek-v3-671b", "seamless-m4t-medium"]
+ARCHS = ["chameleon-34b", "deepseek-v3-671b", "jamba-1.5-large-398b",
+         "mamba2-370m", "moonshot-v1-16b-a3b", "qwen2-moe-a2.7b",
+         "qwen2.5-32b", "seamless-m4t-medium", "starcoder2-15b", "yi-34b"]
 TOL = dict(atol=1e-4, rtol=1e-4)
 B, S, P = 2, 32, 24            # batch, full length, prefill length
+S_SRC = 16                     # encoder frames of the encoder-decoder
 
 
 @pytest.fixture(scope="module")
@@ -80,9 +83,12 @@ def _run(ref, arch):
     params = ref.api.init(cfg_ref, ref.jax.random.PRNGKey(0))
     tok = np.random.default_rng(0).integers(0, cfg_ref.vocab_size, (B, S))
     jt = ref.jnp.asarray(tok, ref.jnp.int32)
-    logits, cache = ref.api.prefill(cfg_ref, params, {"tokens": jt[:, :P]},
-                                    target_len=S)
-    out = dict(params=_flat(ref, params), tok=tok,
+    src = _src(cfg_ref)
+    batch = {"tokens": jt[:, :P]}
+    if src is not None:
+        batch["src"] = ref.jnp.asarray(src)
+    logits, cache = ref.api.prefill(cfg_ref, params, batch, target_len=S)
+    out = dict(params=_flat(ref, params), tok=tok, src=src,
                prefill=(np.asarray(logits), _flat(ref, cache)), steps=[])
     for t in range(P, S):
         logits, cache = ref.api.decode_step(cfg_ref, params, cache,
@@ -90,6 +96,30 @@ def _run(ref, arch):
         out["steps"].append((np.asarray(logits), _flat(ref, cache)))
     ref.runs[arch] = out
     return out
+
+
+def _src(cfg):
+    """An encoder-decoder's ``S_SRC`` frame embeddings (B, S_SRC, d)
+    float32 from a seed; None for a decoder-only config."""
+    if not cfg.is_encoder_decoder:
+        return None
+    return np.random.default_rng(1).standard_normal(
+        (B, S_SRC, cfg.d_model)).astype(np.float32)
+
+
+def _port_batch(run, tokens):
+    batch = {"tokens": tokens}
+    if run["src"] is not None:
+        batch["src"] = torch.from_numpy(run["src"])
+    return batch
+
+
+def _full_forward(cfg, params, run, tok):
+    """The port's full forward over the whole target: (B, S, V)."""
+    if cfg.is_encoder_decoder:
+        return ted.encdec_forward(cfg, params, torch.from_numpy(run["src"]),
+                                  tok)[0]
+    return ttr.lm_forward(cfg, params, tok, window=cfg.sliding_window)
 
 
 def _close_cache(got, want):
@@ -114,7 +144,7 @@ def test_configs_match_the_reference(ref, arch):
                       _cfgs(ref, arch)):
         for f in dataclasses.fields(want):
             w, g = getattr(want, f.name), getattr(got, f.name)
-            if f.name in ("ssm", "moe") and w is not None:
+            if f.name in ("ssm", "moe", "mla") and w is not None:
                 w, g = dataclasses.asdict(w), dataclasses.asdict(g)
             assert g == w, (arch, f.name)
         assert (got.head_dim, got.block_len, got.n_blocks) == (
@@ -136,22 +166,30 @@ def test_param_count_is_within_5_percent_of_the_leaves(arch):
     assert abs(cfg.param_count() - n) <= 0.05 * n
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_archs_raise(ref, arch):
-    assert arch in ref.reg.list_archs()
-    with pytest.raises(NotImplementedError, match="slice"):
-        registry.get(arch)
+def test_unknown_arch_raises(ref):
+    assert registry.list_archs() == ref.reg.list_archs()
     with pytest.raises(KeyError):
         registry.get("no-such-arch")
 
 
-@pytest.mark.parametrize("kw", [
-    dict(family="audio"), dict(mla=object()), dict(mtp=True),
-    dict(first_dense_layers=1), dict(is_encoder_decoder=True),
-    dict(encoder_layers=2), dict(frontend="audio"), dict(frontend="vlm")])
-def test_unported_fields_raise(kw):
-    with pytest.raises(NotImplementedError, match="slice"):
-        dataclasses.replace(registry.get("yi-34b"), **kw)
+@pytest.mark.parametrize("arch,kw", [
+    # DeepSeek's multi-token prediction and leading dense layers on a
+    # dense config: the config builds and is the reference's
+    ("yi-34b", dict(mtp=True)),
+    ("yi-34b", dict(first_dense_layers=1)),
+    ("qwen2-moe-a2.7b", dict(first_dense_layers=2, mtp=True)),
+    ("deepseek-v3-671b", dict(n_layers=4)),
+    ("deepseek-v3-671b", dict(mtp=False, first_dense_layers=0)),
+    ("seamless-m4t-medium", dict(encoder_layers=4, n_layers=2))])
+def test_deepseek_and_encdec_fields_are_admitted(ref, arch, kw):
+    got = dataclasses.replace(registry.get(arch), **kw)
+    want = dataclasses.replace(ref.reg.get(arch), **kw)
+    assert {f.name: getattr(got, f.name) for f in dataclasses.fields(got)
+            if f.name not in ("moe", "ssm", "mla")} == {
+        f.name: getattr(want, f.name) for f in dataclasses.fields(want)
+        if f.name not in ("moe", "ssm", "mla")}
+    for active in (False, True):
+        assert got.param_count(active) == want.param_count(active)
 
 
 _SSM = registry.get("mamba2-370m").ssm
@@ -175,6 +213,22 @@ _MOE = registry.get("qwen2-moe-a2.7b").moe
     ("jamba-1.5-large-398b", dict(ssm=None), ValueError),
     ("jamba-1.5-large-398b", dict(attn_layer_period=0), ValueError),
     ("jamba-1.5-large-398b", dict(moe=None), ValueError),
+    # the encoder-decoder, MLA and the frontends: a field that does not fit
+    ("yi-34b", dict(family="audio"), ValueError),
+    ("yi-34b", dict(mla=object()), TypeError),
+    ("yi-34b", dict(is_encoder_decoder=True), ValueError),
+    ("yi-34b", dict(encoder_layers=2), ValueError),
+    ("yi-34b", dict(frontend="audio"), ValueError),
+    ("yi-34b", dict(frontend="vlm"), ValueError),
+    ("yi-34b", dict(family="no-such-family"), ValueError),
+    ("yi-34b", dict(first_dense_layers=60), ValueError),
+    ("yi-34b", dict(first_dense_layers=-1), ValueError),
+    ("deepseek-v3-671b", dict(mla=registry.get("deepseek-v3-671b").moe),
+     TypeError),
+    ("seamless-m4t-medium", dict(encoder_layers=0), ValueError),
+    ("seamless-m4t-medium", dict(is_encoder_decoder=False), ValueError),
+    ("seamless-m4t-medium", dict(frontend="none"), ValueError),
+    ("chameleon-34b", dict(frontend="audio"), ValueError),
 ])
 def test_config_checks_raise(arch, kw, exc):
     with pytest.raises(exc):
@@ -243,10 +297,11 @@ def test_prefill_and_decode_match_the_reference(ref, arch):
     params = params_from_numpy(run["params"], "cpu")
     tok = torch.from_numpy(run["tok"])
     prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
-    logits, cache = prefill(params, {"tokens": tok[:, :P]}, target_len=S)
+    logits, cache = prefill(params, _port_batch(run, tok[:, :P]),
+                            target_len=S)
     np.testing.assert_allclose(logits.numpy(), run["prefill"][0], **TOL)
     _close_cache(cache, run["prefill"][1])
-    full = ttr.lm_forward(cfg, params, tok, window=cfg.sliding_window)
+    full = _full_forward(cfg, params, run, tok)
     errs = [(logits - full[:, P - 1]).abs().max().item()]
     for t, (want_logits, want_cache) in zip(range(P, S), run["steps"]):
         logits, cache = decode(params, cache, tok[:, t:t + 1])
@@ -256,8 +311,9 @@ def test_prefill_and_decode_match_the_reference(ref, arch):
     assert max(errs) < 1e-3, errs
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "mamba2-370m",
-                                  "qwen2-moe-a2.7b", "starcoder2-15b"])
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "jamba-1.5-large-398b",
+                                  "mamba2-370m", "qwen2-moe-a2.7b",
+                                  "seamless-m4t-medium", "starcoder2-15b"])
 def test_the_cache_crosses_both_ways(ref, arch):
     """The port decodes from the reference's prefill cache, and the
     reference from the port's, each giving the other's next logits."""
@@ -266,13 +322,15 @@ def test_the_cache_crosses_both_ways(ref, arch):
     params = params_from_numpy(run["params"], "cpu")
     tok = torch.from_numpy(run["tok"])
     ref_cache = unflatten_tree(run["prefill"][1])
-    ref_cache["head_layers"] = ()
+    if not cfg.is_encoder_decoder:
+        ref_cache.setdefault("head_layers", ())
     logits, _ = api.decode_step(cfg, params, cache_from_numpy(ref_cache,
                                                               "cpu"),
                                 tok[:, P:P + 1])
     np.testing.assert_allclose(logits.numpy(), run["steps"][0][0], **TOL)
 
-    _, cache = api.prefill(cfg, params, {"tokens": tok[:, :P]}, target_len=S)
+    _, cache = api.prefill(cfg, params, _port_batch(run, tok[:, :P]),
+                           target_len=S)
     tree = ref.jax.tree.map(ref.jnp.asarray, cache_to_numpy(cache))
     ref_params = ref.jax.tree.map(ref.jnp.asarray,
                                   unflatten_tree(run["params"]))
