@@ -183,6 +183,37 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     check 2 at all 24 layers in float32 against ``encdec_forward``; then
     both reduced on the GPU and the CPU (the same tokens, logits within
     1e-4);
+16. training the zoo (after 14, before the summary): (a) gradients
+    through the kernels' autograd Functions on the card against their
+    plain versions' autograd, within 1e-2·max|plain| in bf16 (a bf16 ulp
+    is 2^-8 to 2^-7 of a value) and 1e-3 in float32: K5 (dx and dw, two
+    more K5 launches) at ``qwen2-moe-a2.7b``'s training products — gate/up
+    (60, 688, 2,048, 1,408) and down (60, 688, 1,408, 2,048), C 688 for 2
+    x 4,096 tokens — at a ragged capacity and in float32, with their
+    backward launches timed beside ``torch.bmm``; a deliberately wrong K5
+    backward (dw laid out transposed) must fail the check; K6 at
+    ``mamba2-370m``'s training shape (2, 4,096, 32, 64, N 128, G 1, Q 256)
+    against autograd through the sequential recurrence, all five input
+    gradients; K3 at (2, 16, 4,096, 128) causal bf16; (b)
+    ``qwen2-moe-a2.7b`` at full width cut from 24 to 4 layers (2.9 B
+    parameters, bf16, AdamW, remat) and (c) ``mamba2-370m`` uncut, each 5
+    steps through ``launch/steps.make_train_step`` on
+    ``data/tokens.batches`` at train_4k's sequence of 4,096 and batch 2,
+    every launch count set to 0 just before each step and read just after
+    (qwen2-moe: K3 4 forward + 4 recompute, K5 12 + 12 + 24 backward;
+    mamba2: K6 48 + 48), step ms, tokens/s, peak memory and each step's
+    loss (finite, the last below the first), then one more step under the
+    profiler split by phase at one-thread marker kernels (``TrainProbe``):
+    K3/K5/K6 forward and recompute, K5's backward, the plain VJPs of K3
+    and K6, the optimizer, idle; (e) a remat step against a no-remat step
+    of qwen2-moe at full width and 1 layer (the same routes, the same
+    loss, grad norms within 1e-3) and one step of each of the ten reduced
+    archs in float32, remat on and off, on the GPU and the CPU (loss and
+    grad norm within 1e-4 relative); (f) the training CLI
+    (``launch/train.py --arch qwen2-moe-a2.7b --smoke --steps 4 --batch 2
+    --ckpt DIR --ckpt-every 2``) through its ``main``, then again from its
+    step-2 checkpoint: the restored state bit-equal to the saved one, the
+    resumed losses and parameters within 1e-4 of the uninterrupted run's;
 15. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without printing a result where CUDA is absent. A kernel's
@@ -201,6 +232,7 @@ import json
 import math
 import os
 import platform
+import shutil
 import subprocess
 import sys
 import time
@@ -212,7 +244,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs.base import FeelConfig  # noqa: E402
+from repro_torch.checkpoint import restore  # noqa: E402
+from repro_torch.configs.base import FeelConfig, TrainConfig  # noqa: E402
 from repro_torch.core import attacks as atk  # noqa: E402
 from repro_torch.core import control as ctl  # noqa: E402
 from repro_torch.core import population as tpop  # noqa: E402
@@ -225,7 +258,7 @@ from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core.defenses import TrimmedMean  # noqa: E402
 from repro_torch.core.scheduler import POLICY_IDS  # noqa: E402
 from repro_torch.core.wireless import WirelessModel, cost_bisect  # noqa: E402
-from repro_torch.data.tokens import make_stream  # noqa: E402
+from repro_torch.data.tokens import batches, make_stream  # noqa: E402
 from repro_torch.federated import simulation  # noqa: E402
 from repro_torch.federated.async_engine import AsyncFeelEngine  # noqa: E402
 from repro_torch.federated.cohort import pad_count  # noqa: E402
@@ -242,8 +275,9 @@ from repro_torch.kernels.robust_aggregate import (  # noqa: E402
 from repro_torch.kernels.weighted_aggregate import (  # noqa: E402
     weighted_aggregate, weighted_aggregate_ref)
 from repro_torch.launch import serve, steps  # noqa: E402
-from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
-                                     PEAK_FLOPS_F32)
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.mesh import (ADAFACTOR_ARCHS, HBM_BW,  # noqa: E402
+                                     PEAK_FLOPS_BF16, PEAK_FLOPS_F32)
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import blocks  # noqa: E402
 from repro_torch.models import encdec as ted  # noqa: E402
@@ -718,15 +752,17 @@ def check_flash(b, h, s, t, d, causal, window, dtype, label, reps=100,
     return row
 
 
-def check_flash_grad(b, h, s, d, hkv=None):
+def check_flash_grad(b, h, s, d, hkv=None, dtype=torch.float32):
     """The gradient through K3's autograd Function (kernel forward, plain
-    version's VJP) against the plain version's own, on the card; with
-    ``hkv`` < H, dk and dv of the Hkv KV heads."""
+    version's VJP) against the plain version's own, on the card, within
+    1e-5 in float32 and ``GRAD_TOL``·max|plain| in bf16; with ``hkv`` < H,
+    dk and dv of the Hkv KV heads. In bf16 (the training shape) also the
+    backward's device ms (the plain VJP, recomputed)."""
     hkv = hkv or h
     g = torch.Generator(device="cuda").manual_seed(b + s + d)
-    qkv = [torch.randn(b, n_h, s, d, device="cuda", generator=g)
+    qkv = [torch.randn(b, n_h, s, d, device="cuda", generator=g).to(dtype)
            for n_h in (h, hkv, hkv)]
-    cot = torch.randn(b, h, s, d, device="cuda", generator=g)
+    cot = torch.randn(b, h, s, d, device="cuda", generator=g).to(dtype)
     outs = {}
     for name, fn in (("kernel", k3.flash_attention),
                      ("plain", k3.flash_attention_ref)):
@@ -734,10 +770,24 @@ def check_flash_grad(b, h, s, d, hkv=None):
         outs[name] = torch.autograd.grad(fn(*leaves), leaves, cot)
     err = max((a - b_).abs().max().item()
               for a, b_ in zip(outs["kernel"], outs["plain"]))
+    rel = max(_rel_err(a, b_) for a, b_ in zip(outs["kernel"],
+                                               outs["plain"]))
     assert [x.shape for x in outs["kernel"]] == [x.shape for x in qkv]
-    emit(phase="kernel_grad_check", kernel="flash_attention", b=b, h=h,
-         hkv=hkv, s=s, d=d, max_abs_err=err)
-    assert err <= 1e-5, err
+    row = dict(phase="kernel_grad_check", kernel="flash_attention", b=b,
+               h=h, hkv=hkv, s=s, d=d, dtype=str(dtype).split(".")[-1],
+               max_abs_err=err, max_rel_err=rel)
+    del outs
+    if dtype == torch.float32:
+        emit(**row)
+        assert err <= 1e-5, err
+        return row
+    leaves = [x.clone().requires_grad_(True) for x in qkv]
+    out = k3.flash_attention(*leaves)
+    row["backward_ms"], row["backward_call_ms"] = time_ms(
+        lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True), 5)
+    emit(**row)
+    assert rel <= GRAD_TOL[dtype], row
+    return row
 
 
 def decode_bound(b, h, hkv, length, d, dtype):
@@ -2170,12 +2220,21 @@ def plain_route(module, control=False):
         module._kernel = real
 
 
-def profile_fn(fn):
+def profile_fn(fn, keep_prof=False, settle_s=0.0):
     """``fn()`` once under torch.profiler: (its result, wall us, device
-    busy us, idle share, device events, top kernels by device time)."""
+    busy us, idle share, device events, top kernels by device time, and
+    with ``keep_prof`` the profile itself under "prof"). With
+    ``settle_s`` the profiler runs that long, after one marker-free
+    kernel, before ``fn`` starts and the wall clock with it: kernels
+    launched just after the profiler starts have been seen to go
+    unrecorded."""
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
+        if settle_s:
+            torch.zeros(1, device="cuda")
+            torch.cuda.synchronize()
+            time.sleep(settle_s)
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -2191,13 +2250,16 @@ def profile_fn(fn):
         if ev.device_type == torch.autograd.DeviceType.CPU
         and ("Synchronize" in ev.name or ev.name in (
             "cudaMemcpy", "aten::item", "aten::_local_scalar_dense")))
-    return out, dict(wall_us=wall_us, device_busy_us=busy_us,
-                     host_waits=dict(waits),
-                     device_idle_share=1.0 - busy_us / wall_us,
-                     n_device_events=sum(
-                         1 for ev in prof.events()
-                         if ev.device_type == torch.autograd.DeviceType.CUDA),
-                     top_kernels_us=[[k[:80], v] for k, v in top])
+    row = dict(wall_us=wall_us, device_busy_us=busy_us,
+               host_waits=dict(waits),
+               device_idle_share=1.0 - busy_us / wall_us,
+               n_device_events=sum(
+                   1 for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA),
+               top_kernels_us=[[k[:80], v] for k, v in top])
+    if keep_prof:
+        row["prof"] = prof
+    return out, row
 
 
 def greedy_decode(decode, params, cache, first, n, profile_at=None):
@@ -2725,6 +2787,566 @@ def zoo_rest_phases():
     return out
 
 
+# ---------------------------------------------------------------------- #
+# Training the zoo (phase 16)
+# ---------------------------------------------------------------------- #
+# train_4k's sequence of 4,096 at batch 2 (8,192 tokens a step), the batch
+# cut from 256 to fit one card; 5 timed steps, then one profiled
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 5
+# a gradient against its plain version: max|Δ| over max|plain|. In bf16
+# both round float32 sums once, and one bf16 ulp is 2^-8 to 2^-7 of a
+# value; float32 gradients (K6's dt and A) sum in other orders
+GRAD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-3}
+# kernel names (substrings) of each ported kernel in a profile
+KERNEL_NAMES = {"flash_attention": ("flash_f32_kernel", "flash_bf16_kernel"),
+                "moe_gemm": ("moe_gemm_bf16_kernel", "moe_gemm_wgmma_kernel",
+                             "moe_gemm_f32_kernel"),
+                "ssd_scan": ("ssd_kernel", "ssd_state_kernel",
+                             "ssd_pass_kernel", "ssd_chunk_scan_kernel")}
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+K5_BACKWARD = k5._MoeGemm.backward
+
+
+def _k5_wrong_backward(ctx, dy):
+    """The negative control of K5's gradient check: the right dw laid out
+    transposed (its (K, N) block read as (N, K), reshaped back)."""
+    dx, dw = K5_BACKWARD(ctx, dy)
+    return dx, dw.transpose(1, 2).reshape(dw.shape)
+
+
+def check_moe_grad(label, e, c, k, n, dtype=torch.bfloat16, reps=10,
+                   control=False):
+    """K5's autograd Function on the card (dx = dy·wᵀ and dw = xᵀ·dy, two
+    more K5 launches) against autograd through its plain version, within
+    ``GRAD_TOL``·max|plain|; with ``control`` a deliberately wrong backward
+    (``_k5_wrong_backward``) that the check must reject. Times the two
+    backward launches at these shapes beside the plain version's backward
+    and ``torch.bmm`` for the same two products, with their bound (inputs
+    x, w, dy read once, dx and dw written once; 4·E·C·K·N flops)."""
+    g = torch.Generator(device="cuda").manual_seed(e * 131 + c + k + n)
+    x = torch.randn(e, c, k, device="cuda", generator=g).to(dtype)
+    w = torch.randn(e, k, n, device="cuda", generator=g).to(dtype)
+    dy = torch.randn(e, c, n, device="cuda", generator=g).to(dtype)
+    grads = {}
+    for name, fn in (("kernel", k5.moe_gemm), ("plain", k5.moe_gemm_ref)):
+        xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        if control and name == "kernel":
+            k5._MoeGemm.backward = staticmethod(_k5_wrong_backward)
+        try:
+            grads[name] = torch.autograd.grad(fn(xs, ws), (xs, ws), dy)
+        finally:
+            k5._MoeGemm.backward = K5_BACKWARD
+    errs = [_rel_err(a, b) for a, b in zip(grads["kernel"], grads["plain"])]
+    tol = GRAD_TOL[dtype]
+    row = dict(phase="kernel_grad_check", kernel="moe_gemm", case=label,
+               e=e, c=c, k=k, n=n, dtype=str(dtype).split(".")[-1],
+               control=control, dx_err=errs[0], dw_err=errs[1], tol=tol)
+    if control:
+        emit(**row)
+        assert errs[1] > tol, row
+        return row
+    assert max(errs) <= tol, row
+    wt, xt = w.transpose(1, 2).contiguous(), x.transpose(1, 2).contiguous()
+    ms, call_ms = time_ms(lambda: (k5.moe_gemm(dy, wt), k5.moe_gemm(xt, dy)),
+                          reps)
+    xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y = k5.moe_gemm_ref(xs, ws)
+    plain_ms, _ = time_ms(lambda: torch.autograd.grad(
+        y, (xs, ws), dy, retain_graph=True), 2)
+    library_ms, _ = time_ms(lambda: (torch.bmm(dy, w.transpose(1, 2)),
+                                     torch.bmm(x.transpose(1, 2), dy)), reps)
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * e * c * k + 2 * e * k * n + e * c * n) * size
+    flops = 4.0 * e * c * k * n
+    peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    row.update(backward_ms=ms, backward_call_ms=call_ms,
+               plain_backward_ms=plain_ms, library="torch.bmm x 2",
+               library_ms=library_ms,
+               bound_ms=max(by_bytes, by_ops) * 1e3,
+               bound_by="bytes" if by_bytes >= by_ops else "operations",
+               attained_tflops=flops / (ms * 1e-3) / 1e12)
+    emit(**row)
+    return row
+
+
+def check_ssd_grad(label, b, length, h, p, n, g, chunk,
+                   dtype=torch.bfloat16, reps=5):
+    """K6's autograd Function on the card (K6 forward; backward the VJP of
+    the chunked form, recomputed) against autograd through the plain
+    version, the sequential recurrence: the gradients of x, dt, A, B and C
+    within ``GRAD_TOL`` of their dtype (·max|plain|). Times the Function's
+    backward and the plain version's forward and backward, with the
+    backward's bound (x, dt, B, C and dy read once, their gradients and
+    A's written once; twice the forward's flops, ``ssd_bound``)."""
+    gen = torch.Generator(device="cuda").manual_seed(b * 7919 + length + n)
+    x = torch.randn(b, length, h, p, device="cuda", generator=gen).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, length, h, device="cuda", generator=gen))
+    A = -torch.exp(0.2 * torch.randn(h, device="cuda", generator=gen))
+    Bm, Cm = (torch.randn(b, length, g, n, device="cuda", generator=gen)
+              .to(dtype) for _ in range(2))
+    dy = torch.randn(b, length, h, p, device="cuda", generator=gen).to(dtype)
+    grads, outs = {}, {}
+    for name, fn in (("kernel", k6.ssd_scan), ("plain", k6.ssd_scan_ref)):
+        ins = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, _ = fn(*ins, chunk=chunk)
+        grads[name] = torch.autograd.grad(y, ins, dy)
+        torch.cuda.synchronize()
+        outs[name] = ((time.perf_counter() - t0) * 1e3, ins, y)
+    errs = {nm: _rel_err(a, b_) for nm, a, b_ in zip(
+        ("x", "dt", "A", "B", "C"), grads["kernel"], grads["plain"])}
+    tols = {nm: GRAD_TOL[t.dtype] for nm, t in zip(
+        ("x", "dt", "A", "B", "C"), (x, dt, A, Bm, Cm))}
+    row = dict(phase="kernel_grad_check", kernel="ssd_scan", case=label,
+               b=b, l=length, h=h, p=p, n=n, g=g, chunk=chunk,
+               dtype=str(dtype).split(".")[-1], errs=errs, tols=tols,
+               plain_fwd_bwd_wall_ms=outs["plain"][0],
+               kernel_fwd_bwd_wall_ms=outs["kernel"][0])
+    assert all(errs[nm] <= tols[nm] for nm in errs), row
+    del grads, outs
+    ins = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+    y, _ = k6.ssd_scan(*ins, chunk=chunk)
+    ms, call_ms = time_ms(lambda: torch.autograd.grad(
+        y, ins, dy, retain_graph=True), reps)
+    _, _, nbytes, flops = ssd_bound(b, length, h, p, n, g, min(chunk, length),
+                                    dtype)
+    nbytes += b * length * h * p * x.element_size() + h * 4
+    peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, 2 * flops / peak
+    row.update(backward_ms=ms, backward_call_ms=call_ms, library=None,
+               library_ms=None, bound_ms=max(by_bytes, by_ops) * 1e3,
+               bound_by="bytes" if by_bytes >= by_ops else "operations")
+    emit(**row)
+    return row
+
+
+class TrainProbe:
+    """What a train step does, by phase, read without changing it: the
+    launch counts when the loss returns (the forward), the launches made
+    inside K5's backward, and — when ``markers`` — a one-thread
+    ``torch.cuda._sleep(1)`` kernel (``spin_kernel``) at each phase
+    boundary, with the boundaries' labels in order, so that a profile's
+    device timeline splits into the forward, the backward (block
+    recomputes and the rest), K5's backward launches, the plain VJPs of K3
+    and K6, and the optimizer. Installed by ``train_probes``."""
+
+    def __init__(self):
+        self.markers, self.labels = False, []
+        self.forward, self.k5_backward = None, 0
+
+    def reset(self, markers=False):
+        self.markers, self.labels = markers, []
+        self.forward, self.k5_backward = None, 0
+
+    def mark(self, label):
+        self.labels.append(label)
+        if self.markers:            # twice (see ``split_profile``)
+            torch.cuda._sleep(1)
+            torch.cuda._sleep(1)
+
+
+@contextlib.contextmanager
+def train_probes():
+    """Within the block ``api.loss``, the backwards of K3's, K5's and K6's
+    autograd Functions and the optimizer ``steps.make_optimizer`` builds
+    report to the yielded ``TrainProbe`` (build the train step inside the
+    block)."""
+    probe = TrainProbe()
+    real_loss, real_make = api.loss, steps.make_optimizer
+    backs = {cls: cls.backward for cls in (k3._FlashAttention,
+                                           k5._MoeGemm, k6._SsdScan)}
+    labels = {k3._FlashAttention: "k3_vjp", k5._MoeGemm: "k5_backward",
+              k6._SsdScan: "k6_vjp"}
+
+    def loss(*a, **kw):
+        probe.mark("forward")
+        out = real_loss(*a, **kw)
+        probe.forward = read_launches()
+        probe.mark("backward")
+        return out
+
+    def wrap(cls):
+        real = backs[cls]
+
+        def backward(ctx, *g):
+            probe.mark(labels[cls])
+            before = k5.moe_gemm.launches
+            out = real(ctx, *g)
+            if cls is k5._MoeGemm:
+                probe.k5_backward += k5.moe_gemm.launches - before
+            probe.mark("backward")
+            return out
+        return staticmethod(backward)
+
+    def make_optimizer(tcfg):
+        opt = real_make(tcfg)
+
+        def update(*a):
+            probe.mark("optimizer")
+            out = opt.update(*a)
+            probe.mark("end")
+            return out
+        return dataclasses.replace(opt, update=update)
+
+    api.loss, steps.make_optimizer = loss, make_optimizer
+    for cls in backs:
+        cls.backward = wrap(cls)
+    try:
+        yield probe
+    finally:
+        api.loss, steps.make_optimizer = real_loss, real_make
+        for cls, real in backs.items():
+            cls.backward = real
+
+
+def split_profile(prof, labels):
+    """A profiled train step's device time by phase: the device events in
+    start order, cut at the markers into the labelled segments.
+    ``TrainProbe.mark`` launches each marker as two ``spin_kernel``
+    events, so that one dropped event loses no marker: a run of L
+    adjacent spins is ceil(L/2) markers (two markers with nothing
+    launched between them are one run).
+    Returns {segment label: {"all": us, kernel: us}} summed over the
+    segments of that label, or None when the profile does not hold every
+    marker."""
+    evs = sorted((ev for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(ev, "is_user_annotation", False)),
+                 key=lambda ev: ev.time_range.start)
+    spin = ["spin_kernel" in ev.name for ev in evs]
+    runs = {}                   # first index of a run of spins: markers
+    for i, s in enumerate(spin):
+        if s and (i == 0 or not spin[i - 1]):
+            start = i
+            runs[start] = 0
+        if s:
+            runs[start] += 1
+    runs = {i: (n + 1) // 2 for i, n in runs.items()}
+    if sum(runs.values()) != len(labels):
+        emit(phase="train_profile_markers", found=sum(runs.values()),
+             labels=len(labels), device_events=len(evs),
+             spin_events=sum(spin))
+        return None
+    out, label = collections.defaultdict(
+        lambda: collections.defaultdict(float)), "before"
+    it = iter(labels)
+    for i, ev in enumerate(evs):
+        for _ in range(runs.get(i, 0)):
+            label = next(it)
+        if spin[i]:
+            continue
+        us = ev.time_range.elapsed_us()
+        out[label]["all"] += us
+        for kernel, names in KERNEL_NAMES.items():
+            if any(nm in ev.name for nm in names):
+                out[label][kernel] += us
+    return {k: dict(v) for k, v in out.items()}
+
+
+def train_cell(label, cfg, tcfg, expect):
+    """``TRAIN_STEPS`` steps of ``cfg`` through ``steps.make_train_step``
+    on ``data.tokens.batches`` (``TRAIN_BATCH`` x ``TRAIN_SEQ``), every
+    launch count set to 0 just before each step and read just after (K3,
+    K5, K6 forward, remat recompute and K5 backward counted apart and held
+    to ``expect``), the step's wall ms, loss and grad norm; the peak
+    memory; then one more step profiled (``profile_fn``) and split by
+    phase (``split_profile``; profiled again, at most twice, when the
+    profiler drops a marker). Returns the summary row."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = steps.init_state(cfg, tcfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in state[0].values())
+    stream = make_stream(max(200_000, 2 * TRAIN_BATCH * TRAIN_SEQ),
+                         cfg.vocab_size, seed=0)
+    it = batches(stream, TRAIN_BATCH, TRAIN_SEQ, np.random.default_rng(0))
+    rows = []
+    with train_probes() as probe:
+        train_step = steps.make_train_step(cfg, tcfg)
+        for i in range(TRAIN_STEPS):
+            tokens = torch.from_numpy(next(it)["tokens"]).to("cuda",
+                                                             torch.int64)
+            probe.reset()
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            *state, m = train_step(*state, {"tokens": tokens})
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            total = read_launches()
+            fwd = probe.forward
+            launches = {k: dict(forward=fwd[k], recompute=total[k] - fwd[k]
+                                - (probe.k5_backward if k == "moe_gemm"
+                                   else 0),
+                                backward=probe.k5_backward
+                                if k == "moe_gemm" else 0)
+                        for k in ("flash_attention", "moe_gemm", "ssd_scan")}
+            row = dict(phase="train_step", cell=label, step=i + 1, ms=ms,
+                       loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                       launches=launches)
+            emit(**row)
+            rows.append(row)
+            assert launches == expect, (label, launches, expect)
+            assert total == only(**{k: sum(v.values())
+                                    for k, v in expect.items()}), total
+        # one more step under the profiler, split at its markers (the
+        # profiler settles first: the first marker went unrecorded
+        # without it); a step whose markers do not all come back is
+        # profiled again, at most twice more
+        for _ in range(3):
+            tokens = torch.from_numpy(next(it)["tokens"]).to("cuda",
+                                                             torch.int64)
+            probe.reset(markers=True)
+            torch.cuda.synchronize()
+            (*state, m), prof_row = profile_fn(
+                lambda: train_step(*state, {"tokens": tokens}),
+                keep_prof=True, settle_s=0.05)
+            prof = prof_row.pop("prof")
+            split = split_profile(prof, probe.labels)
+            if split is not None:
+                break
+    wall_us = prof_row["wall_us"]
+    shares = None
+    if split is not None:
+        def seg(lbl, key="all"):
+            return split.get(lbl, {}).get(key, 0.0)
+        fwd_k = sum(seg("forward", k) for k in KERNEL_NAMES)
+        rec_k = sum(seg("backward", k) for k in KERNEL_NAMES)
+        shares = {name: us / wall_us for name, us in (
+            ("kernels_forward", fwd_k), ("kernels_remat_recompute", rec_k),
+            ("k5_backward_launches", seg("k5_backward", "moe_gemm")),
+            ("k5_backward_all", seg("k5_backward")),
+            ("k3_plain_vjp", seg("k3_vjp")),
+            ("k6_plain_vjp", seg("k6_vjp")),
+            ("optimizer", seg("optimizer")),
+            ("forward_all", seg("forward")),
+            ("backward_rest", seg("backward")))}
+        shares["idle"] = prof_row["device_idle_share"]
+    losses = [r["loss"] for r in rows]
+    step_ms = float(np.median([r["ms"] for r in rows[1:]]))
+    kernel_us = {kernel: sum(us for name, us in device_us(prof).items()
+                             if any(nm in name for nm in names))
+                 for kernel, names in KERNEL_NAMES.items()}
+    out = dict(phase="train_cell", cell=label, arch=cfg.name,
+               n_layers=cfg.n_layers, params=n_params,
+               dtype=cfg.dtype, optimizer=tcfg.optimizer, remat=tcfg.remat,
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, init_s=init_s,
+               step_ms_median_2_to_5=step_ms,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               losses=losses, profiled_loss=float(m["loss"]),
+               launches_a_step=rows[-1]["launches"],
+               profile={k: v for k, v in prof_row.items()},
+               kernel_us=kernel_us, split_us=split, shares=shares)
+    del prof
+    emit(**out)
+    assert all(np.isfinite(losses + [out["profiled_loss"]])), out
+    assert losses[-1] < losses[0], losses
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_check():
+    """A remat step against a no-remat step of ``qwen2-moe-a2.7b`` at full
+    width and 1 layer (bf16, AdamW), from the same weights and batch:
+    every MoE route of the first forward, of the remat recompute and of
+    the no-remat forward equal, the losses equal (the same forward on the
+    card, ``REMAT_LOSS_TOL`` relative) and the grad norms within
+    ``REMAT_GNORM_TOL`` relative (the backwards' bf16 sums in other
+    orders)."""
+    cfg = dataclasses.replace(registry.get("qwen2-moe-a2.7b"), n_layers=1)
+    stream = make_stream(max(200_000, 2 * TRAIN_BATCH * TRAIN_SEQ),
+                         cfg.vocab_size, seed=0)
+    tokens = torch.from_numpy(next(batches(
+        stream, TRAIN_BATCH, TRAIN_SEQ, np.random.default_rng(0)))["tokens"])
+    out = {}
+    real = blocks.moe_apply
+    for remat in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        tcfg = TrainConfig(optimizer="adamw", remat=remat)
+        state = steps.init_state(cfg, tcfg, 0, device="cuda")
+        routes = []
+
+        def recording(cfg_, p, x, with_aux=True):
+            probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                                  @ p["router"], dim=-1)
+            routes.append(torch.topk(probs, cfg_.moe.top_k, dim=-1)
+                          .indices.sort(-1).values)
+            return real(cfg_, p, x, with_aux=with_aux)
+        blocks.moe_apply = recording
+        try:
+            *_, m = steps.make_train_step(cfg, tcfg)(
+                *state, {"tokens": tokens.to("cuda", torch.int64)})
+        finally:
+            blocks.moe_apply = real
+        out[remat] = (float(m["loss"]), float(m["grad_norm"]), routes)
+        del state, m
+    (l0, g0, r0), (l1, g1, r1) = out[False], out[True]
+    row = dict(phase="remat_check", arch=cfg.name, n_layers=1,
+               loss_no_remat=l0, loss_remat=l1, grad_norm_no_remat=g0,
+               grad_norm_remat=g1, route_calls=[len(r0), len(r1)],
+               routes_equal=len(r0) == 1 and len(r1) == 2 and all(
+                   torch.equal(r0[0], r) for r in r1),
+               loss_tol=REMAT_LOSS_TOL, grad_norm_tol=REMAT_GNORM_TOL)
+    emit(**row)
+    assert row["routes_equal"], row
+    assert abs(l1 - l0) <= REMAT_LOSS_TOL * abs(l0), row
+    assert abs(g1 - g0) <= REMAT_GNORM_TOL * abs(g0), row
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+REMAT_LOSS_TOL = 1e-6
+REMAT_GNORM_TOL = 1e-3
+TRAIN_CUDA_VS_CPU_TOL = 1e-4
+
+
+def train_cuda_vs_cpu():
+    """One train step of each of the ten archs reduced to float32, remat on
+    and off, on the GPU and on the CPU from the same weights and batch:
+    the loss and the grad norm within ``TRAIN_CUDA_VS_CPU_TOL`` relative."""
+    for arch in registry.list_archs():
+        cfg = dataclasses.replace(registry.reduced(registry.get(arch)),
+                                  dtype="float32")
+        rng = np.random.default_rng(5)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)))
+        src = torch.from_numpy(rng.standard_normal(
+            (2, 16, cfg.d_model)).astype(np.float32))
+        for remat in (False, True):
+            tcfg = TrainConfig(optimizer=("adafactor"
+                                          if arch in ADAFACTOR_ARCHS
+                                          else "adamw"), lr=5e-3,
+                               remat=remat)
+            host = steps.init_state(cfg, tcfg, 1, device="cpu")
+            got = {}
+            for dev in ("cuda", "cpu"):
+                state = ({k: v.to(dev) for k, v in host[0].items()},
+                         {k: v.to(dev) for k, v in host[1].items()},
+                         host[2].to(dev))
+                batch = {"tokens": toks.to(dev)}
+                if cfg.is_encoder_decoder:
+                    batch["src"] = src.to(dev)
+                *_, m = steps.make_train_step(cfg, tcfg)(*state, batch)
+                got[dev] = (float(m["loss"]), float(m["grad_norm"]))
+            errs = [abs(a - b) / abs(b) for a, b in zip(got["cuda"],
+                                                        got["cpu"])]
+            emit(phase="train_cuda_vs_cpu", arch=arch, remat=remat,
+                 loss_cuda=got["cuda"][0], loss_cpu=got["cpu"][0],
+                 grad_norm_cuda=got["cuda"][1], grad_norm_cpu=got["cpu"][1],
+                 rel_errs=errs)
+            assert max(errs) <= TRAIN_CUDA_VS_CPU_TOL, (arch, remat, got)
+
+
+TRAIN_RESUME_TOL = 1e-4
+
+
+def train_cli_phase():
+    """``python -m repro_torch.launch.train --arch qwen2-moe-a2.7b --smoke
+    --steps 4 --batch 2 --ckpt DIR --ckpt-every 2`` through its ``main``
+    (train_4k's sequence of 4,096: at its batch of 256 the plain VJP of K3
+    would hold 68.7 GB of float32 logits), then again from its step-2
+    checkpoint: the state restored from the step-4 checkpoint bit-equal to
+    the run's own, the resumed run's losses and final parameters within
+    ``TRAIN_RESUME_TOL`` relative of the uninterrupted run's."""
+    ck = Path(__file__).resolve().parent / "build" / "train_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = ["--arch", "qwen2-moe-a2.7b", "--smoke", "--batch", "2",
+            "--ckpt", str(ck), "--ckpt-every", "2"]
+    reset_launches()
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        full = train_cli.main(argv + ["--steps", "4"])
+    launches = read_launches()
+    state, meta = restore(str(ck), full["state"])
+    bit_equal = all(torch.equal(a[k], b[k]) for a, b in zip(
+        state[:2], full["state"][:2]) for k in a) and torch.equal(
+        state[2], full["state"][2])
+    (ck / "00000004").rename(ck.parent / "train_ckpt_step4")
+    with contextlib.redirect_stdout(printed):
+        resumed = train_cli.main(argv + ["--steps", "2"])
+    losses = [float(m["loss"]) for m in full["metrics"]]
+    again = [float(m["loss"]) for m in resumed["metrics"]]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(again, losses[2:]))
+    param_err = max(_rel_err(resumed["state"][0][k], full["state"][0][k])
+                    for k in full["state"][0])
+    row = dict(phase="train_cli", argv=" ".join(argv), meta=meta,
+               restored_bit_equal=bit_equal, losses=losses,
+               resumed_losses=again, resumed_loss_rel_err=loss_err,
+               resumed_param_rel_err=param_err, tol=TRAIN_RESUME_TOL,
+               launches=launches, seconds=time.perf_counter() - t0,
+               printed=printed.getvalue().splitlines())
+    emit(**row)
+    assert bit_equal and meta == {"step": 4}, row
+    assert int(resumed["state"][2]) == 4, row
+    assert loss_err <= TRAIN_RESUME_TOL and param_err <= TRAIN_RESUME_TOL, row
+    assert launches["moe_gemm"] > 0 and launches["flash_attention"] > 0, row
+    shutil.rmtree(ck.parent / "train_ckpt_step4", ignore_errors=True)
+    shutil.rmtree(ck, ignore_errors=True)
+
+
+def train_phases():
+    """Phase 16, training the zoo: (a) the gradients of K5, K6 and K3
+    through their autograd Functions against their plain versions at the
+    training shapes, and the wrong-backward control; (b) ``qwen2-moe-a2.7b``
+    at full width cut to 4 layers, (c) ``mamba2-370m`` uncut, each 5 steps
+    and a profiled one (``train_cell``); (e) the remat check and the ten
+    reduced archs on the GPU against the CPU; (f) the training CLI with a
+    checkpoint resume. Returns the K5 and K6 backward rows and each cell's
+    row."""
+    bf16 = torch.bfloat16
+    qwen = registry.get("qwen2-moe-a2.7b")
+    c_train = tmoe.capacity(TRAIN_BATCH * TRAIN_SEQ, qwen)
+    e, d, f = qwen.moe.n_routed, qwen.d_model, qwen.moe.d_ff_expert
+    k5_rows = [check_moe_grad("qwen2-moe train gate/up", e, c_train, d, f),
+               check_moe_grad("qwen2-moe train down", e, c_train, f, d)]
+    check_moe_grad("ragged capacity", e, 37, d, f, reps=3)
+    check_moe_grad("ragged, float32", 3, 37, 100, 70, torch.float32, reps=3)
+    check_moe_grad("wrong backward (dw transposed)", e, c_train, d, f,
+                   control=True)
+    k6_row = check_ssd_grad("mamba2-370m train", TRAIN_BATCH, TRAIN_SEQ, 32,
+                            64, 128, 1, 256)
+    check_flash_grad(TRAIN_BATCH, 16, TRAIN_SEQ, 128, dtype=bf16)
+
+    n_moe = 4
+    cells = {}
+    cells["qwen2-moe-a2.7b"] = train_cell(
+        "qwen2-moe-a2.7b, 4 layers", dataclasses.replace(qwen,
+                                                         n_layers=n_moe),
+        TrainConfig(optimizer="adamw", remat=True),
+        dict(flash_attention=dict(forward=n_moe, recompute=n_moe,
+                                  backward=0),
+             moe_gemm=dict(forward=3 * n_moe, recompute=3 * n_moe,
+                           backward=6 * n_moe),
+             ssd_scan=dict(forward=0, recompute=0, backward=0)))
+    mamba = registry.get("mamba2-370m")
+    cells["mamba2-370m"] = train_cell(
+        "mamba2-370m", mamba, TrainConfig(optimizer="adamw", remat=True),
+        dict(flash_attention=dict(forward=0, recompute=0, backward=0),
+             moe_gemm=dict(forward=0, recompute=0, backward=0),
+             ssd_scan=dict(forward=mamba.n_layers, recompute=mamba.n_layers,
+                           backward=0)))
+    remat_check()
+    train_cuda_vs_cpu()
+    train_cli_phase()
+    return k5_rows, k6_row, cells
+
+
 def quickstart(n_ues, n_malicious, n_train, n_test, device, seed=0):
     cfg = FeelConfig(n_ues=n_ues, n_malicious=n_malicious)
     train, test = generate(n_train, n_test, seed=seed)
@@ -3086,6 +3708,17 @@ def main():
     rest = zoo_rest_phases()
     emit(phase="zoo_rest_seconds", seconds=time.perf_counter() - t0,
          launches=rest)
+
+    # 16. training the zoo
+    t0 = time.perf_counter()
+    k5_train, k6_train, cells = train_phases()
+    emit(phase="train_seconds", seconds=time.perf_counter() - t0,
+         k5_backward_ms=[r["backward_ms"] for r in k5_train],
+         k6_backward_ms=k6_train["backward_ms"],
+         cells={k: dict(step_ms=v["step_ms_median_2_to_5"],
+                        tokens_per_s=v["tokens_per_s"],
+                        peak_gb=v["peak_gb"], shares=v["shares"])
+                for k, v in cells.items()})
 
     # 15. summary and result
     emit(phase="done", seconds=time.perf_counter() - t_start)

@@ -2,7 +2,8 @@
 dBm -> watt conversion its wireless constants share, ``ModelConfig`` (the
 transformer of the LM task, ``lm_tiny``, and the configs of the big-model
 zoo), its ``MoEConfig``, ``SSMConfig`` and ``MLAConfig`` sub-configs and
-the zoo's ``InputShape`` values.
+the zoo's ``InputShape`` values, and ``TrainConfig``, the optimizer and
+training-loop hyper-parameters (the reference's, field for field).
 
 ``ModelConfig`` keeps the JAX package's field names and families:
 ``dense``, ``vlm`` (an early-fusion decoder over token ids, its image
@@ -381,3 +382,17 @@ DECODE_32K = InputShape("decode_32k", 32_768, 128, "decode")
 LONG_500K = InputShape("long_500k", 524_288, 1, "decode")
 
 SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer / training-loop hyper-parameters."""
+    optimizer: str = "adamw"      # sgd | momentum | adam | adamw | adafactor
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    remat: bool = True

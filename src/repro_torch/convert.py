@@ -18,6 +18,13 @@ and tuples of at most 10 items, as the zoo's are, so
 ``aggregation.flatten_stacked`` lays the updates out in the reference's
 column order.
 
+A train state crosses too: ``train_state_from_numpy`` takes the JAX
+package's ``(params, opt_state, step)`` (numpy leaves) into the port's
+flat params, its flat optimizer state (``m/<leaf>``, ``v/<leaf>``,
+Adafactor's ``s/<leaf>/vr``…, the reference's tree paths) and a 0-d int32
+step, and ``train_state_to_numpy`` gives the port's back as the
+reference's trees.
+
 A decode cache crosses the same way: ``cache_from_numpy`` takes the JAX
 package's cache tree (``blocks``, ``head_layers`` — empty but for
 DeepSeek's leading dense layers —, a traced ``index``, ``slot_pos`` for a
@@ -39,7 +46,16 @@ import torch
 
 def params_from_numpy(d: Mapping[str, np.ndarray],
                       device) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.array(v)).to(device) for k, v in d.items()}
+    return {k: _tensor(v).to(device) for k, v in d.items()}
+
+
+def _tensor(v) -> torch.Tensor:
+    """A numpy array as a tensor; a bfloat16 array (the type JAX's numpy
+    arrays carry, which torch does not take) through its 16 bits."""
+    a = np.array(v)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def params_to_numpy(p: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -102,3 +118,23 @@ def cache_to_numpy(cache: Mapping[str, Any]):
     if not any(k.endswith("/xk") for k in flat):
         tree.setdefault("head_layers", ())
     return tree
+
+
+def train_state_from_numpy(state, device):
+    """The JAX package's ``(params, opt_state, step)``, numpy leaves ->
+    the port's (flat params, flat optimizer state, 0-d int32 step) on
+    ``device``."""
+    params, opt_state, step = state
+    return (params_from_numpy(flatten_tree(params), device),
+            params_from_numpy(flatten_tree(opt_state), device),
+            torch.tensor(int(step), dtype=torch.int32, device=device))
+
+
+def train_state_to_numpy(state):
+    """The port's (params, optimizer state, step) -> the JAX package's
+    trees, numpy leaves (SGD's empty state an empty dict, the step
+    int32)."""
+    params, opt_state, step = state
+    opt = unflatten_tree(params_to_numpy(opt_state)) if opt_state else {}
+    return (unflatten_tree(params_to_numpy(params)), opt,
+            np.asarray(int(step), np.int32))

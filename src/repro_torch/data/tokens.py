@@ -18,7 +18,8 @@ pinned by a golden regression test (tests/test_task_lm.py) and keep the same
 marginal statistics (Zipf unigrams, ~0.6 bigram-continuation rate).
 
 A numpy copy of ``repro.data.tokens``: the same seed gives the same
-stream and windows, byte for byte (tests/test_torch_lm.py pins it).
+stream and windows, byte for byte (tests/test_torch_lm.py pins it), and
+``batches`` the same training batches (tests/test_torch_train.py).
 """
 from __future__ import annotations
 
@@ -86,6 +87,17 @@ def make_stream(n_tokens: int, vocab: int, seed: int = 0,
     A, C = _affine_tables(n_tokens, vocab, domain)
     toks = (A[off] * start_val[seg] + C[off]) % vocab
     return toks.astype(np.int32)
+
+
+def batches(stream: np.ndarray, batch: int, seq: int,
+            rng: np.random.Generator):
+    """Yield {tokens: (B, S)} windows forever: each batch B window starts
+    drawn uniformly from [0, len(stream) - seq - 1) — the training
+    launchers' batches, the reference's draw for draw."""
+    n = len(stream) - seq - 1
+    while True:
+        starts = rng.integers(0, n, size=batch)
+        yield {"tokens": np.stack([stream[s:s + seq] for s in starts])}
 
 
 # ---------------------------------------------------------------------- #

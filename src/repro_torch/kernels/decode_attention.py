@@ -165,8 +165,7 @@ def _kernel(q, k, v, length: int) -> torch.Tensor:
     if q.requires_grad or k.requires_grad or v.requires_grad:
         raise NotImplementedError(
             "decode_attention on the card is forward-only (the TPU kernel "
-            "has no VJP); its backward kernel comes with training the zoo "
-            "(ROADMAP Queue 1 item 9)")
+            "has no VJP, and no path differentiates a decode step)")
     b, h, d = q.shape
     hkv = k.shape[2]
     if d not in HEAD_DIMS:

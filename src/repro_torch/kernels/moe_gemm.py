@@ -17,9 +17,19 @@ kernel's requirement that the blocks divide C, K and N (ROADMAP Queue 3):
 the CUDA kernel masks every ragged edge, so the MoE capacity of any token
 count is taken as it is.
 
-The kernel is forward-only, as the TPU kernel is (it has no VJP): on the
-card an input that requires grad raises, naming the slice that brings
-training. On the CPU the plain version carries autograd as usual.
+``moe_gemm`` is differentiable on both devices through one
+``torch.autograd.Function`` (the TPU kernel has no VJP; the reference's
+models train its product in plain XLA). Its forward is the dispatch above;
+its backward is two more grouped products of the same form, each a call
+of the same dispatch — on the card a launch of the same kernel, counted:
+
+    dx = moe_gemm(dy, wᵀ)     (E,C,N) x (E,N,K) -> (E,C,K)
+    dw = moe_gemm(xᵀ, dy)     (E,K,C) x (E,C,N) -> (E,K,N)
+
+with the transposes made contiguous. dw reduces over the capacity C,
+which the launcher then takes as its depth: any C is masked, and the
+wgmma route needs it a multiple of 8, as the capacity is (``models/moe.py``
+rounds it up to 8).
 
 Bound on the card: operations at the MoE prefill (2·C flops a weight
 element, C in the thousands), bytes at decode (every expert's weights read
@@ -42,7 +52,6 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_TRAINING = "training the zoo, a later slice of the port"
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -79,10 +88,6 @@ def _launchers():
 
 def _kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """One launch of the CUDA kernel; raises on what it does not take."""
-    if x.requires_grad or w.requires_grad:
-        raise NotImplementedError(
-            "moe_gemm on the card is forward-only (the TPU kernel has no "
-            f"VJP); its gradient comes with {_TRAINING}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("x and w must be contiguous")
     e, c, k = x.shape
@@ -102,20 +107,45 @@ def _kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (E,C,K), w (E,K,N), one dtype (float32 or bfloat16) -> (E,C,N).
-
-    A CUDA tensor goes to the kernel (contiguous x and w, no input that
-    requires grad; a failed build or launch raises); a CPU tensor goes to
-    ``moe_gemm_ref``. Each kernel launch adds one to
-    ``moe_gemm.launches``.
-    """
-    _check(x, w)
+def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return moe_gemm_ref(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     return _kernel(x, w)
+
+
+class _MoeGemm(torch.autograd.Function):
+    """Forward and both input gradients through ``_forward``: the kernel
+    on the card, the plain version on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _forward(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _forward(dy, w.transpose(1, 2).contiguous())
+        if ctx.needs_input_grad[1]:
+            dw = _forward(x.transpose(1, 2).contiguous(), dy)
+        return dx, dw
+
+
+def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (E,C,K), w (E,K,N), one dtype (float32 or bfloat16) -> (E,C,N);
+    differentiable (see the module docstring).
+
+    A CUDA tensor goes to the kernel (contiguous x and w; a failed build
+    or launch raises); a CPU tensor goes to ``moe_gemm_ref``. Each kernel
+    launch, forward or backward, adds one to ``moe_gemm.launches``.
+    """
+    _check(x, w)
+    return _MoeGemm.apply(x, w)
 
 
 moe_gemm.launches = 0

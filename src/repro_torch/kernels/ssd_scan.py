@@ -23,10 +23,18 @@ keeps the state in VMEM scratch across a sequential chunk axis; the TPU
 kernel returns y only, while this one also writes the final state, which
 ``models/ssm.ssm_apply`` hands to the decode cache.
 
-The kernel is forward-only, as the TPU kernel is (it has no VJP): on the
-card an input that requires grad raises ``NotImplementedError`` before
-any launch, where it used to return a result that carried no gradient.
-On the CPU the plain version carries autograd as usual.
+``ssd_scan`` is differentiable on both devices through one
+``torch.autograd.Function`` (the TPU kernel has no VJP; the reference's
+models train with the chunked jnp form, ``models/ssm.py::ssd_chunked``).
+Its forward is the dispatch above (the kernel on the card). Its backward
+recomputes ``ssd_chunked`` — the reference's training formula, kept here —
+from the saved inputs and returns its VJP for x, dt, A, B, C and the
+initial state: the pattern of K3's ``_FlashAttention`` and of the
+reference's ``ops.flash_attention`` custom VJP, a plain backward on the
+card by declaration. Not the sequential ``ssd_scan_ref``, whose VJP would
+be L dependent steps. A launch of ``_kernel`` alone carries no gradient,
+so it raises ``NotImplementedError`` for an input that requires grad while
+grad mode is on; the Function calls it with grad mode off.
 
 Q = min(chunk, L) must divide L; otherwise ``ValueError`` (the JAX
 package asserts it, ROADMAP P3). x, B and C may be views whose last two
@@ -131,6 +139,52 @@ def ssd_scan_ref(x, dt, A, B_, C_, *, chunk: int = 128,
     return torch.stack(ys, 1).to(x.dtype), state
 
 
+def ssd_chunked(x, dt, A, Bh, Ch, chunk: int, initial_state=None):
+    """The JAX package's chunked SSD in plain PyTorch, every product in
+    float32. x (B,L,H,P); dt (B,L,H) float32; A (H,); Bh/Ch (B,L,H,N) (per
+    head). Returns (y (B,L,H,P) in x's dtype, final state (B,H,N,P)
+    float32). L must be a multiple of min(chunk, L) (``ValueError``
+    otherwise; the JAX package asserts it)."""
+    b, length, h, p = x.shape
+    n = Bh.shape[-1]
+    q = min(chunk, length)
+    if length % q:
+        raise ValueError(f"sequence length {length} is not a multiple of "
+                         f"the chunk {q}")
+    nc = length // q
+    r = lambda t: t.reshape(b, nc, q, *t.shape[2:])
+    xc, dtc, bc, cc = r(x), r(dt), r(Bh), r(Ch)
+
+    cum = torch.cumsum(dtc * A, dim=2)                           # (B,nc,Q,H)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]          # (B,nc,Q,Q,H)
+    iq = torch.arange(q, device=x.device)
+    causal = (iq[:, None] >= iq[None, :])[None, None, :, :, None]
+    # masked before the exponent: above the diagonal seg is positive and
+    # exp(seg) overflows once a chunk's decay passes e^88, and the VJP of
+    # where(causal, exp(seg), 0) is then 0·inf = NaN (ROADMAP R7). The
+    # forward is the same bits: exp(-inf) = 0
+    lmat = torch.exp(seg.masked_fill(~causal, float("-inf")))
+    xdt = (xc * dtc[..., None]).float()
+    g = torch.einsum("bcqhn,bckhn->bcqkh", cc.float(), bc.float())
+    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", g * lmat, xdt)
+
+    decay_end = torch.exp(cum[:, :, -1:, :] - cum)               # (B,nc,Q,H)
+    s_local = torch.einsum("bckhn,bckhp->bchnp",
+                           (bc * decay_end[..., None]).float(), xdt)
+    chunk_decay = torch.exp(cum[:, :, -1, :])                    # (B,nc,H)
+    state = (torch.zeros(b, h, n, p, dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state.float())
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + s_local[:, c]
+    s_prev = torch.stack(prev, 1)                                # (B,nc,H,N,P)
+    y_inter = torch.einsum("bcqhn,bchnp->bcqhp",
+                           (cc * torch.exp(cum)[..., None]).float(), s_prev)
+    y = (y_intra + y_inter).reshape(b, length, h, p)
+    return y.to(x.dtype), state
+
+
 @functools.cache
 def _launchers():
     """{(route, dtype): C launcher} of the built kernel, argument types
@@ -176,12 +230,13 @@ def _p_tile(b: int, h: int, p: int, n_sms: int) -> int:
 
 def _kernel(x, dt, A, B_, C_, q: int, initial_state):
     """One launch of the CUDA kernel; raises on what it does not take."""
-    if any(t is not None and t.requires_grad
-           for t in (x, dt, A, B_, C_, initial_state)):
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, B_, C_, initial_state)):
         raise NotImplementedError(
-            "ssd_scan on the card is forward-only (the TPU kernel has no "
-            "VJP); its backward kernel comes with training the zoo "
-            "(ROADMAP Queue 1 item 9)")
+            "a launch of the ssd_scan kernel is forward-only: differentiate "
+            "through ssd_scan, whose autograd Function recomputes the "
+            "chunked form for the backward")
     b, length, h, p = x.shape
     g, n = B_.shape[2], B_.shape[3]
     if n > MAX_STATE:
@@ -233,13 +288,59 @@ def _kernel(x, dt, A, B_, C_, q: int, initial_state):
     return y, state
 
 
+def _forward(x, dt, A, B_, C_, q: int, initial_state):
+    if x.device.type == "cpu":
+        return ssd_scan_ref(x, dt, A, B_, C_, chunk=q,
+                            initial_state=initial_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return _kernel(x, dt, A, B_, C_, q, initial_state)
+
+
+class _SsdScan(torch.autograd.Function):
+    """Forward through ``_forward`` (the kernel on the card); backward =
+    the VJP of ``ssd_chunked``, recomputed from the saved inputs (grouped
+    B/C repeated to the heads, their gradients summed back to the
+    groups)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_, C_, initial_state, q):
+        ctx.save_for_backward(x, dt, A, B_, C_, initial_state)
+        ctx.q = q
+        ctx.set_materialize_grads(False)     # an unused output: None
+        return _forward(x, dt, A, B_, C_, q, initial_state)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_(
+                need) for t, need in zip(saved, ctx.needs_input_grad)]
+            x, dt, A, B_, C_, s0 = ins
+            rep = x.shape[2] // B_.shape[2]
+            y, state = ssd_chunked(x, dt, A, B_.repeat_interleave(rep, 2),
+                                   C_.repeat_interleave(rep, 2), ctx.q,
+                                   initial_state=s0)
+            # an output with no cotangent or that no input reaches (the
+            # final state does not depend on C) adds nothing
+            pairs = [(o, c) for o, c in ((y, dy), (state, dstate))
+                     if c is not None and o.requires_grad]
+            wrt = [t for t in ins if t is not None and t.requires_grad]
+            outs, cots = zip(*pairs) if pairs else ((), ())
+            grads = iter(torch.autograd.grad(outs, wrt, cots,
+                                             allow_unused=True)
+                         if pairs else [None] * len(wrt))
+        return (*(next(grads) if t is not None and t.requires_grad else None
+                  for t in ins), None)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B_: torch.Tensor, C_: torch.Tensor, *, chunk: int = 128,
              initial_state: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,L,H,P) float32/bfloat16, dt (B,L,H) float32, A (H,) float32,
     B_/C_ (B,L,G,N) in x's dtype -> (y (B,L,H,P) in x's dtype, final state
-    (B,H,N,P) float32).
+    (B,H,N,P) float32); differentiable (see the module docstring).
 
     A CUDA tensor goes to the kernel ``route`` names (N <= 128, P a
     multiple of 16; a failed build or launch raises); a CPU tensor goes to
@@ -247,12 +348,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Each kernel launch adds one to ``ssd_scan.launches``.
     """
     q = _check(x, dt, A, B_, C_, chunk, initial_state)
-    if x.device.type == "cpu":
-        return ssd_scan_ref(x, dt, A, B_, C_, chunk=chunk,
-                            initial_state=initial_state)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    return _kernel(x, dt, A, B_, C_, q, initial_state)
+    return _SsdScan.apply(x, dt, A, B_, C_, initial_state, q)
 
 
 ssd_scan.launches = 0

@@ -1,7 +1,8 @@
 """Family-dispatching public model API of the zoo:
 
     init(cfg, key, device)                  -> params
-    loss(cfg, params, batch)                -> (loss, metrics)
+    loss(cfg, params, batch, remat)         -> (loss, metrics)
+    loss_masked(cfg, params, batch, remat)  -> (loss, metrics)
     prefill(cfg, params, batch, target_len) -> (last logits, cache)
     decode_step(cfg, params, cache, token)  -> (logits, cache)
     cache_init(cfg, batch, seq_len, device, src_len) -> decode cache
@@ -46,14 +47,25 @@ def init(cfg: ModelConfig, key: Union[int, torch.Generator] = 0,
     return tf.lm_init(generator, cfg, device=device)
 
 
-def loss(cfg, params, batch):
+def loss(cfg, params, batch, *, remat=False):
     """(loss, metrics), the reference's: for a decoder-only model the
     next-token cross-entropy + 0.3 x the MTP loss + the MoE load-balance
     loss, {"ce", "mtp_ce" (with ``mtp``), "aux": 0.0 without a MoE
-    layer}; for an encoder-decoder the target's cross-entropy, {"ce"}."""
+    layer}; for an encoder-decoder the target's cross-entropy, {"ce"}.
+    ``remat`` rematerialises each stacked block in the backward."""
     if _is_encdec(cfg):
-        return ed.encdec_loss(cfg, params, batch)
-    return tf.lm_loss_metrics(cfg, params, batch)
+        return ed.encdec_loss(cfg, params, batch, remat=remat)
+    return tf.lm_loss_metrics(cfg, params, batch, remat=remat)
+
+
+def loss_masked(cfg, params, batch, *, remat=False):
+    """Masked-batch twin of ``loss`` — the federated cohort contract
+    (batch["m"] {0,1} validity; padded rows contribute exactly zero loss
+    and gradient): (loss, {"ce", "aux"}). Decoder-only families only: an
+    encoder-decoder raises ``ValueError`` (the reference asserts)."""
+    if _is_encdec(cfg):
+        raise ValueError("masked federated loss: decoder-only models")
+    return tf.lm_loss_masked_metrics(cfg, params, batch, remat=remat)
 
 
 def prefill(cfg, params, batch, target_len=None):

@@ -20,7 +20,9 @@ cross-attention (the encoder's keys and values, written at prefill),
 ``conv`` (B, K-1, ch) and ``state`` (B, H, N, P) float32 of an SSM layer,
 stacked likewise (a hybrid block holds both kinds side by side).
 ``scan_blocks`` and ``scan_blocks_decode`` are Python loops over the
-stacked axis — the JAX package's ``lax.scan``. The full-sequence functions
+stacked axis — the JAX package's ``lax.scan``; ``scan_blocks(remat=True)``
+rematerialises each block in the backward, as ``jax.checkpoint`` does one
+scan step. The full-sequence functions
 return the MoE layers' load-balance loss summed in the reference's order
 (0.0 without a MoE layer); decode leaves it out, as the reference discards
 it there.
@@ -28,6 +30,7 @@ it there.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import (attn_apply, attn_decode, attn_init,
                                           cross_attn_apply, cross_attn_decode,
@@ -208,23 +211,30 @@ def block_apply(cfg, bp, h, *, window=None, with_aux=True, enc_out=None,
 
 
 def scan_blocks(cfg, stacked, h, *, window=None, return_cache=False,
-                with_aux=True, enc_out=None, causal=True):
+                with_aux=True, enc_out=None, causal=True, remat=False):
     """Apply the stacked blocks in order (as many as the leaves' block
     axis holds: ``cfg.n_blocks``, or an encoder's ``encoder_layers``).
     h (B, S, d), or (N, B, S, d) for a stacked cohort, whose leaves are
     (N, n_blocks, ...). ``enc_out`` feeds the decoder layers'
     cross-attention, ``causal=False`` makes the attention bidirectional.
-    Returns (h, the summed MoE aux loss, or 0.0 without a MoE layer or
-    ``with_aux``, the caches stacked over blocks, or None without
-    ``return_cache``)."""
+    ``remat`` recomputes each block's forward in the backward instead of
+    keeping its activations (``torch.utils.checkpoint`` around one block,
+    as the reference's ``jax.checkpoint`` wraps one scan step); the
+    forward's results are the same bits. Returns (h, the summed MoE aux
+    loss, or 0.0 without a MoE layer or ``with_aux``, the caches stacked
+    over blocks, or None without ``return_cache``)."""
     axis = h.dim() - 3
     n = next(iter(stacked.values())).shape[axis]
     aux, caches = 0.0, []
     for i in range(n):
-        h, a, c = block_apply(cfg, {k: v.select(axis, i)
-                                    for k, v in stacked.items()}, h,
-                              window=window, with_aux=with_aux,
-                              enc_out=enc_out, causal=causal)
+        bp = {k: v.select(axis, i) for k, v in stacked.items()}
+        kw = dict(window=window, with_aux=with_aux, enc_out=enc_out,
+                  causal=causal)
+        if remat:
+            h, a, c = checkpoint(block_apply, cfg, bp, h,
+                                 use_reentrant=False, **kw)
+        else:
+            h, a, c = block_apply(cfg, bp, h, **kw)
         aux = aux + a
         if return_cache:
             caches.append(c)

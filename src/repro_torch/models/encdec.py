@@ -19,7 +19,9 @@ The encoder's attention and the cross-attention at prefill go through K3
 with ``causal=False``, the decoder's self-attention through K3 (causal);
 at decode the self- and cross-attention go through K4. The reference
 computes the first two with its plain ``sdpa``: the same function.
-There is no ``remat`` (that comes with training).
+``remat`` rematerialises the encoder's and the decoder's blocks in the
+backward (``blocks.scan_blocks``), as the reference's ``jax.checkpoint``
+does their scan steps.
 """
 from __future__ import annotations
 
@@ -52,24 +54,26 @@ def encdec_init(generator: torch.Generator, cfg, device=None):
     return params
 
 
-def _encode(cfg, params, src):
+def _encode(cfg, params, src, remat=False):
     """src (B, S_src, d) frame embeddings -> the encoder's output (B,
     S_src, d): the projection, the bidirectional layers, the norm."""
     h = linear(src.to(dtype_of(cfg)), params["src_proj"])
     h, _, _ = scan_blocks(cfg, subtree(params, "enc_blocks/"), h,
-                          with_aux=False, causal=False)
+                          with_aux=False, causal=False, remat=remat)
     return rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
-def encdec_forward(cfg, params, src, tokens, *, return_cache=False):
+def encdec_forward(cfg, params, src, tokens, *, return_cache=False,
+                   remat=False):
     """Teacher-forced forward: src (B, S_src, d), tokens (B, S_tgt) ->
     (logits (B, S_tgt, V), the decoder's MoE aux loss (0.0: its layers are
     dense), the decoder's layer caches under a decode cache's keys or
     None, the encoder's output)."""
-    enc_out = _encode(cfg, params, src)
+    enc_out = _encode(cfg, params, src, remat=remat)
     h = _embed(params["embed"], tokens).to(dtype_of(cfg))
     h, aux, caches = scan_blocks(cfg, subtree(params, "dec_blocks/"), h,
-                                 enc_out=enc_out, return_cache=return_cache)
+                                 enc_out=enc_out, return_cache=return_cache,
+                                 remat=remat)
     logits = linear(rms_norm(h, params["final_norm"], cfg.norm_eps),
                     params["lm_head"])
     if caches is not None:
@@ -77,11 +81,12 @@ def encdec_forward(cfg, params, src, tokens, *, return_cache=False):
     return logits, aux, caches, enc_out
 
 
-def encdec_loss(cfg, params, batch):
+def encdec_loss(cfg, params, batch, *, remat=False):
     """(next-token cross-entropy of the target + aux, {"ce": the same}),
     as the reference's."""
     tokens = batch["tokens"]
-    logits, aux, _, _ = encdec_forward(cfg, params, batch["src"], tokens)
+    logits, aux, _, _ = encdec_forward(cfg, params, batch["src"], tokens,
+                                       remat=remat)
     loss = cross_entropy(logits[:, :-1], tokens[:, 1:]) + aux
     return loss, {"ce": loss}
 

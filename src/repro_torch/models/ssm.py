@@ -3,9 +3,10 @@
 The full-sequence path (``ssm_apply``, train and prefill) runs the SSD
 scan through ``kernels.ssd_scan`` (K6): the hand-written CUDA kernel on a
 CUDA tensor, its plain version (the sequential recurrence) on a CPU
-tensor. ``ssd_chunked`` is the JAX package's chunked algorithm in plain
-PyTorch, which the reference's kernel is pinned against; the port keeps it
-for the same check. Decode (``ssm_decode``) is the O(1) state recurrence
+tensor; its gradient is the VJP of ``ssd_chunked``, the JAX package's
+chunked training formula in plain PyTorch, which lives beside the kernel
+(``kernels/ssd_scan.py``) and is importable from here under its
+reference name. Decode (``ssm_decode``) is the O(1) state recurrence
 in plain PyTorch (no TPU kernel covers it).
 
 Parameters are a flat dict in the JAX package's layout (``in_proj``,
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan  # noqa: F401
 from repro_torch.models.common import (dense_init, dtype_of, gated_rms_norm,
                                        linear, ones, zeros)
 
@@ -84,48 +85,6 @@ def _heads(cfg, xbc, dt, p, d_in, nh, gn):
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     return x_, B_, C_, dt, A
-
-
-def ssd_chunked(x, dt, A, Bh, Ch, chunk: int, initial_state=None):
-    """The JAX package's chunked SSD in plain PyTorch, every product in
-    float32. x (B,L,H,P); dt (B,L,H) float32; A (H,); Bh/Ch (B,L,H,N) (per
-    head). Returns (y (B,L,H,P) in x's dtype, final state (B,H,N,P)
-    float32). L must be a multiple of min(chunk, L) (``ValueError``
-    otherwise; the JAX package asserts it)."""
-    b, length, h, p = x.shape
-    n = Bh.shape[-1]
-    q = min(chunk, length)
-    if length % q:
-        raise ValueError(f"sequence length {length} is not a multiple of "
-                         f"the chunk {q}")
-    nc = length // q
-    r = lambda t: t.reshape(b, nc, q, *t.shape[2:])
-    xc, dtc, bc, cc = r(x), r(dt), r(Bh), r(Ch)
-
-    cum = torch.cumsum(dtc * A, dim=2)                           # (B,nc,Q,H)
-    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]          # (B,nc,Q,Q,H)
-    iq = torch.arange(q, device=x.device)
-    causal = (iq[:, None] >= iq[None, :])[None, None, :, :, None]
-    lmat = torch.where(causal, torch.exp(seg), 0.0)
-    xdt = (xc * dtc[..., None]).float()
-    g = torch.einsum("bcqhn,bckhn->bcqkh", cc.float(), bc.float())
-    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", g * lmat, xdt)
-
-    decay_end = torch.exp(cum[:, :, -1:, :] - cum)               # (B,nc,Q,H)
-    s_local = torch.einsum("bckhn,bckhp->bchnp",
-                           (bc * decay_end[..., None]).float(), xdt)
-    chunk_decay = torch.exp(cum[:, :, -1, :])                    # (B,nc,H)
-    state = (torch.zeros(b, h, n, p, dtype=torch.float32, device=x.device)
-             if initial_state is None else initial_state.float())
-    prev = []
-    for c in range(nc):
-        prev.append(state)
-        state = state * chunk_decay[:, c, :, None, None] + s_local[:, c]
-    s_prev = torch.stack(prev, 1)                                # (B,nc,H,N,P)
-    y_inter = torch.einsum("bcqhn,bchnp->bcqhp",
-                           (cc * torch.exp(cum)[..., None]).float(), s_prev)
-    y = (y_intra + y_inter).reshape(b, length, h, p)
-    return y.to(x.dtype), state
 
 
 def ssm_apply(cfg, p, x, *, initial_state=None):

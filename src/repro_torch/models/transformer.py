@@ -84,10 +84,13 @@ def _embed(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return embed[clients.view(n, *([1] * (tokens.dim() - 1))), tokens]
 
 
-def _forward(cfg, params, tokens, window, return_cache, with_aux=False):
+def _forward(cfg, params, tokens, window, return_cache, with_aux=False,
+             remat=False):
     """(logits, the summed MoE aux loss — 0.0 without a MoE layer or
     ``with_aux`` —, the caches under their cache keys or None, and the
-    last hidden state before the final norm)."""
+    last hidden state before the final norm). ``remat`` rematerialises
+    the stacked blocks in the backward (``scan_blocks``); the leading
+    dense layers are unrolled outside the scan, as in the reference."""
     h = _embed(params["embed"], tokens).to(dtype_of(cfg))
     aux, caches = 0.0, {}
     for i in range(cfg.first_dense_layers):
@@ -97,7 +100,7 @@ def _forward(cfg, params, tokens, window, return_cache, with_aux=False):
         caches.update(prefixed(f"head_layers/{i}/", c))
     h, a, blocks = scan_blocks(cfg, subtree(params, "blocks/"), h,
                                window=window, return_cache=return_cache,
-                               with_aux=with_aux)
+                               with_aux=with_aux, remat=remat)
     aux = aux + a
     logits = linear(rms_norm(h, params["final_norm"], cfg.norm_eps),
                     params["lm_head"])
@@ -106,13 +109,14 @@ def _forward(cfg, params, tokens, window, return_cache, with_aux=False):
     return logits, aux, {**caches, **prefixed("blocks/", blocks)}, h
 
 
-def lm_forward(cfg, params, tokens, *, window=None, return_cache=False):
+def lm_forward(cfg, params, tokens, *, window=None, return_cache=False,
+               remat=False):
     """tokens (B, S) int64 -> logits (B, S, V); stacked: tokens (N, B, S)
     -> (N, B, S, V). With ``return_cache``: (logits, the layer caches of
     the sequence, under a decode cache's keys). The MoE aux loss is left
-    out (``lm_loss_metrics`` has it)."""
+    out (``lm_loss_metrics`` has it). ``remat``: see ``_forward``."""
     logits, _, caches, _ = _forward(cfg, params, tokens, window,
-                                    return_cache)
+                                    return_cache, remat=remat)
     return (logits, caches) if return_cache else logits
 
 
@@ -133,15 +137,15 @@ def _mtp_ce(cfg, params, tokens, h, window):
                          keep=tokens.dim() - 2)
 
 
-def lm_loss_metrics(cfg, params, batch):
+def lm_loss_metrics(cfg, params, batch, *, remat=False):
     """(next-token cross-entropy + 0.3 x the MTP loss + the MoE layers'
     summed load-balance loss, {"ce", "mtp_ce" (with ``mtp``), "aux": a
     float32 scalar, 0.0 without a MoE layer}) — the reference's
-    ``lm_loss``."""
+    ``lm_loss``. ``remat``: see ``_forward``."""
     tokens = batch["tokens"]
     window = cfg.sliding_window
     logits, aux, _, h = _forward(cfg, params, tokens, window, False,
-                                 with_aux=True)
+                                 with_aux=True, remat=remat)
     ce = cross_entropy(logits[..., :-1, :], tokens[..., 1:],
                        keep=tokens.dim() - 2)
     loss, metrics = ce, {"ce": ce}
@@ -177,17 +181,28 @@ def _token_weights(tokens: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return m[..., 1:] * m[..., :-1]
 
 
-def lm_loss_masked(cfg, params, batch):
-    """Masked next-token cross-entropy over the valid target positions of
-    a batch; batch["tokens"] (..., B, S), batch["m"] (..., B) or (..., B,
-    S). Padded positions weigh 0: the loss does not depend on their
-    content and their gradient is exactly zero (a fully padded batch
-    leaves the params unchanged bit for bit)."""
+def lm_loss_masked_metrics(cfg, params, batch, *, remat=False):
+    """(masked next-token cross-entropy over the valid target positions
+    of a batch + the MoE layers' load-balance loss, {"ce", "aux"}) — the
+    reference's ``lm_loss_masked``; batch["tokens"] (..., B, S),
+    batch["m"] (..., B) or (..., B, S). Padded positions weigh 0: the loss
+    does not depend on their content and their gradient is exactly zero
+    (a fully padded batch leaves the params unchanged bit for bit). The
+    aux loss is not masked (the federated twins train dense models, whose
+    aux is 0.0). ``remat``: see ``_forward``."""
     tokens = batch["tokens"]
-    logits = lm_forward(cfg, params, tokens, window=cfg.sliding_window)
+    logits, aux, _, _ = _forward(cfg, params, tokens, cfg.sliding_window,
+                                 False, with_aux=True, remat=remat)
     w = _token_weights(tokens, batch["m"])
-    return cross_entropy(logits[..., :-1, :], tokens[..., 1:], mask=w,
-                         keep=tokens.dim() - 2)
+    ce = cross_entropy(logits[..., :-1, :], tokens[..., 1:], mask=w,
+                       keep=tokens.dim() - 2)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def lm_loss_masked(cfg, params, batch, *, remat=False):
+    """The loss of ``lm_loss_masked_metrics`` alone (one per client for a
+    stacked cohort) — the federated twins' loss."""
+    return lm_loss_masked_metrics(cfg, params, batch, remat=remat)[0]
 
 
 def lm_accuracy_masked(cfg, params, tokens, m):

@@ -1,8 +1,9 @@
 """The port stands alone: no module under src/repro_torch/ and not
-chip_smoke.py imports jax or the JAX package; importing the port's server
-pulls no jax into the process; entry points run on the GPU unless the
-caller asks for the CPU, and raise where CUDA is absent; only
-``obs/clock.py`` reads the wall clock."""
+chip_smoke.py imports jax or the JAX package, nor msgpack (absent on the
+card's machine); importing the port's server pulls no jax into the
+process; entry points run on the GPU unless the caller asks for the CPU,
+and raise where CUDA is absent; only ``obs/clock.py`` reads the wall
+clock, and the training launcher takes its clock from there."""
 import ast
 import pathlib
 import subprocess
@@ -22,6 +23,7 @@ from repro_torch.kernels import build
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+EXAMPLE = ROOT / "examples" / "train_lm_torch.py"
 
 
 def _imported_modules(path):
@@ -32,12 +34,36 @@ def _imported_modules(path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", PORT_FILES,
-                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+@pytest.mark.parametrize("path", PORT_FILES + [EXAMPLE],
+                         ids=[str(p.relative_to(ROOT))
+                              for p in PORT_FILES + [EXAMPLE]])
 def test_no_jax_or_repro_imports(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES + [EXAMPLE],
+                         ids=[str(p.relative_to(ROOT))
+                              for p in PORT_FILES + [EXAMPLE]])
+def test_no_msgpack_import(path):
+    """The checkpoint codec is the port's own: msgpack is not installed
+    where the port runs on the card."""
+    assert not [m for m in _imported_modules(path)
+                if m.split(".")[0] == "msgpack"], path
+
+
+def test_the_training_launcher_takes_its_clock_from_obs_clock():
+    mods = set(_imported_modules(ROOT / "src" / "repro_torch" / "launch"
+                                 / "train.py"))
+    assert "repro_torch.obs.clock" in mods
+    assert not {m.split(".")[0] for m in mods} & CLOCK_MODULES
+    tree = ast.parse((ROOT / "src" / "repro_torch" / "launch"
+                      / "train.py").read_text())
+    assert any(isinstance(n, ast.ImportFrom)
+               and n.module == "repro_torch.obs.clock"
+               and [a.name for a in n.names] == ["wall_clock"]
+               for n in ast.walk(tree))
 
 
 def test_importing_the_server_loads_no_jax():

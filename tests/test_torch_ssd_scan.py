@@ -154,9 +154,11 @@ def test_rejects_mismatched_inputs():
 
 @pytest.mark.parametrize("which", ["x", "dt", "A", "B", "C", "state"])
 def test_kernel_route_refuses_grad_before_any_launch(which):
-    """The CUDA route is forward-only: an input that requires grad raises
-    NotImplementedError before the kernel is built or launched (so CPU
-    tensors reach the guard), while the CPU route keeps its autograd."""
+    """A launch of the kernel alone is forward-only: with grad mode on, an
+    input that requires grad raises NotImplementedError before the kernel
+    is built or launched (so CPU tensors reach the guard); ``ssd_scan``'s
+    autograd Function, which calls it with grad mode off, carries the
+    gradient."""
     t = dict(zip(("x", "dt", "A", "B", "C"),
                  map(torch.from_numpy, _inputs(1, 32, 4, 16, 8, 2))))
     t["state"] = torch.zeros(1, 4, 8, 16)
