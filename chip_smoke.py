@@ -214,7 +214,35 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     --ckpt DIR --ckpt-every 2``) through its ``main``, then again from its
     step-2 checkpoint: the restored state bit-equal to the saved one, the
     resumed losses and parameters within 1e-4 of the uninterrupted run's;
-15. one JSON line of per-kernel numbers, then the result line.
+17. the step-cost plane (after 16, before the summary): (a) the full dry
+    run, ``python -m repro_torch.launch.dryrun --all`` (every arch x
+    shape traced on ``meta`` tensors, 40 records: no error, skipped
+    exactly where ``api.supports_shape`` refuses, each record's FLOPs,
+    bytes, peak, roofline terms, dominant term and useful-FLOP share
+    printed), and (d) the hillclimb over ``mamba2-370m`` ``train_4k``
+    (baseline, chunk128, ssd_bf16, remat_off, bf16_opt, baseline: the last
+    baseline equal to the first), both started right after phase 2 in
+    subprocesses that see no device and collected here; (b) the dry run
+    against the card: ``qwen2-moe-a2.7b`` at 4 layers and ``mamba2-370m``,
+    one train step each at 2 x 4,096 tokens (AdamW, remat), and
+    ``starcoder2-15b``'s prefill of 8 x 2,048, each traced on ``meta`` and
+    then run once on the card under the same counter — FLOPs equal
+    operator by operator, bytes within 1% (the operators that differ
+    named), ``max_memory_allocated`` over the step within 15% of the
+    traced peak — and timed, no faster than its roofline floor; (c) K6's
+    bf16-compute route (``ssm.compute_dtype="bfloat16"``: every operand of
+    an mma one bf16) against its plain version (the bf16 chunked form) at
+    mamba2's prefill and training shapes within 2e-2·max|plain|, timed
+    beside the hi/lo route in turns with its bound, its kernels' HMMA, its
+    gradient within 1e-2·max|plain|, and mamba2's prefill at bf16 compute
+    against float32 compute (logits within 0.06·max|logit|, both timed, K6
+    48 times); K3's backward at (2, 16, 4,096, 128) beside SDPA's forward
+    and backward with its bound; one K4 call's host time before the op
+    layer, through it and through a ``torch.library.custom_op``; the dry
+    run's serving trace of ``moonshot-v1-16b-a3b`` at full width (its
+    peak beside the card's memory);
+15. one JSON line of per-kernel numbers (K6's bf16-compute route a row
+    of its own), then the result line.
 
 Exits non-zero without printing a result where CUDA is absent. A kernel's
 time is its device time from ``torch.profiler`` over back-to-back calls
@@ -222,6 +250,7 @@ time is its device time from ``torch.profiler`` over back-to-back calls
 reported beside the CUDA-event time per call, which includes the host's
 launch overhead.
 """
+import atexit
 import collections
 import contextlib
 import dataclasses
@@ -229,7 +258,6 @@ import functools
 import gc
 import io
 import json
-import math
 import os
 import platform
 import shutil
@@ -245,7 +273,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.checkpoint import restore  # noqa: E402
-from repro_torch.configs.base import FeelConfig, TrainConfig  # noqa: E402
+from repro_torch.configs.base import (FeelConfig, InputShape,  # noqa: E402
+                                      SHAPES, TrainConfig)
 from repro_torch.core import attacks as atk  # noqa: E402
 from repro_torch.core import control as ctl  # noqa: E402
 from repro_torch.core import population as tpop  # noqa: E402
@@ -272,9 +301,14 @@ from repro_torch.kernels import ssd_scan as k6  # noqa: E402
 from repro_torch.kernels.robust_aggregate import (  # noqa: E402
     SIZE_CLASSES, robust_aggregate, robust_aggregate_network,
     robust_aggregate_ref)
+from repro_torch.kernels.robust_aggregate import \
+    cost as robust_aggregate_cost  # noqa: E402
 from repro_torch.kernels.weighted_aggregate import (  # noqa: E402
     weighted_aggregate, weighted_aggregate_ref)
-from repro_torch.launch import serve, steps  # noqa: E402
+from repro_torch.kernels.weighted_aggregate import \
+    cost as weighted_aggregate_cost  # noqa: E402
+from repro_torch.launch import dryrun, serve, steps  # noqa: E402
+from repro_torch.launch import roofline as rl  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import (ADAFACTOR_ARCHS, HBM_BW,  # noqa: E402
                                      PEAK_FLOPS_BF16, PEAK_FLOPS_F32)
@@ -320,6 +354,10 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:26"}}
+# the kernels line's rows: each kernel, and K6's bf16-compute route (the
+# same source and counter, its own row)
+BF16_ROUTE = "ssd_scan_bf16_compute"
+ROUTES = {**KERNELS, BF16_ROUTE: KERNELS["ssd_scan"]}
 LAUNCH_COUNTERS = {"weighted_aggregate": weighted_aggregate,
                    "robust_aggregate": robust_aggregate,
                    "flash_attention": k3.flash_attention,
@@ -480,15 +518,26 @@ def time_ms(fn, reps):
     return call_ms, call_ms
 
 
-def bound(n, m, dtype):
-    """(least ms, what bounds it, bytes moved) of (N, M) x (N,) -> (M,):
-    each input read once and the output written once at the memory rate,
-    or 2*N*M flops at the f32 rate, whichever takes longer."""
-    nbytes = (n * m + m) * torch.tensor([], dtype=dtype).element_size() \
-        + n * 4
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, 2.0 * n * m / F32_FLOPS
+def roofline_ms(flops, nbytes, rate):
+    """(least ms, what bounds it): the bytes at the memory rate or the
+    operations at ``rate``, whichever takes longer."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return (max(by_bytes, by_ops) * 1e3,
-            "bytes" if by_bytes >= by_ops else "operations", nbytes)
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def peak_of(dtype):
+    """The peak rate of a product's inputs' type: float32 on the CUDA
+    cores, bf16 on the tensor cores."""
+    return F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+
+
+def bound(n, m, dtype):
+    """(least ms, what bounds it, bytes moved) of (N, M) x (N,) -> (M,)
+    from K1's ``cost``: each input read once and the output written once
+    at the memory rate, or 2*N*M flops at the f32 rate."""
+    flops, nbytes = weighted_aggregate_cost(n, m, dtype)
+    return (*roofline_ms(flops, nbytes, F32_FLOPS), nbytes)
 
 
 def check_aggregate(n, m, dtype, label, assume_normalized=True,
@@ -531,19 +580,11 @@ def check_aggregate(n, m, dtype, label, assume_normalized=True,
 
 def robust_bound(n, m, trim, mode, dtype):
     """(least ms, what bounds it, bytes moved) of the robust reduce of the
-    first n rows of (N, M) -> (M,): the n real rows read once and the
-    output written once at the memory rate, or the comparisons and adds at
-    the 32-bit instruction rate — log2(n!) comparisons a column to order
-    it and n - 2b adds for the trimmed mean, n - 1 comparisons (the least
-    any selection needs) and 2 operations for the median."""
-    nbytes = (n * m + m) * torch.tensor([], dtype=dtype).element_size()
-    if mode == "median":
-        ops = m * (n - 1 + 2)
-    else:
-        ops = m * (math.lgamma(n + 1) / math.log(2) + (n - 2 * trim))
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / INSTR_PER_S
-    return (max(by_bytes, by_ops) * 1e3,
-            "bytes" if by_bytes >= by_ops else "operations", nbytes)
+    first n rows of (N, M) -> (M,) from K2's ``cost``: the n real rows read
+    once and the output written once at the memory rate, or the
+    comparisons and adds at the 32-bit instruction rate."""
+    ops, nbytes = robust_aggregate_cost(n, m, trim, mode, dtype)
+    return (*roofline_ms(ops, nbytes, INSTR_PER_S), nbytes)
 
 
 def robust_specials(x, n, g):
@@ -686,15 +727,9 @@ def flash_bound(b, h, s, t, d, causal, window, dtype, hkv=None):
     written once (H heads), k and v read once (their Hkv heads) at the
     memory rate, or 4·D flops for every (query head, key) pair inside the
     causal/window band at the peak rate of the inputs' type, whichever
-    takes longer."""
-    size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = b * d * (2 * h * s + 2 * (hkv or h) * t) * size
-    pairs = int(k3.band_mask(s, t, causal, window).sum())
-    flops = 4.0 * d * b * h * pairs
-    peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return (max(by_bytes, by_ops) * 1e3,
-            "bytes" if by_bytes >= by_ops else "operations", nbytes)
+    takes longer (K3's ``cost``)."""
+    flops, nbytes = k3.cost(b, h, s, t, d, causal, window, dtype, hkv)
+    return (*roofline_ms(flops, nbytes, peak_of(dtype)), nbytes)
 
 
 def check_flash(b, h, s, t, d, causal, window, dtype, label, reps=100,
@@ -744,8 +779,8 @@ def check_flash(b, h, s, t, d, causal, window, dtype, label, reps=100,
                library_ms=library_ms, bound_ms=b_ms, bound_us=b_ms * 1e3,
                bound_by=b_by,
                attained_gbps=nbytes / (kernel_ms * 1e-3) / 1e9,
-               attained_tflops=4.0 * d * b * h * int(k3.band_mask(
-                   s, t, causal, window).sum()) / (kernel_ms * 1e-3) / 1e12,
+               attained_tflops=4.0 * d * b * h * k3.band_pairs(
+                   s, t, causal, window) / (kernel_ms * 1e-3) / 1e12,
                kernel_call_ms=kernel_call_ms, plain_call_ms=plain_call_ms,
                library_call_ms=library_call_ms)
     emit(**row)
@@ -794,14 +829,9 @@ def decode_bound(b, h, hkv, length, d, dtype):
     """(least ms, what bounds it, bytes moved) of flash decode: q read and
     o written once, the ``length`` valid positions of K and V read once,
     at the memory rate; or 4·D flops a (query head, key) at the peak rate
-    of the inputs' type, whichever takes longer."""
-    size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (2 * b * h * d + 2 * b * length * hkv * d) * size
-    flops = 4.0 * d * b * h * length
-    peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return (max(by_bytes, by_ops) * 1e3,
-            "bytes" if by_bytes >= by_ops else "operations", nbytes)
+    of the inputs' type, whichever takes longer (K4's ``cost``)."""
+    flops, nbytes = k4.cost(b, h, hkv, length, d, dtype)
+    return (*roofline_ms(flops, nbytes, peak_of(dtype)), nbytes)
 
 
 def check_decode(label, b, h, hkv, cap, d, length, dtype, lo=0, reps=100):
@@ -860,16 +890,9 @@ def ssd_bound(b, length, h, p, n, g, q, dtype):
     every product can run on the tensor cores (989 TFLOP/s): a float32
     operand split into a bf16 hi/lo pair doubles the tensor-core work but
     not the function's flops; in float32 they run on the CUDA cores (67
-    TFLOP/s)."""
-    size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = ((2 * b * length * h * p + 2 * b * length * g * n) * size
-              + b * length * h * 4 + b * h * n * p * 4)
-    units = b * h * (length // q)
-    flops = (float(q) * n * q + float(q) * p * q + 4.0 * q * n * p) * units
-    peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return (max(by_bytes, by_ops) * 1e3,
-            "bytes" if by_bytes >= by_ops else "operations", nbytes, flops)
+    TFLOP/s). K6's ``cost``, the same for either compute dtype."""
+    flops, nbytes = k6.cost(b, length, h, p, n, g, q, dtype)
+    return (*roofline_ms(flops, nbytes, peak_of(dtype)), nbytes, flops)
 
 
 def check_ssd(label, b, length, h, p, n, g, chunk, dtype, reps=20,
@@ -929,14 +952,10 @@ def moe_bound(e, c, k, n, dtype):
     """(least ms, what bounds it, bytes moved) of the grouped product (E,
     C, K) x (E, K, N): x and w read once and the output written once at
     the memory rate, or 2·E·C·K·N flops at the peak rate of the inputs'
-    type (bf16 tensor cores, f32 CUDA cores), whichever takes longer."""
-    size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (e * c * k + e * k * n + e * c * n) * size
-    flops = 2.0 * e * c * k * n
-    peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return (max(by_bytes, by_ops) * 1e3,
-            "bytes" if by_bytes >= by_ops else "operations", nbytes)
+    type (bf16 tensor cores, f32 CUDA cores), whichever takes longer (K5's
+    ``cost``)."""
+    flops, nbytes = k5.cost(e, c, k, n, dtype)
+    return (*roofline_ms(flops, nbytes, peak_of(dtype)), nbytes)
 
 
 def check_moe(label, e, c, k, n, dtype, reps=50):
@@ -2173,7 +2192,7 @@ def _k4_control(q, k, v, n):
                                    v.repeat(1, 1, g, 1), n)
 
 
-def _k6_control(x, dt, A, B_, C_, q, s0):
+def _k6_control(x, dt, A, B_, C_, q, s0, cdt=None):
     """K6's plain version with the inter-chunk term dropped: every chunk
     starts from the initial state instead of the one carried from the
     chunk before."""
@@ -2212,8 +2231,8 @@ def plain_route(module, control=False):
         module._kernel = _k5_control if control else k5.moe_gemm_ref
     else:
         module._kernel = _k6_control if control else (
-            lambda x, dt, A, B_, C_, q, s0: k6.ssd_scan_ref(
-                x, dt, A, B_, C_, chunk=q, initial_state=s0))
+            lambda x, dt, A, B_, C_, q, s0, cdt: k6._plain(
+                x, dt, A, B_, C_, q, s0, cdt))
     try:
         yield
     finally:
@@ -3347,6 +3366,454 @@ def train_phases():
     return k5_rows, k6_row, cells
 
 
+# ---------------------------------------------------------------------------
+# 17. the step-cost plane: the dry run and the hillclimb, the dry
+# run's counts against the card, K6's bf16-compute route
+# ---------------------------------------------------------------------------
+COST_DIR = build.BUILD_DIR.parent / "step_cost"
+HILLCLIMB = ("mamba2-370m", "train_4k",
+             "baseline,chunk128,ssd_bf16,remat_off,bf16_opt,baseline")
+BYTES_TOL = 0.01        # the card's bytes against the trace's
+PEAK_TOL = 0.15         # max_memory_allocated against the traced peak
+BF16_COMPUTE_TOL = 2e-2  # the bf16 route against its plain version, ·max
+K4_HOST_CALLS = 200
+
+
+# (d)'s loop: each variant's record, both baselines kept (the CLI's --out
+# keeps one record a variant, the last)
+_HILLCLIMB = """import json, sys
+from repro_torch.launch import hillclimb
+arch, shape, variants, out = sys.argv[1:]
+recs = []
+for v in variants.split(","):
+    recs.append(hillclimb.run_variant(arch, shape, v))
+    hillclimb.print_rec(recs[-1])
+json.dump(recs, open(out, "w"))
+"""
+
+
+def start_cli(name, *argv):
+    """``python <argv> <file>`` (the dry run's CLI, or the hillclimb's
+    loop) in a subprocess that sees no device (a trace needs none) and
+    takes one thread, writing its records to ``<file>``; started now,
+    collected by ``finish_cli``, killed at exit if still running."""
+    COST_DIR.mkdir(parents=True, exist_ok=True)
+    out = COST_DIR / f"{name}.json"
+    out.unlink(missing_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent
+                                           / "src"),
+           "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    proc = subprocess.Popen(
+        [sys.executable, *argv, str(out)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env,
+        cwd=Path(__file__).resolve().parent)
+    atexit.register(_stop, proc)
+    return dict(proc=proc, out=out, t0=time.perf_counter())
+
+
+def _stop(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def finish_cli(job):
+    """(its records, its output, its seconds, the seconds waited for it
+    here)."""
+    t0 = time.perf_counter()
+    log, _ = job["proc"].communicate()
+    waited = time.perf_counter() - t0
+    assert job["proc"].returncode == 0, log[-4000:]
+    return (json.loads(job["out"].read_text()), log,
+            time.perf_counter() - job["t0"], waited)
+
+
+def dryrun_phase(job):
+    """(a) ``python -m repro_torch.launch.dryrun --all``: 40 records, no
+    error, skipped exactly where ``supports_shape`` refuses; each record's
+    numbers printed."""
+    recs, _, seconds, waited = finish_cli(job)
+    archs = registry.list_archs()
+    assert len(recs) == len(archs) * len(SHAPES), len(recs)
+    errors = [r for r in recs if r["status"] == "error"]
+    assert not errors, errors
+    refused = {(a, s) for a in archs for s in SHAPES
+               if not api.supports_shape(registry.get(a), SHAPES[s])[0]}
+    assert {(r["arch"], r["shape"]) for r in recs
+            if r["status"] == "skipped"} == refused
+    for r in recs:
+        if r["status"] != "ok":
+            emit(phase="dryrun", arch=r["arch"], shape=r["shape"],
+                 status=r["status"], reason=r["reason"])
+            continue
+        emit(phase="dryrun", arch=r["arch"], shape=r["shape"],
+             status="ok", optimizer=r.get("optimizer"),
+             flops=r["flops_per_chip"], bytes=r["hbm_bytes_per_chip"],
+             peak_gb=r["memory"]["peak_bytes"] / 1e9,
+             argument_gb=r["memory"]["argument_bytes"] / 1e9,
+             compute_s=r["compute_s"], memory_s=r["memory_s"],
+             collective_s=r["collective_s"], dominant=r["dominant"],
+             useful_flops_ratio=r["useful_flops_ratio"],
+             trace_s=r["lower_s"])
+    emit(phase="dryrun_seconds", records=len(recs), seconds=seconds,
+         waited_s=waited, skipped=sorted(refused))
+    return recs
+
+
+def serving_trace(arch):
+    """The dry run's count of ``arch`` at full width under this script's
+    serving traffic, on ``meta``: the prefill of 8 x 2,048 tokens into a
+    cache of 2,080 positions, and a decode step at the cache's last
+    position. Touches no device."""
+    cfg = registry.get(arch)
+    params = api.init(cfg, 0, device="meta")
+    target = SERVE_PROMPT + SERVE_NEW
+    batch = dryrun.step_inputs(cfg, InputShape(
+        "serve", SERVE_PROMPT, SERVE_BATCH, "prefill"), "meta")
+    pre = dryrun.count_step(
+        lambda p, b: api.prefill(cfg, p, b, target_len=target),
+        (params, batch))
+    cache = api.cache_init(cfg, SERVE_BATCH, target, device="meta")
+    cache["index"] = target - 1
+    dec = dryrun.count_step(steps.make_decode_step(cfg), (
+        params, cache, torch.empty((SERVE_BATCH, 1), dtype=torch.int32,
+                                   device="meta")))
+    row = dict(phase="serving_trace", arch=arch,
+               params_gb=pre.argument_bytes / 1e9,
+               prefill_peak_gb=pre.peak_bytes / 1e9,
+               decode_peak_gb=dec.peak_bytes / 1e9,
+               prefill_flops=pre.flops, decode_flops=dec.flops,
+               card_gb=torch.cuda.get_device_properties(0).total_memory
+               / 1e9)
+    row["fits"] = max(row["prefill_peak_gb"],
+                      row["decode_peak_gb"]) < row["card_gb"]
+    emit(**row)
+    return row
+
+
+def free_card():
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def against_card(label, cfg, shape, optimizer="adamw"):
+    """(b) One step traced on ``meta``, then the same step on the card
+    under the same counter: FLOPs equal (every operator), bytes within
+    ``BYTES_TOL`` (the operators that differ named), the card's
+    ``max_memory_allocated`` over the step within ``PEAK_TOL`` of the
+    traced peak; then the step timed three times uncounted, no faster than
+    its roofline floor max(compute_s, memory_s)."""
+    meta = dryrun.count_step(*dryrun.step_args(cfg, shape, optimizer, True,
+                                               "meta"))
+    free_card()
+    base = torch.cuda.memory_allocated()
+    fn, args = dryrun.step_args(cfg, shape, optimizer, True, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    card = dryrun.count_step(fn, args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    del fn, args
+    free_card()
+    ops = set(meta.op_bytes) | set(card.op_bytes)
+    flop_diff = {op: (meta.op_flops.get(op), card.op_flops.get(op))
+                 for op in set(meta.op_flops) | set(card.op_flops)
+                 if meta.op_flops.get(op) != card.op_flops.get(op)}
+    byte_diff = {op: (meta.op_bytes[op], card.op_bytes[op]) for op in ops
+                 if meta.op_bytes[op] != card.op_bytes[op]}
+    terms = rl.roofline_terms(meta.flops, meta.bytes, {})
+    floor_ms = max(terms["compute_s"], terms["memory_s"]) * 1e3
+    step_ms = float(np.median(walls))
+    quadratic = sum(meta.op_bytes[op] for op in
+                    ("aten.select_backward", "aten.add"))
+    row = dict(phase="dryrun_vs_card", cell=label, kind=shape.kind,
+               batch=shape.global_batch, seq=shape.seq_len,
+               flops_meta=meta.flops, flops_card=card.flops,
+               bytes_meta=meta.bytes, bytes_card=card.bytes,
+               peak_gb_meta=meta.peak_bytes / 1e9, peak_gb_card=peak / 1e9,
+               peak_gap=(peak - meta.peak_bytes) / peak,
+               argument_gb=meta.argument_bytes / 1e9,
+               flop_diff=flop_diff, byte_diff=byte_diff,
+               top_bytes=meta.op_bytes.most_common(6),
+               select_backward_and_add_share=quadratic / meta.bytes,
+               compute_ms=terms["compute_s"] * 1e3,
+               memory_ms=terms["memory_s"] * 1e3, floor_ms=floor_ms,
+               step_ms=step_ms, step_walls_ms=walls,
+               step_over_floor=step_ms / floor_ms)
+    emit(**row)
+    assert not flop_diff and meta.flops == card.flops, row
+    assert abs(card.bytes - meta.bytes) <= BYTES_TOL * meta.bytes, row
+    assert abs(row["peak_gap"]) <= PEAK_TOL, row
+    assert step_ms >= floor_ms, row
+    return row
+
+
+def _ssd_inputs_bf16(b, length, h, p, n, g, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(b, length, h, p, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, length, h, device="cuda", generator=gen))
+    A = -torch.exp(0.2 * torch.randn(h, device="cuda", generator=gen))
+    Bm, Cm = (torch.randn(b, length, g, n, device="cuda", generator=gen)
+              .to(torch.bfloat16) for _ in range(2))
+    return x, dt, A, Bm, Cm
+
+
+def check_ssd_bf16(label, b, length, h=32, p=64, n=128, g=1, chunk=256,
+                   reps=20):
+    """(c) K6's bf16-compute route (``tensor_cores_bf16``: every operand of
+    an mma one bf16) against its plain version, ``ssd_chunked`` at bf16
+    compute on the card: y and the final state within
+    ``BF16_COMPUTE_TOL``·max|plain|; timed beside the hi/lo route (the
+    float32-compute route at the same inputs) in turns; the bound from
+    K6's ``cost``; the route's kernels' HMMA count."""
+    x, dt, A, Bm, Cm = _ssd_inputs_bf16(b, length, h, p, n, g,
+                                        b * 7919 + length)
+    rep = h // g
+    bf16 = dict(chunk=chunk, compute_dtype="bfloat16")
+    y, state = k6.ssd_scan(x, dt, A, Bm, Cm, **bf16)
+    y_plain, s_plain = k6.ssd_chunked(
+        x, dt, A, Bm.repeat_interleave(rep, 2), Cm.repeat_interleave(rep, 2),
+        chunk, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert k6.route(x.dtype, p, n, min(chunk, length),
+                    compute_dtype=torch.bfloat16) == "tensor_cores_bf16"
+    y_rel, s_rel = _rel_err(y, y_plain), _rel_err(state, s_plain)
+    turns = {"bf16": [], "hilo": []}
+    for route in ("bf16", "hilo", "hilo", "bf16"):
+        kw = bf16 if route == "bf16" else dict(chunk=chunk)
+        turns[route].append(time_ms(
+            lambda: k6.ssd_scan(x, dt, A, Bm, Cm, **kw), reps))
+    plain_ms, plain_call_ms = time_ms(lambda: k6.ssd_chunked(
+        x, dt, A, Bm.repeat_interleave(rep, 2), Cm.repeat_interleave(rep, 2),
+        chunk, compute_dtype=torch.bfloat16), 3)
+    q = min(chunk, length)
+    flops, nbytes = k6.cost(b, length, h, p, n, g, q, torch.bfloat16)
+    b_ms, b_by = roofline_ms(flops, nbytes, BF16_FLOPS)
+    hmma = {name: ops["HMMA"] for name, ops in sass_ops("ssd_scan").items()
+            if name in (f"ssd_state_kernel<{p},0>",
+                        f"ssd_chunk_scan_kernel<{p},0>")}
+    assert len(hmma) == 2 and all(hmma.values()), hmma
+    kernel_ms = float(np.mean([t[0] for t in turns["bf16"]]))
+    row = dict(phase="kernel_check", kernel="ssd_scan",
+               case=label + ", bf16 compute", route="tensor_cores_bf16",
+               b=b, l=length, h=h, p=p, n=n, g=g, chunk=q,
+               max_abs_err=(y.float() - y_plain.float()).abs().max().item(),
+               y_rel_err=y_rel, state_rel_err=s_rel, tol=BF16_COMPUTE_TOL,
+               kernel_ms=kernel_ms,
+               kernel_ms_turns=[t[0] for t in turns["bf16"]],
+               hilo_ms=float(np.mean([t[0] for t in turns["hilo"]])),
+               hilo_ms_turns=[t[0] for t in turns["hilo"]],
+               kernel_call_ms=turns["bf16"][0][1], plain_ms=plain_ms,
+               plain_call_ms=plain_call_ms, library=None, library_ms=None,
+               bound_ms=b_ms, bound_by=b_by, hmma=hmma,
+               attained_tflops=flops / (kernel_ms * 1e-3) / 1e12)
+    emit(**row)
+    assert y_rel <= BF16_COMPUTE_TOL and s_rel <= BF16_COMPUTE_TOL, row
+    return row
+
+
+def check_ssd_bf16_grad(b, length, h=32, p=64, n=128, g=1, chunk=256):
+    """(c) The gradient through K6's Function at bf16 compute (the route's
+    forward, the VJP of the bf16 chunked form) against autograd through
+    the plain bf16 chunked form, every input within ``GRAD_TOL`` (bf16)."""
+    x, dt, A, Bm, Cm = _ssd_inputs_bf16(b, length, h, p, n, g, 17)
+    dy = torch.randn_like(x)
+    rep = h // g
+    grads = {}
+    for name in ("kernel", "plain"):
+        ins = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+        if name == "kernel":
+            y, _ = k6.ssd_scan(*ins, chunk=chunk, compute_dtype="bfloat16")
+        else:
+            y, _ = k6.ssd_chunked(ins[0], ins[1], ins[2],
+                                  ins[3].repeat_interleave(rep, 2),
+                                  ins[4].repeat_interleave(rep, 2), chunk,
+                                  compute_dtype=torch.bfloat16)
+        grads[name] = torch.autograd.grad(y, ins, dy)
+    errs = {nm: _rel_err(a, b_) for nm, a, b_ in zip(
+        ("x", "dt", "A", "B", "C"), grads["kernel"], grads["plain"])}
+    row = dict(phase="kernel_grad_check", kernel="ssd_scan",
+               case="mamba2-370m train, bf16 compute", b=b, l=length,
+               errs=errs, tol=GRAD_TOL[torch.bfloat16])
+    emit(**row)
+    assert all(e <= GRAD_TOL[torch.bfloat16] for e in errs.values()), row
+    return row
+
+
+def mamba2_bf16_prefill():
+    """(c) ``mamba2-370m`` (48 layers, bf16) prefilling 8 x 2,048 tokens
+    with ``ssm.compute_dtype="bfloat16"`` against the same weights at
+    float32 compute: logits within ``LOGIT_TOL``·max|logit|; both
+    prefills timed in turns; K6 launched once a layer through the new
+    route (the launch count of the kernels line's row)."""
+    cfg = registry.get("mamba2-370m")
+    cfg16 = dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, compute_dtype="bfloat16"))
+    params = api.init(cfg, 0, device="cuda")
+    batch = {"tokens": prompts(cfg, SERVE_BATCH, SERVE_PROMPT)}
+
+    def prefill(c):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits, _ = api.prefill(c, params, batch)
+        torch.cuda.synchronize()
+        return logits, (time.perf_counter() - t0) * 1e3
+    prefill(cfg)
+    prefill(cfg16)
+    ms = {"float32": [], "bfloat16": []}
+    for name, c in (("float32", cfg), ("bfloat16", cfg16),
+                    ("bfloat16", cfg16), ("float32", cfg)):
+        ms[name].append(prefill(c)[1])
+    reset_launches()
+    logits16, _ = prefill(cfg16)
+    launches = read_launches()
+    logits32, _ = prefill(cfg)
+    gap = _rel_err(logits16, logits32)
+    row = dict(phase="ssd_bf16_prefill", arch=cfg.name, batch=SERVE_BATCH,
+               prompt=SERVE_PROMPT, launches=launches, logit_gap=gap,
+               tol=LOGIT_TOL, prefill_ms_float32=ms["float32"],
+               prefill_ms_bfloat16=ms["bfloat16"])
+    emit(**row)
+    assert launches == only(ssd_scan=cfg.n_layers), launches
+    assert gap <= LOGIT_TOL, row
+    del params
+    free_card()
+    return launches["ssd_scan"]
+
+
+def k3_backward_yardstick(reps=5):
+    """K3's backward at the training shape (2, 16, 4,096, 128) causal bf16:
+    the plain VJP the Function runs, timed beside the one PyTorch call
+    that computes the same gradient (SDPA's forward and backward), with the
+    bound from K3's ``backward_cost``."""
+    b, h, s, d = TRAIN_BATCH, 16, TRAIN_SEQ, 128
+    g = torch.Generator(device="cuda").manual_seed(24)
+    qkv = [torch.randn(b, h, s, d, device="cuda", generator=g).to(
+        torch.bfloat16).requires_grad_(True) for _ in range(3)]
+    cot = torch.randn(b, h, s, d, device="cuda", generator=g).to(
+        torch.bfloat16)
+    out = k3.flash_attention(*qkv)
+    plain_ms, plain_call_ms = time_ms(lambda: torch.autograd.grad(
+        out, qkv, cot, retain_graph=True), reps)
+    del out
+
+    def sdpa():
+        o = torch.nn.functional.scaled_dot_product_attention(
+            *qkv, is_causal=True)
+        return torch.autograd.grad(o, qkv, cot)
+    library_ms, library_call_ms = time_ms(sdpa, reps)
+    b_ms, b_by = roofline_ms(*k3.backward_cost(b, h, s, s, d, True, None,
+                                               torch.bfloat16), BF16_FLOPS)
+    row = dict(phase="k3_backward", b=b, h=h, s=s, d=d,
+               backward_ms=plain_ms, backward_call_ms=plain_call_ms,
+               library="scaled_dot_product_attention forward + backward",
+               library_ms=library_ms, library_call_ms=library_call_ms,
+               bound_ms=b_ms, bound_by=b_by)
+    emit(**row)
+    del qkv
+    free_card()
+    return row
+
+
+def k4_host_cost(turns=3):
+    """One K4 call's host time at starcoder2-15b's decode shape, three
+    ways in turns: before the op layer (``_check`` and the launch, as the
+    wrapper was), through the ``torch.library`` operator (the wrapper now)
+    and through a ``torch.library.custom_op`` wrapping the same launch
+    (the higher layer, not taken). Each reading: ``K4_HOST_CALLS`` calls
+    back to back, host seconds before the synchronise over the calls."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q = torch.randn(SERVE_BATCH, 48, 128, device="cuda", generator=g).to(
+        torch.bfloat16)
+    kc, vc = (torch.randn(SERVE_BATCH, SERVE_PROMPT + SERVE_NEW, 4, 128,
+                          device="cuda", generator=g).to(torch.bfloat16)
+              for _ in range(2))
+    n = SERVE_PROMPT + 16
+    k, v = kc[:, :n], vc[:, :n]
+
+    @torch.library.custom_op("chip_smoke::decode_attention", mutates_args=())
+    def custom(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               length: int) -> torch.Tensor:
+        return k4._kernel(q, k, v, length)
+    custom.register_fake(lambda q, k, v, length: q.new_empty(q.shape))
+
+    ways = {"before": lambda: (k4._check(q, k, v, n),
+                               k4._kernel(q, k, v, n)),
+            "op": lambda: k4.decode_attention(q, k, v, n),
+            "custom_op": lambda: custom(q, k, v, n)}
+    us = {name: [] for name in ways}
+    for fn in ways.values():
+        fn()
+    for _ in range(turns):
+        for name in (*ways, *reversed(ways)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(K4_HOST_CALLS):
+                ways[name]()
+            us[name].append((time.perf_counter() - t0) / K4_HOST_CALLS
+                            * 1e6)
+            torch.cuda.synchronize()
+    med = {name: float(np.median(v_)) for name, v_ in us.items()}
+    row = dict(phase="k4_host_cost", calls=K4_HOST_CALLS, host_us=us,
+               median_us=med, op_adds_us=med["op"] - med["before"],
+               custom_op_adds_us=med["custom_op"] - med["before"])
+    emit(**row)
+    return row
+
+
+def step_cost_phases(dry_job, climb_job):
+    """Phase 17: (a) the full dry run (started after the build) and the
+    serving trace of moonshot-v1-16b-a3b; (b) the dry run against the card
+    at three cells; (c) K6's bf16-compute route, its gradient and
+    mamba2's bf16-compute prefill; (d) the hillclimb (started after the
+    build); K3's backward beside SDPA's, K4's host cost. Returns (K6's
+    bf16-compute row, its launches on the bf16-compute prefill)."""
+    bf16 = torch.bfloat16
+    qwen = registry.get("qwen2-moe-a2.7b")
+    train = InputShape("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    against_card("qwen2-moe-a2.7b, 4 layers",
+                 dataclasses.replace(qwen, n_layers=4), train)
+    against_card("mamba2-370m", registry.get("mamba2-370m"), train)
+    against_card("starcoder2-15b prefill", registry.get("starcoder2-15b"),
+                 InputShape("prefill_2k", SERVE_PROMPT, SERVE_BATCH,
+                            "prefill"))
+    k6_row = check_ssd_bf16("mamba2-370m prefill", SERVE_BATCH, SERVE_PROMPT)
+    check_ssd_bf16("mamba2-370m train", TRAIN_BATCH, TRAIN_SEQ)
+    check_ssd_bf16_grad(TRAIN_BATCH, TRAIN_SEQ)
+    launches = mamba2_bf16_prefill()
+    k3_backward_yardstick()
+    k4_host_cost()
+    serving_trace("moonshot-v1-16b-a3b")
+    recs, _, seconds, waited = finish_cli(climb_job)
+    assert [r["variant"] for r in recs] == HILLCLIMB[2].split(","), recs
+    assert all(r["status"] == "ok" for r in recs), recs
+    first, last = (dict(r) for r in (recs[0], recs[-1]))
+    first.pop("lower_s"), last.pop("lower_s")
+    for r in recs:
+        emit(phase="hillclimb", arch=r["arch"], shape=r["shape"],
+             variant=r["variant"], flops=r["flops_per_chip"],
+             bytes=r["hbm_bytes_per_chip"],
+             peak_gb=r["memory"]["peak_bytes"] / 1e9,
+             compute_s=r["compute_s"], memory_s=r["memory_s"],
+             dominant=r["dominant"],
+             useful_flops_ratio=r["useful_flops_ratio"])
+    emit(phase="hillclimb_seconds", seconds=seconds, waited_s=waited)
+    assert first == last, (first, last)
+    dryrun_phase(dry_job)
+    return k6_row, launches
+
+
 def quickstart(n_ues, n_malicious, n_train, n_test, device, seed=0):
     cfg = FeelConfig(n_ues=n_ues, n_malicious=n_malicious)
     train, test = generate(n_train, n_test, seed=seed)
@@ -3410,10 +3877,19 @@ def main():
     for d in k4.HEAD_DIMS:
         ops = sass["decode_attention"][f"decode_mma_kernel<{d}>"]
         assert ops["HMMA"] > 0 and ops["LDGSTS"] > 0, (d, ops)
+    # both routes of each: hi/lo pairs (kSplit 1) and bf16 compute (0)
     for p in k6.MMA_HEAD_DIMS:
         for kernel in ("ssd_state_kernel", "ssd_chunk_scan_kernel"):
-            ops = sass["ssd_scan"][f"{kernel}<{p}>"]
-            assert ops["HMMA"] > 0, (kernel, p, ops)
+            for split in (1, 0):
+                ops = sass["ssd_scan"][f"{kernel}<{p},{split}>"]
+                assert ops["HMMA"] > 0, (kernel, p, split, ops)
+
+    # 17 (a, d), started now: the full dry run and the hillclimb trace on
+    # meta tensors in subprocesses on the host's other cores, collected by
+    # phase 17
+    dry_job = start_cli("dryrun", "-m", "repro_torch.launch.dryrun", "--all",
+                        "--force", "--out")
+    climb_job = start_cli("hillclimb", "-c", _HILLCLIMB, *HILLCLIMB)
 
     # 3. kernels against their plain versions
     for n in (8, 32, 56):
@@ -3720,10 +4196,16 @@ def main():
                         peak_gb=v["peak_gb"], shares=v["shares"])
                 for k, v in cells.items()})
 
+    # 17. the step-cost plane
+    t0 = time.perf_counter()
+    summary[BF16_ROUTE], launches[BF16_ROUTE] = step_cost_phases(dry_job,
+                                                                 climb_job)
+    emit(phase="step_cost_seconds", seconds=time.perf_counter() - t0)
+
     # 15. summary and result
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [dict(
-        name=name, **KERNELS[name], launches=launches[name],
+        name=name, **ROUTES[name], launches=launches[name],
         max_abs_err=row["max_abs_err"], ms=row["kernel_ms"],
         plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row["library_ms"])

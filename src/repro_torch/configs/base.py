@@ -141,9 +141,15 @@ class SSMConfig:
     chunk: int = 256              # SSD chunk length Q
     dt_min: float = 0.001
     dt_max: float = 0.1
-    # dtype of the reference's materialised intra-chunk decay/score
-    # tensors; the port computes them in float32 and takes no other value
+    # dtype of the intra-chunk decay/score products (the reference's
+    # materialised (Q x Q) tensors): "float32" or "bfloat16" (operands
+    # rounded to bf16, sums in float32, the inter-chunk state float32)
     compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"ssm.compute_dtype must be 'float32' or "
+                             f"'bfloat16', got {self.compute_dtype!r}")
 
 
 @dataclass(frozen=True)
@@ -223,12 +229,6 @@ class ModelConfig:
                 f"{self.family!r} family (its frontend is "
                 f"{self._FAMILIES[self.family]!r})")
         self._check_sub_configs()
-        if self.ssm is not None and self.ssm.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"{self.name}: ssm.compute_dtype="
-                f"{self.ssm.compute_dtype!r} is not ported; the SSD scan "
-                f"computes in float32 until a later slice of the port "
-                f"brings a lower precision")
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
         if self.block_len == 0:

@@ -71,6 +71,14 @@
 // block restaging the entering state and its key tiles: not the tensor
 // cores' rate.
 //
+// The bf16-compute route (the reference's ssm.compute_dtype = "bfloat16",
+// whose chunked form rounds the decay matrix, the scores and x·dt to bf16
+// and sums in float32) is the same three kernels with the template flag
+// kSplit off: every operand enters mma.sync as one bf16 — x ∘ w in stage 1,
+// the entering state (stage 2 writes its hi half only) and the decayed
+// score matrix in stage 3 — so each product is one mma instead of two. The
+// inter-chunk state is still carried in float32.
+//
 // Design, float32 (and any other bf16 shape): a block owns one (b, h, tile
 // of P columns) and loops over the chunks itself, the state in shared
 // memory; the columns of P are independent given x's columns, so the P
@@ -418,6 +426,13 @@ __device__ __forceinline__ void split_pack(float a, float b, uint32_t& hi, uint3
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
+// two float32 values rounded to bf16, packed as one 32-bit mma operand
+// register (the first value in the low half)
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
 // `rows` rows of a row-strided matrix (row r at src + r·ld elements, `bytes`
 // a row, a multiple of 16) into shared memory (row stride `sbytes`), by
 // 16-byte cp.async from every thread of the block
@@ -518,8 +533,9 @@ size_t scan_smem_bytes(int n, int p, int q) {
 
 // stage 1, a block a (b, h, chunk) = blockIdx.x: the chunk's factors
 // (chunk_factors) into fac[blockIdx.x] and its local state s_c = Bᵀ (x ∘ w),
-// w_j = exp(cum_Q − cum_j)·dt_j, into states[blockIdx.x] (N, P) float32
-template <int P>
+// w_j = exp(cum_Q − cum_j)·dt_j, into states[blockIdx.x] (N, P) float32;
+// x ∘ w split hi/lo (kSplit) or rounded to one bf16
+template <int P, bool kSplit>
 __global__ void __launch_bounds__(kStateThreads)
 ssd_state_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ A, const bf16* __restrict__ Bm,
@@ -566,17 +582,21 @@ ssd_state_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();  // tile t has landed
-    // x rows scaled by w_j = 2^(cum2_Q − kj_j), split hi/lo
+    // x rows scaled by w_j = 2^(cum2_Q − kj_j), split hi/lo or rounded once
     const bf16* xt = xraw + (t & 1) * kTileRows * PS;
     for (int idx = threadIdx.x; idx < kTileRows * P / 2; idx += kStateThreads) {
       const int j = idx / (P / 2), col = (idx - j * (P / 2)) * 2;
       const float w = ex2(cum2_last - kjs[t * kTileRows + j]);
       const float2 xv =
           __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xt + j * PS + col));
-      uint32_t hi, lo;
-      split_pack(xv.x * w, xv.y * w, hi, lo);
-      *reinterpret_cast<uint32_t*>(xhi + j * PS + col) = hi;
-      *reinterpret_cast<uint32_t*>(xlo + j * PS + col) = lo;
+      if constexpr (kSplit) {
+        uint32_t hi, lo;
+        split_pack(xv.x * w, xv.y * w, hi, lo);
+        *reinterpret_cast<uint32_t*>(xhi + j * PS + col) = hi;
+        *reinterpret_cast<uint32_t*>(xlo + j * PS + col) = lo;
+      } else {
+        *reinterpret_cast<uint32_t*>(xhi + j * PS + col) = pack_bf16(xv.x * w, xv.y * w);
+      }
     }
     __syncthreads();
     if (active) {
@@ -589,14 +609,17 @@ ssd_state_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                                   ((lane >> 3) & 1) * 8);
 #pragma unroll
         for (int pp = 0; pp < P / 16; ++pp) {
-          uint32_t xh[4], xl[4];  // x ∘ w (positions, P) as the "col" B operand
+          uint32_t xh[4];  // x ∘ w (positions, P) as the "col" B operand
           const int off = (ks * 16 + (lane & 15)) * PS + pp * 16 + (lane >> 4) * 8;
           ldmatrix_x4_trans(xh, xhi + off);
-          ldmatrix_x4_trans(xl, xlo + off);
           mma_bf16(acc[2 * pp], af, xh[0], xh[1]);
-          mma_bf16(acc[2 * pp], af, xl[0], xl[1]);
           mma_bf16(acc[2 * pp + 1], af, xh[2], xh[3]);
-          mma_bf16(acc[2 * pp + 1], af, xl[2], xl[3]);
+          if constexpr (kSplit) {
+            uint32_t xl[4];
+            ldmatrix_x4_trans(xl, xlo + off);
+            mma_bf16(acc[2 * pp], af, xl[0], xl[1]);
+            mma_bf16(acc[2 * pp + 1], af, xl[2], xl[3]);
+          }
         }
       }
     }
@@ -617,8 +640,9 @@ ssd_state_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 
 // stage 2, a thread 4 state elements (e4) of a (b, h): the chunks walked in
 // order from `init` (zero when null), S_c = 2^(cum2_Q,c)·S_{c−1} + s_c; the
-// state entering chunk c written to prev[(b, h, c)] as hi (N, P) then lo (N,
-// P) bf16, the last to state_out
+// state entering chunk c written to prev[(b, h, c)] as hi (N, P) then, with
+// kSplit, lo (N, P) bf16, the last to state_out
+template <bool kSplit>
 __global__ void __launch_bounds__(kPassThreads)
 ssd_pass_kernel(const float* __restrict__ states, const float* __restrict__ fac,
                 const float* __restrict__ init, bf16* __restrict__ prev,
@@ -631,12 +655,16 @@ ssd_pass_kernel(const float* __restrict__ states, const float* __restrict__ fac,
   for (int c = 0; c < nc; ++c) {
     const int64_t u = static_cast<int64_t>(bh) * nc + c;
     const float4 loc = reinterpret_cast<const float4*>(states)[u * np4 + e4];
-    uint32_t h01, l01, h23, l23;
-    split_pack(s.x, s.y, h01, l01);
-    split_pack(s.z, s.w, h23, l23);
     uint2* pu = reinterpret_cast<uint2*>(prev + u * 8 * np4);  // 2·N·P bf16 a unit
-    pu[e4] = make_uint2(h01, h23);
-    pu[np4 + e4] = make_uint2(l01, l23);
+    if constexpr (kSplit) {
+      uint32_t h01, l01, h23, l23;
+      split_pack(s.x, s.y, h01, l01);
+      split_pack(s.z, s.w, h23, l23);
+      pu[e4] = make_uint2(h01, h23);
+      pu[np4 + e4] = make_uint2(l01, l23);
+    } else {
+      pu[e4] = make_uint2(pack_bf16(s.x, s.y), pack_bf16(s.z, s.w));
+    }
     const float d = ex2(fac[u * 2 * Q + Q - 1]);
     s.x = s.x * d + loc.x;
     s.y = s.y * d + loc.y;
@@ -649,8 +677,9 @@ ssd_pass_kernel(const float* __restrict__ states, const float* __restrict__ fac,
 // stage 3, a block a (b, h, chunk, 64 query rows), the row tiles of a chunk
 // next to each other, the one that sees the most keys first: y =
 // diag(2^cum2)·(C·S) + (C·Bᵀ ∘ tril(2^(cum2_i − kj_j)))·x, S the state
-// entering the chunk (zero and skipped for chunk 0 when `zero_init`)
-template <int P>
+// entering the chunk (zero and skipped for chunk 0 when `zero_init`); S and
+// the decayed scores as hi/lo pairs (kSplit) or one bf16 each
+template <int P, bool kSplit>
 __global__ void __launch_bounds__(kScanThreads, P >= 128 ? 2 : 4)
 ssd_chunk_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ fac,
                       const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
@@ -686,8 +715,8 @@ ssd_chunk_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ fac,
 
   stage_async(cs, NS * 2, cb + i0 * csl, csl, kTileRows, N * 2);
   if (inter)
-    stage_async(shi, PS * 2, prev + static_cast<int64_t>(u) * 2 * N * P, P, 2 * N,
-                P * 2);  // hi rows, then lo rows
+    stage_async(shi, PS * 2, prev + static_cast<int64_t>(u) * 2 * N * P, P,
+                kSplit ? 2 * N : N, P * 2);  // hi rows, then lo rows
   stage_async(kjs, 0, fu + Q, 0, 1, (i0 + kTileRows) * 4);
   cp_async_commit();
   const float ci0 = fu[row0 + gr], ci1 = fu[row0 + gr + 8];  // the rows' cum2
@@ -707,20 +736,23 @@ ssd_chunk_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ fac,
   for (int j = 0; j < P / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) yacc[j][e] = 0.f;
-  if (inter) {  // C·S_hi + C·S_lo, then the rows' decay 2^cum2_i
+  if (inter) {  // C·S_hi (+ C·S_lo), then the rows' decay 2^cum2_i
 #pragma unroll
     for (int kk = 0; kk < kNT; ++kk) {
       if (kk * 16 >= N) continue;
 #pragma unroll
       for (int pp = 0; pp < P / 16; ++pp) {
-        uint32_t sh[4], sl[4];
+        uint32_t sh[4];
         const int off = (kk * 16 + (lane & 15)) * PS + pp * 16 + (lane >> 4) * 8;
         ldmatrix_x4_trans(sh, shi + off);
-        ldmatrix_x4_trans(sl, slo + off);
         mma_bf16(yacc[2 * pp], cf[kk], sh[0], sh[1]);
-        mma_bf16(yacc[2 * pp], cf[kk], sl[0], sl[1]);
         mma_bf16(yacc[2 * pp + 1], cf[kk], sh[2], sh[3]);
-        mma_bf16(yacc[2 * pp + 1], cf[kk], sl[2], sl[3]);
+        if constexpr (kSplit) {
+          uint32_t sl[4];
+          ldmatrix_x4_trans(sl, slo + off);
+          mma_bf16(yacc[2 * pp], cf[kk], sl[0], sl[1]);
+          mma_bf16(yacc[2 * pp + 1], cf[kk], sl[2], sl[3]);
+        }
       }
     }
     const float e0 = ex2(ci0), e1 = ex2(ci1);
@@ -785,23 +817,33 @@ ssd_chunk_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ fac,
         sc[n][e] = diag && j + (e & 1) > i ? 0.f : v;
       }
     }
-    // y += M·x, M in hi/lo A-fragments straight from the accumulators
+    // y += M·x, M in hi/lo (or one bf16) A-fragments straight from the
+    // accumulators
 #pragma unroll
     for (int kg = 0; kg < 4; ++kg) {
       if (kg >= groups) continue;
       uint32_t ah[4], al[4];
-      split_pack(sc[2 * kg][0], sc[2 * kg][1], ah[0], al[0]);          // row gr, keys 2qd
-      split_pack(sc[2 * kg][2], sc[2 * kg][3], ah[1], al[1]);          // row gr + 8
-      split_pack(sc[2 * kg + 1][0], sc[2 * kg + 1][1], ah[2], al[2]);  // row gr, keys 8 + 2qd
-      split_pack(sc[2 * kg + 1][2], sc[2 * kg + 1][3], ah[3], al[3]);  // row gr + 8
+      if constexpr (kSplit) {
+        split_pack(sc[2 * kg][0], sc[2 * kg][1], ah[0], al[0]);          // row gr, keys 2qd
+        split_pack(sc[2 * kg][2], sc[2 * kg][3], ah[1], al[1]);          // row gr + 8
+        split_pack(sc[2 * kg + 1][0], sc[2 * kg + 1][1], ah[2], al[2]);  // row gr, keys 8 + 2qd
+        split_pack(sc[2 * kg + 1][2], sc[2 * kg + 1][3], ah[3], al[3]);  // row gr + 8
+      } else {
+        ah[0] = pack_bf16(sc[2 * kg][0], sc[2 * kg][1]);
+        ah[1] = pack_bf16(sc[2 * kg][2], sc[2 * kg][3]);
+        ah[2] = pack_bf16(sc[2 * kg + 1][0], sc[2 * kg + 1][1]);
+        ah[3] = pack_bf16(sc[2 * kg + 1][2], sc[2 * kg + 1][3]);
+      }
 #pragma unroll
       for (int pp = 0; pp < P / 16; ++pp) {
         uint32_t xf[4];
         ldmatrix_x4_trans(xf, xt + (kg * 16 + (lane & 15)) * PS + pp * 16 + (lane >> 4) * 8);
         mma_bf16(yacc[2 * pp], ah, xf[0], xf[1]);
-        mma_bf16(yacc[2 * pp], al, xf[0], xf[1]);
         mma_bf16(yacc[2 * pp + 1], ah, xf[2], xf[3]);
-        mma_bf16(yacc[2 * pp + 1], al, xf[2], xf[3]);
+        if constexpr (kSplit) {
+          mma_bf16(yacc[2 * pp], al, xf[0], xf[1]);
+          mma_bf16(yacc[2 * pp + 1], al, xf[2], xf[3]);
+        }
       }
     }
     __syncthreads();  // this stage is consumed before it is loaded again
@@ -825,7 +867,7 @@ cudaError_t allow_smem(K kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <int P>
+template <int P, bool kSplit>
 int launch_chunked(const bf16* x, const float* dt, const float* A, const bf16* Bm,
                    const bf16* Cm, const float* init, bf16* y, float* state, float* states,
                    float* fac, bf16* prev, int b, int L, int H, int G, int N, int Q,
@@ -838,16 +880,16 @@ int launch_chunked(const bf16* x, const float* dt, const float* A, const bf16* B
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem1 = state_smem_bytes(N, P, Q), smem3 = scan_smem_bytes(N, P, Q);
   if (smem1 > kMaxSmem || smem3 > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(ssd_state_kernel<P>, smem1);
-  if (err == cudaSuccess) err = allow_smem(ssd_chunk_scan_kernel<P>, smem3);
+  cudaError_t err = allow_smem(ssd_state_kernel<P, kSplit>, smem1);
+  if (err == cudaSuccess) err = allow_smem(ssd_chunk_scan_kernel<P, kSplit>, smem3);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_state_kernel<P><<<static_cast<unsigned>(units), kStateThreads, smem1, stream>>>(
+  ssd_state_kernel<P, kSplit><<<static_cast<unsigned>(units), kStateThreads, smem1, stream>>>(
       x, dt, A, Bm, states, fac, L, H, G, N, Q, xsb, xsl, bsb, bsl);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ssd_pass_kernel<<<static_cast<unsigned>(b * H * per_bh), kPassThreads, 0, stream>>>(
+  ssd_pass_kernel<kSplit><<<static_cast<unsigned>(b * H * per_bh), kPassThreads, 0, stream>>>(
       states, fac, init, prev, state, L / Q, Q, np4, per_bh);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ssd_chunk_scan_kernel<P>
+  ssd_chunk_scan_kernel<P, kSplit>
       <<<static_cast<unsigned>(units * (Q / kTileRows)), kScanThreads, smem3, stream>>>(
           x, fac, Bm, Cm, prev, y, L, H, G, N, Q, init == nullptr, xsb, xsl, bsb, bsl, csb, csl);
   return static_cast<int>(cudaGetLastError());
@@ -880,12 +922,13 @@ extern "C" int ssd_scan_bf16(const void* x, const float* dt, const float* A, con
 // the tensor-core route: bfloat16, P in {16, 32, 64, 128}, N a multiple of
 // 16 up to 128, Q a multiple of 64; x, B, C 16-byte aligned with strides
 // that are multiples of 8. Workspaces, from the caller: states float32
-// (B·H·nc·N·P), fac float32 (B·H·nc·2·Q), prev bf16 (B·H·nc·2·N·P), nc = L/Q
+// (B·H·nc·N·P), fac float32 (B·H·nc·2·Q), prev bf16 (B·H·nc·2·N·P), nc = L/Q.
+// bf16_compute: 0 takes every float32 operand as a hi/lo pair, 1 as one bf16
 extern "C" int ssd_scan_bf16_chunked(const void* x, const float* dt, const float* A,
                                      const void* Bm, const void* Cm, const float* init,
                                      void* y, float* state, float* states, float* fac,
                                      void* prev, int b, int L, int H, int G, int P, int N,
-                                     int Q, long long xsb, long long xsl, long long bsb,
+                                     int Q, int bf16_compute, long long xsb, long long xsl, long long bsb,
                                      long long bsl, long long csb, long long csl,
                                      cudaStream_t stream) {
   if (b < 1 || L < 1 || H < 1 || G < 1 || H % G != 0 || N < 16 || N > kMaxNMma ||
@@ -899,11 +942,16 @@ extern "C" int ssd_scan_bf16_chunked(const void* x, const float* dt, const float
   const B* cc = static_cast<const B*>(Cm);
   B* yy = static_cast<B*>(y);
   B* pv = static_cast<B*>(prev);
+#define SSD_CHUNKED(PV, SPLIT)                                                                \
+  launch_chunked<PV, SPLIT>(xx, dt, A, bb, cc, init, yy, state, states, fac, pv, b, L, H, G, N, Q, \
+                            xsb, xsl, bsb, bsl, csb, csl, stream)
+  const bool split = bf16_compute == 0;
   switch (P) {
-    case 16: return launch_chunked<16>(xx, dt, A, bb, cc, init, yy, state, states, fac, pv, b, L, H, G, N, Q, xsb, xsl, bsb, bsl, csb, csl, stream);
-    case 32: return launch_chunked<32>(xx, dt, A, bb, cc, init, yy, state, states, fac, pv, b, L, H, G, N, Q, xsb, xsl, bsb, bsl, csb, csl, stream);
-    case 64: return launch_chunked<64>(xx, dt, A, bb, cc, init, yy, state, states, fac, pv, b, L, H, G, N, Q, xsb, xsl, bsb, bsl, csb, csl, stream);
-    case 128: return launch_chunked<128>(xx, dt, A, bb, cc, init, yy, state, states, fac, pv, b, L, H, G, N, Q, xsb, xsl, bsb, bsl, csb, csl, stream);
+    case 16: return split ? SSD_CHUNKED(16, true) : SSD_CHUNKED(16, false);
+    case 32: return split ? SSD_CHUNKED(32, true) : SSD_CHUNKED(32, false);
+    case 64: return split ? SSD_CHUNKED(64, true) : SSD_CHUNKED(64, false);
+    case 128: return split ? SSD_CHUNKED(128, true) : SSD_CHUNKED(128, false);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef SSD_CHUNKED
 }

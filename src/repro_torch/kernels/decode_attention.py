@@ -20,9 +20,15 @@ copy. ``length`` is a host int: the positions below it are read, the
 rest never (the serving path keeps the cache index on the host, so no
 call synchronises with the card).
 
+Both routes are the operator ``torch.ops.repro_torch.decode_attention``
+(``kernels/oplib.py``), whose fake implementation serves ``meta`` tensors
+and whose cost is ``cost``.
+
 The kernel is forward-only, as the TPU kernel is (it has no VJP): on the
 card an input that requires grad raises ``NotImplementedError`` before
-any launch. On the CPU the plain version carries autograd as usual.
+any launch. On the CPU the plain version carries autograd as usual: the
+operator has no autograd formula, so a CPU call that needs a gradient
+calls the plain version itself.
 
 ``length < 1`` raises ``ValueError`` (ROADMAP P5): with every logit at
 -1e30 the TPU kernel returns the mean of V, which a kernel that skips the
@@ -54,7 +60,7 @@ from typing import Optional
 import torch
 
 from repro_torch.device import sm_count
-from repro_torch.kernels import build
+from repro_torch.kernels import build, oplib
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)    # the kernel's instantiations
@@ -202,6 +208,23 @@ def _kernel(q, k, v, length: int) -> torch.Tensor:
     return out
 
 
+def cost(b: int, h: int, hkv: int, length: int, d: int,
+         dtype: torch.dtype):
+    """(flops, bytes) of flash decode: 4·D flops a (query head, key); q
+    read and o written once, the ``length`` valid positions of K and V
+    read once."""
+    return (4.0 * d * b * h * length,
+            (2 * b * h * d + 2 * b * length * hkv * d) * dtype.itemsize)
+
+
+_op = oplib.define(
+    "decode_attention", "(Tensor q, Tensor k, Tensor v, int length) -> Tensor",
+    cuda=lambda *args: _kernel(*args), cpu=decode_attention_ref,
+    fake=lambda q, k, v, length: q.new_empty(q.shape),
+    cost=lambda q, k, v, length: cost(q.shape[0], q.shape[1], k.shape[2],
+                                      length, q.shape[2], q.dtype))
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      length: int) -> torch.Tensor:
     """q (B,H,D), k/v (B,T,Hkv,D) float32/bfloat16, 1 <= length <= T ->
@@ -213,11 +236,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel launch adds one to ``decode_attention.launches``.
     """
     _check(q, k, v, length)
-    if q.device.type == "cpu":
+    if ((q.requires_grad or k.requires_grad or v.requires_grad)
+            and torch.is_grad_enabled() and q.device.type == "cpu"):
         return decode_attention_ref(q, k, v, length)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
-    return _kernel(q, k, v, length)
+    return _op(q, k, v, length)
 
 
 decode_attention.launches = 0

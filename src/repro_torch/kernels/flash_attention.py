@@ -30,6 +30,11 @@ the plain version rounds them to v's type); float32 on the CUDA cores
 (never TF32). The kernel reads each KV head in place for its G query
 heads, so grouped-query attention moves no repeated K or V.
 
+Both routes are the operator ``torch.ops.repro_torch.flash_attention``
+(``kernels/oplib.py``), whose fake implementation serves ``meta`` tensors
+and whose cost is ``cost``; the backward, plain PyTorch, is counted op by
+op (``backward_cost`` is its bound).
+
 Bound on the card: memory at the LM task's shapes (S = T = 32, D = 16):
 q, k, v and o each move once, 4·B·H·S·D·bytes — 1.25 us at the training
 shape (B = 128, H = 4, f32), 63 us at the evaluation shape (B = 6,400).
@@ -43,7 +48,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, oplib
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)    # the kernel's instantiations
@@ -148,13 +153,46 @@ def _kernel(q, k, v, causal: bool, window: Optional[int],
     return out
 
 
-def _forward(q, k, v, causal, window, scale) -> torch.Tensor:
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
-    return _kernel(q, k, v, causal, window, scale)
+def band_pairs(s: int, t: int, causal: bool, window: Optional[int]) -> int:
+    """The (query, key) pairs ``band_mask(s, t, causal, window)`` keeps,
+    counted per query without making the (S, T) mask."""
+    qi = torch.arange(s, dtype=torch.int64) + (t - s)
+    hi = qi.clamp(max=t - 1) if causal else torch.full_like(qi, t - 1)
+    lo = (qi - window + 1).clamp(min=0) if window is not None else 0
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def cost(b: int, h: int, s: int, t: int, d: int, causal: bool,
+         window: Optional[int], dtype: torch.dtype, hkv: Optional[int] = None):
+    """(flops, bytes) of attention: 4·D flops for every (query head, key)
+    pair inside the causal/window band; q read and o written once (H
+    heads), k and v read once (their Hkv heads)."""
+    nbytes = b * d * (2 * h * s + 2 * (hkv or h) * t) * dtype.itemsize
+    return 4.0 * d * b * h * band_pairs(s, t, causal, window), nbytes
+
+
+def backward_cost(b: int, h: int, s: int, t: int, d: int, causal: bool,
+                  window: Optional[int], dtype: torch.dtype,
+                  hkv: Optional[int] = None):
+    """(flops, bytes) of the gradient dq, dk, dv from q, k, v and do: the
+    scores recomputed (q·kᵀ), then do·vᵀ, pᵀ·do, ds·k and dsᵀ·q, 10·D
+    flops a pair in the band; q, k, v and do read once, dq, dk and dv
+    written once."""
+    nbytes = b * d * (3 * h * s + 4 * (hkv or h) * t) * dtype.itemsize
+    return 10.0 * d * b * h * band_pairs(s, t, causal, window), nbytes
+
+
+_op = oplib.define(
+    "flash_attention",
+    "(Tensor q, Tensor k, Tensor v, bool causal, int? window, float scale)"
+    " -> Tensor",
+    cuda=lambda *args: _kernel(*args),
+    cpu=lambda q, k, v, causal, window, scale: flash_attention_ref(
+        q, k, v, causal=causal, window=window, scale=scale),
+    fake=lambda q, k, v, causal, window, scale: q.new_empty(q.shape),
+    cost=lambda q, k, v, causal, window, scale: cost(
+        q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3], causal,
+        window, q.dtype, k.shape[1]))
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -165,7 +203,7 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, scale):
         ctx.save_for_backward(q, k, v)
         ctx.args = (causal, window, scale)
-        return _forward(q, k, v, causal, window, scale)
+        return _op(q, k, v, causal, window, scale)
 
     @staticmethod
     def backward(ctx, g):

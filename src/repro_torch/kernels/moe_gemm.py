@@ -31,6 +31,11 @@ which the launcher then takes as its depth: any C is masked, and the
 wgmma route needs it a multiple of 8, as the capacity is (``models/moe.py``
 rounds it up to 8).
 
+Both routes are the operator ``torch.ops.repro_torch.moe_gemm``
+(``kernels/oplib.py``), whose fake implementation serves ``meta`` tensors
+and whose cost is ``cost``; the backward's two products are two more
+calls of it.
+
 Bound on the card: operations at the MoE prefill (2·C flops a weight
 element, C in the thousands), bytes at decode (every expert's weights read
 once a launch). bfloat16 runs on the tensor cores with a float32
@@ -49,7 +54,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, oplib
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -107,12 +112,18 @@ def _kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return moe_gemm_ref(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    return _kernel(x, w)
+def cost(e: int, c: int, k: int, n: int, dtype: torch.dtype):
+    """(flops, bytes) of the grouped product (E, C, K) x (E, K, N):
+    2·E·C·K·N flops; x and w read once and the output written once."""
+    return 2.0 * e * c * k * n, (e * c * k + e * k * n + e * c * n) * \
+        dtype.itemsize
+
+
+_forward = oplib.define(
+    "moe_gemm", "(Tensor x, Tensor w) -> Tensor",
+    cuda=lambda *args: _kernel(*args), cpu=moe_gemm_ref,
+    fake=lambda x, w: x.new_empty((x.shape[0], x.shape[1], w.shape[2])),
+    cost=lambda x, w: cost(*x.shape, w.shape[2], x.dtype))
 
 
 class _MoeGemm(torch.autograd.Function):

@@ -8,7 +8,9 @@ client updates flattened to (N, M).
 version ``robust_aggregate_ref`` on a CPU tensor; there is no other path.
 It replaces the Pallas TPU kernel ``repro/kernels/robust_aggregate.py:31``
 (``_robust_kernel``), an odd-even transposition sort of all N rows of a
-VMEM tile with the padding rows set to +inf.
+VMEM tile with the padding rows set to +inf. Both routes are the operator
+``torch.ops.repro_torch.robust_aggregate`` (``kernels/oplib.py``), whose
+fake implementation serves ``meta`` tensors and whose cost is ``cost``.
 
 Both sum the kept ranks in ascending order, one float32 add at a time, and
 divide once — the order of the reference's host oracle — so the kernel, the
@@ -37,10 +39,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, oplib
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # the kernel's size classes: a column of n values sorts as the smallest
@@ -225,22 +228,22 @@ def robust_aggregate_network(stacked: torch.Tensor, n: int, *,
     return reduce_keys(sort_keys(stacked, n), n, trim, mode, stacked.dtype)
 
 
-def robust_aggregate(stacked: torch.Tensor, n: int, *, trim: int = 0,
-                     mode: str = "trimmed_mean") -> torch.Tensor:
-    """stacked (N, M) float32/bfloat16, first ``n`` rows real -> (M,) in the
-    dtype of ``stacked``: per column, the trimmed mean of the sorted ranks
-    [trim, n - trim) (``mode="trimmed_mean"``) or the median (``"median"``,
-    ``trim`` unused). N <= 128.
+def cost(n: int, m: int, trim: int, mode: str, dtype: torch.dtype):
+    """(operations, bytes) of the robust reduce of the first n rows of (N,
+    M) -> (M,): the n real rows read once and the output written once; the
+    comparisons and adds, 32-bit operations (not FLOPs) — log2(n!)
+    comparisons a column to order it and n - 2b adds for the trimmed mean,
+    n - 1 comparisons (the least any selection needs) and 2 operations for
+    the median."""
+    nbytes = (n * m + m) * dtype.itemsize
+    if mode == "median":
+        return m * (n - 1 + 2), nbytes
+    return m * (math.lgamma(n + 1) / math.log(2) + (n - 2 * trim)), nbytes
 
-    A CUDA tensor goes to the kernel (a failed build or launch raises); a
-    CPU tensor goes to ``robust_aggregate_ref``. Each kernel launch adds one
-    to ``robust_aggregate.launches``.
-    """
-    _check(stacked, n, trim, mode)
-    if stacked.device.type == "cpu":
-        return robust_aggregate_ref(stacked, n, trim=trim, mode=mode)
-    if stacked.device.type != "cuda":
-        raise ValueError(f"no kernel for device {stacked.device}")
+
+def _kernel(stacked: torch.Tensor, n: int, trim: int,
+            mode: str) -> torch.Tensor:
+    """One launch of the CUDA kernel."""
     m = stacked.shape[1]
     out = torch.empty(m, dtype=stacked.dtype, device=stacked.device)
     fn = _launchers()[stacked.dtype]
@@ -253,6 +256,31 @@ def robust_aggregate(stacked: torch.Tensor, n: int, *, trim: int = 0,
                            f"cudaError_t {err}")
     robust_aggregate.launches += 1
     return out
+
+
+_op = oplib.define(
+    "robust_aggregate", "(Tensor stacked, int n, int trim, str mode) -> Tensor",
+    cuda=lambda *args: _kernel(*args),
+    cpu=lambda stacked, n, trim, mode: robust_aggregate_ref(
+        stacked, n, trim=trim, mode=mode),
+    fake=lambda stacked, n, trim, mode: stacked.new_empty(stacked.shape[1:]),
+    cost=lambda stacked, n, trim, mode: cost(n, stacked.shape[1], trim, mode,
+                                             stacked.dtype))
+
+
+def robust_aggregate(stacked: torch.Tensor, n: int, *, trim: int = 0,
+                     mode: str = "trimmed_mean") -> torch.Tensor:
+    """stacked (N, M) float32/bfloat16, first ``n`` rows real -> (M,) in the
+    dtype of ``stacked``: per column, the trimmed mean of the sorted ranks
+    [trim, n - trim) (``mode="trimmed_mean"``) or the median (``"median"``,
+    ``trim`` unused). N <= 128.
+
+    A CUDA tensor goes to the kernel (a failed build or launch raises); a
+    CPU tensor goes to ``robust_aggregate_ref``. Each kernel launch adds one
+    to ``robust_aggregate.launches``.
+    """
+    _check(stacked, n, trim, mode)
+    return _op(stacked, int(n), int(trim), mode)
 
 
 robust_aggregate.launches = 0

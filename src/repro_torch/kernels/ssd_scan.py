@@ -36,21 +36,37 @@ be L dependent steps. A launch of ``_kernel`` alone carries no gradient,
 so it raises ``NotImplementedError`` for an input that requires grad while
 grad mode is on; the Function calls it with grad mode off.
 
+``compute_dtype`` (the reference's ``ssm.compute_dtype``) is float32 or
+bfloat16. In bfloat16 the intra-chunk operands — the decay matrix, the
+scores C·Bᵀ and x·dt — are rounded to bf16, their products summed in
+float32, and the inter-chunk state stays float32 (the reference's
+``ssd_chunked(compute_dtype=)``): on a CPU tensor the plain
+``ssd_chunked`` at that precision, on a CUDA tensor the tensor-core route
+with every operand entering ``mma.sync`` as one bf16 (no hi/lo pair). That
+route takes bfloat16 inputs of the tensor-core shapes only; any other call
+with bf16 compute raises, so it never runs in float32 unasked.
+
+Both devices and ``meta`` go through the operator
+``torch.ops.repro_torch.ssd_scan`` (``kernels/oplib.py``), whose fake
+implementation makes the outputs' shapes and whose cost is ``cost``.
+
 Q = min(chunk, L) must divide L; otherwise ``ValueError`` (the JAX
 package asserts it, ROADMAP P3). x, B and C may be views whose last two
 axes are dense (``ssm_apply`` passes slices of the convolved projection
 without a copy).
 
-Two routes, chosen by ``route`` from the dtype, the shapes and the
-alignment alone (never by a failure). bfloat16 with P in {16, 32, 64, 128},
+Three routes, chosen by ``route`` from the dtype, the compute dtype, the
+shapes and the alignment alone (never by a failure). bfloat16 with P in {16, 32, 64, 128},
 N a multiple of 16 up to 128 and Q a multiple of 64 — ``mamba2-370m`` and
 Jamba — runs chunk-parallel on the tensor cores, Mamba2's own
 decomposition in three kernels: the chunks' local states, the state
 passing across chunks, and the chunk scan (every float32 operand of a
 product split into a bf16 hi/lo pair, so no operand is rounded once;
 the workspaces, 8·N·P + 8·Q bytes a (b, h, chunk), allocated here).
-float32, and any other bfloat16 shape, runs the CUDA-core kernel: a block
-a (b, h, P tile) walking the chunks in order.
+At bf16 compute the same three kernels take every operand as one bf16
+(``"tensor_cores_bf16"``, the template flag ``kSplit`` off). float32, and
+any other bfloat16 shape, runs the CUDA-core kernel: a block a (b, h, P
+tile) walking the chunks in order.
 
 Bound on the card: per (b, h, chunk) Q·N·Q flops for the causal scores,
 Q·P·Q for their product with x·dt and 4·Q·N·P for the inter-chunk term and
@@ -67,7 +83,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.device import sm_count
-from repro_torch.kernels import build
+from repro_torch.kernels import build, oplib
 
 P_TILES = (64, 32, 16)      # the kernel's instantiations (columns of P)
 MAX_STATE = 128             # N the kernel's register tile holds
@@ -75,6 +91,17 @@ MAX_CHUNK = 1024
 MMA_HEAD_DIMS = (16, 32, 64, 128)   # P of the tensor-core route
 MMA_TILE = 64               # its tile of positions: Q a multiple of it
 _DTYPES = (torch.float32, torch.bfloat16)
+_COMPUTE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype_of(value) -> torch.dtype:
+    """``ssm.compute_dtype`` ("float32" / "bfloat16", or the torch dtype)
+    as a torch dtype; anything else raises ``ValueError``."""
+    dt = _COMPUTE.get(value, value)
+    if dt not in _COMPUTE.values():
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
+                         f"{value!r}")
+    return dt
 
 
 def _check(x, dt, A, B_, C_, chunk: int, initial_state) -> int:
@@ -139,12 +166,17 @@ def ssd_scan_ref(x, dt, A, B_, C_, *, chunk: int = 128,
     return torch.stack(ys, 1).to(x.dtype), state
 
 
-def ssd_chunked(x, dt, A, Bh, Ch, chunk: int, initial_state=None):
-    """The JAX package's chunked SSD in plain PyTorch, every product in
-    float32. x (B,L,H,P); dt (B,L,H) float32; A (H,); Bh/Ch (B,L,H,N) (per
-    head). Returns (y (B,L,H,P) in x's dtype, final state (B,H,N,P)
-    float32). L must be a multiple of min(chunk, L) (``ValueError``
-    otherwise; the JAX package asserts it)."""
+def ssd_chunked(x, dt, A, Bh, Ch, chunk: int, initial_state=None,
+                compute_dtype=torch.float32):
+    """The JAX package's chunked SSD in plain PyTorch. x (B,L,H,P); dt
+    (B,L,H) float32; A (H,); Bh/Ch (B,L,H,N) (per head). Returns (y
+    (B,L,H,P) in x's dtype, final state (B,H,N,P) float32). L must be a
+    multiple of min(chunk, L) (``ValueError`` otherwise; the JAX package
+    asserts it). ``compute_dtype`` bfloat16 rounds the decay matrix, the
+    scores C·Bᵀ (summed in float32, rounded once), their product and x·dt
+    to bf16, as the reference's ``preferred_element_type`` products do;
+    every sum stays float32, and so does the inter-chunk state (from the
+    rounded x·dt)."""
     b, length, h, p = x.shape
     n = Bh.shape[-1]
     q = min(chunk, length)
@@ -163,14 +195,16 @@ def ssd_chunked(x, dt, A, Bh, Ch, chunk: int, initial_state=None):
     # exp(seg) overflows once a chunk's decay passes e^88, and the VJP of
     # where(causal, exp(seg), 0) is then 0·inf = NaN (ROADMAP R7). The
     # forward is the same bits: exp(-inf) = 0
-    lmat = torch.exp(seg.masked_fill(~causal, float("-inf")))
-    xdt = (xc * dtc[..., None]).float()
-    g = torch.einsum("bcqhn,bckhn->bcqkh", cc.float(), bc.float())
-    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", g * lmat, xdt)
+    cdt = compute_dtype_of(compute_dtype)
+    lmat = torch.exp(seg.masked_fill(~causal, float("-inf"))).to(cdt)
+    xdt = (xc * dtc[..., None]).to(cdt)
+    g = torch.einsum("bcqhn,bckhn->bcqkh", cc.float(), bc.float()).to(cdt)
+    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", (g * lmat).float(),
+                           xdt.float())
 
     decay_end = torch.exp(cum[:, :, -1:, :] - cum)               # (B,nc,Q,H)
     s_local = torch.einsum("bckhn,bckhp->bchnp",
-                           (bc * decay_end[..., None]).float(), xdt)
+                           (bc * decay_end[..., None]).float(), xdt.float())
     chunk_decay = torch.exp(cum[:, :, -1, :])                    # (B,nc,H)
     state = (torch.zeros(b, h, n, p, dtype=torch.float32, device=x.device)
              if initial_state is None else initial_state.float())
@@ -196,23 +230,36 @@ def _launchers():
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                        + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    fn = fns["tensor_cores", torch.bfloat16] = lib.ssd_scan_bf16_chunked
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+    fn = lib.ssd_scan_bf16_chunked
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
                    + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    fns["tensor_cores", torch.bfloat16] = fn
+    fns["tensor_cores_bf16", torch.bfloat16] = fn
     return fns
 
 
 def route(dtype: torch.dtype, p: int, n: int, q: int,
-          aligned: bool = True) -> str:
+          aligned: bool = True, compute_dtype=torch.float32) -> str:
     """The kernel a call takes: ``"tensor_cores"`` for bfloat16 with P in
     ``MMA_HEAD_DIMS``, N a multiple of 16 up to 128, the chunk Q a multiple
     of 64 and 16-byte aligned inputs (the ``cp.async`` copies move 16
-    bytes), else ``"cuda_cores"``."""
-    if (dtype == torch.bfloat16 and p in MMA_HEAD_DIMS and n % 16 == 0
-            and 16 <= n <= MAX_STATE and q % MMA_TILE == 0 and aligned):
-        return "tensor_cores"
-    return "cuda_cores"
+    bytes), else ``"cuda_cores"``. With bf16 compute, ``"tensor_cores_bf16"``
+    (the same kernels, every operand one bf16) on the same condition, and
+    ``ValueError`` where it does not hold: no other kernel computes in
+    bf16."""
+    mma = (dtype == torch.bfloat16 and p in MMA_HEAD_DIMS and n % 16 == 0
+           and 16 <= n <= MAX_STATE and q % MMA_TILE == 0 and aligned)
+    if compute_dtype_of(compute_dtype) == torch.bfloat16:
+        if not mma:
+            raise ValueError(
+                f"bf16 compute runs on the tensor-core route only: bfloat16 "
+                f"inputs (got {dtype}), P in {MMA_HEAD_DIMS} (got {p}), N a "
+                f"multiple of 16 up to {MAX_STATE} (got {n}), the chunk a "
+                f"multiple of {MMA_TILE} (got {q}), 16-byte aligned "
+                f"(got {aligned})")
+        return "tensor_cores_bf16"
+    return "tensor_cores" if mma else "cuda_cores"
 
 
 def _p_tile(b: int, h: int, p: int, n_sms: int) -> int:
@@ -228,7 +275,8 @@ def _p_tile(b: int, h: int, p: int, n_sms: int) -> int:
     return tiles[-1]
 
 
-def _kernel(x, dt, A, B_, C_, q: int, initial_state):
+def _kernel(x, dt, A, B_, C_, q: int, initial_state,
+            compute_dtype=torch.float32):
     """One launch of the CUDA kernel; raises on what it does not take."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
@@ -256,14 +304,14 @@ def _kernel(x, dt, A, B_, C_, q: int, initial_state):
                and all(st % 8 == 0 for st in strides)
                and (initial_state is None
                     or initial_state.data_ptr() % 16 == 0))
-    path = route(x.dtype, p, n, q, aligned)
+    path = route(x.dtype, p, n, q, aligned, compute_dtype)
     y = torch.empty((b, length, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
     init = 0 if initial_state is None else initial_state.data_ptr()
     fn = _launchers()[path, x.dtype]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if path == "tensor_cores":
+        if path.startswith("tensor_cores"):
             units = b * h * (length // q)
             states = torch.empty((units * n * p,), dtype=torch.float32,
                                  device=x.device)
@@ -274,8 +322,8 @@ def _kernel(x, dt, A, B_, C_, q: int, initial_state):
             err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                      B_.data_ptr(), C_.data_ptr(), init, y.data_ptr(),
                      state.data_ptr(), states.data_ptr(), fac.data_ptr(),
-                     prev.data_ptr(), b, length, h, g, p, n, q, *strides,
-                     stream)
+                     prev.data_ptr(), b, length, h, g, p, n, q,
+                     int(path == "tensor_cores_bf16"), *strides, stream)
         else:
             pt = _p_tile(b, h, p, sm_count(x.device))
             err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
@@ -288,27 +336,66 @@ def _kernel(x, dt, A, B_, C_, q: int, initial_state):
     return y, state
 
 
-def _forward(x, dt, A, B_, C_, q: int, initial_state):
-    if x.device.type == "cpu":
+def _plain(x, dt, A, B_, C_, q: int, initial_state, compute_dtype):
+    """The CPU route: the sequential recurrence in float32, the chunked
+    form (grouped B/C repeated to the heads) with bf16 compute."""
+    if compute_dtype == torch.float32:
         return ssd_scan_ref(x, dt, A, B_, C_, chunk=q,
                             initial_state=initial_state)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    return _kernel(x, dt, A, B_, C_, q, initial_state)
+    rep = x.shape[2] // B_.shape[2]
+    return ssd_chunked(x, dt, A, B_.repeat_interleave(rep, 2),
+                       C_.repeat_interleave(rep, 2), q,
+                       initial_state=initial_state,
+                       compute_dtype=compute_dtype)
+
+
+def cost(b: int, length: int, h: int, p: int, n: int, g: int, q: int,
+         dtype: torch.dtype, init: bool = False):
+    """(flops, bytes) of the SSD scan, either compute dtype: x, B, C and
+    dt read once (and the initial state, given one), y and the final
+    state written once. Per (b, h, chunk) the flops are counted once: Q·N·Q
+    for the causal C·Bᵀ scores, Q·P·Q for their product with x·dt and
+    4·Q·N·P for the inter-chunk term and the state update (the float32
+    compute's hi/lo pairs double the tensor-core work, not the
+    function's flops)."""
+    nbytes = ((2 * b * length * h * p + 2 * b * length * g * n)
+              * dtype.itemsize + b * length * h * 4
+              + b * h * n * p * 4 * (1 + int(init)))
+    units = b * h * (length // q)
+    flops = (float(q) * n * q + float(q) * p * q + 4.0 * q * n * p) * units
+    return flops, nbytes
+
+
+_op = oplib.define(
+    "ssd_scan",
+    "(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, "
+    "Tensor? initial_state, int q, ScalarType compute_dtype) "
+    "-> (Tensor, Tensor)",
+    cuda=lambda x, dt, A, B_, C_, s0, q, cdt: _kernel(x, dt, A, B_, C_, q,
+                                                     s0, cdt),
+    cpu=lambda x, dt, A, B_, C_, s0, q, cdt: _plain(x, dt, A, B_, C_, q, s0,
+                                                   cdt),
+    fake=lambda x, dt, A, B_, C_, s0, q, cdt: (
+        x.new_empty(x.shape),
+        x.new_empty((x.shape[0], x.shape[2], B_.shape[3], x.shape[3]),
+                    dtype=torch.float32)),
+    cost=lambda x, dt, A, B_, C_, s0, q, cdt: cost(
+        *x.shape[:3], x.shape[3], B_.shape[3], B_.shape[2], q, x.dtype,
+        s0 is not None))
 
 
 class _SsdScan(torch.autograd.Function):
-    """Forward through ``_forward`` (the kernel on the card); backward =
-    the VJP of ``ssd_chunked``, recomputed from the saved inputs (grouped
-    B/C repeated to the heads, their gradients summed back to the
-    groups)."""
+    """Forward through the operator (the kernel on the card); backward =
+    the VJP of ``ssd_chunked`` at the same compute dtype, recomputed from
+    the saved inputs (grouped B/C repeated to the heads, their gradients
+    summed back to the groups)."""
 
     @staticmethod
-    def forward(ctx, x, dt, A, B_, C_, initial_state, q):
+    def forward(ctx, x, dt, A, B_, C_, initial_state, q, compute_dtype):
         ctx.save_for_backward(x, dt, A, B_, C_, initial_state)
-        ctx.q = q
+        ctx.q, ctx.compute_dtype = q, compute_dtype
         ctx.set_materialize_grads(False)     # an unused output: None
-        return _forward(x, dt, A, B_, C_, q, initial_state)
+        return _op(x, dt, A, B_, C_, initial_state, q, compute_dtype)
 
     @staticmethod
     def backward(ctx, dy, dstate):
@@ -320,7 +407,8 @@ class _SsdScan(torch.autograd.Function):
             rep = x.shape[2] // B_.shape[2]
             y, state = ssd_chunked(x, dt, A, B_.repeat_interleave(rep, 2),
                                    C_.repeat_interleave(rep, 2), ctx.q,
-                                   initial_state=s0)
+                                   initial_state=s0,
+                                   compute_dtype=ctx.compute_dtype)
             # an output with no cotangent or that no input reaches (the
             # final state does not depend on C) adds nothing
             pairs = [(o, c) for o, c in ((y, dy), (state, dstate))
@@ -331,24 +419,27 @@ class _SsdScan(torch.autograd.Function):
                                              allow_unused=True)
                          if pairs else [None] * len(wrt))
         return (*(next(grads) if t is not None and t.requires_grad else None
-                  for t in ins), None)
+                  for t in ins), None, None)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B_: torch.Tensor, C_: torch.Tensor, *, chunk: int = 128,
-             initial_state: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             initial_state: Optional[torch.Tensor] = None,
+             compute_dtype="float32") -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,L,H,P) float32/bfloat16, dt (B,L,H) float32, A (H,) float32,
     B_/C_ (B,L,G,N) in x's dtype -> (y (B,L,H,P) in x's dtype, final state
     (B,H,N,P) float32); differentiable (see the module docstring).
+    ``compute_dtype``: "float32" or "bfloat16" (or the torch dtype).
 
     A CUDA tensor goes to the kernel ``route`` names (N <= 128, P a
-    multiple of 16; a failed build or launch raises); a CPU tensor goes to
-    ``ssd_scan_ref``.
-    Each kernel launch adds one to ``ssd_scan.launches``.
+    multiple of 16; bf16 compute the tensor-core route only; a failed build
+    or launch raises); a CPU tensor goes to ``ssd_scan_ref``, or with bf16
+    compute to ``ssd_chunked``. Each kernel launch adds one to
+    ``ssd_scan.launches``.
     """
     q = _check(x, dt, A, B_, C_, chunk, initial_state)
-    return _SsdScan.apply(x, dt, A, B_, C_, initial_state, q)
+    return _SsdScan.apply(x, dt, A, B_, C_, initial_state, q,
+                          compute_dtype_of(compute_dtype))
 
 
 ssd_scan.launches = 0

@@ -8,7 +8,9 @@ over N stacked client updates, flattened to (N, M).
 ``csrc/weighted_aggregate.cu`` on a CUDA tensor and runs the plain PyTorch
 version ``weighted_aggregate_ref`` on a CPU tensor; there is no other path.
 It replaces the Pallas TPU kernel ``repro/kernels/weighted_aggregate.py``
-(``_agg_kernel`` / ``weighted_aggregate``).
+(``_agg_kernel`` / ``weighted_aggregate``). Both routes are the operator
+``torch.ops.repro_torch.weighted_aggregate`` (``kernels/oplib.py``), whose
+fake implementation serves ``meta`` tensors and whose cost is ``cost``.
 
 Bound on the card: memory. The kernel must read (N*M + N) values and write
 M, so its least time is (N*M + M + N) * bytes / 3.35 TB/s — about 2 us at
@@ -23,7 +25,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, oplib
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_ROWS = 48 * 1024 // 4     # weights in the kernel's 48 KB shared memory
@@ -84,6 +86,37 @@ def weighted_aggregate_ref(stacked: torch.Tensor, weights: torch.Tensor, *,
     return acc.to(stacked.dtype)
 
 
+def cost(n: int, m: int, dtype: torch.dtype):
+    """(flops, bytes) of (N, M) x (N,) -> (M,): 2·N·M flops; each input
+    read once (the float32 weights too) and the output written once."""
+    return 2.0 * n * m, (n * m + m) * dtype.itemsize + n * 4
+
+
+def _kernel(stacked: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One launch of the CUDA kernel over normalised float32 weights."""
+    n, m = stacked.shape
+    out = torch.empty(m, dtype=stacked.dtype, device=stacked.device)
+    fn = _launchers()[stacked.dtype]
+    with torch.cuda.device(stacked.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(stacked.data_ptr(), w.data_ptr(), out.data_ptr(), n, m,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"weighted_aggregate kernel launch failed: "
+                           f"cudaError_t {err}")
+    weighted_aggregate.launches += 1
+    return out
+
+
+_op = oplib.define(
+    "weighted_aggregate", "(Tensor stacked, Tensor w) -> Tensor",
+    cuda=lambda *args: _kernel(*args),
+    cpu=lambda stacked, w: weighted_aggregate_ref(stacked, w,
+                                                  assume_normalized=True),
+    fake=lambda stacked, w: stacked.new_empty(stacked.shape[1:]),
+    cost=lambda stacked, w: cost(*stacked.shape, stacked.dtype))
+
+
 def weighted_aggregate(stacked: torch.Tensor, weights: torch.Tensor, *,
                        assume_normalized: bool = False) -> torch.Tensor:
     """stacked (N, M) float32/bfloat16, weights (N,) -> (M,) weighted mean,
@@ -99,24 +132,7 @@ def weighted_aggregate(stacked: torch.Tensor, weights: torch.Tensor, *,
     one to ``weighted_aggregate.launches``.
     """
     _check(stacked, weights)
-    if stacked.device.type == "cpu":
-        return weighted_aggregate_ref(stacked, weights,
-                                      assume_normalized=assume_normalized)
-    if stacked.device.type != "cuda":
-        raise ValueError(f"no kernel for device {stacked.device}")
-    w = _normalized(weights, assume_normalized)
-    n, m = stacked.shape
-    out = torch.empty(m, dtype=stacked.dtype, device=stacked.device)
-    fn = _launchers()[stacked.dtype]
-    with torch.cuda.device(stacked.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(stacked.data_ptr(), w.data_ptr(), out.data_ptr(), n, m,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"weighted_aggregate kernel launch failed: "
-                           f"cudaError_t {err}")
-    weighted_aggregate.launches += 1
-    return out
+    return _op(stacked, _normalized(weights, assume_normalized))
 
 
 weighted_aggregate.launches = 0

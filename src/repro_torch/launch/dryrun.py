@@ -1,0 +1,405 @@
+"""Dry run on one device: trace every (arch x input shape) step on the
+``meta`` device and put its cost on the H100's roofline.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-34b --shape train_4k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out results/dryrun_torch.json
+
+The counterpart of the JAX package's ``launch/dryrun.py``, which lowers
+and compiles each step for a 512-device TPU mesh and reads XLA's
+``cost_analysis`` and ``memory_analysis``. PyTorch runs eagerly and has
+neither, so here the step itself — ``launch/steps.py``'s train, prefill or
+decode step, the one the launchers and ``chip_smoke.py`` run — is run on
+``meta`` tensors (``api.init(device="meta")``, ``api.input_specs``), which
+carry shapes and dtypes and compute nothing, under ``StepCounter``:
+
+- FLOPs: ``torch.utils.flop_counter.FlopCounterMode``, the aten products'
+  formulas and the kernels' own (each kernel K1–K6 is an operator of the
+  dispatcher with its ``cost`` registered, ``kernels/oplib.py``);
+- bytes: per operator, each distinct input view read once and each output
+  written once (views, and ``empty``, move nothing), a kernel's by its
+  ``cost``. This is aten-level traffic: every intermediate goes to memory
+  and back, so it over-counts what XLA's fused "bytes accessed" reports
+  for the same step, by as much as a fusion would save;
+- memory: the bytes of the live storages (not tensors: views share one),
+  arguments included, followed op by op, and their peak.
+
+The same counter runs a real step on the CPU or the card (``count_step``
+on real tensors), where the counts are the meta trace's: the ops are the
+same, and only their values differ. No scan-trip correction is made: the
+port's ``scan_blocks`` is a Python loop, so the trace sees every block
+(``--no-correction`` is accepted and changes nothing). A decode step is
+traced at the cache's last position (``index`` = S - 1), where it reads
+every cached position, as the reference's masked decode step does.
+
+One device only (``mesh`` "1xH100", no collectives): ``--mesh multi`` and
+``--cohort`` (the distributed FEEL round) wait for the sharded plane,
+ROADMAP Queue 1 item 6. The dry run touches no device and runs the same
+with or without CUDA.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import functools
+import json
+import os
+import sys
+import traceback
+import weakref
+from typing import Optional
+
+import torch
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch.configs import registry
+from repro_torch.configs.base import SHAPES, TrainConfig
+from repro_torch.kernels import oplib
+from repro_torch.launch import roofline as rl
+from repro_torch.launch import steps
+from repro_torch.launch.mesh import ADAFACTOR_ARCHS
+from repro_torch.models import api, common
+from repro_torch.obs.clock import wall_clock
+
+MESH = "1xH100"
+SHARDED = ("the sharded plane is ROADMAP Queue 1 item 6 (federated/"
+           "distributed.py, sharding/, launch/mesh.py's meshes); this dry run is "
+           "for one device")
+# ops that allocate without writing, or make views
+_NO_TRAFFIC = {"empty", "empty_like", "empty_strided", "new_empty",
+               "new_empty_strided", "empty_permuted"}
+
+
+def _tensors(tree):
+    return [t for t in pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _arg_tensors(args, kwargs):
+    """The tensors among an operator's arguments (lists of tensors
+    included)."""
+    out = []
+    for a in (*args, *kwargs.values()):
+        if isinstance(a, torch.Tensor):
+            out.append(a)
+        elif isinstance(a, (list, tuple)):
+            out.extend(t for t in a if isinstance(t, torch.Tensor))
+    return out
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _storage_key(t: torch.Tensor) -> int:
+    return t.untyped_storage()._cdata
+
+
+@functools.lru_cache(maxsize=None)
+def _op_info(func):
+    """(name, overload packet, how its bytes are counted: "cost", "none"
+    or "io", and whether it writes an argument) of an operator."""
+    packet = func._overloadpacket
+    writes = any(a.alias_info is not None and a.alias_info.is_write
+                 for a in func._schema.arguments)
+    if packet in oplib.COSTS:
+        kind = "cost"
+    elif packet.__name__ in _NO_TRAFFIC or (
+            not writes and any(r.alias_info is not None
+                               for r in func._schema.returns)):
+        kind = "none"
+    else:
+        kind = "io"
+    return str(packet), packet, kind, writes
+
+
+class _Dispatch(TorchDispatchMode):
+    """Hands every operator call to its ``StepCounter``."""
+
+    def __init__(self, counter):
+        super().__init__()
+        self.counter = counter
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        self.counter._count(func, args, kwargs, out)
+        return out
+
+
+class StepCounter:
+    """FLOPs, bytes and live storage of what runs inside the block.
+
+    ``hold(tree)`` first registers the step's arguments (their storages'
+    bytes are ``argument_bytes``); ``finish(out)`` registers its outputs.
+    After the block: ``flops`` and ``bytes`` in total, ``op_flops``,
+    ``op_bytes`` and ``op_calls`` by operator name, and ``memory()``."""
+
+    def __init__(self):
+        self.flops = 0
+        self.bytes = 0
+        self.op_flops = {}
+        self.op_bytes = collections.Counter()
+        self.op_calls = collections.Counter()
+        self.argument_bytes = self.output_bytes = 0
+        self.live_bytes = self.peak_bytes = 0
+        self._live = {}
+        self._args = set()
+
+    # live storage
+    def _track(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self._live:
+            return
+        self._live[key] = n = st.nbytes()
+        self.live_bytes += n
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        weakref.finalize(st, self._free, key)
+
+    def _free(self, key) -> None:
+        self.live_bytes -= self._live.pop(key, 0)
+
+    def hold(self, tree) -> None:
+        for t in _tensors(tree):
+            self._track(t)
+            self._args.add(_storage_key(t))
+        self.argument_bytes = self.live_bytes
+
+    def finish(self, out) -> None:
+        new = {_storage_key(t): t.untyped_storage().nbytes()
+               for t in _tensors(out)}
+        self.output_bytes = sum(n for k, n in new.items()
+                                if k not in self._args)
+
+    def memory(self) -> dict:
+        """The reference's ``memory_analysis`` fields: arguments, outputs
+        (the storages the step returns that it did not take: the port's
+        optimizer updates its arguments in place), temporaries (the rest
+        of the peak) and the peak of the live bytes."""
+        return {"argument_bytes": self.argument_bytes,
+                "output_bytes": self.output_bytes,
+                "temp_bytes": max(self.peak_bytes - self.argument_bytes
+                                  - self.output_bytes, 0),
+                "peak_bytes": self.peak_bytes}
+
+    # one operator
+    def _count(self, func, args, kwargs, out) -> None:
+        name, packet, kind, writes = _op_info(func)
+        outs = ([out] if isinstance(out, torch.Tensor)
+                else [t for t in pytree.tree_leaves(out)
+                      if isinstance(t, torch.Tensor)])
+        for t in outs:
+            self._track(t)
+        if kind == "cost":
+            nb = int(oplib.COSTS[packet](*args, **kwargs)[1])
+        elif kind == "none" or not outs:
+            nb = 0
+        else:
+            ins = _arg_tensors(args, kwargs)
+            keys = {}
+            for t in ins:
+                keys[(_storage_key(t), t.storage_offset(), t.shape,
+                      t.stride())] = t
+            in_storages = {k[0] for k in keys}
+            # an output in an input's storage, nothing written: a view
+            if not writes and all(_storage_key(t) in in_storages
+                                  for t in outs):
+                nb = 0
+            else:
+                nb = (sum(_nbytes(t) for t in outs)
+                      + sum(_nbytes(t) for t in keys.values()))
+        self.bytes += nb
+        self.op_bytes[name] += nb
+        self.op_calls[name] += 1
+
+    def __enter__(self):
+        self._flop_mode = FlopCounterMode(display=False)
+        self._flop_mode.__enter__()
+        self._mode = _Dispatch(self)
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+        self._flop_mode.__exit__(*exc)
+        counts = self._flop_mode.get_flop_counts().get("Global", {})
+        self.op_flops = {str(k): int(v) for k, v in counts.items()}
+        self.flops = int(self._flop_mode.get_total_flops())
+        return False
+
+
+def count_step(fn, args) -> StepCounter:
+    """``fn(*args)`` under a ``StepCounter`` that holds ``args``. The RoPE
+    tables, cached per device, are dropped first, so that every count
+    includes making them, whatever ran before in the process."""
+    common._rope_table.cache_clear()
+    counter = StepCounter()
+    counter.hold(args)
+    with counter:
+        out = fn(*args)
+        counter.finish(out)
+    return counter
+
+
+def step_inputs(cfg, shape, device, seed: int = 0) -> dict:
+    """``api.input_specs`` on ``meta``; elsewhere real inputs of the same
+    shapes and dtypes, drawn from ``seed``: token ids below the
+    vocabulary, normal frame embeddings, a zero cache."""
+    specs = api.input_specs(cfg, shape)
+    if torch.device(device).type == "meta":
+        return specs
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def real(t):
+        if t.dtype == torch.int32:
+            return torch.randint(cfg.vocab_size, t.shape, generator=g,
+                                 dtype=torch.int32).to(device)
+        return torch.randn(t.shape, generator=g, dtype=t.dtype).to(device)
+    out = {k: real(v) for k, v in specs.items() if k != "cache"}
+    if shape.kind == "decode":
+        out["cache"] = api.cache_init(cfg, shape.global_batch,
+                                      shape.seq_len, device=device)
+    return out
+
+
+def step_args(cfg, shape, optimizer: str = "adamw", remat: bool = True,
+              device="meta", seed: int = 0):
+    """(step function, its arguments) of ``shape``'s kind on ``device``:
+    train (``init_state`` at ``TrainConfig(optimizer, remat)``), prefill,
+    or decode at the cache's last position."""
+    batch = step_inputs(cfg, shape, device, seed)
+    if shape.kind == "train":
+        tcfg = TrainConfig(optimizer=optimizer, remat=remat)
+        params, opt_state, step = steps.init_state(cfg, tcfg, seed,
+                                                   device=device)
+        return (steps.make_train_step(cfg, tcfg),
+                (params, opt_state, step, batch))
+    params = api.init(cfg, seed, device=device)
+    if shape.kind == "prefill":
+        return steps.make_prefill_step(cfg), (params, batch)
+    batch["cache"]["index"] = shape.seq_len - 1
+    return (steps.make_decode_step(cfg),
+            (params, batch["cache"], batch["token"]))
+
+
+def _trace_one(cfg, shape, optimizer: str, remat: bool = True):
+    """Trace one step of ``shape`` on ``meta`` (the counterpart of the
+    reference's ``_compile_one``); returns (its ``StepCounter``, the
+    trace's seconds)."""
+    t0 = wall_clock()
+    counter = count_step(*step_args(cfg, shape, optimizer, remat))
+    return counter, wall_clock() - t0
+
+
+def lower_pair(arch: str, shape_name: str, multi_pod: bool = False,
+               extra_tags=None, cfg_override=None, label=None,
+               correct_scan: bool = True, optimizer_override=None,
+               remat: bool = True, donate: bool = False) -> dict:
+    """The reference's record of one (arch, shape) on one H100: status,
+    FLOPs and bytes of the step, its roofline terms and dominant term,
+    the model FLOPs (6ND / 2ND) and their share of the traced FLOPs, the
+    memory and the trace's seconds. ``correct_scan`` and ``donate`` change
+    nothing (the trace sees every block; decode writes its caches in
+    place); ``remat`` is the train step's."""
+    if multi_pod:
+        raise ValueError(f"multi-pod lowering: {SHARDED}")
+    cfg = cfg_override or registry.get(arch)
+    shape = SHAPES[shape_name]
+    rec = {"arch": label or arch, "shape": shape_name, "mesh": MESH,
+           **(extra_tags or {})}
+    ok, reason = api.supports_shape(cfg, shape)
+    if not ok:
+        rec.update(status="skipped", reason=reason)
+        return rec
+    optimizer = optimizer_override or (
+        "adafactor" if arch in ADAFACTOR_ARCHS else "adamw")
+    if shape.kind == "train":
+        rec["optimizer"] = optimizer
+    try:
+        counter, t_lower = _trace_one(cfg, shape, optimizer, remat)
+        flops, hbm = float(counter.flops), float(counter.bytes)
+        terms = rl.roofline_terms(flops, hbm, {})
+        tokens = shape.global_batch * (shape.seq_len
+                                       if shape.kind != "decode" else 1)
+        mf = rl.model_flops(cfg, tokens, train=shape.kind == "train")
+        rec.update(
+            status="ok", flops_per_chip=flops, hbm_bytes_per_chip=hbm,
+            collectives={}, **terms, dominant=rl.dominant(terms),
+            model_flops_total=mf,
+            useful_flops_ratio=(mf / flops) if flops else None,
+            memory=counter.memory(), lower_s=round(t_lower, 1),
+            compile_s=0.0)
+    except Exception as e:
+        rec.update(status="error", error=f"{type(e).__name__}: {e}",
+                   trace=traceback.format_exc()[-2000:])
+    return rec
+
+
+def print_rec(rec):
+    if rec.get("status") == "ok":
+        print(f"[ok]   {rec['arch']:24s} {rec['shape']:12s} {rec['mesh']:8s} "
+              f"compute={rec['compute_s']:.3e}s memory={rec['memory_s']:.3e}s "
+              f"collective={rec['collective_s']:.3e}s dom={rec['dominant']} "
+              f"peak={rec['memory']['peak_bytes'] / 1e9:.2f}GB "
+              f"useful={rec['useful_flops_ratio']:.3f} "
+              f"(trace {rec.get('lower_s', '-')}s)")
+    elif rec.get("status") == "skipped":
+        print(f"[skip] {rec['arch']:24s} {rec['shape']:12s} {rec['mesh']:8s} "
+              f"{rec['reason']}")
+    else:
+        print(f"[ERR]  {rec['arch']:24s} {rec['shape']:12s} {rec['mesh']:8s} "
+              f"{rec.get('error')}")
+
+
+def main(argv: Optional[list] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", choices=["single", "multi", "both"],
+                    default="single")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--cohort", action="store_true",
+                    help="the distributed FEEL round: waits for the "
+                         "sharded plane")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--no-correction", action="store_true",
+                    help="accepted, changes nothing: the trace sees every "
+                         "block, so there is no scan-trip correction")
+    ap.add_argument("--out", default="results/dryrun_torch.json")
+    args = ap.parse_args(argv)
+    if args.cohort or args.mesh != "single":
+        what = "--cohort" if args.cohort else f"--mesh {args.mesh}"
+        print(f"dryrun: {what} is not ported: {SHARDED}", file=sys.stderr)
+        return 2
+
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    results = []
+    if os.path.exists(args.out):
+        with open(args.out) as f:
+            results = json.load(f)
+    done = {(r["arch"], r["shape"], r["mesh"]) for r in results
+            if r.get("status") in ("ok", "skipped")}
+
+    archs = (registry.list_archs() if (args.all or not args.arch)
+             else [args.arch])
+    shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
+    for a in archs:
+        for s in shapes:
+            if (a, s, MESH) in done and not args.force:
+                continue
+            rec = lower_pair(a, s, correct_scan=not args.no_correction)
+            print_rec(rec)
+            results = [r for r in results
+                       if (r["arch"], r["shape"], r["mesh"])
+                       != (rec["arch"], rec["shape"], rec["mesh"])]
+            results.append(rec)
+            with open(args.out, "w") as f:
+                json.dump(results, f, indent=1)
+    n_err = sum(r.get("status") == "error" for r in results)
+    print(f"\n{len(results)} records, {n_err} errors -> {args.out}")
+    return 1 if n_err else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -6,17 +6,20 @@
     prefill(cfg, params, batch, target_len) -> (last logits, cache)
     decode_step(cfg, params, cache, token)  -> (logits, cache)
     cache_init(cfg, batch, seq_len, device, src_len) -> decode cache
+    input_specs(cfg, shape)                 -> dict of meta-tensor inputs
     supports_shape(cfg, shape)              -> (ok, reason)
 
 An encoder-decoder config (``is_encoder_decoder``) goes to
 ``models/encdec.py``, whose batches carry ``src`` (B, S_src, d) frame
 embeddings beside the target ``tokens``; every other config to
-``models/transformer.py``. ``input_specs`` (shape stand-ins for the dry
-run) comes with the dry run.
+``models/transformer.py``.
 
 ``init`` and ``cache_init`` build on the GPU unless the caller passes
 ``device="cpu"``, and raise where CUDA is absent
-(``device.resolve_device``).
+(``device.resolve_device``). On ``device="meta"`` they build the same
+names, shapes and dtypes and allocate and draw nothing: the port's
+``jax.eval_shape(api.init)``, which the dry run (``launch/dryrun.py``)
+traces steps on, with ``input_specs``' inputs.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
+from repro_torch.models.common import MetaGenerator
 
 
 def _is_encdec(cfg) -> bool:
@@ -38,10 +42,15 @@ def init(cfg: ModelConfig, key: Union[int, torch.Generator] = 0,
          device: DeviceLike = None):
     """Parameters on ``device``. ``key`` is a seed, drawn from a generator
     on ``device`` (on a card, the draw never passes through the host), or
-    a ``torch.Generator``, drawn on its own device."""
+    a ``torch.Generator``, drawn on its own device. On ``meta`` nothing
+    is drawn and ``key`` is not read."""
     device = resolve_device(device)
-    generator = (key if isinstance(key, torch.Generator)
-                 else torch.Generator(device=device).manual_seed(int(key)))
+    if device.type == "meta":
+        generator = MetaGenerator()
+    elif isinstance(key, torch.Generator):
+        generator = key
+    else:
+        generator = torch.Generator(device=device).manual_seed(int(key))
     if _is_encdec(cfg):
         return ed.encdec_init(generator, cfg, device=device)
     return tf.lm_init(generator, cfg, device=device)
@@ -98,6 +107,26 @@ def _default_src_len(cfg, seq_len: int) -> int:
     (a 524,288-token target does not imply as many frames; that shape is
     skipped for the encoder-decoder anyway)."""
     return min(seq_len, 4096)
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape):
+    """Every model input of ``shape`` as ``meta`` tensors (the reference's
+    shapes and dtypes; nothing allocated): train and prefill ``tokens``
+    (B, S) int32 and, for an encoder-decoder, ``src`` (B,
+    ``_default_src_len``, d) float32 frame embeddings; decode ``cache``,
+    ``cache_init``'s cache for S positions on ``meta`` (its ``index`` a
+    host int, 0), and ``token`` (B, 1) int32."""
+    b, s = shape.global_batch, shape.seq_len
+    meta = dict(device="meta")
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": torch.empty((b, s), dtype=torch.int32, **meta)}
+        if _is_encdec(cfg):
+            specs = {"src": torch.empty((b, _default_src_len(cfg, s),
+                                         cfg.d_model), dtype=torch.float32,
+                                        **meta), **specs}
+        return specs
+    return {"cache": cache_init(cfg, b, s, device="meta"),
+            "token": torch.empty((b, 1), dtype=torch.int32, **meta)}
 
 
 def supports_shape(cfg: ModelConfig, shape: InputShape):

@@ -197,7 +197,7 @@ def attn_decode(cfg, p, x, cache_k, cache_v, index: int, *, slot_pos=None,
     cache_k[:, slot] = k[:, 0]
     cache_v[:, slot] = v[:, 0]
     if slot_pos is not None:
-        slot_pos[slot] = index
+        slot_pos[slot].fill_(index)
         lo, hi = 0, min(index + 1, c)
     else:
         hi = index + 1

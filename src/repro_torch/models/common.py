@@ -24,6 +24,13 @@ def dtype_of(cfg) -> torch.dtype:
 # ---------------------------------------------------------------------- #
 # Initialisation
 # ---------------------------------------------------------------------- #
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` where parameters are built on
+    the ``meta`` device (shapes and dtypes, no storage): torch has no
+    generator there, and nothing is drawn."""
+    device = torch.device("meta")
+
+
 def _truncated_normal(generator: torch.Generator, shape) -> torch.Tensor:
     """Standard normal truncated at +-3, float32, by the inverse CDF of one
     float32 uniform draw from ``generator``, on the generator's device:
@@ -31,7 +38,10 @@ def _truncated_normal(generator: torch.Generator, shape) -> torch.Tensor:
     changed between torch releases, this gives the same values on every
     torch version for the same seed and generator device (a CPU generator
     draws on the host, a CUDA one on its card, where a 22 B-parameter model
-    can be drawn at all)."""
+    can be drawn at all). A ``MetaGenerator`` gives a ``meta`` tensor of
+    the shape, drawing nothing."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     cdf = lambda z: 0.5 * (1.0 + math.erf(z / math.sqrt(2.0)))
     u = torch.empty(shape, dtype=torch.float32,
                     device=generator.device).uniform_(

@@ -126,7 +126,7 @@ def mla_decode(cfg, p, x, cache_ckv, cache_kr, index: int, *, slot_pos=None,
     cache_ckv[:, slot] = ckv_new[:, 0]
     cache_kr[:, slot] = kr_new[:, 0]
     if slot_pos is not None:
-        slot_pos[slot] = index
+        slot_pos[slot].fill_(index)
         lo, hi = 0, min(index + 1, c)
     else:
         hi = index + 1

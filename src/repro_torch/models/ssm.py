@@ -1,9 +1,10 @@
 """Mamba2 / SSD (state-space duality) blocks [arXiv:2405.21060].
 
 The full-sequence path (``ssm_apply``, train and prefill) runs the SSD
-scan through ``kernels.ssd_scan`` (K6): the hand-written CUDA kernel on a
-CUDA tensor, its plain version (the sequential recurrence) on a CPU
-tensor; its gradient is the VJP of ``ssd_chunked``, the JAX package's
+scan through ``kernels.ssd_scan`` (K6) at the config's
+``ssm.compute_dtype``: the hand-written CUDA kernel on a CUDA tensor, its
+plain version (the sequential recurrence, or the chunked form with bf16
+compute) on a CPU tensor; its gradient is the VJP of ``ssd_chunked``, the JAX package's
 chunked training formula in plain PyTorch, which lives beside the kernel
 (``kernels/ssd_scan.py``) and is importable from here under its
 reference name. Decode (``ssm_decode``) is the O(1) state recurrence
@@ -96,7 +97,8 @@ def ssm_apply(cfg, p, x, *, initial_state=None):
     xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
     x_, B_, C_, dtf, A = _heads(cfg, xbc, dt, p, d_in, nh, gn)
     y, state = ssd_scan(x_, dtf, A, B_, C_, chunk=s.chunk,
-                        initial_state=initial_state)
+                        initial_state=initial_state,
+                        compute_dtype=s.compute_dtype)
     y = y + (p["D"][:, None] * x_.float()).to(y.dtype)
     y = y.reshape(*x.shape[:2], d_in)
     y = gated_rms_norm(y, z, p["norm"], cfg.norm_eps)

@@ -1,0 +1,298 @@
+"""The port's one-device dry run (``launch/dryrun.py``) and the step-cost
+plane under it, against the JAX package where it has a counterpart:
+
+- ``api.input_specs`` has the reference's shapes and dtypes for every arch
+  x shape (through ``jax.eval_shape`` of its cache), ``api.init`` on
+  ``meta`` the reference's parameter names, shapes and dtypes at full
+  width, and ``supports_shape`` the reference's answers;
+- a meta trace counts what a real CPU step counts, exactly (FLOPs, bytes
+  by operator, live memory and its peak), at reduced configs of every
+  family and step kind; the counts grow linearly with depth (the trace
+  sees every block: no scan-trip correction), but for a train step's
+  gradient of the stacked leaves' per-block ``select``, quadratic
+  (ROADMAP P15);
+- ``model_flops_total`` is the reference's ``rl.model_flops``, and
+  ``yi-34b``'s ``train_4k`` (a full-width trace) puts ~0.68 of its traced
+  FLOPs in the 6ND model FLOPs (remat: ~8ND, plus attention);
+- the record has the reference's ``lower_pair`` keys; the CLI writes,
+  skips and re-runs (``--force``) as the reference's, and refuses
+  ``--mesh multi`` and ``--cohort``, naming the sharded plane's item;
+- nothing touches CUDA.
+
+The reference's ``launch/dryrun.py`` is read, never imported: importing it
+sets ``XLA_FLAGS`` for the whole process (512 host devices), and its
+compile fails on this jax (ROADMAP R2).
+"""
+import ast
+import dataclasses
+import functools
+import json
+import pathlib
+import types
+
+import numpy as np
+import pytest
+import torch
+from torch_parity import reference
+
+from repro_torch.configs import registry
+from repro_torch.configs.base import SHAPES, InputShape
+from repro_torch.convert import flatten_tree
+from repro_torch.launch import dryrun
+from repro_torch.launch import roofline as rl
+from repro_torch.models import api
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+ARCHS = registry.list_archs()
+PAIRS = [(a, s) for a in ARCHS for s in SHAPES]
+# one arch of each family, reduced
+FAMILIES = ["yi-34b", "qwen2-moe-a2.7b", "mamba2-370m",
+            "jamba-1.5-large-398b", "deepseek-v3-671b", "seamless-m4t-medium"]
+KINDS = ["train", "prefill", "decode"]
+
+
+@pytest.fixture(scope="module")
+def ref():
+    import jax
+    return types.SimpleNamespace(api=reference("models.api"),
+                                 reg=reference("configs.registry"),
+                                 base=reference("configs.base"),
+                                 rl=reference("launch.roofline"), jax=jax)
+
+
+def _dtype(x) -> str:
+    return str(x.dtype).split(".")[-1]
+
+
+def _leaves(tree):
+    return {k: (tuple(v.shape), _dtype(v))
+            for k, v in flatten_tree(tree).items()}
+
+
+@pytest.mark.parametrize("arch,shape", PAIRS)
+def test_input_specs_match_reference(ref, arch, shape):
+    """Every input of every arch x shape: the same names, shapes and
+    dtypes; a decode cache's ``index`` is a host int in the port (an int32
+    scalar in the reference), its tensors on ``meta``."""
+    want = ref.api.input_specs(ref.reg.get(arch), ref.base.SHAPES[shape])
+    got = api.input_specs(registry.get(arch), SHAPES[shape])
+    if "cache" in want:
+        assert got["cache"]["index"] == 0
+        want = {**want, "cache": {k: v for k, v in want["cache"].items()
+                                  if k != "index"}}
+        got = {**got, "cache": {k: v for k, v in got["cache"].items()
+                                if k != "index"}}
+    assert _leaves(got) == _leaves(want)
+    assert all(t.device.type == "meta"
+               for t in flatten_tree(got).values())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_meta_init_matches_reference_params(ref, arch):
+    """``api.init(device="meta")`` at full width: the reference's
+    parameter tree (``jax.eval_shape(api.init)``), name for name, shape
+    and dtype; nothing drawn or allocated."""
+    want = ref.jax.eval_shape(functools.partial(ref.api.init,
+                                                ref.reg.get(arch)),
+                              ref.jax.random.PRNGKey(0))
+    got = api.init(registry.get(arch), 0, device="meta")
+    assert _leaves(got) == _leaves(want)
+    assert all(v.device.type == "meta" for v in got.values())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_supports_shape_matches_reference(ref, arch):
+    for s in SHAPES:
+        assert api.supports_shape(registry.get(arch), SHAPES[s]) \
+            == ref.api.supports_shape(ref.reg.get(arch), ref.base.SHAPES[s])
+
+
+def _counts(cfg, kind, device, seq=32, batch=2):
+    shape = InputShape("t", seq, batch, kind)
+    return dryrun.count_step(*dryrun.step_args(cfg, shape, "adamw", True,
+                                               device))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_meta_trace_counts_a_real_cpu_step(arch, kind):
+    """The same step on meta tensors and on real CPU tensors (drawn
+    weights and tokens) under the same counter: the same FLOPs and bytes,
+    operator by operator, and the same live memory."""
+    cfg = registry.reduced(registry.get(arch))
+    meta, cpu = _counts(cfg, kind, "meta"), _counts(cfg, kind, "cpu")
+    assert meta.flops == cpu.flops > 0
+    assert meta.op_flops == cpu.op_flops
+    assert meta.bytes == cpu.bytes > 0
+    assert dict(meta.op_bytes) == dict(cpu.op_bytes)
+    assert dict(meta.op_calls) == dict(cpu.op_calls)
+    assert meta.memory() == cpu.memory()
+    assert meta.peak_bytes > meta.argument_bytes > 0
+
+
+def _n_blocks(cfg, n):
+    kw = dict(n_layers=cfg.first_dense_layers + n * cfg.block_len)
+    if cfg.is_encoder_decoder:
+        kw["encoder_layers"] = n
+    return dataclasses.replace(cfg, **kw)
+
+
+# the gradient of a stacked leaf's per-block ``select`` is a zero-padded
+# copy of the whole stack, summed over the blocks: O(depth^2) bytes
+QUADRATIC_IN_TRAINING = {"aten.select_backward", "aten.add"}
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("arch", ["yi-34b", "deepseek-v3-671b",
+                                  "jamba-1.5-large-398b"])
+def test_counts_grow_linearly_with_depth(arch, kind):
+    """count(3 blocks) - count(2) = count(2) - count(1) for the FLOPs, the
+    operator calls and every operator's bytes: the trace sees each block
+    once. In a train step but for the gradient of the stacked leaves'
+    per-block ``select`` (``select_backward`` and the ``add`` that sums
+    it), whose bytes grow with the square of the depth (ROADMAP P15)."""
+    cfg = registry.reduced(registry.get(arch))
+    c1, c2, c3 = (_counts(_n_blocks(cfg, n), kind, "meta") for n in (1, 2, 3))
+    assert c3.flops - c2.flops == c2.flops - c1.flops > 0
+    for op in c3.op_calls:
+        assert c3.op_calls[op] - c2.op_calls[op] \
+            == c2.op_calls[op] - c1.op_calls[op], op
+    second = {op: c3.op_bytes[op] - 2 * c2.op_bytes[op] + c1.op_bytes[op]
+              for op in c3.op_bytes}
+    quadratic = QUADRATIC_IN_TRAINING if kind == "train" else set()
+    assert {op for op, d in second.items() if d} == quadratic
+    assert all(second[op] > 0 for op in quadratic)
+
+
+@pytest.mark.parametrize("arch,shape", PAIRS)
+def test_model_flops_match_reference(ref, arch, shape):
+    s = SHAPES[shape]
+    tokens = s.global_batch * (s.seq_len if s.kind != "decode" else 1)
+    train = s.kind == "train"
+    assert rl.model_flops(registry.get(arch), tokens, train) \
+        == ref.rl.model_flops(ref.reg.get(arch), tokens, train)
+
+
+def test_useful_flops_ratio_of_yi_train_4k():
+    """yi-34b at train_4k (full width, 60 layers, batch 256, AdamW,
+    remat): 6ND model FLOPs over the traced ~8ND (the remat forward runs
+    twice) plus attention's, K3's plain VJP in float32 included."""
+    rec = dryrun.lower_pair("yi-34b", "train_4k")
+    assert rec["status"] == "ok", rec
+    assert rec["model_flops_total"] == rl.model_flops(
+        registry.get("yi-34b"), 256 * 4096, True)
+    assert 0.5 <= rec["useful_flops_ratio"] <= 0.85, rec
+    assert rec["optimizer"] == "adamw" and rec["mesh"] == "1xH100"
+    assert rec["compute_s"] == rec["flops_per_chip"] / 989e12
+    assert rec["memory_s"] == rec["hbm_bytes_per_chip"] / 3.35e12
+
+
+def _reference_record_keys(ref):
+    """The keys of the reference's ``lower_pair`` records, read from its
+    source: the ok record's (``rec`` as made, the train shapes'
+    ``optimizer``, ``rec.update(status="ok", ..., **terms)``) and the
+    skipped one's."""
+    tree = ast.parse((ROOT / "src" / "repro" / "launch"
+                      / "dryrun.py").read_text())
+    fn = next(n for n in ast.walk(tree)
+              if isinstance(n, ast.FunctionDef) and n.name == "lower_pair")
+    made = next(n.value for n in ast.walk(fn)
+                if isinstance(n, ast.Assign) and isinstance(n.value, ast.Dict)
+                and getattr(n.targets[0], "id", None) == "rec")
+    base = {k.value for k in made.keys if k is not None}
+    updates = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
+               and getattr(n.func, "attr", None) == "update"]
+    by_status = {next(k.value.value for k in u.keywords if k.arg == "status"):
+                 {k.arg for k in u.keywords if k.arg} for u in updates}
+    terms = set(ref.rl.roofline_terms(1.0, 1.0, {}))
+    return (base | {"optimizer"} | by_status["ok"] | terms,
+            base | by_status["skipped"])
+
+
+def test_record_keys_match_reference(ref):
+    ok_keys, skip_keys = _reference_record_keys(ref)
+    cfg = registry.reduced(registry.get("qwen2-moe-a2.7b"))
+    rec = dryrun.lower_pair("qwen2-moe-a2.7b", "train_4k", cfg_override=dataclasses.replace(
+        cfg, vocab_size=64), label="qwen2-moe-a2.7b-smoke")
+    assert set(rec) == ok_keys, set(rec) ^ ok_keys
+    assert set(rec["memory"]) == {"argument_bytes", "output_bytes",
+                                  "temp_bytes", "peak_bytes"}
+    assert rec["collectives"] == {} and rec["collective_s"] == 0.0
+    skipped = dryrun.lower_pair("seamless-m4t-medium", "long_500k")
+    assert set(skipped) == skip_keys and skipped["status"] == "skipped"
+
+
+def test_cli_writes_skips_and_forces(tmp_path, capsys):
+    """One arch, every shape (seamless-m4t-medium: three traced, long_500k
+    skipped as the reference skips it), appended to --out; a second run
+    skips what is there; --force traces again to the same counts."""
+    out = tmp_path / "d.json"
+    arch = "seamless-m4t-medium"
+    assert dryrun.main(["--arch", arch, "--out", str(out)]) == 0
+    recs = json.loads(out.read_text())
+    assert [(r["arch"], r["shape"], r["status"]) for r in recs] == [
+        (arch, s, "skipped" if s == "long_500k" else "ok") for s in SHAPES]
+    assert all(r["mesh"] == "1xH100" for r in recs)
+    assert dryrun.main(["--arch", arch, "--out", str(out),
+                        "--no-correction"]) == 0
+    assert json.loads(out.read_text()) == recs
+    assert dryrun.main(["--arch", arch, "--shape", "decode_32k", "--force",
+                        "--out", str(out)]) == 0
+    again = json.loads(out.read_text())
+    assert len(again) == 4 and again[-1]["shape"] == "decode_32k"
+    before = next(r for r in recs if r["shape"] == "decode_32k")
+    for key in ("flops_per_chip", "hbm_bytes_per_chip", "memory"):
+        assert again[-1][key] == before[key]
+    assert "4 records, 0 errors" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv", [["--mesh", "multi"], ["--mesh", "both"],
+                                  ["--cohort"]])
+def test_cli_refuses_the_sharded_plane(tmp_path, capsys, argv):
+    out = tmp_path / "d.json"
+    assert dryrun.main(argv + ["--out", str(out)]) != 0
+    assert "item 6" in capsys.readouterr().err
+    assert not out.exists()
+    with pytest.raises(ValueError, match="item 6"):
+        dryrun.lower_pair("yi-34b", "train_4k", multi_pod=True)
+
+
+def test_no_device_is_touched(monkeypatch):
+    """A trace needs no CUDA and initialises none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = registry.reduced(registry.get("mamba2-370m"))
+    rec = dryrun.lower_pair("mamba2-370m", "decode_32k", cfg_override=cfg)
+    assert rec["status"] == "ok"
+    assert not torch.cuda.is_initialized()
+
+
+def test_decode_is_traced_at_the_last_position():
+    """The decode step reads every cached position: K4's cost at length
+    S, one more position than a step at index S - 2 would read."""
+    cfg = registry.reduced(registry.get("yi-34b"))
+    shape = InputShape("t", 64, 2, "decode")
+    fn, args = dryrun.step_args(cfg, shape, device="meta")
+    assert args[1]["index"] == 63
+    full = dryrun.count_step(fn, args)
+    fn, args = dryrun.step_args(cfg, shape, device="meta")
+    args[1]["index"] = 62
+    short = dryrun.count_step(fn, args)
+    per_position = 4 * cfg.head_dim * 2 * cfg.n_heads * cfg.n_blocks
+    assert full.op_flops["repro_torch.decode_attention"] \
+        - short.op_flops["repro_torch.decode_attention"] == per_position
+
+
+def test_real_inputs_have_the_specs_shapes():
+    cfg = registry.reduced(registry.get("seamless-m4t-medium"))
+    for kind in KINDS:
+        shape = InputShape("t", 16, 2, kind)
+        meta = dryrun.step_inputs(cfg, shape, "meta")
+        real = dryrun.step_inputs(cfg, shape, "cpu")
+        for inputs in (meta, real):
+            if "cache" in inputs:
+                assert inputs["cache"].pop("index") == 0
+        assert _leaves(meta) == _leaves(real)
+        if "tokens" in real:
+            assert int(real["tokens"].max()) < cfg.vocab_size
+    assert np.isfinite(dryrun.step_inputs(
+        cfg, InputShape("t", 16, 2, "train"), "cpu")["src"].numpy()).all()

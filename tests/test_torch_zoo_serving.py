@@ -258,12 +258,17 @@ def test_ssm_family_needs_its_sub_config():
 
 
 def test_ssm_compute_dtype_other_than_float32_raises():
-    """The port's SSD computes in float32; a config asking for another
-    precision raises instead of running in float32 unasked."""
+    """The port's SSD computes in float32 or, asked, in bfloat16; a config
+    asking for any other precision raises instead of running in another
+    one unasked."""
     cfg = registry.get("mamba2-370m")
-    with pytest.raises(NotImplementedError, match="slice"):
-        dataclasses.replace(cfg, ssm=dataclasses.replace(
-            cfg.ssm, compute_dtype="bfloat16"))
+    bf16 = dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, compute_dtype="bfloat16"))
+    assert bf16.ssm.compute_dtype == "bfloat16"
+    for other in ("float16", "bf16", "float64"):
+        with pytest.raises(ValueError, match="compute_dtype"):
+            dataclasses.replace(cfg, ssm=dataclasses.replace(
+                cfg.ssm, compute_dtype=other))
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
