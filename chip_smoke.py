@@ -241,6 +241,24 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     layer, through it and through a ``torch.library.custom_op``; the dry
     run's serving trace of ``moonshot-v1-16b-a3b`` at full width (its
     peak beside the card's memory);
+18. the contract checker (after 17, before the summary): (a) ``python -m
+    repro_torch.check --strict --device cuda --json`` in a subprocess —
+    every checker of the port, its trace pass on the card — exit 0 and
+    ``contracts: clean``, the report under ``chiprun_out/``; (b) the trace
+    entries in process on the card, every launch count set to 0 just
+    before and read just after (K1 twice: ``fedavg_stacked`` and its own
+    entry; K2 twice: trimmed mean and median), each entry's operators
+    emitted, ``repro_torch.weighted_aggregate`` and
+    ``repro_torch.robust_aggregate`` among them, no float64 on the data
+    plane, float64 outputs from the control entries, and the negative
+    control (``ModelAttack.apply_stacked`` given one ``.double()`` leaf)
+    reported; (c) K1-K6's public wrappers once each under
+    ``torch.cuda.set_sync_debug_mode("error")`` at phase 3's main-path
+    shapes (K1 at the §V MLP's M, K2 at run (a)'s rows, K3 at lm_tiny's
+    f32 and starcoder2-15b's bf16 prefill, K4 at starcoder2-15b's decode,
+    K5 at qwen2-moe-a2.7b's decode, K6 at mamba2-370m's prefill), counted
+    (each once, K3 twice): none synchronises with the host, while
+    ``.item()`` under the same mode raises;
 15. one JSON line of per-kernel numbers (K6's bf16-compute route a row
     of its own), then the result line.
 
@@ -3814,6 +3832,168 @@ def step_cost_phases(dry_job, climb_job):
     return k6_row, launches
 
 
+# ---------------------------------------------------------------------------
+# The contract checker (phase 18)
+# ---------------------------------------------------------------------------
+CHECK_REPORT = (Path(__file__).resolve().parent / "chiprun_out"
+                / "check_report_torch.json")
+
+
+def contracts_cli():
+    """(a) ``python -m repro_torch.check --strict --device cuda --json``:
+    every checker, its trace pass on the card; exit 0, ``contracts:
+    clean``."""
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.check", "--strict", "--device",
+         "cuda", "--json", "--out", str(CHECK_REPORT)],
+        capture_output=True, text=True, cwd=root,
+        env={**os.environ, "PYTHONPATH": str(root / "src")})
+    seconds = time.perf_counter() - t0
+    assert proc.returncode == 0, (proc.stdout[-4000:], proc.stderr[-4000:])
+    assert "contracts: clean" in proc.stdout.splitlines(), proc.stdout
+    report = json.loads(CHECK_REPORT.read_text())
+    emit(phase="contracts_cli", seconds=seconds, ok=report["ok"],
+         per_checker=report["per_checker"], gpu=report["meta"].get("gpu"),
+         dead=report["inventory"]["n_dead"],
+         modules=report["inventory"]["n_modules"])
+    assert report["ok"] and report["meta"]["gpu"], report["meta"]
+
+
+def contracts_trace():
+    """(b) the trace entries on the card, K1 and K2 launched through their
+    operators; the negative control, one ``.double()`` in a data-plane
+    function, reported."""
+    from repro_torch.check import trace as check_trace
+    from repro_torch.federated.cohort import broadcast_params
+    reset_launches()
+    report = check_trace.trace_report("cuda")
+    launches = read_launches()
+    for e in report:
+        emit(phase="contracts_trace", name=e["name"], kind=e["kind"],
+             outputs=e["outputs"], ops=e["ops"],
+             violations=[v.format() for v in e["violations"]])
+    emit(phase="contracts_trace_launches", launches=launches)
+    by = {e["name"]: e for e in report}
+    for name in ("aggregation.fedavg_stacked", "kernels.weighted_aggregate"):
+        assert "repro_torch.weighted_aggregate" in by[name]["ops"], by[name]
+    for mode in ("trimmed_mean", "median"):
+        e = by[f"kernels.robust_aggregate[{mode}]"]
+        assert "repro_torch.robust_aggregate" in e["ops"], e
+    for e in report:
+        assert e["violations"] == [], e
+        want = "torch.float32" if e["kind"] == "f32" else "float64"
+        assert e["outputs"] and set(e["outputs"]) == {want}, e
+    # the trace ran the kernels: K1 in fedavg_stacked and its own entry,
+    # K2 in its two
+    assert launches == only(weighted_aggregate=2, robust_aggregate=2), (
+        launches)
+    from repro_torch.federated.task import TASKS
+    g = TASKS["mnist_mlp"].init_params(torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    st = broadcast_params(g, 2)
+    st = {k: (v.double() if k == "w1" else v) for k, v in st.items()}
+    vs = check_trace.assert_no_f64(
+        "negative control: ModelAttack.apply_stacked, w1 in float64",
+        lambda: atk.ModelAttack(scale=-1.0).apply_stacked(
+            st, g, np.array([True, False])))
+    emit(phase="contracts_negative_control",
+         violations=[v.format() for v in vs])
+    assert vs and all(v.rule == "trace-f64" for v in vs), vs
+
+
+def host_sync_inputs(k2_rows, k2_n):
+    """One call of each of K1-K6's public wrappers at a main-path shape of
+    phase 3, its inputs made on the card beforehand (a copy from the host
+    is itself a sync)."""
+    g = torch.Generator(device="cuda").manual_seed(18)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def rnd(*shape, dtype=f32):
+        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+
+    cap, length = SERVE_PROMPT + SERVE_NEW, SERVE_PROMPT + SERVE_NEW // 2
+    k1 = (rnd(32, M_MLP), rnd(32).abs())
+    k2 = rnd(k2_rows, M_MLP)
+    lm = [rnd(64, 4, 32, 16) for _ in range(3)]
+    sc = (rnd(SERVE_BATCH, 48, SERVE_PROMPT, 128, dtype=bf16),
+          rnd(SERVE_BATCH, 4, SERVE_PROMPT, 128, dtype=bf16),
+          rnd(SERVE_BATCH, 4, SERVE_PROMPT, 128, dtype=bf16))
+    dec = (rnd(SERVE_BATCH, 48, 128, dtype=bf16),
+           rnd(SERVE_BATCH, cap, 4, 128, dtype=bf16),
+           rnd(SERVE_BATCH, cap, 4, 128, dtype=bf16))
+    moe = (rnd(60, 8, 2048, dtype=bf16), rnd(60, 2048, 1408, dtype=bf16))
+    b, n = SERVE_BATCH, SERVE_PROMPT
+    ssd = (rnd(b, n, 32, 64, dtype=bf16), rnd(b, n, 32).abs() * 0.1,
+           -rnd(32).abs(), rnd(b, n, 1, 128, dtype=bf16),
+           rnd(b, n, 1, 128, dtype=bf16))
+    trim = TrimmedMean(0.2).n_trim(k2_n)
+    return [
+        ("K1 weighted_aggregate (32, M_MLP) f32",
+         lambda: weighted_aggregate(*k1)),
+        (f"K2 robust_aggregate run (a) ({k2_rows}, M_MLP), n {k2_n}",
+         lambda: robust_aggregate(k2, k2_n, trim=trim)),
+        ("K3 flash_attention lm_tiny f32",
+         lambda: k3.flash_attention(*lm)),
+        ("K3 flash_attention starcoder2-15b prefill bf16",
+         lambda: k3.flash_attention(*sc)),
+        ("K4 decode_attention starcoder2-15b decode",
+         lambda: k4.decode_attention(*dec, length)),
+        ("K5 moe_gemm qwen2-moe-a2.7b decode gate/up",
+         lambda: k5.moe_gemm(*moe)),
+        ("K6 ssd_scan mamba2-370m prefill",
+         lambda: k6.ssd_scan(*ssd, chunk=256)),
+    ]
+
+
+def contracts_host_sync(k2_rows, k2_n):
+    """(c) each of K1-K6's public wrappers once under
+    ``torch.cuda.set_sync_debug_mode("error")``: none may synchronise
+    with the host; the control, ``.item()``, must raise."""
+    calls = host_sync_inputs(k2_rows, k2_n)
+    torch.cuda.synchronize()
+    reset_launches()
+    outs = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for label, call in calls:
+            outs.append(call())
+        x = outs[0]
+        try:
+            x.sum().item()
+        except RuntimeError as e:
+            control = str(e).splitlines()[0]
+        else:
+            raise AssertionError(".item() under sync debug mode 'error' "
+                                 "did not raise: the mode was not armed")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for (label, _), out in zip(calls, outs):
+        y = out[0] if isinstance(out, tuple) else out
+        emit(phase="contracts_host_sync", call=label, shape=list(y.shape),
+             finite=bool(torch.isfinite(y).all()))
+        assert torch.isfinite(y).all(), label
+    emit(phase="contracts_host_sync_launches", launches=launches,
+         control=control)
+    assert launches == only(weighted_aggregate=1, robust_aggregate=1,
+                            flash_attention=2, decode_attention=1,
+                            moe_gemm=1, ssd_scan=1), launches
+
+
+def contracts_phases(k2_rows, k2_n):
+    """Phase 18: (a) the checker's CLI with its trace on the card, (b) the
+    trace in process with the operators it ran and its negative control,
+    (c) K1-K6 under the sync debug mode; returns its seconds."""
+    t0 = time.perf_counter()
+    contracts_cli()
+    contracts_trace()
+    contracts_host_sync(k2_rows, k2_n)
+    return time.perf_counter() - t0
+
+
 def quickstart(n_ues, n_malicious, n_train, n_test, device, seed=0):
     cfg = FeelConfig(n_ues=n_ues, n_malicious=n_malicious)
     train, test = generate(n_train, n_test, seed=seed)
@@ -4201,6 +4381,10 @@ def main():
     summary[BF16_ROUTE], launches[BF16_ROUTE] = step_cost_phases(dry_job,
                                                                  climb_job)
     emit(phase="step_cost_seconds", seconds=time.perf_counter() - t0)
+
+    # 18. the contract checker on the card
+    emit(phase="contracts_seconds",
+         seconds=contracts_phases(pad_count(n_a), n_a))
 
     # 15. summary and result
     emit(phase="done", seconds=time.perf_counter() - t_start)

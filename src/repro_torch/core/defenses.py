@@ -184,6 +184,9 @@ class NormClip:
     def clip_batched(self, flat: torch.Tensor, g: torch.Tensor, n: int
                      ) -> Tuple[torch.Tensor, DefenseStats]:
         delta = flat - g[None]
+        # the documented exception: the clip norms are float64 on both
+        # planes, as the reference's under enable_x64
+        # repro: allow(dtype-f64)
         n2 = (delta.to(torch.float64) ** 2).sum(1)
         s = torch.clamp(self.tau / torch.clamp(torch.sqrt(n2), min=1e-12),
                         max=1.0).to(torch.float32)
@@ -234,6 +237,9 @@ class Krum:
         f, m = self._resolve(n, n_byz)
         if n - f - 2 < 1:
             return np.arange(n)
+        # the documented exception: Krum's distances are float64 on both
+        # planes, as the reference's under enable_x64
+        # repro: allow(dtype-f64)
         X = flat[:n].to(torch.float64)
         sq = (X * X).sum(1)
         d2 = torch.clamp(sq[:, None] + sq[None, :] - 2.0 * (X @ X.T),

@@ -1,8 +1,9 @@
 """The port's only wall-clock site.
 
 Everything under ``src/repro_torch`` that wants real time goes through
-``wall_clock()``: ``tests/test_torch_hygiene.py`` rejects an import of
-``time``, ``datetime`` or ``timeit`` in any other module of the package.
+``wall_clock()``: the contract checker's nondeterminism rule
+(``repro_torch.check.lints``) rejects a clock call, or an import of
+``time``, ``datetime`` or ``timeit``, in any other module of the package.
 The clock is monotonic: telemetry measures durations, never calendar
 time, so suspend or NTP steps cannot produce negative spans.
 

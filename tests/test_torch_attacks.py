@@ -440,3 +440,41 @@ def test_reputation_gap_matches_reference(ref):
                 np.ones(12, bool)):
         a, b = atk.reputation_gap(rep, mal), ref.at.reputation_gap(rep, mal)
         assert (np.isnan(a) and np.isnan(b)) or a == b
+
+
+# ---------------------------------------------------------------------- #
+# registry completeness (auto-generated from SCENARIOS — a new entry is
+# exercised here with zero test edits; repro_torch.check pins the
+# coverage): the reference's test_scenario_registry_contract on the port
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("name", sorted(atk.SCENARIOS))
+def test_scenario_registry_contract(name, ref):
+    """Every registered scenario satisfies the AttackScenario interface:
+    registry key == name, frozen/hashable (partition-cache identity),
+    well-typed components, a live schedule that acts on the reference's
+    UEs in the same rounds."""
+    scn = atk.SCENARIOS[name]
+    r = ref.at.SCENARIOS[name]
+    assert scn.name == name
+    hash(scn)                                   # frozen dataclass
+    assert hash(scn.data_key()) is not None     # partition-cache key
+    assert scn.benign == (scn.data is None and scn.model is None
+                          and scn.report is None)
+    if scn.data is not None:
+        assert (hasattr(scn.data, "apply_host")
+                and hasattr(scn.data, "draw")) \
+            or hasattr(scn.data, "poison_tokens")
+    if scn.model is not None:
+        assert hasattr(scn.model, "apply_stacked")
+        assert hasattr(scn.model, "apply_loop")
+    if scn.report is not None:
+        assert hasattr(scn.report, "apply")
+    mal = np.array([True, False, True, False])
+    rank = np.array([0, -1, 1, -1])
+    for t in range(3):
+        act = scn.schedule.active(t, mal, rank)
+        assert act.dtype == bool and act.shape == mal.shape
+        assert not act[~mal].any()              # honest UEs never act
+        np.testing.assert_array_equal(act, r.schedule.active(t, mal, rank))
+    if isinstance(scn.data, (atk.LabelFlip, atk.TokenFlip)):
+        assert scn.watch == scn.data.pairs[0]

@@ -3,7 +3,8 @@ chip_smoke.py imports jax or the JAX package, nor msgpack (absent on the
 card's machine); importing the port's server pulls no jax into the
 process; entry points run on the GPU unless the caller asks for the CPU,
 and raise where CUDA is absent; only ``obs/clock.py`` reads the wall
-clock, and the training launcher takes its clock from there."""
+clock (the port's own checker's lint, ``repro_torch.check.lints``), and
+the training launcher takes its clock from there."""
 import ast
 import pathlib
 import subprocess
@@ -13,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.check.common import SourceFile
+from repro_torch.check.lints import lint_clock_imports, lint_wall_clock
 from repro_torch.configs.base import FeelConfig
 from repro_torch.data.partition import partition
 from repro_torch.data.synthetic_mnist import generate
@@ -175,13 +178,17 @@ CLOCK_MODULES = {"time", "datetime", "timeit"}
     "path", [p for p in PORT_FILES if "repro_torch" in p.parts],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_only_the_clock_module_reads_the_wall_clock(path):
-    """The counterpart of the reference's wall-clock lint
-    (``repro.check.lints.lint_wall_clock``): every wall-clock read of the
-    port goes through ``obs/clock.py``, so no other module under
-    src/repro_torch/ imports ``time``, ``datetime`` or ``timeit``, at any
-    depth of the module."""
-    mods = {m.split(".")[0] for m in _imported_modules(path)}
+    """The wall-clock half of the port's nondeterminism rule, run through
+    the port's own checker (``repro_torch.check.lints``): every wall-clock
+    read of the port goes through ``obs/clock.py``, so no other module
+    under src/repro_torch/ calls a ``time`` clock (``lint_wall_clock``, the
+    counterpart of ``repro.check.lints.lint_wall_clock``) or imports
+    ``time``, ``datetime`` or ``timeit``, at any depth of the module
+    (``lint_clock_imports``)."""
+    src = SourceFile.parse(path, ROOT)
     if path == CLOCK_SITE:
+        mods = {m.split(".")[0] for m in _imported_modules(path)}
         assert {"time", "datetime"} <= mods
     else:
-        assert not mods & CLOCK_MODULES, (path, mods & CLOCK_MODULES)
+        assert [v.format() for v in lint_wall_clock(src)
+                + lint_clock_imports(src)] == []
