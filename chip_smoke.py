@@ -256,9 +256,37 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     ``torch.cuda.set_sync_debug_mode("error")`` at phase 3's main-path
     shapes (K1 at the §V MLP's M, K2 at run (a)'s rows, K3 at lm_tiny's
     f32 and starcoder2-15b's bf16 prefill, K4 at starcoder2-15b's decode,
-    K5 at qwen2-moe-a2.7b's decode, K6 at mamba2-370m's prefill), counted
-    (each once, K3 twice): none synchronises with the host, while
-    ``.item()`` under the same mode raises;
+    K5 at qwen2-moe-a2.7b's decode, K6 at mamba2-370m's prefill), then
+    one forward and backward each of K3 (lm_tiny f32: the plain VJP), K5
+    (qwen2-moe-a2.7b's decode gate/up: two more K5 launches) and K6
+    (mamba2-370m's heads over 512 positions: the chunked VJP), counted
+    (K1, K2, K4 once, K3 3 times, K5 4, K6 2): none synchronises with the
+    host, while ``.item()`` under the same mode raises;
+19. the sharded plane (after 18, before the summary): an NCCL process
+    group of one rank in process (a ``HashStore``, no network; its
+    default backend ``cpu:gloo,cuda:nccl``, so that CUDA tensors go to
+    NCCL and the CPU twin of the step below to gloo, NCCL checked as the
+    card's backend), ``launch.mesh.make_host_mesh()`` as a ("data",
+    "model") (1, 1) ``DeviceMesh`` on the card, destroyed at the end;
+    ``federated.distributed.make_cohort_step`` at the paper's §V scale:
+    K = 50 clients on the rank, 256 synthetic MNIST samples each, the
+    weights the quickstart clients' D_k, the mask the DQS selection x_k
+    of phase 4's first round, lr 0.1, 5 local steps, float32; every
+    launch count set to 0 just before one step and read just after (K1
+    once); checks: (1) within 2e-5 abs/rel of each client's local SGD
+    one at a time through ``torch.autograd.grad``, then
+    ``weighted_aggregate_ref`` over the masked weights divided by
+    max(sum w·s, 1e-9), (2) an unselected client's batch replaced by
+    finite garbage leaves the output bit-equal, (3) within 1e-4 of the
+    same step on the CPU, (4) ``agg_dtype=torch.bfloat16`` within
+    1e-2·max|out| of float32, (5) K1 once a step call, (6) no raise under
+    ``torch.cuda.set_sync_debug_mode("error")``, (7) ``count_step`` of the
+    step on the card reads the FLOPs, bytes and collective bytes of the
+    meta trace of the same step, (8) the check-1 oracle without the mask
+    (a wrong plain version) is rejected; then the step's median ms over
+    15 calls, K1 at (50, 50,890) float32 beside its bound and cuBLAS's
+    GEMV, and the ``all_reduce``'s device time, the card's name and power
+    limit beside each;
 15. one JSON line of per-kernel numbers (K6's bf16-compute route a row
     of its own), then the result line.
 
@@ -287,6 +315,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -307,7 +337,11 @@ from repro_torch.core.scheduler import POLICY_IDS  # noqa: E402
 from repro_torch.core.wireless import WirelessModel, cost_bisect  # noqa: E402
 from repro_torch.data.tokens import batches, make_stream  # noqa: E402
 from repro_torch.federated import simulation  # noqa: E402
+from repro_torch.federated.aggregation import (  # noqa: E402
+    flatten_stacked, unflatten)
 from repro_torch.federated.async_engine import AsyncFeelEngine  # noqa: E402
+from repro_torch.federated.distributed import (  # noqa: E402
+    cohort_input_specs, make_cohort_step)
 from repro_torch.federated.cohort import pad_count  # noqa: E402
 from repro_torch.federated.server import FeelServer  # noqa: E402
 from repro_torch.federated.task import LM_TINY  # noqa: E402
@@ -329,11 +363,14 @@ from repro_torch.launch import dryrun, serve, steps  # noqa: E402
 from repro_torch.launch import roofline as rl  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import (ADAFACTOR_ARCHS, HBM_BW,  # noqa: E402
-                                     PEAK_FLOPS_BF16, PEAK_FLOPS_F32)
+                                     PEAK_FLOPS_BF16, PEAK_FLOPS_F32,
+                                     make_host_mesh)
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import blocks  # noqa: E402
 from repro_torch.models import encdec as ted  # noqa: E402
+from repro_torch.models import mlp as tmlp  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models.common import MetaGenerator  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.obs import report as obs_report  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
@@ -3944,11 +3981,49 @@ def host_sync_inputs(k2_rows, k2_n):
          lambda: k5.moe_gemm(*moe)),
         ("K6 ssd_scan mamba2-370m prefill",
          lambda: k6.ssd_scan(*ssd, chunk=256)),
+    ] + host_sync_backwards(rnd)
+
+
+def host_sync_backwards(rnd):
+    """One forward and backward each of K3, K5 and K6 through their
+    autograd Functions (a list like ``host_sync_inputs``'), the inputs and
+    cotangents made on the card beforehand: K3 at lm_tiny's f32 shape
+    (its plain VJP), K5 at qwen2-moe-a2.7b's decode gate/up (two more K5
+    launches), K6 at mamba2-370m's heads over 512 positions (the chunked
+    VJP)."""
+    bf16 = torch.bfloat16
+
+    def leaf(*shape, dtype=torch.float32, scale=1.0):
+        return (rnd(*shape, dtype=dtype) * scale).detach().requires_grad_()
+
+    qkv = [leaf(64, 4, 32, 16) for _ in range(3)]
+    g3 = rnd(64, 4, 32, 16)
+    moe = (leaf(60, 8, 2048, dtype=bf16),
+           leaf(60, 2048, 1408, dtype=bf16, scale=0.02))
+    g5 = rnd(60, 8, 1408, dtype=bf16)
+    b, n = 1, 512
+    ssd = (leaf(b, n, 32, 64, dtype=bf16), (rnd(b, n, 32).abs() * 0.1)
+           .requires_grad_(), (-rnd(32).abs()).requires_grad_(),
+           leaf(b, n, 1, 128, dtype=bf16), leaf(b, n, 1, 128, dtype=bf16))
+    g6 = rnd(b, n, 32, 64, dtype=bf16)
+
+    def grads(out, ins, g):
+        return torch.autograd.grad(out, ins, g)
+
+    return [
+        ("K3 flash_attention lm_tiny f32, forward and backward",
+         lambda: grads(k3.flash_attention(*qkv), qkv, g3)),
+        ("K5 moe_gemm qwen2-moe-a2.7b decode gate/up, forward and backward",
+         lambda: grads(k5.moe_gemm(*moe), moe, g5)),
+        ("K6 ssd_scan mamba2-370m heads over 512 positions, forward and "
+         "backward",
+         lambda: grads(k6.ssd_scan(*ssd, chunk=256)[0], ssd, g6)),
     ]
 
 
 def contracts_host_sync(k2_rows, k2_n):
-    """(c) each of K1-K6's public wrappers once under
+    """(c) each of K1-K6's public wrappers once, then a forward and
+    backward of each of K3, K5 and K6, under
     ``torch.cuda.set_sync_debug_mode("error")``: none may synchronise
     with the host; the control, ``.item()``, must raise."""
     calls = host_sync_inputs(k2_rows, k2_n)
@@ -3979,8 +4054,8 @@ def contracts_host_sync(k2_rows, k2_n):
     emit(phase="contracts_host_sync_launches", launches=launches,
          control=control)
     assert launches == only(weighted_aggregate=1, robust_aggregate=1,
-                            flash_attention=2, decode_attention=1,
-                            moe_gemm=1, ssd_scan=1), launches
+                            flash_attention=3, decode_attention=1,
+                            moe_gemm=4, ssd_scan=2), launches
 
 
 def contracts_phases(k2_rows, k2_n):
@@ -3992,6 +4067,209 @@ def contracts_phases(k2_rows, k2_n):
     contracts_trace()
     contracts_host_sync(k2_rows, k2_n)
     return time.perf_counter() - t0
+
+
+# 19. the sharded plane: the paper's §V cohort on one rank
+COHORT = dict(n_clients=50, samples=256, lr=0.1, local_steps=5, seed=19)
+
+
+def cohort_inputs(server, device):
+    """(params, batch, weights, select) of the §V cohort on ``device``:
+    50 clients of 256 synthetic MNIST samples drawn from the seed, the
+    quickstart clients' D_k as the weights, the DQS selection x_k of its
+    first round as the mask, and MLP params drawn from the seed."""
+    n, b = COHORT["n_clients"], COHORT["samples"]
+    data, _ = generate(n * b, 1, seed=COHORT["seed"])
+    batch = {"x": torch.from_numpy(data.x.reshape(n, b, -1)).to(device),
+             "y": torch.from_numpy(data.y.reshape(n, b).astype(np.int64))
+             .to(device)}
+    weights = torch.tensor([float(c.size) for c in server.clients],
+                           device=device)
+    select = torch.zeros(n, device=device)
+    select[torch.as_tensor(server.logs[0].selected, device=device)] = 1.0
+    params = tmlp.mlp_init(
+        torch.Generator(device="cuda").manual_seed(COHORT["seed"]),
+        device=device)
+    return params, batch, weights, select
+
+
+def cohort_oracle(params, batch, weights, select):
+    """Check 1's plain version: each client's local SGD one at a time
+    through ``torch.autograd.grad``, then ``weighted_aggregate_ref`` over
+    the masked weights divided by max(sum w·s, 1e-9)."""
+    lr, steps = COHORT["lr"], COHORT["local_steps"]
+    locs = []
+    for i in range(weights.shape[0]):
+        p = dict(params)
+        for _ in range(steps):
+            leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+            loss = tmlp.mlp_loss(leaves, {"x": batch["x"][i],
+                                          "y": batch["y"][i]})
+            gr = torch.autograd.grad(loss, list(leaves.values()))
+            p = {k: (v.detach().float() - lr * g.float()).to(v.dtype)
+                 for (k, v), g in zip(leaves.items(), gr)}
+        locs.append(p)
+    flat = flatten_stacked({k: torch.stack([q[k] for q in locs])
+                            for k in params})
+    w = (weights * select).float()
+    agg = weighted_aggregate_ref(flat, w, assume_normalized=True)
+    return unflatten(agg / torch.clamp_min(w.sum(), 1e-9), params)
+
+
+def leaf_gap(got, want):
+    """The largest |got - want| over the leaves, and whether every leaf is
+    within 2e-5 abs/rel (the reference test's tolerance)."""
+    gap = max(float((got[k] - want[k]).abs().max()) for k in want)
+    close = all(torch.allclose(got[k], want[k], atol=2e-5, rtol=2e-5)
+                for k in want)
+    return gap, close
+
+
+def cohort_checks(mesh, cpu_mesh, server, smi):
+    """Phase 19's step, checks and times on an existing process group;
+    returns K1's launches in the driven step."""
+    lr, steps = COHORT["lr"], COHORT["local_steps"]
+    step = make_cohort_step(mesh, tmlp.mlp_loss, lr, steps)
+    args = cohort_inputs(server, "cuda")
+    params, batch, weights, select = args
+    # the first call starts NCCL's communicator: not counted
+    step(*args)
+    torch.cuda.synchronize()
+    reset_launches()
+    out = step(*args)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    emit(phase="cohort_step_launches", launches=launches, gpu=smi,
+         n_clients=COHORT["n_clients"],
+         n_selected=int(select.sum().item()), m=M_MLP)
+    assert launches == only(weighted_aggregate=1), launches
+    assert all(torch.isfinite(v).all() for v in out.values())
+
+    # (1) against the plain version; (8) its control, the mask dropped
+    want = cohort_oracle(*args)
+    gap, close = leaf_gap(out, want)
+    wrong_gap, wrong_close = leaf_gap(out, cohort_oracle(
+        params, batch, weights, torch.ones_like(select)))
+    emit(phase="cohort_check", check="plain version", max_abs_err=gap,
+         tol="2e-5 abs/rel", control="mask dropped",
+         control_max_abs_err=wrong_gap)
+    assert close, gap
+    assert not wrong_close, ("the control passed", wrong_gap)
+
+    # (2) an unselected client's batch as finite garbage
+    j = int(torch.nonzero(select == 0)[0].item())
+    junk = {"x": batch["x"].clone(), "y": batch["y"].clone()}
+    junk["x"][j] = 5.0 * junk["x"][j].flip(0) + 2.0
+    junk["y"][j] = (junk["y"][j] + 3) % 10
+    out2 = step(params, junk, weights, select)
+    equal = all(torch.equal(out2[k], out[k]) for k in out)
+    emit(phase="cohort_check", check="unselected client's garbage",
+         client=j, bit_equal=equal)
+    assert equal
+
+    # (3) the same step on the CPU (gloo)
+    cpu_args = (*({k: v.cpu() for k, v in t.items()}
+                  for t in (params, batch)), weights.cpu(), select.cpu())
+    out_cpu = make_cohort_step(cpu_mesh, tmlp.mlp_loss, lr, steps)(*cpu_args)
+    cpu_gap = max(float((out[k].cpu() - out_cpu[k]).abs().max())
+                  for k in out)
+    emit(phase="cohort_check", check="cuda vs cpu", max_abs_diff=cpu_gap,
+         tol=1e-4)
+    assert cpu_gap <= 1e-4, cpu_gap
+
+    # (4) bf16 aggregation
+    out_bf = make_cohort_step(mesh, tmlp.mlp_loss, lr, steps,
+                              agg_dtype=torch.bfloat16)(*args)
+    bf_gap = {k: float((out_bf[k] - out[k]).abs().max()) for k in out}
+    bf_tol = {k: 1e-2 * float(out[k].abs().max()) for k in out}
+    emit(phase="cohort_check", check="agg_dtype bfloat16", gap=bf_gap,
+         tol=bf_tol)
+    assert all(bf_gap[k] <= bf_tol[k] for k in out), (bf_gap, bf_tol)
+
+    # (5) K1 once a step call
+    reset_launches()
+    for _ in range(3):
+        step(*args)
+    torch.cuda.synchronize()
+    per_call = read_launches()
+    emit(phase="cohort_check", check="K1 a call", launches_3_calls=per_call)
+    assert per_call == only(weighted_aggregate=3), per_call
+
+    # (6) no host sync: the inputs are on the card already
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out6 = step(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    gap6, close6 = leaf_gap(out6, out)
+    emit(phase="cohort_check", check="sync debug mode error", raised=False,
+         max_abs_diff=gap6)
+    assert close6, gap6
+
+    # (7) the meta trace against the step on the card
+    meta_batch, meta_w, meta_s = cohort_input_specs(
+        mesh, COHORT["n_clients"], {
+            "x": ((COHORT["samples"], 784), torch.float32),
+            "y": ((COHORT["samples"],), torch.int64)})
+    meta = dryrun.count_step(step, (
+        tmlp.mlp_init(MetaGenerator(), device="meta"), meta_batch, meta_w,
+        meta_s))
+    card = dryrun.count_step(step, args)
+    counts = {k: dict(flops=c.flops, bytes=c.bytes,
+                      collectives=rl.collective_bytes(c.op_collective_bytes))
+              for k, c in (("meta", meta), ("card", card))}
+    emit(phase="cohort_check", check="meta trace vs card", **counts)
+    assert counts["meta"] == counts["card"], counts
+    assert counts["card"]["collectives"]["all-reduce"] == (M_MLP + 1) * 4
+
+    # (d) the times
+    def timed_step():
+        step(*args)
+        torch.cuda.synchronize()
+    step_ms = median_ms(timed_step)
+    _, prof = profile_fn(lambda: step(*args), keep_prof=True)
+    nccl = {name: us for name, us in device_us(prof.pop("prof")).items()
+            if "nccl" in name.lower()}
+    emit(phase="cohort_step", gpu=smi, step_ms_median_15=step_ms,
+         allreduce_device_us=sum(nccl.values()), nccl_kernels=nccl,
+         device_busy_us=prof["device_busy_us"], wall_us=prof["wall_us"],
+         device_idle_share=prof["device_idle_share"],
+         top_kernels_us=prof["top_kernels_us"])
+    k1 = check_aggregate(COHORT["n_clients"], M_MLP, torch.float32,
+                         "cohort step rows (50, M_MLP)")
+    emit(phase="cohort_k1", gpu=smi, kernel_ms=k1["kernel_ms"],
+         bound_ms=k1["bound_ms"], cublas_gemv_ms=k1["library_ms"],
+         plain_ms=k1["plain_ms"])
+    return launches["weighted_aggregate"]
+
+
+def sharded_phases(server, smi):
+    """Phase 19: an NCCL process group of one rank in process, the host
+    mesh on the card, the cohort step and its checks; the group is
+    destroyed whatever happens. Returns K1's launches in the driven step
+    and the phase's seconds."""
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.HashStore(),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh()
+        cpu_mesh = make_host_mesh(device_type="cpu")
+        backend = type(mesh.get_group("data")._get_backend(
+            torch.device("cuda"))).__name__
+        emit(phase="sharded_mesh", mesh=str(mesh), cpu_mesh=str(cpu_mesh),
+             cuda_backend=backend, gpu=smi,
+             nccl_version=str(torch.cuda.nccl.version()))
+        assert isinstance(mesh, DeviceMesh) and mesh.device_type == "cuda"
+        assert mesh.mesh_dim_names == ("data", "model"), mesh
+        assert tuple(mesh.shape) == (1, 1), mesh
+        assert backend == "ProcessGroupNCCL", backend
+        k1 = cohort_checks(mesh, cpu_mesh, server, smi)
+    finally:
+        dist.destroy_process_group()
+    return k1, time.perf_counter() - t0
 
 
 def quickstart(n_ues, n_malicious, n_train, n_test, device, seed=0):
@@ -4385,6 +4663,11 @@ def main():
     # 18. the contract checker on the card
     emit(phase="contracts_seconds",
          seconds=contracts_phases(pad_count(n_a), n_a))
+
+    # 19. the sharded plane: the cohort step over NCCL, K1 once a step
+    k1_cohort, seconds = sharded_phases(server, smi)
+    launches["weighted_aggregate"] += k1_cohort
+    emit(phase="sharded_seconds", seconds=seconds)
 
     # 15. summary and result
     emit(phase="done", seconds=time.perf_counter() - t_start)

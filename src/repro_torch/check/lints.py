@@ -16,7 +16,8 @@ host-sync
     "no host read on a kernel's launch path". In ``kernels/*.py`` the
     functions a CUDA launch runs through — each module's ``_kernel``, its
     public wrapper (the function named after the module) and the
-    ``forward`` of its ``torch.autograd.Function`` — may not call
+    ``forward`` and ``backward`` of its ``torch.autograd.Function`` — may
+    not call
     ``.item()``, ``.tolist()``, ``.cpu()``, ``.numpy()`` or
     ``.synchronize()`` / ``torch.cuda.synchronize``, nor ``float()`` /
     ``int()`` / ``bool()`` on a tensor argument: each waits for the card.
@@ -163,22 +164,25 @@ def _is_autograd_function(cls: ast.ClassDef) -> bool:
 def launch_functions(src: SourceFile) -> List[ast.FunctionDef]:
     """The functions of a kernel module that a CUDA launch runs through:
     ``_kernel``, the public wrapper named after the module, and every
-    ``torch.autograd.Function.forward``."""
+    ``torch.autograd.Function``'s ``forward`` and ``backward`` (a
+    backward launches the kernel again, as K5's does, or runs the plain
+    VJP between the kernels of a train step, as K3's and K6's do)."""
     stem = src.rel.rsplit("/", 1)[-1][:-len(".py")]
     fns = [n for n in src.tree.body if isinstance(n, ast.FunctionDef)
            and n.name in ("_kernel", stem)]
     for cls in src.tree.body:
         if isinstance(cls, ast.ClassDef) and _is_autograd_function(cls):
             fns += [n for n in cls.body if isinstance(n, ast.FunctionDef)
-                    and n.name == "forward"]
+                    and n.name in ("forward", "backward")]
     return fns
 
 
 def _tensor_params(fn: ast.FunctionDef) -> Set[str]:
     """Parameters that may hold a tensor: unannotated, or annotated with a
-    type that names ``Tensor``. ``forward``'s ``ctx`` is not one."""
+    type that names ``Tensor``. ``forward``'s and ``backward``'s ``ctx`` is
+    not one."""
     args = fn.args.posonlyargs + fn.args.args + fn.args.kwonlyargs
-    if fn.name == "forward" and args:
+    if fn.name in ("forward", "backward") and args:
         args = args[1:]
     return {a.arg for a in args
             if a.annotation is None or "Tensor" in ast.unparse(a.annotation)}
@@ -448,7 +452,7 @@ def _in_scope(src: SourceFile, dirs=SIM_DIRS) -> bool:
 
 def check_oracle_purity(ctx: CheckContext) -> List[Violation]:
     return [v for s in ctx.sources if _in_scope(s, SIM_DIRS + (
-        "launch", "checkpoint", "optim", "configs"))
+        "launch", "sharding", "checkpoint", "optim", "configs"))
             for v in lint_oracle_purity(s)]
 
 

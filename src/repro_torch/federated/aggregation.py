@@ -49,10 +49,16 @@ def fedavg_stacked(stacked: Params, weights) -> Params:
     flat = flatten_stacked(stacked)
     w = normalize_weights(weights, flat.device)
     agg = weighted_aggregate(flat, w, assume_normalized=True)
+    return unflatten(agg, {k: v[0] for k, v in stacked.items()})
+
+
+def unflatten(vec: torch.Tensor, like: Params) -> Params:
+    """The inverse of one row of ``flatten_stacked``: ``vec`` (M,) cut
+    into ``like``'s leaves in sorted key order, each reshaped to its leaf
+    and cast to its dtype."""
     out, off = {}, 0
-    for k in sorted(stacked):
-        leaf = stacked[k]
-        m = leaf[0].numel()
-        out[k] = agg[off:off + m].reshape(leaf.shape[1:]).to(leaf.dtype)
+    for k in sorted(like):
+        m = like[k].numel()
+        out[k] = vec[off:off + m].reshape(like[k].shape).to(like[k].dtype)
         off += m
     return out

@@ -31,10 +31,17 @@ port's ``scan_blocks`` is a Python loop, so the trace sees every block
 traced at the cache's last position (``index`` = S - 1), where it reads
 every cached position, as the reference's masked decode step does.
 
-One device only (``mesh`` "1xH100", no collectives): ``--mesh multi`` and
-``--cohort`` (the distributed FEEL round) wait for the sharded plane,
-ROADMAP Queue 1 item 6. The dry run touches no device and runs the same
-with or without CUDA.
+The zoo's steps are traced for one device (``mesh`` "1xH100", no
+collectives); ``--mesh multi`` over the zoo (DTensor-sharded steps on the
+fake mesh) is ROADMAP Queue 1 item 1. ``--cohort`` traces the distributed
+FEEL round (``federated/distributed.py``) on the production mesh, 16x16
+(``--mesh single``) or 2x16x16 (``multi``), as one rank of a ``fake``
+process group of 256 or 512 ranks: its ``all_reduce`` calls run as
+operators on ``meta`` tensors and move nothing, and ``StepCounter`` counts
+the bytes they would move (``roofline.collective_bytes``). The fake group
+is global to its process, so ``--cohort`` runs in a process of its own
+(the CLI). The dry run touches no device and runs the same with or
+without CUDA.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ import argparse
 import collections
 import functools
 import json
+import math
 import os
 import sys
 import traceback
@@ -58,14 +66,16 @@ from repro_torch.configs.base import SHAPES, TrainConfig
 from repro_torch.kernels import oplib
 from repro_torch.launch import roofline as rl
 from repro_torch.launch import steps
-from repro_torch.launch.mesh import ADAFACTOR_ARCHS
+from repro_torch.launch.mesh import ADAFACTOR_ARCHS, make_production_mesh
 from repro_torch.models import api, common
 from repro_torch.obs.clock import wall_clock
+from repro_torch.sharding.specs import mesh_shape
 
 MESH = "1xH100"
-SHARDED = ("the sharded plane is ROADMAP Queue 1 item 6 (federated/"
-           "distributed.py, sharding/, launch/mesh.py's meshes); this dry run is "
-           "for one device")
+SHARDED = ("the zoo's steps sharded over a mesh (DTensor steps on the fake "
+           "mesh) are ROADMAP Queue 1 item 1; the zoo's dry run is for one "
+           "device (--cohort traces the distributed FEEL round on either "
+           "mesh)")
 # ops that allocate without writing, or make views
 _NO_TRAFFIC = {"empty", "empty_like", "empty_strided", "new_empty",
                "new_empty_strided", "empty_permuted"}
@@ -97,13 +107,16 @@ def _storage_key(t: torch.Tensor) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _op_info(func):
-    """(name, overload packet, how its bytes are counted: "cost", "none"
-    or "io", and whether it writes an argument) of an operator."""
+    """(name, overload packet, how its bytes are counted: "cost",
+    "collective", "none" or "io", and whether it writes an argument) of an
+    operator."""
     packet = func._overloadpacket
     writes = any(a.alias_info is not None and a.alias_info.is_write
                  for a in func._schema.arguments)
     if packet in oplib.COSTS:
         kind = "cost"
+    elif str(packet) in rl.C10D_OPS:
+        kind = "collective"
     elif packet.__name__ in _NO_TRAFFIC or (
             not writes and any(r.alias_info is not None
                                for r in func._schema.returns)):
@@ -133,7 +146,10 @@ class StepCounter:
     ``hold(tree)`` first registers the step's arguments (their storages'
     bytes are ``argument_bytes``); ``finish(out)`` registers its outputs.
     After the block: ``flops`` and ``bytes`` in total, ``op_flops``,
-    ``op_bytes`` and ``op_calls`` by operator name, and ``memory()``."""
+    ``op_bytes`` and ``op_calls`` by operator name, ``memory()``, and
+    ``op_collective_bytes``: by collective operator (``roofline.C10D_OPS``),
+    the bytes its outputs hold (``roofline.collective_bytes`` prices
+    them)."""
 
     def __init__(self):
         self.flops = 0
@@ -141,6 +157,7 @@ class StepCounter:
         self.op_flops = {}
         self.op_bytes = collections.Counter()
         self.op_calls = collections.Counter()
+        self.op_collective_bytes = collections.Counter()
         self.argument_bytes = self.output_bytes = 0
         self.live_bytes = self.peak_bytes = 0
         self._live = {}
@@ -193,6 +210,15 @@ class StepCounter:
             self._track(t)
         if kind == "cost":
             nb = int(oplib.COSTS[packet](*args, **kwargs)[1])
+        elif kind == "collective":
+            # the outputs are what it returns, or (an op that returns only
+            # its Work) its first argument, c10d's output; HBM traffic:
+            # each tensor argument read once, each output written once
+            moved = outs or _tensors(args[:1])
+            self.op_collective_bytes[name] += sum(_nbytes(t) for t in moved)
+            ins = {id(t): t for t in _tensors((args, kwargs))}
+            nb = (sum(_nbytes(t) for t in moved)
+                  + sum(_nbytes(t) for t in ins.values()))
         elif kind == "none" or not outs:
             nb = 0
         else:
@@ -336,14 +362,65 @@ def lower_pair(arch: str, shape_name: str, multi_pod: bool = False,
     return rec
 
 
+def cohort_dryrun(multi_pod: bool) -> dict:
+    """Trace the paper's distributed FEEL round (DESIGN.md §3) as one rank
+    of the production mesh — per-client local SGD, then the masked
+    weighted sum, K1 and the hierarchical ``all_reduce`` — at the
+    reference's setting: the MLP, 256 samples a client, lr 0.1, 5 local
+    steps, one client a rank of the client axes (16 or 32 clients). Starts
+    a ``fake`` process group of 256 or 512 ranks and destroys it before
+    returning, so a process runs one of these at a time."""
+    import torch.distributed as dist
+    # a private module of torch's (seen in torch 2.11 and 2.13): a store
+    # and process group that run every collective as a no-op
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.federated.distributed import (cohort_input_specs,
+                                                   make_cohort_step)
+    from repro_torch.models.mlp import mlp_init, mlp_loss
+    world = 512 if multi_pod else 256
+    axes = ("pod", "data") if multi_pod else ("data",)
+    rec = {"arch": "feel-cohort-mlp", "shape": None,
+           "mesh": "2x16x16" if multi_pod else "16x16"}
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+        n_clients = math.prod(mesh_shape(mesh).shape[a] for a in axes)
+        rec["shape"] = f"clients_{n_clients}"
+        params = mlp_init(common.MetaGenerator(), device="meta")
+        batch, weights, select = cohort_input_specs(
+            mesh, n_clients, {"x": ((256, 784), torch.float32),
+                              "y": ((256,), torch.int64)}, axes)
+        step = make_cohort_step(mesh, mlp_loss, lr=0.1, local_steps=5,
+                                client_axes=axes)
+        t0 = wall_clock()
+        counter = count_step(step, (params, batch, weights, select))
+        t_lower = wall_clock() - t0
+        coll = rl.collective_bytes(counter.op_collective_bytes)
+        flops, hbm = float(counter.flops), float(counter.bytes)
+        terms = rl.roofline_terms(flops, hbm, coll)
+        rec.update(status="ok", collectives=coll, **terms,
+                   dominant=rl.dominant(terms), flops_per_chip=flops,
+                   hbm_bytes_per_chip=hbm, memory=counter.memory(),
+                   lower_s=round(t_lower, 1), compile_s=0.0)
+    except Exception as e:
+        rec.update(status="error", error=f"{type(e).__name__}: {e}",
+                   trace=traceback.format_exc()[-2000:])
+    finally:
+        dist.destroy_process_group()
+    return rec
+
+
 def print_rec(rec):
     if rec.get("status") == "ok":
+        useful = rec.get("useful_flops_ratio")
         print(f"[ok]   {rec['arch']:24s} {rec['shape']:12s} {rec['mesh']:8s} "
               f"compute={rec['compute_s']:.3e}s memory={rec['memory_s']:.3e}s "
               f"collective={rec['collective_s']:.3e}s dom={rec['dominant']} "
               f"peak={rec['memory']['peak_bytes'] / 1e9:.2f}GB "
-              f"useful={rec['useful_flops_ratio']:.3f} "
-              f"(trace {rec.get('lower_s', '-')}s)")
+              + (f"useful={useful:.3f} " if useful is not None else "")
+              + f"(trace {rec.get('lower_s', '-')}s)")
     elif rec.get("status") == "skipped":
         print(f"[skip] {rec['arch']:24s} {rec['shape']:12s} {rec['mesh']:8s} "
               f"{rec['reason']}")
@@ -360,17 +437,17 @@ def main(argv: Optional[list] = None) -> int:
                     default="single")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--cohort", action="store_true",
-                    help="the distributed FEEL round: waits for the "
-                         "sharded plane")
+                    help="the distributed FEEL round on the production "
+                         "mesh (--mesh single, multi or both)")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--no-correction", action="store_true",
                     help="accepted, changes nothing: the trace sees every "
                          "block, so there is no scan-trip correction")
     ap.add_argument("--out", default="results/dryrun_torch.json")
     args = ap.parse_args(argv)
-    if args.cohort or args.mesh != "single":
-        what = "--cohort" if args.cohort else f"--mesh {args.mesh}"
-        print(f"dryrun: {what} is not ported: {SHARDED}", file=sys.stderr)
+    if not args.cohort and args.mesh != "single":
+        print(f"dryrun: --mesh {args.mesh} is not ported: {SHARDED}",
+              file=sys.stderr)
         return 2
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -381,21 +458,30 @@ def main(argv: Optional[list] = None) -> int:
     done = {(r["arch"], r["shape"], r["mesh"]) for r in results
             if r.get("status") in ("ok", "skipped")}
 
-    archs = (registry.list_archs() if (args.all or not args.arch)
-             else [args.arch])
-    shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
-    for a in archs:
-        for s in shapes:
+    if args.cohort:
+        jobs = [("cohort", None, mp) for mp in
+                {"single": [False], "multi": [True],
+                 "both": [False, True]}[args.mesh]]
+    else:
+        archs = (registry.list_archs() if (args.all or not args.arch)
+                 else [args.arch])
+        shapes = (list(SHAPES) if (args.all or not args.shape)
+                  else [args.shape])
+        jobs = [(a, s, False) for a in archs for s in shapes]
+    for a, s, mp in jobs:
+        if a == "cohort":
+            rec = cohort_dryrun(mp)
+        else:
             if (a, s, MESH) in done and not args.force:
                 continue
             rec = lower_pair(a, s, correct_scan=not args.no_correction)
-            print_rec(rec)
-            results = [r for r in results
-                       if (r["arch"], r["shape"], r["mesh"])
-                       != (rec["arch"], rec["shape"], rec["mesh"])]
-            results.append(rec)
-            with open(args.out, "w") as f:
-                json.dump(results, f, indent=1)
+        print_rec(rec)
+        results = [r for r in results
+                   if (r["arch"], r["shape"], r["mesh"])
+                   != (rec["arch"], rec["shape"], rec["mesh"])]
+        results.append(rec)
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
     n_err = sum(r.get("status") == "error" for r in results)
     print(f"\n{len(results)} records, {n_err} errors -> {args.out}")
     return 1 if n_err else 0

@@ -18,12 +18,14 @@ config changes:
   pad_vocab      the vocabulary padded to a multiple of 256
   remat_off      no activation rematerialisation            [train shapes]
   moe_local<g>   group-local MoE dispatch, g groups (moe.dispatch_groups);
-                 the reference also pins its activations to the mesh,
-                 which waits for the sharded plane
+                 the reference also pins its activations to the mesh
+                 (``moe_local``, ``moe_disp4a``, ...: the port's MoE names
+                 them, ``sharding.ctx``), which needs the zoo's sharded
+                 steps (ROADMAP Queue 1 item 1)
   donate         recorded, changes nothing: the port's decode step already
                  writes its caches in place
   moe_disp       a "skipped" record: it pins the dispatch buffer to the
-                 expert sharding, which needs the sharded plane
+                 expert sharding, which needs the zoo's sharded steps
 
 ``remat_off`` and ``donate`` reach ``lower_pair`` as arguments of their
 own variant only; the reference sets environment variables that stay set
@@ -108,7 +110,8 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--shape", required=True)
     ap.add_argument("--variants", default="baseline")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="waits for the sharded plane")
+                    help="waits for the zoo's sharded steps (ROADMAP "
+                         "Queue 1 item 1)")
     ap.add_argument("--out", default="results/perf_torch.json")
     args = ap.parse_args(argv)
     if args.multi_pod:

@@ -6,18 +6,55 @@
     collective = sum_ops factor(op) * bytes(op) / ICI_BW
 
 Ring-model factors: all-reduce counts 2x (reduce-scatter + all-gather
-phases), every other collective 1x. The byte counts of the collectives
-are an input here: the port has no compiled HLO to read them from
-(``collective_bytes`` comes with the sharded plane).
+phases), every other collective 1x; the (n-1)/n ring correction is folded
+into 1, as in the reference. The reference sums each collective's output
+bytes from compiled HLO, which torch does not have: here
+``collective_bytes`` sums them from the collective operators that
+``launch/dryrun.py``'s ``StepCounter`` saw run (the process group's
+``c10d`` operators and the functional ones DTensor issues), by the
+reference's op names.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Mapping
 
 from repro_torch.launch.mesh import HBM_BW, ICI_BW, PEAK_FLOPS_BF16
 
+_COLL_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+             "collective-permute")
 _FACTORS = {"all-gather": 1.0, "all-reduce": 2.0, "reduce-scatter": 1.0,
             "all-to-all": 1.0, "collective-permute": 1.0}
+# torch's collective operators by the reference's HLO op names
+C10D_OPS = {
+    **dict.fromkeys(("c10d.allreduce_", "c10d.allreduce_coalesced_",
+                     "_c10d_functional.all_reduce",
+                     "_c10d_functional.all_reduce_",
+                     "_c10d_functional.all_reduce_coalesced"), "all-reduce"),
+    **dict.fromkeys(("c10d.allgather_", "c10d._allgather_base_",
+                     "c10d.allgather_into_tensor_coalesced_",
+                     "_c10d_functional.all_gather_into_tensor",
+                     "_c10d_functional.all_gather_into_tensor_out",
+                     "_c10d_functional.all_gather_into_tensor_coalesced"),
+                    "all-gather"),
+    **dict.fromkeys(("c10d.reduce_scatter_", "c10d._reduce_scatter_base_",
+                     "c10d.reduce_scatter_tensor_coalesced_",
+                     "_c10d_functional.reduce_scatter_tensor",
+                     "_c10d_functional.reduce_scatter_tensor_coalesced"),
+                    "reduce-scatter"),
+    **dict.fromkeys(("c10d.alltoall_", "c10d.alltoall_base_",
+                     "_c10d_functional.all_to_all_single"), "all-to-all"),
+}
+
+
+def collective_bytes(op_bytes: Mapping[str, int]) -> Dict[str, int]:
+    """Sum output bytes per collective op type: ``op_bytes`` maps a torch
+    collective operator (a key of ``C10D_OPS``, as ``StepCounter``
+    records them in ``op_collective_bytes``) to the bytes its outputs
+    hold."""
+    out: Dict[str, int] = {op: 0 for op in _COLL_OPS}
+    for name, nbytes in op_bytes.items():
+        out[C10D_OPS[name]] += int(nbytes)
+    return out
 
 
 def roofline_terms(flops: float, hbm_bytes: float,

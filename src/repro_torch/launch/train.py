@@ -10,9 +10,10 @@ train step on the launcher's synthetic token batches, and checkpoints.
 
 The flags and the lines printed are the reference's; the first line names
 the device where the reference's names its mesh. The reference's
-``--host-mesh`` and ``--multi-pod`` and its sharding of the state wait for
-the sharded plane (ROADMAP Queue 1 item 6): this launcher runs on one
-device, ``--device`` (default ``cuda``, which raises without CUDA).
+``--host-mesh`` and ``--multi-pod`` and its sharding of the state
+(``sharding.specs``' rules, ``launch.mesh``'s meshes) are ROADMAP Queue 1
+item 2: this launcher runs on one device, ``--device`` (default ``cuda``,
+which raises without CUDA).
 The optimizer is the reference's policy (Adafactor for
 ``launch.mesh.ADAFACTOR_ARCHS``, else AdamW) unless ``--optimizer`` names
 one, and remat is on unless ``--smoke``.
@@ -48,8 +49,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Train an arch of the zoo on one device. The "
                     "reference's --host-mesh / --multi-pod and its sharded "
-                    "state wait for the sharded plane (ROADMAP Queue 1 "
-                    "item 6).")
+                    "state are ROADMAP Queue 1 item 2.")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--steps", type=int, default=100)

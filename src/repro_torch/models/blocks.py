@@ -40,6 +40,7 @@ from repro_torch.models.common import (dtype_of, ones, prefixed, rms_norm,
 from repro_torch.models.mla import mla_apply, mla_decode, mla_init
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.ssm import ssm_apply, ssm_decode, ssm_init
+from repro_torch.sharding.ctx import constrain
 
 
 # ---------------------------------------------------------------------- #
@@ -195,7 +196,7 @@ def layer_apply(cfg, p, kind, h, *, window=None, with_aux=True,
     if kind["mlp"] != "none":
         y, aux = _mlp(cfg, p, kind, h, with_aux=with_aux)
         h = h + y
-    return h, aux, cache
+    return constrain(h, "act"), aux, cache
 
 
 def block_apply(cfg, bp, h, *, window=None, with_aux=True, enc_out=None,
@@ -275,7 +276,7 @@ def layer_decode(cfg, p, kind, h, cache, index: int, *, slot_pos=None,
                                   cache["xk"], cache["xv"])
     if kind["mlp"] != "none":
         h = h + _mlp(cfg, p, kind, h, with_aux=False)[0]
-    return h, cache
+    return constrain(h, "dec"), cache
 
 
 def block_decode(cfg, bp, h, bcache, index: int, *, slot_pos=None,

@@ -33,6 +33,7 @@ from repro_torch.models.common import (cross_entropy, dense_init, dtype_of,
                                        embed_init, linear, ones, prefixed,
                                        rms_norm, subtree)
 from repro_torch.models.transformer import _embed, grow_cache
+from repro_torch.sharding.ctx import constrain
 
 
 def encdec_init(generator: torch.Generator, cfg, device=None):
@@ -57,7 +58,7 @@ def encdec_init(generator: torch.Generator, cfg, device=None):
 def _encode(cfg, params, src, remat=False):
     """src (B, S_src, d) frame embeddings -> the encoder's output (B,
     S_src, d): the projection, the bidirectional layers, the norm."""
-    h = linear(src.to(dtype_of(cfg)), params["src_proj"])
+    h = constrain(linear(src.to(dtype_of(cfg)), params["src_proj"]), "act")
     h, _, _ = scan_blocks(cfg, subtree(params, "enc_blocks/"), h,
                           with_aux=False, causal=False, remat=remat)
     return rms_norm(h, params["enc_norm"], cfg.norm_eps)
@@ -70,12 +71,12 @@ def encdec_forward(cfg, params, src, tokens, *, return_cache=False,
     dense), the decoder's layer caches under a decode cache's keys or
     None, the encoder's output)."""
     enc_out = _encode(cfg, params, src, remat=remat)
-    h = _embed(params["embed"], tokens).to(dtype_of(cfg))
+    h = constrain(_embed(params["embed"], tokens).to(dtype_of(cfg)), "act")
     h, aux, caches = scan_blocks(cfg, subtree(params, "dec_blocks/"), h,
                                  enc_out=enc_out, return_cache=return_cache,
                                  remat=remat)
-    logits = linear(rms_norm(h, params["final_norm"], cfg.norm_eps),
-                    params["lm_head"])
+    logits = constrain(linear(rms_norm(h, params["final_norm"], cfg.norm_eps),
+                              params["lm_head"]), "logits")
     if caches is not None:
         caches = prefixed("blocks/", caches)
     return logits, aux, caches, enc_out
@@ -117,7 +118,7 @@ def encdec_decode_step(cfg, params, cache, token):
     one position; its tensors are updated in place). The cross-attention
     reads the encoder's keys and values from the cache."""
     index = cache["index"]
-    h = _embed(params["embed"], token).to(dtype_of(cfg))
+    h = constrain(_embed(params["embed"], token).to(dtype_of(cfg)), "dec")
     h, blocks = scan_blocks_decode(cfg, subtree(params, "dec_blocks/"), h,
                                    subtree(cache, "blocks/"), index)
     logits = linear(rms_norm(h, params["final_norm"], cfg.norm_eps)[:, 0],

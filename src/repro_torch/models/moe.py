@@ -22,6 +22,18 @@ reference's ``"gecd,edf->gecf"``); the global dispatch is G = 1.
 Nothing in the dispatch waits for the card: the capacity is host
 arithmetic on the token count, the per-expert counts a ``scatter_add_`` on
 the device, and no step reads a tensor's value on the host.
+
+The dispatch names its tensors for ``sharding.ctx.constrain`` where the
+reference's two paths do: the global one ``"moe_gather"`` (the gathered
+tokens and, on the way back, the experts' rows), ``"moe_disp"`` (the
+dispatch buffer) and ``"moe_hidden"``; the group-local one
+``"moe_local"`` for the tokens both ways, ``"moe_disp4a"`` then
+``"moe_disp4"`` for the buffer, ``"moe_hidden4"``, and ``"moe_out4"`` then
+``"moe_disp4a"`` for the experts' output. The tensors have the port's
+layout: tokens (G, T·K, d), G = 1 for the global dispatch where the
+reference's are (T·K, d); buffer, hidden and output (E, G·C, ·) where the
+reference's group-local ones are (G, E, C, ·). A spec registered for one
+of these names is written for that layout.
 """
 from __future__ import annotations
 
@@ -31,6 +43,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.moe_gemm import moe_gemm
 from repro_torch.models.common import (dense_init, dtype_of, prefixed,
                                        subtree, swiglu_apply, swiglu_init)
+from repro_torch.sharding.ctx import constrain
 
 
 def _round_up(x: int, m: int) -> int:
@@ -128,12 +141,23 @@ def _dispatch(cfg, p, x3: torch.Tensor, with_aux: bool):
     # a dropped route writes the sentinel row E·G·C, cut away below (many
     # may write it; nothing reads it)
     dest = torch.where(pos < C, se * (G * C) + g * C + pos, E * G * C)
+    grouped = G > 1
+    tokens = "moe_local" if grouped else "moe_gather"
     buf = x3.new_zeros((E * G * C + 1, d))
-    buf.index_copy_(0, dest.reshape(-1), x3[g, tok].reshape(-1, d))
+    buf.index_copy_(0, dest.reshape(-1),
+                    constrain(x3[g, tok], tokens).reshape(-1, d))
     disp = buf[:E * G * C].view(E, G * C, d)
+    if grouped:
+        disp = constrain(constrain(disp, "moe_disp4a"), "moe_disp4")
+    else:
+        disp = constrain(disp, "moe_disp")
 
     h = F.silu(moe_gemm(disp, p["wg"])) * moe_gemm(disp, p["wu"])
-    y = moe_gemm(h, p["wd"]).view(E * G * C, d)
+    h = constrain(h, "moe_hidden4" if grouped else "moe_hidden")
+    y = moe_gemm(h, p["wd"])
+    if grouped:
+        y = constrain(constrain(y, "moe_out4"), "moe_disp4a")
+    y = y.view(E * G * C, d)
     y = torch.cat([y, y.new_zeros((1, d))])                      # sentinel
 
     # combine in a fixed order: the reference adds a token's K rows in
@@ -142,7 +166,7 @@ def _dispatch(cfg, p, x3: torch.Tensor, with_aux: bool):
     # an order that changes from run to run. Each route's row, back in
     # token order:
     dest_tok = torch.empty_like(dest).scatter_(1, order, dest)
-    rows = (y[dest_tok].view(G, T, K, d)
+    rows = (constrain(y[dest_tok], tokens).view(G, T, K, d)
             * gate.to(x3.dtype)[..., None])                      # (G,T,K,d)
     out = rows[:, :, 0]
     for k in range(1, K):

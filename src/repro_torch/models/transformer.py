@@ -39,6 +39,7 @@ from repro_torch.models.blocks import (layer_apply, layer_cache_init,
 from repro_torch.models.common import (cross_entropy, dense_init, dtype_of,
                                        embed_init, linear, ones, prefixed,
                                        rms_norm, sgd_step, subtree)
+from repro_torch.sharding.ctx import constrain
 
 
 HEAD_KIND = {"mixer": "attn", "mlp": "dense"}   # a leading dense layer's
@@ -91,7 +92,7 @@ def _forward(cfg, params, tokens, window, return_cache, with_aux=False,
     last hidden state before the final norm). ``remat`` rematerialises
     the stacked blocks in the backward (``scan_blocks``); the leading
     dense layers are unrolled outside the scan, as in the reference."""
-    h = _embed(params["embed"], tokens).to(dtype_of(cfg))
+    h = constrain(_embed(params["embed"], tokens).to(dtype_of(cfg)), "act")
     aux, caches = 0.0, {}
     for i in range(cfg.first_dense_layers):
         h, a, c = layer_apply(cfg, subtree(params, f"head_layers/{i}/"),
@@ -102,8 +103,8 @@ def _forward(cfg, params, tokens, window, return_cache, with_aux=False,
                                window=window, return_cache=return_cache,
                                with_aux=with_aux, remat=remat)
     aux = aux + a
-    logits = linear(rms_norm(h, params["final_norm"], cfg.norm_eps),
-                    params["lm_head"])
+    logits = constrain(linear(rms_norm(h, params["final_norm"], cfg.norm_eps),
+                              params["lm_head"]), "logits")
     if not return_cache:
         return logits, aux, None, h
     return logits, aux, {**caches, **prefixed("blocks/", blocks)}, h
@@ -317,7 +318,7 @@ def lm_decode_step(cfg, params, cache, token):
     index = cache["index"]
     slot_pos = cache.get("slot_pos")
     window = cfg.sliding_window if slot_pos is None else None
-    h = _embed(params["embed"], token).to(dtype_of(cfg))
+    h = constrain(_embed(params["embed"], token).to(dtype_of(cfg)), "dec")
     new_cache = dict(cache)
     for i in range(cfg.first_dense_layers):
         pre = f"head_layers/{i}/"

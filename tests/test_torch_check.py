@@ -450,6 +450,64 @@ def test_host_sync_catches_a_host_read_on_a_launch_path(inject, hits):
     assert check_host_sync(ctx) == []
 
 
+_BACKWARD_MODULE = '''
+import torch
+
+
+class _Fn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x * 2
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        {inject}
+        return dy * 2
+'''
+
+
+@pytest.mark.parametrize("inject,hits", [
+    ("pass", []),
+    ("m = dy.sum().item()", [".item()"]),
+    ("m = int(dy.max())", ["`int()` on tensor argument `dy`"]),
+    ("torch.cuda.synchronize()", [".synchronize()"]),
+    ("m = int(ctx.n)", []),                 # ctx is no tensor
+])
+def test_host_sync_catches_a_host_read_in_a_backward(inject, hits):
+    """A ``torch.autograd.Function.backward`` is a launch path: K5's
+    launches the kernel twice, K3's and K6's run their plain VJPs between
+    a train step's launches."""
+    text = _BACKWARD_MODULE.format(inject=inject)
+    vs = lint_host_sync(SourceFile.from_text(
+        text, rel="src/repro_torch/kernels/foo.py"))
+    line = text.splitlines().index(f"        {inject}") + 1
+    assert [v.line for v in vs] == [line] * len(hits)
+    for want in hits:
+        assert any(want in v.message and "`backward`" in v.message
+                   for v in vs), (want, vs)
+
+
+@pytest.mark.parametrize("module", ["flash_attention", "moe_gemm",
+                                    "ssd_scan"])
+def test_host_sync_catches_an_item_injected_into_a_kernels_backward(module):
+    """The mutation check on the port's own backwards (K3, K5, K6): the
+    module as it stands is clean; with ``.item()`` of the cotangent as the
+    first line of its ``backward`` it is caught there."""
+    rel = f"src/repro_torch/kernels/{module}.py"
+    text = (ROOT / rel).read_text()
+    assert lint_host_sync(SourceFile.from_text(text, rel=rel)) == []
+    lines = text.splitlines()
+    at = next(i for i, l in enumerate(lines)
+              if l.strip().startswith("def backward("))
+    cot = lines[at].split("(")[1].split(")")[0].split(",")[1].strip()
+    lines.insert(at + 1, f"        _ = {cot}.sum().item()")
+    vs = lint_host_sync(SourceFile.from_text("\n".join(lines), rel=rel))
+    assert [(v.line, v.rule) for v in vs] == [(at + 2, "host-sync")]
+    assert "`backward`" in vs[0].message and ".item()" in vs[0].message
+
+
 def test_host_sync_waiver_silences_one_line():
     text = _KERNEL_MODULE.format(
         inject="m = m + x.sum().item()  # repro: allow(host-sync)")
@@ -729,5 +787,8 @@ def test_the_ported_planes_stay_live():
                 "repro_torch.obs.report", "repro_torch.launch.dryrun",
                 "repro_torch.launch.hillclimb", "repro_torch.launch.serve",
                 "repro_torch.launch.roofline", "repro_torch.core.population",
-                "repro_torch.federated.async_engine"):
+                "repro_torch.federated.async_engine",
+                "repro_torch.federated.distributed", "repro_torch.sharding",
+                "repro_torch.sharding.ctx", "repro_torch.sharding.specs",
+                "repro_torch.launch.mesh"):
         assert mod not in dead, f"{mod} regressed to dead inheritance"

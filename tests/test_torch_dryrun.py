@@ -16,7 +16,12 @@ plane under it, against the JAX package where it has a counterpart:
   FLOPs in the 6ND model FLOPs (remat: ~8ND, plus attention);
 - the record has the reference's ``lower_pair`` keys; the CLI writes,
   skips and re-runs (``--force``) as the reference's, and refuses
-  ``--mesh multi`` and ``--cohort``, naming the sharded plane's item;
+  ``--mesh multi`` over the zoo, naming its ROADMAP item;
+- ``--cohort`` traces the distributed FEEL round on the fake 16x16 and
+  2x16x16 meshes (in a subprocess: the fake process group is global to
+  its process), with the all-reduce bytes of (50,890 + 1) float32 a level
+  of the hierarchy; and the meta trace of the round counts what a real
+  CPU round on a gloo group of one counts;
 - nothing touches CUDA.
 
 The reference's ``launch/dryrun.py`` is read, never imported: importing it
@@ -27,7 +32,10 @@ import ast
 import dataclasses
 import functools
 import json
+import os
 import pathlib
+import subprocess
+import sys
 import types
 
 import numpy as np
@@ -247,13 +255,15 @@ def test_cli_writes_skips_and_forces(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [["--mesh", "multi"], ["--mesh", "both"],
-                                  ["--cohort"]])
+                                  ["--mesh", "multi", "--arch", "yi-34b"]])
 def test_cli_refuses_the_sharded_plane(tmp_path, capsys, argv):
+    """The zoo's steps over a mesh are not ported (``--cohort`` is: see
+    ``test_cohort_cli``)."""
     out = tmp_path / "d.json"
     assert dryrun.main(argv + ["--out", str(out)]) != 0
-    assert "item 6" in capsys.readouterr().err
+    assert "item 1" in capsys.readouterr().err
     assert not out.exists()
-    with pytest.raises(ValueError, match="item 6"):
+    with pytest.raises(ValueError, match="item 1"):
         dryrun.lower_pair("yi-34b", "train_4k", multi_pod=True)
 
 
@@ -296,3 +306,89 @@ def test_real_inputs_have_the_specs_shapes():
             assert int(real["tokens"].max()) < cfg.vocab_size
     assert np.isfinite(dryrun.step_inputs(
         cfg, InputShape("t", 16, 2, "train"), "cpu")["src"].numpy()).all()
+
+
+M_MLP = 784 * 64 + 64 + 64 * 10 + 10     # the MLP's 50,890 parameters
+
+
+def test_cohort_cli(tmp_path):
+    """``python -m repro_torch.launch.dryrun --cohort --mesh both``: two
+    ``ok`` records with the reference's tags, one all-reduce level a
+    client axis (the data group, then the pod group), each moving the
+    flattened update and the weight sum in float32."""
+    out = tmp_path / "d.json"
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--cohort",
+         "--mesh", "both", "--out", str(out)], capture_output=True,
+        text=True, timeout=600, cwd=tmp_path,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "2 records, 0 errors" in r.stdout
+    recs = {r["mesh"]: r for r in json.loads(out.read_text())}
+    for mesh, shape, levels in (("16x16", "clients_16", 1),
+                                ("2x16x16", "clients_32", 2)):
+        rec = recs[mesh]
+        assert (rec["arch"], rec["shape"], rec["status"]) == (
+            "feel-cohort-mlp", shape, "ok")
+        assert rec["collectives"] == {
+            "all-gather": 0, "all-reduce": (M_MLP + 1) * 4 * levels,
+            "reduce-scatter": 0, "all-to-all": 0, "collective-permute": 0}
+        assert rec["collective_s"] == pytest.approx(
+            2 * (M_MLP + 1) * 4 * levels / rl.ICI_BW)
+        assert rec["collective_s"] > 0 and rec["flops_per_chip"] > 0
+        terms = {k: rec[k] for k in ("compute_s", "memory_s",
+                                     "collective_s")}
+        assert rec["dominant"] == rl.dominant(terms)
+    # one client a rank: the same local work on either mesh
+    assert recs["16x16"]["flops_per_chip"] == recs["2x16x16"]["flops_per_chip"]
+
+
+_COHORT_AGREEMENT = r"""
+import json, sys, torch
+import torch.distributed as dist
+from repro_torch.federated.distributed import (cohort_input_specs,
+                                               make_cohort_step)
+from repro_torch.launch import roofline as rl
+from repro_torch.launch.dryrun import count_step
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.common import MetaGenerator
+from repro_torch.models.mlp import mlp_init, mlp_loss
+
+dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                        world_size=1)
+try:
+    mesh = make_host_mesh(device_type="cpu")
+    step = make_cohort_step(mesh, mlp_loss, 0.1, 2)
+    shapes = {"x": ((32, 784), torch.float32), "y": ((32,), torch.int64)}
+    batch, w, s = cohort_input_specs(mesh, 3, shapes)
+    meta = count_step(step, (mlp_init(MetaGenerator(), device="meta"),
+                             batch, w, s))
+    g = torch.Generator().manual_seed(0)
+    real = count_step(step, (
+        mlp_init(g), {"x": torch.randn(3, 32, 784, generator=g),
+                      "y": torch.randint(10, (3, 32), generator=g)},
+        torch.tensor([1.0, 2.0, 3.0]), torch.tensor([1.0, 0.0, 1.0])))
+    out = {k: [c.flops, c.bytes, dict(c.op_calls), c.memory(),
+               rl.collective_bytes(c.op_collective_bytes)]
+           for k, c in (("meta", meta), ("cpu", real))}
+finally:
+    dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def test_cohort_meta_trace_counts_a_real_round():
+    """The dry run's premise for the cohort step: on a gloo group of one,
+    the meta trace and a real CPU round (3 clients on the rank, one
+    masked) count the same FLOPs, bytes by operator, memory and
+    collective bytes — K1 once, one all-reduce."""
+    r = subprocess.run([sys.executable, "-c", _COHORT_AGREEMENT],
+                       capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert r.returncode == 0, r.stderr[-3000:]
+    got = json.loads(r.stdout)
+    assert got["meta"] == got["cpu"]
+    ops = got["cpu"][2]
+    assert ops["repro_torch.weighted_aggregate"] == 1
+    assert ops["c10d.allreduce_"] == 1
+    assert got["cpu"][4]["all-reduce"] == (M_MLP + 1) * 4

@@ -109,7 +109,7 @@ def test_variant_needing_a_sub_config_raises():
 
 def test_moe_disp_is_a_skipped_record_naming_the_sharded_plane():
     rec = hillclimb.run_variant("qwen2-moe-a2.7b", "train_4k", "moe_disp")
-    assert rec["status"] == "skipped" and "item 6" in rec["reason"]
+    assert rec["status"] == "skipped" and "item 1" in rec["reason"]
     assert (rec["arch"], rec["shape"], rec["mesh"], rec["variant"]) == (
         "qwen2-moe-a2.7b", "train_4k", "1xH100", "moe_disp")
 
@@ -176,7 +176,7 @@ def test_cli_records_and_replaces_variants(monkeypatch, tmp_path, capsys):
     assert [r["variant"] for r in json.loads(out.read_text())] == [
         "baseline", "ssd_bf16"]
     assert hillclimb.main(argv + ["--multi-pod"]) != 0
-    assert "item 6" in capsys.readouterr().err
+    assert "item 1" in capsys.readouterr().err
 
 
 def test_records_are_the_dry_runs(monkeypatch):
