@@ -287,6 +287,26 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     15 calls, K1 at (50, 50,890) float32 beside its bound and cuBLAS's
     GEMV, and the ``all_reduce``'s device time, the card's name and power
     limit beside each;
+20. the sharded zoo (after 19, on its group, before the summary): (a)
+    ``launch/train.py``'s ``main`` in process, 3 steps at 2 x 4,096
+    tokens (AdamW, remat) of ``qwen2-moe-a2.7b`` at full width cut to 4
+    layers and of ``mamba2-370m``, first on one device and then with
+    ``--host-mesh`` (the (1, 1) mesh over phase 19's group, the params and
+    optimizer state ``DTensor``s placed by the reference's rules) from the
+    same seed and batches: the losses bit-equal (else within 1e-3
+    relative), each step's launches the plain step's (K3 8 and K5 48; K6
+    96), the median ms of steps 2 and 3 beside the plain step's (DTensor's
+    host cost); (b) one prefill of 8 x 2,048 tokens and 8 decode steps of
+    ``qwen2-moe-a2.7b`` at 4 layers, plain and with the params and caches
+    ``DTensor``s under the reference's activation specs (K3, K4 and K5
+    through their DTensor rules): every logit bit-equal, the same
+    launches; (c) the dry run on the production meshes, ``--mesh both``,
+    for ``qwen2-moe-a2.7b`` ``train_4k``, ``mamba2-370m`` ``train_4k``,
+    ``starcoder2-15b`` ``prefill_32k`` and ``qwen2-moe-a2.7b``
+    ``decode_32k`` (subprocesses started after phase 2): each record a
+    ``dryrun_sharded`` line, ``ok``, with collectives, FLOPs a chip times
+    the chips at least the one-device trace's (phase 17's), a chip's peak
+    below the one-device peak, and 2x16x16's FLOPs a chip at most 16x16's;
 15. one JSON line of per-kernel numbers (K6's bf16-compute route a row
     of its own), then the result line.
 
@@ -374,6 +394,8 @@ from repro_torch.models.common import MetaGenerator  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.obs import report as obs_report  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
+from repro_torch.sharding import dtensor  # noqa: E402
+from repro_torch.sharding.ctx import activation_specs  # noqa: E402
 
 # the H100 SXM5's data-sheet peaks: device memory, float32 outside the
 # tensor cores, bf16 on the tensor cores (dense)
@@ -3458,12 +3480,15 @@ def start_cli(name, *argv):
     env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent
                                            / "src"),
            "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    # its output to a file: a pipe nobody reads until the end would stop
+    # a chatty job once the pipe's buffer fills
+    log = open(COST_DIR / f"{name}.log", "w")
     proc = subprocess.Popen(
-        [sys.executable, *argv, str(out)], stdout=subprocess.PIPE,
+        [sys.executable, *argv, str(out)], stdout=log,
         stderr=subprocess.STDOUT, text=True, env=env,
         cwd=Path(__file__).resolve().parent)
     atexit.register(_stop, proc)
-    return dict(proc=proc, out=out, t0=time.perf_counter())
+    return dict(proc=proc, out=out, log=log, t0=time.perf_counter())
 
 
 def _stop(proc):
@@ -3476,8 +3501,10 @@ def finish_cli(job):
     """(its records, its output, its seconds, the seconds waited for it
     here)."""
     t0 = time.perf_counter()
-    log, _ = job["proc"].communicate()
+    job["proc"].wait()
     waited = time.perf_counter() - t0
+    job["log"].close()
+    log = Path(job["log"].name).read_text()
     assert job["proc"].returncode == 0, log[-4000:]
     return (json.loads(job["out"].read_text()), log,
             time.perf_counter() - job["t0"], waited)
@@ -4245,11 +4272,12 @@ def cohort_checks(mesh, cpu_mesh, server, smi):
     return launches["weighted_aggregate"]
 
 
-def sharded_phases(server, smi):
+def sharded_phases(server, smi, then=None):
     """Phase 19: an NCCL process group of one rank in process, the host
-    mesh on the card, the cohort step and its checks; the group is
-    destroyed whatever happens. Returns K1's launches in the driven step
-    and the phase's seconds."""
+    mesh on the card, the cohort step and its checks; then ``then(mesh)``
+    (phase 20) on the same group, which is destroyed whatever happens.
+    Returns K1's launches in the driven step, the phase's seconds, and
+    ``then``'s result and seconds."""
     t0 = time.perf_counter()
     torch.cuda.set_device(0)
     dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.HashStore(),
@@ -4267,9 +4295,260 @@ def sharded_phases(server, smi):
         assert tuple(mesh.shape) == (1, 1), mesh
         assert backend == "ProcessGroupNCCL", backend
         k1 = cohort_checks(mesh, cpu_mesh, server, smi)
+        seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        after = then(mesh) if then is not None else None
     finally:
         dist.destroy_process_group()
-    return k1, time.perf_counter() - t0
+    return k1, seconds, after, time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# 20. the sharded zoo: the zoo's steps on DTensors on the (1, 1) mesh over
+# phase 19's group, and the dry run on the production meshes
+# ---------------------------------------------------------------------------
+SHARDED_CELLS = (("qwen2-moe-a2.7b", "train_4k"),
+                 ("mamba2-370m", "train_4k"),
+                 ("starcoder2-15b", "prefill_32k"),
+                 ("qwen2-moe-a2.7b", "decode_32k"))
+SHARDED_STEPS = 3
+SHARDED_LOSS_TOL = 1e-3    # relative, should the losses not be bit-equal
+SHARDED_DECODE = 8         # decode steps after the prefill
+
+
+def start_sharded_dryruns():
+    """(c), started after the build: ``python -m repro_torch.launch.dryrun
+    --arch A --shape S --mesh both`` for each of ``SHARDED_CELLS``, one
+    subprocess a cell (no device, one thread), collected in phase 20."""
+    return {cell: start_cli(f"dryrun_sharded_{i}", "-m",
+                            "repro_torch.launch.dryrun", "--arch", cell[0],
+                            "--shape", cell[1], "--mesh", "both", "--out")
+            for i, cell in enumerate(SHARDED_CELLS)}
+
+
+@contextlib.contextmanager
+def timed_train_steps(rows):
+    """``launch/train.py``'s train step with each call timed (the card
+    synchronised on both sides) and its launches counted (every count set
+    to 0 just before, read just after), a row a call in ``rows``."""
+    real = train_cli.make_train_step
+
+    def make(cfg, tcfg):
+        step = real(cfg, tcfg)
+
+        def timed(*args):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            rows.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                             launches=read_launches()))
+            return out
+        return timed
+    train_cli.make_train_step = make
+    try:
+        yield
+    finally:
+        train_cli.make_train_step = real
+
+
+def sharded_train_cell(label, cfg, arch, expect, smi):
+    """(a) one cell: ``launch/train.py``'s ``main`` in process, 3 steps at
+    2 x 4,096 tokens (AdamW, remat), on one device and then with
+    ``--host-mesh`` (phase 19's group: a (1, 1) mesh, the state
+    ``DTensor``s) from the same seed and batches: the losses bit-equal
+    (else within ``SHARDED_LOSS_TOL``), each step's launches those of the
+    plain step (``expect``: every K3, K5 or K6 call launched its kernel,
+    none reached a plain version), the median ms of steps 2 and 3 beside
+    the plain step's."""
+    argv = ["--arch", arch, "--steps", str(SHARDED_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+    runs = {}
+    for mode, extra in (("plain", []), ("mesh", ["--host-mesh"])):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rows, printed = [], io.StringIO()
+        with timed_train_steps(rows), contextlib.redirect_stdout(printed):
+            r = train_cli.main(argv + extra, cfg=cfg)
+        runs[mode] = dict(
+            losses=[float(dtensor.full({"l": m["loss"]})["l"])
+                    for m in r["metrics"]],
+            ms=[row["ms"] for row in rows],
+            launches=[row["launches"] for row in rows],
+            median_ms=float(np.median([row["ms"] for row in rows[1:]])),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            first_line=printed.getvalue().splitlines()[0],
+            dtensor_leaves=sum(dtensor.is_dtensor(v)
+                               for v in r["state"][0].values()))
+        del r
+    plain, mesh = runs["plain"], runs["mesh"]
+    bit_equal = mesh["losses"] == plain["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(mesh["losses"],
+                                                   plain["losses"]))
+    row = dict(phase="sharded_train", cell=label, gpu=smi, plain=plain,
+               mesh=mesh, losses_bit_equal=bit_equal, loss_rel_err=rel,
+               dtensor_host_ms=mesh["median_ms"] - plain["median_ms"])
+    emit(**row)
+    assert mesh["first_line"].startswith("mesh {'data': 1, 'model': 1}"), row
+    assert mesh["dtensor_leaves"] == len(api.init(cfg, 0, device="meta")), row
+    assert plain["dtensor_leaves"] == 0, row
+    assert bit_equal or rel <= SHARDED_LOSS_TOL, row
+    for launches in plain["launches"] + mesh["launches"]:
+        assert launches == only(**expect), (label, launches, expect)
+    assert all(np.isfinite(mesh["losses"])), row
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def sharded_serving(mesh, smi):
+    """(b) ``qwen2-moe-a2.7b`` at full width cut to 4 layers (bf16): one
+    prefill of 8 prompts of 2,048 and ``SHARDED_DECODE`` decode steps fed
+    the plain run's greedy tokens, plain and with the params and caches
+    ``DTensor``s (params by ``param_specs``, the prompts by
+    ``batch_specs``, the prefill's cache placed again by the decode
+    shape's ``batch_specs``, the reference's activation specs): every
+    logit bit-equal, K3, K4 and K5 launched as often (prefill K3 4, K5 12;
+    a step K4 4, K5 12)."""
+    from repro_torch.sharding import specs as sp
+    cfg = dataclasses.replace(registry.get("qwen2-moe-a2.7b"), n_layers=4)
+    params = api.init(cfg, 0, device="cuda")
+    tokens = prompts(cfg, SERVE_BATCH, SERVE_PROMPT)
+    target = SERVE_PROMPT + SHARDED_DECODE
+    pre = InputShape("prefill", SERVE_PROMPT, SERVE_BATCH, "prefill")
+    dec = InputShape("decode", target, SERVE_BATCH, "decode")
+    expect_pre = only(flash_attention=4, moe_gemm=12)
+    expect_dec = only(decode_attention=4, moe_gemm=12)
+
+    def run(P, B, place_cache, specs_pre, specs_dec, fed=None):
+        out, fed_out, launches = [], [], []
+        reset_launches()
+        with dtensor.sharded(), activation_specs(specs_pre):
+            logits, cache = api.prefill(cfg, P, {"tokens": B},
+                                        target_len=target)
+        launches.append(read_launches())
+        cache = place_cache(cache)
+        out.append(dtensor.full({"l": logits})["l"])
+        for i in range(SHARDED_DECODE):
+            tok = (out[-1].argmax(-1)[:, None] if fed is None else fed[i])
+            fed_out.append(tok)
+            reset_launches()
+            with dtensor.sharded(), activation_specs(specs_dec):
+                logits, cache = api.decode_step(cfg, P, cache,
+                                                place_token(tok))
+            launches.append(read_launches())
+            out.append(dtensor.full({"l": logits})["l"])
+        return out, fed_out, launches
+
+    place_token = (lambda t: t)
+    t0 = time.perf_counter()
+    want, fed, plain_launches = run(params, tokens, lambda c: c, {}, {})
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    bspecs = sp.batch_specs(cfg, dec, mesh)
+    P = dtensor.place(params, sp.param_specs(cfg, params, mesh), mesh)
+    B = dtensor.place({"tokens": tokens}, sp.batch_specs(cfg, pre, mesh),
+                      mesh)["tokens"]
+    place_token = (lambda t: dtensor.place({"token": t}, bspecs,
+                                           mesh)["token"])
+    t0 = time.perf_counter()
+    got, _, mesh_launches = run(
+        P, B, lambda c: {k: v.redistribute(mesh, sp.named(
+            mesh, bspecs["cache"][k])) if dtensor.is_dtensor(v) else v
+            for k, v in c.items()},
+        dryrun.act_specs(mesh, "prefill"),
+        dryrun.act_specs(mesh, "decode", dryrun.batch_shardable(dec, mesh)),
+        fed=fed)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    equal = [bool(torch.equal(g, w)) for g, w in zip(got, want)]
+    row = dict(phase="sharded_serving", arch=cfg.name, n_layers=4,
+               prompts=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+               decode_steps=SHARDED_DECODE, logits_bit_equal=equal,
+               max_abs_diff=max(float((g.float() - w.float()).abs().max())
+                                for g, w in zip(got, want)),
+               plain_launches=plain_launches, mesh_launches=mesh_launches,
+               plain_s=plain_s, mesh_s=mesh_s, gpu=smi)
+    emit(**row)
+    assert all(equal), row
+    for launches in (plain_launches, mesh_launches):
+        assert launches[0] == expect_pre, (launches[0], expect_pre)
+        assert all(x == expect_dec for x in launches[1:]), launches
+    del params, P, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def sharded_dryrun_phase(jobs):
+    """(c) each cell's two records, 16x16 and 2x16x16 (each a
+    ``dryrun_sharded`` line): ``ok``; collectives moved; FLOPs a chip
+    times the chips at least the one-device trace's (phase 17's record:
+    sharding only adds work); a chip's peak below the one-device peak;
+    2x16x16's FLOPs a chip at most 16x16's."""
+    one = {(r["arch"], r["shape"]): r for r in json.loads(
+        (COST_DIR / "dryrun.json").read_text())}
+    waited = 0.0
+    for (arch, shape), job in jobs.items():
+        recs, _, seconds, w = finish_cli(job)
+        waited += w
+        by_mesh = {r["mesh"]: r for r in recs}
+        base = one[(arch, shape)]
+        for name, chips in (("16x16", 256), ("2x16x16", 512)):
+            r = by_mesh[name]
+            emit(phase="dryrun_sharded", arch=arch, shape=shape, mesh=name,
+                 status=r["status"], error=r.get("error"),
+                 flops_per_chip=r.get("flops_per_chip"),
+                 hbm_bytes_per_chip=r.get("hbm_bytes_per_chip"),
+                 collectives=r.get("collectives"),
+                 peak_gb=r.get("memory", {}).get("peak_bytes", 0) / 1e9,
+                 compute_s=r.get("compute_s"), memory_s=r.get("memory_s"),
+                 collective_s=r.get("collective_s"),
+                 dominant=r.get("dominant"),
+                 useful_flops_ratio=r.get("useful_flops_ratio"),
+                 one_device_flops=base["flops_per_chip"],
+                 one_device_peak_gb=base["memory"]["peak_bytes"] / 1e9,
+                 trace_s=r.get("lower_s"), job_s=seconds)
+            assert r["status"] == "ok", r
+            assert sum(r["collectives"].values()) > 0, r
+            assert r["flops_per_chip"] * chips >= base["flops_per_chip"], r
+            assert (r["memory"]["peak_bytes"]
+                    < base["memory"]["peak_bytes"]), (r, base)
+        assert (by_mesh["2x16x16"]["flops_per_chip"]
+                <= by_mesh["16x16"]["flops_per_chip"]), by_mesh
+    return waited
+
+
+def zoo_sharded_phases(mesh, jobs, smi):
+    """Phase 20, on phase 19's one-rank group: (a) training on the (1, 1)
+    mesh, (b) serving on it, (c) the dry run on the production meshes.
+    Returns the launches of (a) and (b) by kernel."""
+    qwen = dataclasses.replace(registry.get("qwen2-moe-a2.7b"), n_layers=4)
+    mamba = registry.get("mamba2-370m")
+    n = qwen.n_layers
+    cells = [sharded_train_cell("qwen2-moe-a2.7b, 4 layers", qwen,
+                                "qwen2-moe-a2.7b",
+                                dict(flash_attention=2 * n,
+                                     moe_gemm=12 * n), smi),
+             sharded_train_cell("mamba2-370m", mamba, "mamba2-370m",
+                                dict(ssd_scan=2 * mamba.n_layers), smi)]
+    serving = sharded_serving(mesh, smi)
+    waited = sharded_dryrun_phase(jobs)
+    launches = collections.Counter()
+    for cell in cells:
+        for x in cell["mesh"]["launches"]:
+            launches.update(x)
+    for x in serving["mesh_launches"]:
+        launches.update(x)
+    emit(phase="sharded_zoo_steps", gpu=smi, cells={
+        c["cell"]: dict(plain_ms=c["plain"]["median_ms"],
+                        mesh_ms=c["mesh"]["median_ms"],
+                        dtensor_host_ms=c["dtensor_host_ms"],
+                        losses_bit_equal=c["losses_bit_equal"])
+        for c in cells}, dryrun_waited_s=waited)
+    return dict(launches)
 
 
 def quickstart(n_ues, n_malicious, n_train, n_test, device, seed=0):
@@ -4348,6 +4627,8 @@ def main():
     dry_job = start_cli("dryrun", "-m", "repro_torch.launch.dryrun", "--all",
                         "--force", "--out")
     climb_job = start_cli("hillclimb", "-c", _HILLCLIMB, *HILLCLIMB)
+    # 20 (c), started now too: the dry run on the production meshes
+    sharded_jobs = start_sharded_dryruns()
 
     # 3. kernels against their plain versions
     for n in (8, 32, 56):
@@ -4664,10 +4945,18 @@ def main():
     emit(phase="contracts_seconds",
          seconds=contracts_phases(pad_count(n_a), n_a))
 
-    # 19. the sharded plane: the cohort step over NCCL, K1 once a step
-    k1_cohort, seconds = sharded_phases(server, smi)
+    # 19. the sharded plane: the cohort step over NCCL, K1 once a step;
+    # 20. the sharded zoo on the same group
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1_cohort, seconds, zoo_launches, zoo_s = sharded_phases(
+        server, smi, then=lambda mesh: zoo_sharded_phases(
+            mesh, sharded_jobs, smi))
     launches["weighted_aggregate"] += k1_cohort
     emit(phase="sharded_seconds", seconds=seconds)
+    for name, n in zoo_launches.items():
+        launches[name] += n
+    emit(phase="sharded_zoo_seconds", seconds=zoo_s, gpu=smi)
 
     # 15. summary and result
     emit(phase="done", seconds=time.perf_counter() - t_start)

@@ -217,12 +217,25 @@ def cost(b: int, h: int, hkv: int, length: int, d: int,
             (2 * b * h * d + 2 * b * length * hkv * d) * dtype.itemsize)
 
 
+def sharding(q, k, v, length):
+    """K4's DTensor rule, for one mesh dim: all replicated; the batch
+    split; or the heads split (q's dim 1, K/V's dim 2), kept only where it
+    divides both H and Hkv (``oplib``). T is never split into the kernel:
+    a softmax over a split T needs the kernel's split merge across ranks,
+    so a sequence-sharded cache is all-gathered first, by DTensor."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [([Replicate()], [Replicate()] * 3 + [None]),
+            ([Shard(0)], [Shard(0)] * 3 + [None]),
+            ([Shard(1)], [Shard(1), Shard(2), Shard(2), None])]
+
+
 _op = oplib.define(
     "decode_attention", "(Tensor q, Tensor k, Tensor v, int length) -> Tensor",
     cuda=lambda *args: _kernel(*args), cpu=decode_attention_ref,
     fake=lambda q, k, v, length: q.new_empty(q.shape),
     cost=lambda q, k, v, length: cost(q.shape[0], q.shape[1], k.shape[2],
-                                      length, q.shape[2], q.dtype))
+                                      length, q.shape[2], q.dtype),
+    sharding=sharding)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

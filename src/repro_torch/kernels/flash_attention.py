@@ -49,6 +49,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, oplib
+from repro_torch.sharding.dtensor import is_dtensor, local_vjp
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)    # the kernel's instantiations
@@ -182,6 +183,20 @@ def backward_cost(b: int, h: int, s: int, t: int, d: int, causal: bool,
     return 10.0 * d * b * h * band_pairs(s, t, causal, window), nbytes
 
 
+def sharding(q, k, v, causal, window, scale):
+    """K3's DTensor rule, for one mesh dim: all replicated; the batch
+    split; or the heads split, q's and K/V's alike. The heads' split is
+    kept only where it divides both H and Hkv (``oplib``): a rank then
+    holds H/n query heads over Hkv/n KV heads, and the kernel's group
+    H_local/Hkv_local is the model's. S and T are never split: each query
+    needs every key of its band."""
+    from torch.distributed.tensor import Replicate, Shard
+    none = (None, None, None)
+    return [([Replicate()], [Replicate()] * 3 + list(none)),
+            ([Shard(0)], [Shard(0)] * 3 + list(none)),
+            ([Shard(1)], [Shard(1)] * 3 + list(none))]
+
+
 _op = oplib.define(
     "flash_attention",
     "(Tensor q, Tensor k, Tensor v, bool causal, int? window, float scale)"
@@ -192,28 +207,40 @@ _op = oplib.define(
     fake=lambda q, k, v, causal, window, scale: q.new_empty(q.shape),
     cost=lambda q, k, v, causal, window, scale: cost(
         q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3], causal,
-        window, q.dtype, k.shape[1]))
+        window, q.dtype, k.shape[1]),
+    sharding=sharding)
 
 
 class _FlashAttention(torch.autograd.Function):
     """Kernel forward; backward = the VJP of ``flash_attention_ref``,
-    recomputed from the saved inputs."""
+    recomputed from the saved inputs. On ``DTensor``s the VJP runs on each
+    rank's shards, placed as the forward's output (``sharding.dtensor.
+    local_vjp``): the rule splits batch and heads only."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
         ctx.save_for_backward(q, k, v)
         ctx.args = (causal, window, scale)
-        return _op(q, k, v, causal, window, scale)
+        out = _op(q, k, v, causal, window, scale)
+        ctx.sharded = ((out.device_mesh, out.placements)
+                       if is_dtensor(out) else None)
+        return out
 
     @staticmethod
     def backward(ctx, g):
         causal, window, scale = ctx.args
-        with torch.enable_grad():
-            qkv = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-            out = flash_attention_ref(*qkv, causal=causal, window=window,
-                                      scale=scale)
-            grads = torch.autograd.grad(out, qkv, g)
-        return (*grads, None, None, None)
+
+        def vjp(q, k, v, g):
+            with torch.enable_grad():
+                qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+                out = flash_attention_ref(*qkv, causal=causal, window=window,
+                                          scale=scale)
+                return torch.autograd.grad(out, qkv, g)
+        if ctx.sharded is None:
+            return (*vjp(*ctx.saved_tensors, g), None, None, None)
+        mesh, p = ctx.sharded
+        return (*local_vjp(vjp, mesh, (*ctx.saved_tensors, g), [p] * 4,
+                           [p] * 3), None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

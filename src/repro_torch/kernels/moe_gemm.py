@@ -119,11 +119,27 @@ def cost(e: int, c: int, k: int, n: int, dtype: torch.dtype):
         dtype.itemsize
 
 
+def sharding(x, w):
+    """K5's DTensor rule, for one mesh dim, (E, C, K) x (E, K, N): all
+    replicated; the experts split (both dim 0, out dim 0); N split (w dim
+    2, out dim 2); the contracted K split (x dim 2, w dim 1), each rank's
+    product a partial sum (``Partial``); or the capacity split (x dim 1,
+    out dim 1). The backward's two products (dy·wᵀ, xᵀ·dy) are this
+    operator, so they take the same rule."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    return [([Replicate()], [Replicate(), Replicate()]),
+            ([Shard(0)], [Shard(0), Shard(0)]),
+            ([Shard(2)], [Replicate(), Shard(2)]),
+            ([Partial()], [Shard(2), Shard(1)]),
+            ([Shard(1)], [Shard(1), Replicate()])]
+
+
 _forward = oplib.define(
     "moe_gemm", "(Tensor x, Tensor w) -> Tensor",
     cuda=lambda *args: _kernel(*args), cpu=moe_gemm_ref,
     fake=lambda x, w: x.new_empty((x.shape[0], x.shape[1], w.shape[2])),
-    cost=lambda x, w: cost(*x.shape, w.shape[2], x.dtype))
+    cost=lambda x, w: cost(*x.shape, w.shape[2], x.dtype),
+    sharding=sharding)
 
 
 class _MoeGemm(torch.autograd.Function):

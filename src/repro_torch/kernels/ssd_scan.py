@@ -84,6 +84,7 @@ import torch
 
 from repro_torch.device import sm_count
 from repro_torch.kernels import build, oplib
+from repro_torch.sharding.dtensor import is_dtensor, local_vjp
 
 P_TILES = (64, 32, 16)      # the kernel's instantiations (columns of P)
 MAX_STATE = 128             # N the kernel's register tile holds
@@ -366,6 +367,27 @@ def cost(b: int, length: int, h: int, p: int, n: int, g: int, q: int,
     return flops, nbytes
 
 
+def sharding(x, dt, A, B_, C_, initial_state, q, compute_dtype):
+    """K6's DTensor rule, for one mesh dim, outputs (y, final state): all
+    replicated; the batch split (dim 0 of every tensor but A); or the
+    heads split (x and dt dim 2, A dim 0, the states dim 1). With one
+    group (mamba2) every head reads it, so B and C stay replicated; with
+    G > 1 they are split by their groups (dim 2), kept only where that
+    divides both H and G (``oplib``): a rank's heads then read their own
+    groups. L is never split: it is a scan."""
+    from torch.distributed.tensor import Replicate, Shard
+    s0 = initial_state is not None
+    R = Replicate()
+    groups = R if B_.shape[2] == 1 else Shard(2)
+    return [([R, R], [R, R, R, R, R, R if s0 else None, None, None]),
+            ([Shard(0), Shard(0)],
+             [Shard(0), Shard(0), R, Shard(0), Shard(0),
+              Shard(0) if s0 else None, None, None]),
+            ([Shard(2), Shard(1)],
+             [Shard(2), Shard(2), Shard(0), groups, groups,
+              Shard(1) if s0 else None, None, None])]
+
+
 _op = oplib.define(
     "ssd_scan",
     "(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, "
@@ -381,45 +403,94 @@ _op = oplib.define(
                     dtype=torch.float32)),
     cost=lambda x, dt, A, B_, C_, s0, q, cdt: cost(
         *x.shape[:3], x.shape[3], B_.shape[3], B_.shape[2], q, x.dtype,
-        s0 is not None))
+        s0 is not None),
+    sharding=sharding)
 
 
 class _SsdScan(torch.autograd.Function):
     """Forward through the operator (the kernel on the card); backward =
     the VJP of ``ssd_chunked`` at the same compute dtype, recomputed from
     the saved inputs (grouped B/C repeated to the heads, their gradients
-    summed back to the groups)."""
+    summed back to the groups). On ``DTensor``s the VJP runs on each
+    rank's shards (``sharding.dtensor.local_vjp``), placed as the rule
+    placed them for the forward's output: a tensor the rule keeps whole
+    where y is split (A under a batch split, one group's B and C under a
+    heads split) gets a partial gradient there."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B_, C_, initial_state, q, compute_dtype):
         ctx.save_for_backward(x, dt, A, B_, C_, initial_state)
         ctx.q, ctx.compute_dtype = q, compute_dtype
         ctx.set_materialize_grads(False)     # an unused output: None
-        return _op(x, dt, A, B_, C_, initial_state, q, compute_dtype)
+        y, state = _op(x, dt, A, B_, C_, initial_state, q, compute_dtype)
+        ctx.sharded = ((y.device_mesh, y.placements)
+                       if is_dtensor(y) else None)
+        return y, state
 
     @staticmethod
     def backward(ctx, dy, dstate):
-        saved = ctx.saved_tensors
-        with torch.enable_grad():
-            ins = [None if t is None else t.detach().requires_grad_(
-                need) for t, need in zip(saved, ctx.needs_input_grad)]
-            x, dt, A, B_, C_, s0 = ins
-            rep = x.shape[2] // B_.shape[2]
-            y, state = ssd_chunked(x, dt, A, B_.repeat_interleave(rep, 2),
-                                   C_.repeat_interleave(rep, 2), ctx.q,
-                                   initial_state=s0,
-                                   compute_dtype=ctx.compute_dtype)
-            # an output with no cotangent or that no input reaches (the
-            # final state does not depend on C) adds nothing
-            pairs = [(o, c) for o, c in ((y, dy), (state, dstate))
-                     if c is not None and o.requires_grad]
-            wrt = [t for t in ins if t is not None and t.requires_grad]
-            outs, cots = zip(*pairs) if pairs else ((), ())
-            grads = iter(torch.autograd.grad(outs, wrt, cots,
-                                             allow_unused=True)
-                         if pairs else [None] * len(wrt))
-        return (*(next(grads) if t is not None and t.requires_grad else None
-                  for t in ins), None, None)
+        needs = ctx.needs_input_grad[:6]
+
+        def vjp(x, dt, A, B_, C_, s0, dy, dstate):
+            return _chunked_vjp((x, dt, A, B_, C_, s0), needs, dy, dstate,
+                                ctx.q, ctx.compute_dtype)
+        saved = ctx.saved_tensors     # unpacked once: remat allows no more
+        if ctx.sharded is None:
+            grads = vjp(*saved, dy, dstate)
+        else:
+            mesh, py = ctx.sharded
+            ins, outs = _vjp_placements(py, saved[3].shape[2])
+            grads = local_vjp(vjp, mesh, (*saved, dy, dstate), ins + outs,
+                              _grad_placements(ins, py))
+        return (*grads, None, None)
+
+
+def _chunked_vjp(saved, needs, dy, dstate, q, compute_dtype):
+    """The gradients of (x, dt, A, B, C, the initial state) through
+    ``ssd_chunked``, None where not needed or not reached."""
+    with torch.enable_grad():
+        ins = [None if t is None else t.detach().requires_grad_(need)
+               for t, need in zip(saved, needs)]
+        x, dt, A, B_, C_, s0 = ins
+        rep = x.shape[2] // B_.shape[2]
+        y, state = ssd_chunked(x, dt, A, B_.repeat_interleave(rep, 2),
+                               C_.repeat_interleave(rep, 2), q,
+                               initial_state=s0, compute_dtype=compute_dtype)
+        # an output with no cotangent or that no input reaches (the final
+        # state does not depend on C) adds nothing
+        pairs = [(o, c) for o, c in ((y, dy), (state, dstate))
+                 if c is not None and o.requires_grad]
+        wrt = [t for t in ins if t is not None and t.requires_grad]
+        outs, cots = zip(*pairs) if pairs else ((), ())
+        grads = iter(torch.autograd.grad(outs, wrt, cots, allow_unused=True)
+                     if pairs else [None] * len(wrt))
+    return [next(grads) if t is not None and t.requires_grad else None
+            for t in ins]
+
+
+def _vjp_placements(py, groups: int):
+    """Placements of (x, dt, A, B, C, the initial state) and of (dy,
+    dstate) under the rule's strategy whose y has placements ``py``."""
+    from torch.distributed.tensor import Replicate, Shard
+    R = Replicate()
+    by = {Shard(0): [Shard(0), Shard(0), R, Shard(0), Shard(0), Shard(0),
+                     Shard(0), Shard(0)],
+          Shard(2): [Shard(2), Shard(2), Shard(0),
+                     R if groups == 1 else Shard(2),
+                     R if groups == 1 else Shard(2), Shard(1), Shard(2),
+                     Shard(1)]}
+    cols = [by.get(p, [R] * 8) for p in py]
+    rows = [list(r) for r in zip(*cols)]
+    return rows[:6], rows[6:]
+
+
+def _grad_placements(ins, py):
+    """An input's gradient placements: its own, but partial where it is
+    whole on a mesh dim that splits y (its rank's part of the sum)."""
+    from torch.distributed.tensor import Partial, Replicate
+    return [[Partial() if isinstance(p, Replicate)
+             and not isinstance(q, Replicate) else p
+             for p, q in zip(pl, py)] for pl in ins]
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

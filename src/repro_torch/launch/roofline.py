@@ -11,8 +11,8 @@ into 1, as in the reference. The reference sums each collective's output
 bytes from compiled HLO, which torch does not have: here
 ``collective_bytes`` sums them from the collective operators that
 ``launch/dryrun.py``'s ``StepCounter`` saw run (the process group's
-``c10d`` operators and the functional ones DTensor issues), by the
-reference's op names.
+``c10d`` operators, and the functional ones and the shard-to-shard
+all-to-all DTensor issues), by the reference's op names.
 """
 from __future__ import annotations
 
@@ -42,7 +42,8 @@ C10D_OPS = {
                      "_c10d_functional.reduce_scatter_tensor_coalesced"),
                     "reduce-scatter"),
     **dict.fromkeys(("c10d.alltoall_", "c10d.alltoall_base_",
-                     "_c10d_functional.all_to_all_single"), "all-to-all"),
+                     "_c10d_functional.all_to_all_single",
+                     "_dtensor.shard_dim_alltoall"), "all-to-all"),
 }
 
 

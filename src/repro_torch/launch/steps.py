@@ -29,14 +29,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     opt = make_optimizer(tcfg)
 
     def train_step(params, opt_state, step, batch):
-        leaves = {k: v.detach().requires_grad_(True)
-                  for k, v in params.items()}
-        loss, metrics = api.loss(cfg, leaves, batch, remat=tcfg.remat)
-        # a leaf the loss does not reach gets a zero gradient, as jax.grad
-        # gives it
-        grads = dict(zip(leaves, torch.autograd.grad(
-            loss, list(leaves.values()), materialize_grads=True)))
-        del leaves
+        loss, metrics, grads = loss_and_grads(cfg, params, batch,
+                                              tcfg.remat)
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
         with torch.no_grad():
             params, opt_state = opt.update(params, grads, opt_state, step,
@@ -47,6 +41,17 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
         return params, opt_state, step + 1, out
 
     return train_step
+
+
+def loss_and_grads(cfg: ModelConfig, params, batch, remat: bool = False):
+    """(loss, the loss's metrics, {leaf: its gradient}) of ``api.loss``
+    at ``params``: the first half of a train step. A leaf the loss does
+    not reach gets a zero gradient, as ``jax.grad`` gives it."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss, metrics = api.loss(cfg, leaves, batch, remat=remat)
+    grads = dict(zip(leaves, torch.autograd.grad(
+        loss, list(leaves.values()), materialize_grads=True)))
+    return loss, metrics, grads
 
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:

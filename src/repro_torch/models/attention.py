@@ -32,6 +32,8 @@ from repro_torch.kernels.flash_attention import band_mask, flash_attention
 from repro_torch.models.common import (apply_rope, dense_init, dtype_of,
                                        linear, ones, per_client, rms_norm,
                                        zeros)
+from repro_torch.sharding.dtensor import (heads_ready, merged_heads,
+                                          write_slot)
 
 
 def attn_init(generator: torch.Generator, cfg, d_model=None):
@@ -63,9 +65,9 @@ def _project_qkv(cfg, p, x):
         q = q + per_client(p["bq"], q)
         k = k + per_client(p["bk"], k)
         v = v + per_client(p["bv"], v)
-    q = q.reshape(*lead, cfg.n_heads, hd)
-    k = k.reshape(*lead, cfg.n_kv_heads, hd)
-    v = v.reshape(*lead, cfg.n_kv_heads, hd)
+    q = heads_ready(q, cfg.n_heads).reshape(*lead, cfg.n_heads, hd)
+    k = heads_ready(k, cfg.n_kv_heads).reshape(*lead, cfg.n_kv_heads, hd)
+    v = heads_ready(v, cfg.n_kv_heads).reshape(*lead, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -124,13 +126,14 @@ def _full_attention(q, k, v, window, causal=True):
                           k.transpose(1, 2).contiguous(),
                           v.transpose(1, 2).contiguous(),
                           causal=causal, window=window)
-    return out.transpose(1, 2).reshape(*lead, S, Hq * D)
+    return merged_heads(out.transpose(1, 2).reshape(*lead, S, Hq * D), Hq)
 
 
 def _cross_queries(cfg, p, x):
     """x (B, S, d) -> q (B, S, Hq, D): no bias and no RoPE, as in the
     reference's cross-attention."""
-    q = linear(x, p["wq"]).reshape(*x.shape[:-1], cfg.n_heads, cfg.head_dim)
+    q = heads_ready(linear(x, p["wq"]), cfg.n_heads).reshape(
+        *x.shape[:-1], cfg.n_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
     return q
@@ -161,8 +164,10 @@ def encoder_kv(cfg, p, enc_out):
     (B, S_src, d): (k, v), each (B, S_src, Hkv, D); no bias and no RoPE,
     as in the reference."""
     lead, hd = enc_out.shape[:-1], cfg.head_dim
-    k = linear(enc_out, p["wk"]).reshape(*lead, cfg.n_kv_heads, hd)
-    v = linear(enc_out, p["wv"]).reshape(*lead, cfg.n_kv_heads, hd)
+    k = heads_ready(linear(enc_out, p["wk"]), cfg.n_kv_heads).reshape(
+        *lead, cfg.n_kv_heads, hd)
+    v = heads_ready(linear(enc_out, p["wv"]), cfg.n_kv_heads).reshape(
+        *lead, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     return k, v
@@ -194,8 +199,8 @@ def attn_decode(cfg, p, x, cache_k, cache_v, index: int, *, slot_pos=None,
     k = apply_rope(k, pos, cfg.rope_theta)
     c = cache_k.shape[1]
     slot = index % c if slot_pos is not None else index
-    cache_k[:, slot] = k[:, 0]
-    cache_v[:, slot] = v[:, 0]
+    write_slot(cache_k, 1, slot, k[:, 0])
+    write_slot(cache_v, 1, slot, v[:, 0])
     if slot_pos is not None:
         slot_pos[slot].fill_(index)
         lo, hi = 0, min(index + 1, c)

@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.dtensor import reduced
+
 _TRUNC = 3.0    # truncation at +-3 sigma, as the JAX package's initializers
 
 
@@ -184,7 +186,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None,
     cohort: one loss per client)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.unsqueeze(-1)).squeeze(-1)
+    ll = reduced(torch.gather(logits, -1, labels.unsqueeze(-1))).squeeze(-1)
     nll = logz - ll
     dims = tuple(range(keep, nll.dim()))
     if mask is not None:

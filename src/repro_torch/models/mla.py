@@ -18,7 +18,9 @@ shapes, and the reference never sends MLA to a Pallas kernel. The
 full-sequence form computes its float32 logits one batch row at a time:
 at DeepSeek's serving shape (8 prompts of 2,048 tokens, 128 heads) all of
 them at once would take 17.2 GB, one row 2.1 GB; the arithmetic is the
-same.
+same. A sharded step (``DTensor``s) computes each rank's rows at once.
+The cache writes of a decode step go through
+``sharding.dtensor.write_slot``.
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ import torch
 from repro_torch.kernels.flash_attention import NEG_INF, band_mask
 from repro_torch.models.common import (apply_rope, dense_init, dtype_of,
                                        linear, ones, rms_norm)
+from repro_torch.sharding.dtensor import (heads_ready, is_dtensor,
+                                          merged_heads, write_slot)
 
 
 def mla_init(generator: torch.Generator, cfg):
@@ -56,7 +60,7 @@ def _queries(cfg, p, x, positions):
     m = cfg.mla
     b, s, _ = x.shape
     cq = rms_norm(linear(x, p["wdq"]), p["q_norm"], cfg.norm_eps)
-    q = linear(cq, p["wuq"]).reshape(
+    q = heads_ready(linear(cq, p["wuq"]), cfg.n_heads).reshape(
         b, s, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
@@ -86,9 +90,21 @@ def mla_apply(cfg, p, x, *, window=None, positions=None):
         positions = torch.arange(s, device=x.device)
     q_nope, q_rope = _queries(cfg, p, x, positions)
     ckv, k_rope = _latent(cfg, p, x, positions)
-    k_nope = linear(ckv, p["wuk"]).reshape(b, s, h, m.qk_nope_head_dim)
-    v = linear(ckv, p["wuv"]).reshape(b, s, h, m.v_head_dim)
+    k_nope = heads_ready(linear(ckv, p["wuk"]), h).reshape(
+        b, s, h, m.qk_nope_head_dim)
+    v = heads_ready(linear(ckv, p["wuv"]), h).reshape(b, s, h, m.v_head_dim)
     masked = ~band_mask(s, s, True, window, x.device)
+    if is_dtensor(v):
+        # a sharded step: each rank's batch rows at once (a row of a
+        # batch-sharded DTensor is on one rank; selecting it would gather
+        # the batch)
+        logits = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
+                  + torch.einsum("bshd,btd->bhst", q_rope, k_rope))
+        logits = (logits.float() * _scale(m)).masked_fill(masked, NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        out = torch.einsum("bhst,bthd->bshd", probs, v)
+        return (linear(merged_heads(out.reshape(b, s, -1), h), p["wo"]),
+                (ckv, k_rope))
     out = torch.empty((b, s, h, m.v_head_dim), dtype=v.dtype,
                       device=x.device)
     for i in range(b):             # one batch row's logits at a time
@@ -123,8 +139,8 @@ def mla_decode(cfg, p, x, cache_ckv, cache_kr, index: int, *, slot_pos=None,
     ckv_new, kr_new = _latent(cfg, p, x, pos)                  # (B,1,*)
     c = cache_ckv.shape[1]
     slot = index % c if slot_pos is not None else index
-    cache_ckv[:, slot] = ckv_new[:, 0]
-    cache_kr[:, slot] = kr_new[:, 0]
+    write_slot(cache_ckv, 1, slot, ckv_new[:, 0])
+    write_slot(cache_kr, 1, slot, kr_new[:, 0])
     if slot_pos is not None:
         slot_pos[slot].fill_(index)
         lo, hi = 0, min(index + 1, c)
@@ -133,12 +149,13 @@ def mla_decode(cfg, p, x, cache_ckv, cache_kr, index: int, *, slot_pos=None,
         lo = max(0, hi - window) if window is not None else 0
     ckv, kr = cache_ckv[:, lo:hi], cache_kr[:, lo:hi]
     # absorb W_uk into the query: q_lat (B, 1, H, kv_lora)
-    wuk = p["wuk"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
+    wuk = heads_ready(p["wuk"], h).reshape(m.kv_lora_rank, h,
+                                           m.qk_nope_head_dim)
     q_lat = torch.einsum("bshd,rhd->bshr", q_nope, wuk)
     logits = (torch.einsum("bshr,btr->bhst", q_lat, ckv)
               + torch.einsum("bshd,btd->bhst", q_rope, kr))
     probs = torch.softmax(logits.float() * _scale(m), dim=-1).to(x.dtype)
     out_lat = torch.einsum("bhst,btr->bshr", probs, ckv)       # (B,1,H,r)
-    wuv = p["wuv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+    wuv = heads_ready(p["wuv"], h).reshape(m.kv_lora_rank, h, m.v_head_dim)
     out = torch.einsum("bshr,rhd->bshd", out_lat, wuv).reshape(b, 1, -1)
     return linear(out, p["wo"]), cache_ckv, cache_kr, slot_pos

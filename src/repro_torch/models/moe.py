@@ -34,6 +34,14 @@ layout: tokens (G, T·K, d), G = 1 for the global dispatch where the
 reference's are (T·K, d); buffer, hidden and output (E, G·C, ·) where the
 reference's group-local ones are (G, E, C, ·). A spec registered for one
 of these names is written for that layout.
+
+On ``DTensor``s (a sharded step, ``sharding/dtensor.py``) the routing and
+the combine run on the replicated local tensors — the tokens, and the
+experts' output, are all-gathered first — and the three expert products
+take the dispatch buffer back as a replicated ``DTensor``, so that K5
+runs under its rule on the experts' shards; the names above that sit
+inside the routing (``moe_gather``, ``moe_local``) then see plain
+tensors. On plain tensors nothing of this runs.
 """
 from __future__ import annotations
 
@@ -44,6 +52,7 @@ from repro_torch.kernels.moe_gemm import moe_gemm
 from repro_torch.models.common import (dense_init, dtype_of, prefixed,
                                        subtree, swiglu_apply, swiglu_init)
 from repro_torch.sharding.ctx import constrain
+from repro_torch.sharding.dtensor import as_replicated, replicated_local
 
 
 def _round_up(x: int, m: int) -> int:
@@ -86,31 +95,48 @@ def moe_apply(cfg, p, x: torch.Tensor, with_aux: bool = True):
                          "dense-only, as in the reference)")
     m = cfg.moe
     d = x.shape[-1]
-    x2 = x.reshape(-1, d)
+    x_local, mesh = replicated_local(x)
+    x2 = x_local.reshape(-1, d)
     T = x2.shape[0]
     G = m.dispatch_groups
     if G > 1 and T % G == 0 and T // G >= m.top_k:
         x3 = x2.reshape(G, T // G, d)
     else:
         x3 = x2[None]
-    y, aux = _dispatch(cfg, p, x3, with_aux)
-    return y.reshape(x.shape), aux
+    y, aux = _dispatch(cfg, p, x3, with_aux, mesh)
+    if mesh is None:
+        if m.n_shared:
+            y = y + swiglu_apply(subtree(p, "shared/"), x3)
+        return y.reshape(x.shape), aux
+    # a sharded step: the shared experts on the same tokens, added as the
+    # plain path adds them (the gradients then meet at x3 in its order);
+    # the sum reshaped to x's shape as a local tensor (a DTensor's
+    # gradient could not always be split back into groups)
+    y = as_replicated(y, mesh)
+    if m.n_shared:
+        y = y + swiglu_apply(subtree(p, "shared/"), as_replicated(x3, mesh))
+    y = as_replicated(replicated_local(y)[0].reshape(x.shape), mesh)
+    return y, None if aux is None else as_replicated(aux, mesh)
 
 
-def _dispatch(cfg, p, x3: torch.Tensor, with_aux: bool):
-    """Route, dispatch, run the experts and combine the tokens of x3 (G,
-    T, d), each group on its own. Returns (y (G, T, d), aux or None)."""
+def _dispatch(cfg, p, x3: torch.Tensor, with_aux: bool, mesh=None):
+    """Route, dispatch, run the routed experts and combine the tokens of
+    x3 (G, T, d), each group on its own. Returns (y (G, T, d), aux or
+    None). On a sharded step x3 is the replicated local tensor of the
+    tokens and ``mesh`` their mesh: the expert products run on
+    ``DTensor``s, and y and aux come back as local tensors."""
     m = cfg.moe
     G, T, d = x3.shape
     E, K = m.n_routed, m.top_k
     C = capacity(T, cfg)
     dev = x3.device
+    router = replicated_local(p["router"])[0]
 
     # the router and its softmax in float32 on the activations' values.
     # torch.topk and jax.lax.top_k may order exact ties of two experts
     # differently; with float32 probabilities of real inputs they do not
     # occur, and the tests' random inputs have none
-    probs = torch.softmax(x3.float() @ p["router"], dim=-1)      # (G,T,E)
+    probs = torch.softmax(x3.float() @ router, dim=-1)           # (G,T,E)
     gate, idx = torch.topk(probs, K, dim=-1)                     # (G,T,K)
     if m.normalize_gates:
         gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -121,7 +147,7 @@ def _dispatch(cfg, p, x3: torch.Tensor, with_aux: bool):
     gate = gate.gather(-1, perm)
 
     flat_e = idx.reshape(G, T * K)
-    counts = torch.zeros((G, E), dtype=torch.int64, device=dev).scatter_add_(
+    counts = flat_e.new_zeros((G, E)).scatter_add_(
         1, flat_e, torch.ones_like(flat_e))
     aux = None
     if with_aux:
@@ -146,7 +172,7 @@ def _dispatch(cfg, p, x3: torch.Tensor, with_aux: bool):
     buf = x3.new_zeros((E * G * C + 1, d))
     buf.index_copy_(0, dest.reshape(-1),
                     constrain(x3[g, tok], tokens).reshape(-1, d))
-    disp = buf[:E * G * C].view(E, G * C, d)
+    disp = as_replicated(buf[:E * G * C].view(E, G * C, d), mesh)
     if grouped:
         disp = constrain(constrain(disp, "moe_disp4a"), "moe_disp4")
     else:
@@ -157,7 +183,7 @@ def _dispatch(cfg, p, x3: torch.Tensor, with_aux: bool):
     y = moe_gemm(h, p["wd"])
     if grouped:
         y = constrain(constrain(y, "moe_out4"), "moe_disp4a")
-    y = y.view(E * G * C, d)
+    y = replicated_local(y)[0].view(E * G * C, d)
     y = torch.cat([y, y.new_zeros((1, d))])                      # sentinel
 
     # combine in a fixed order: the reference adds a token's K rows in
@@ -172,6 +198,4 @@ def _dispatch(cfg, p, x3: torch.Tensor, with_aux: bool):
     for k in range(1, K):
         out = out + rows[:, :, k]
 
-    if m.n_shared:
-        out = out + swiglu_apply(subtree(p, "shared/"), x3)
     return out, aux

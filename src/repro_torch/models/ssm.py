@@ -12,7 +12,9 @@ in plain PyTorch (no TPU kernel covers it).
 
 Parameters are a flat dict in the JAX package's layout (``in_proj``,
 ``conv_w``, ``conv_b``, ``A_log``, ``D``, ``dt_bias``, ``norm``,
-``out_proj``).
+``out_proj``). On ``DTensor``s the split of the channels into heads and
+groups, and the merge back, go through ``sharding.dtensor``'s
+``heads_ready`` and ``merged_heads``.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan  # noqa: F401
 from repro_torch.models.common import (dense_init, dtype_of, gated_rms_norm,
                                        linear, ones, zeros)
+from repro_torch.sharding.dtensor import (heads_ready, merged_heads,
+                                          zero_pad)
 
 
 def ssm_init(generator: torch.Generator, cfg, d_model=None):
@@ -56,7 +60,10 @@ def _split_proj(cfg, p, x):
     d_in = s.expand * p["out_proj"].shape[1]
     nh = d_in // s.head_dim
     gn = s.n_groups * s.d_state
-    zxbcdt = linear(x, p["in_proj"])
+    # on a DTensor the split below cuts across the projection's column
+    # shards: it is gathered here, whole, so that its gradient comes back
+    # in the projection's column split
+    zxbcdt = heads_ready(linear(x, p["in_proj"]), 1)
     z, xbc, dt = torch.split(zxbcdt, [d_in, d_in + 2 * gn, nh], dim=-1)
     return z, xbc, dt, d_in, nh, gn
 
@@ -65,7 +72,7 @@ def _causal_conv(xbc, w, b):
     """Depthwise causal conv over axis 1, then silu. xbc (B,L,ch); w
     (K,ch): the JAX package's sum of K shifted products, in its order."""
     k, length = w.shape[0], xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    pad = zero_pad(xbc, 1, k - 1, 0)
     out = pad[:, 0:length] * w[0]
     for i in range(1, k):
         out = out + pad[:, i:i + length] * w[i]
@@ -80,9 +87,9 @@ def _heads(cfg, xbc, dt, p, d_in, nh, gn):
     s = cfg.ssm
     b, length = xbc.shape[:2]
     x_, B_, C_ = torch.split(xbc, [d_in, gn, gn], dim=-1)
-    x_ = x_.unflatten(-1, (nh, s.head_dim))
-    B_ = B_.unflatten(-1, (s.n_groups, s.d_state))
-    C_ = C_.unflatten(-1, (s.n_groups, s.d_state))
+    x_ = heads_ready(x_, nh).unflatten(-1, (nh, s.head_dim))
+    B_ = heads_ready(B_, s.n_groups).unflatten(-1, (s.n_groups, s.d_state))
+    C_ = heads_ready(C_, s.n_groups).unflatten(-1, (s.n_groups, s.d_state))
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     return x_, B_, C_, dt, A
@@ -100,7 +107,7 @@ def ssm_apply(cfg, p, x, *, initial_state=None):
                         initial_state=initial_state,
                         compute_dtype=s.compute_dtype)
     y = y + (p["D"][:, None] * x_.float()).to(y.dtype)
-    y = y.reshape(*x.shape[:2], d_in)
+    y = merged_heads(y.reshape(*x.shape[:2], d_in), nh)
     y = gated_rms_norm(y, z, p["norm"], cfg.norm_eps)
     return linear(y, p["out_proj"]), (conv_state, state)
 

@@ -30,7 +30,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models.blocks import (layer_apply, layer_cache_init,
                                        layer_decode, layer_init, scan_blocks,
@@ -40,6 +39,7 @@ from repro_torch.models.common import (cross_entropy, dense_init, dtype_of,
                                        embed_init, linear, ones, prefixed,
                                        rms_norm, sgd_step, subtree)
 from repro_torch.sharding.ctx import constrain
+from repro_torch.sharding.dtensor import embed_lookup, zero_pad
 
 
 HEAD_KIND = {"mixer": "attn", "mlp": "dense"}   # a leading dense layer's
@@ -77,9 +77,11 @@ def _to(params, device):
 
 def _embed(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (..., S) -> (..., S, d); a stacked table (N, V, d) looks up
-    client i's tokens (tokens (N, ..., S)) in its own rows."""
+    client i's tokens (tokens (N, ..., S)) in its own rows. A ``DTensor``
+    table (a sharded step) is read on each rank's shards
+    (``sharding.dtensor.embed_lookup``)."""
     if embed.dim() == 2:
-        return embed[tokens]
+        return embed_lookup(embed, tokens)
     n = embed.shape[0]
     clients = torch.arange(n, device=embed.device)
     return embed[clients.view(n, *([1] * (tokens.dim() - 1))), tokens]
@@ -126,7 +128,7 @@ def _mtp_ce(cfg, params, tokens, h, window):
     embedding of the *next* token, one more attention + SwiGLU layer, and
     the cross-entropy of predicting token t + 2."""
     mtp = subtree(params, "mtp/")
-    nxt = F.pad(tokens[..., 1:], (0, 1))
+    nxt = zero_pad(tokens[..., 1:], -1, 0, 1)
     e = _embed(params["embed"], nxt).to(h.dtype)
     z = torch.cat([rms_norm(h, mtp["norm_h"], cfg.norm_eps),
                    rms_norm(e, mtp["norm_e"], cfg.norm_eps)], -1)
@@ -307,8 +309,7 @@ def grow_cache(cache, extra: int):
     out = {}
     for key, x in cache.items():
         axis = _POSITION_AXIS.get(key.rsplit("/", 1)[-1])
-        out[key] = x if axis is None else F.pad(x, (0, 0) * (-axis - 1)
-                                                + (0, extra))
+        out[key] = x if axis is None else zero_pad(x, axis, 0, extra)
     return out
 
 

@@ -1,5 +1,5 @@
-"""The port's one-device dry run (``launch/dryrun.py``) and the step-cost
-plane under it, against the JAX package where it has a counterpart:
+"""The port's dry run (``launch/dryrun.py``) and the step-cost plane under
+it, against the JAX package where it has a counterpart:
 
 - ``api.input_specs`` has the reference's shapes and dtypes for every arch
   x shape (through ``jax.eval_shape`` of its cache), ``api.init`` on
@@ -15,8 +15,11 @@ plane under it, against the JAX package where it has a counterpart:
   ``yi-34b``'s ``train_4k`` (a full-width trace) puts ~0.68 of its traced
   FLOPs in the 6ND model FLOPs (remat: ~8ND, plus attention);
 - the record has the reference's ``lower_pair`` keys; the CLI writes,
-  skips and re-runs (``--force``) as the reference's, and refuses
-  ``--mesh multi`` over the zoo, naming its ROADMAP item;
+  skips and re-runs (``--force``) as the reference's, for one device
+  without ``--mesh``, and on the production meshes with ``--mesh
+  single``, ``multi`` or ``both`` (in a subprocess: the fake process
+  group is global to its process; tests/test_torch_sharded_zoo.py holds
+  the sharded trace's counts against a real sharded step);
 - ``--cohort`` traces the distributed FEEL round on the fake 16x16 and
   2x16x16 meshes (in a subprocess: the fake process group is global to
   its process), with the all-reduce bytes of (50,890 + 1) float32 a level
@@ -256,15 +259,36 @@ def test_cli_writes_skips_and_forces(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [["--mesh", "multi"], ["--mesh", "both"],
                                   ["--mesh", "multi", "--arch", "yi-34b"]])
-def test_cli_refuses_the_sharded_plane(tmp_path, capsys, argv):
-    """The zoo's steps over a mesh are not ported (``--cohort`` is: see
-    ``test_cohort_cli``)."""
+def test_cli_writes_the_sharded_plane(ref, tmp_path, argv):
+    """The zoo's steps on the production meshes: the mesh arguments that
+    were refused before now write ``ok`` records, one a mesh asked for,
+    with the reference's keys (a decode step has no ``optimizer``),
+    collectives and their roofline term, and the useful FLOPs over every
+    chip. The CLI runs in a subprocess (its fake process group is global
+    to its process), at decode_32k and on mamba2-370m where no arch is
+    named, so that each trace takes seconds."""
+    ok_keys, _ = _reference_record_keys(ref)
     out = tmp_path / "d.json"
-    assert dryrun.main(argv + ["--out", str(out)]) != 0
-    assert "item 1" in capsys.readouterr().err
-    assert not out.exists()
-    with pytest.raises(ValueError, match="item 1"):
-        dryrun.lower_pair("yi-34b", "train_4k", multi_pod=True)
+    arch = [] if "--arch" in argv else ["--arch", "mamba2-370m"]
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *argv, *arch,
+         "--shape", "decode_32k", "--out", str(out)],
+        capture_output=True, text=True, timeout=600, cwd=tmp_path,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+             "OMP_NUM_THREADS": "1"})
+    assert r.returncode == 0, r.stderr[-3000:]
+    recs = json.loads(out.read_text())
+    want = {"single": ["16x16"], "multi": ["2x16x16"],
+            "both": ["16x16", "2x16x16"]}[argv[1]]
+    assert [rec["mesh"] for rec in recs] == want
+    for rec in recs:
+        assert rec["status"] == "ok" and rec["shape"] == "decode_32k"
+        assert set(rec) == ok_keys - {"optimizer"}, set(rec) ^ ok_keys
+        assert sum(rec["collectives"].values()) > 0
+        assert rec["collective_s"] > 0
+        chips = 512 if rec["mesh"] == "2x16x16" else 256
+        assert rec["useful_flops_ratio"] == pytest.approx(
+            rec["model_flops_total"] / (rec["flops_per_chip"] * chips))
 
 
 def test_no_device_is_touched(monkeypatch):

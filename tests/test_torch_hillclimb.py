@@ -1,10 +1,11 @@
 """The port's hillclimb (``launch/hillclimb.py``) against the
 reference's: each variant's config equal to the reference's
 ``apply_variant``'s field by field, the optimizer override the same,
-``moe_disp`` a skipped record naming the sharded plane, an unknown
-variant a ``KeyError``; ``remat_off`` and ``donate`` reach only their own
-variant, where the reference's leak into every later variant of the call
-through ``os.environ`` (ROADMAP R8, pinned here); the CLI.
+``moe_disp`` and ``moe_local<g>`` traced on the production mesh with the
+reference's spec dicts (in the port's layouts), ``--multi-pod``, an
+unknown variant a ``KeyError``; ``remat_off`` and ``donate`` reach only
+their own variant, where the reference's leak into every later variant
+of the call through ``os.environ`` (ROADMAP R8, pinned here); the CLI.
 
 The reference's ``launch/hillclimb.py`` runs in a subprocess: importing
 it sets ``XLA_FLAGS`` for the process, and its ``remat_off`` and
@@ -107,11 +108,140 @@ def test_variant_needing_a_sub_config_raises():
         hillclimb.apply_variant("moe_local4", registry.get("yi-34b"), {})
 
 
-def test_moe_disp_is_a_skipped_record_naming_the_sharded_plane():
-    rec = hillclimb.run_variant("qwen2-moe-a2.7b", "train_4k", "moe_disp")
-    assert rec["status"] == "skipped" and "item 1" in rec["reason"]
-    assert (rec["arch"], rec["shape"], rec["mesh"], rec["variant"]) == (
-        "qwen2-moe-a2.7b", "train_4k", "1xH100", "moe_disp")
+# The CLI on the production meshes, in a subprocess (the dry run's fake
+# process group is global to its process), the configs reduced as
+# ``_reduced`` does; decode_32k, whose trace on 2x16x16 takes seconds
+_MESH_RUNS = r"""
+import json, sys
+from repro_torch.configs import registry
+from repro_torch.launch import dryrun, hillclimb
+real = registry.get
+hillclimb.registry.get = lambda arch: registry.reduced(real(arch))
+out = sys.argv[1]
+moe = ["--arch", "qwen2-moe-a2.7b", "--shape", "decode_32k", "--variants",
+       "baseline,moe_disp,moe_local4"]
+assert hillclimb.main(moe + ["--out", out + "/single.json"]) == 0
+assert hillclimb.main(moe + ["--multi-pod", "--out", out + "/multi.json"]) == 0
+assert hillclimb.main(["--arch", "mamba2-370m", "--shape", "decode_32k",
+                       "--multi-pod", "--out", out + "/mamba.json"]) == 0
+base = dryrun.lower_pair("qwen2-moe-a2.7b", "decode_32k", False,
+                         cfg_override=registry.reduced(
+                             real("qwen2-moe-a2.7b")))
+json.dump(base, open(out + "/base16.json", "w"))
+print("OK")
+"""
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    out = tmp_path_factory.mktemp("mesh")
+    r = subprocess.run([sys.executable, "-c", _MESH_RUNS, str(out)],
+                       capture_output=True, text=True, timeout=600, cwd=ROOT,
+                       env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                            "OMP_NUM_THREADS": "1"})
+    assert r.returncode == 0 and "OK" in r.stdout, r.stderr[-3000:]
+    return {name: json.loads((out / f"{name}.json").read_text())
+            for name in ("single", "multi", "mamba", "base16")}
+
+
+def _coll(rec):
+    return {k: v for k, v in rec["collectives"].items() if v}
+
+
+def test_moe_disp_is_an_ok_record_on_the_mesh(mesh_runs):
+    """``moe_disp`` sets activation specs, so it traces on the reference's
+    16x16 pod, where they take effect: an ``ok`` record whose collectives
+    differ from the baseline's on the same mesh; the baseline alone keeps
+    the one-device trace."""
+    base, disp, local = mesh_runs["single"]
+    assert (disp["arch"], disp["shape"], disp["mesh"], disp["variant"],
+            disp["status"]) == ("qwen2-moe-a2.7b", "decode_32k", "16x16",
+                                "moe_disp", "ok")
+    assert base["mesh"] == "1xH100" and base["collectives"] == {}
+    assert local["mesh"] == "16x16" and local["status"] == "ok"
+    want = mesh_runs["base16"]
+    assert want["mesh"] == "16x16" and _coll(want)
+    assert _coll(disp) != _coll(want)
+    assert _coll(local) != _coll(want)
+
+
+def test_multi_pod_moe_variants_change_the_collectives(mesh_runs):
+    """``--multi-pod`` puts every variant on 2x16x16; ``moe_disp`` and
+    ``moe_local4`` move other bytes than the baseline (the dispatch
+    buffer pinned to the experts' split: all-to-alls appear)."""
+    base, disp, local = mesh_runs["multi"]
+    assert {r["mesh"] for r in (base, disp, local)} == {"2x16x16"}
+    assert all(r["status"] == "ok" for r in (base, disp, local))
+    assert _coll(disp) != _coll(base) and _coll(local) != _coll(base)
+    assert disp["collectives"]["all-to-all"] > \
+        base["collectives"]["all-to-all"]
+
+
+# the reference's spec functions, on its production meshes (its hillclimb
+# sets 512 host devices when imported)
+_REFERENCE_SPECS = r"""
+import json, sys
+import jax
+if not hasattr(jax.experimental, "enable_x64"):
+    jax.experimental.enable_x64 = lambda v=True: jax.enable_x64(v)
+from repro.configs import get
+from repro.launch import hillclimb
+from repro.launch.mesh import make_production_mesh
+out = {}
+for arch in ("qwen2-moe-a2.7b", "deepseek-v3-671b"):
+    for variant in ("moe_disp", "moe_local4"):
+        for multi in (False, True):
+            kwargs = {}
+            cfg = hillclimb.apply_variant(variant, get(arch), kwargs)
+            specs = kwargs["extra_specs_fn"](
+                make_production_mesh(multi_pod=multi), cfg)
+            out[f"{arch}/{variant}/{multi}"] = {
+                k: [list(e) if isinstance(e, tuple) else e for e in v]
+                for k, v in specs.items()}
+print(json.dumps(out))
+"""
+
+
+def _as_port_layout(name, spec):
+    """A reference spec in the port's layout for ``name``: the
+    group-local buffer (G, E, C, ·) is the port's (E, G·C, ·), so G's and
+    E's entries trade places and C (never split by these specs) merges
+    into G."""
+    if name == "moe_disp4a":
+        g, e, c, d = spec
+        assert c is None
+        return [e, g, d]
+    if len(spec) == 4:                       # (None, E, None, ·)
+        assert spec[0] is None and spec[2] is None
+        return [spec[1], None, spec[3]]
+    return spec
+
+
+def test_moe_spec_dicts_match_the_reference():
+    """``moe_disp``'s and ``moe_local<g>``'s spec dicts against the
+    reference's ``apply_variant``'s, run in a subprocess: the same names,
+    and each spec the reference's in the port's layout
+    (``_as_port_layout``), for an expert count that divides the mesh
+    (DeepSeek's 256) and one that does not (Qwen's 60), on both meshes."""
+    from repro_torch.sharding.specs import MeshShape
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "JAX_PLATFORMS": "cpu"}
+    out = subprocess.run([sys.executable, "-c", _REFERENCE_SPECS],
+                         capture_output=True, text=True, check=True,
+                         env=env, cwd=ROOT, timeout=300)
+    ref = json.loads(out.stdout.strip().splitlines()[-1])
+    meshes = {False: MeshShape(("data", "model"), (16, 16)),
+              True: MeshShape(("pod", "data", "model"), (2, 16, 16))}
+    for key, want in ref.items():
+        arch, variant, multi = key.split("/")
+        kwargs = {}
+        cfg = hillclimb.apply_variant(variant, registry.get(arch), kwargs)
+        got = kwargs["extra_specs_fn"](meshes[multi == "True"], cfg)
+        assert set(got) == set(want), key
+        for name, spec in want.items():
+            port = [list(e) if isinstance(e, tuple) else e
+                    for e in got[name]]
+            assert port == _as_port_layout(name, spec), (key, name)
 
 
 def test_reference_leaks_remat_off_and_donate(reference_variants):
@@ -158,11 +288,12 @@ def test_remat_off_reaches_its_own_variant_only(monkeypatch, tmp_path):
         assert donate[key] == base[key]
 
 
-def test_cli_records_and_replaces_variants(monkeypatch, tmp_path, capsys):
+def test_cli_records_and_replaces_variants(monkeypatch, tmp_path, capsys,
+                                          mesh_runs):
     """Two ``ok`` records for ``baseline,ssd_bf16`` (the bf16-compute scan:
     the same FLOPs, other bytes: its plain backward in bf16); a variant run
-    again replaces its record;
-    ``--multi-pod`` is refused naming the sharded plane."""
+    again replaces its record; ``--multi-pod`` writes an ``ok`` record on
+    2x16x16 (in ``mesh_runs``' subprocess: decode_32k)."""
     _reduced(monkeypatch)
     out = tmp_path / "perf.json"
     argv = ["--arch", "mamba2-370m", "--shape", "train_4k", "--out",
@@ -175,8 +306,10 @@ def test_cli_records_and_replaces_variants(monkeypatch, tmp_path, capsys):
     assert hillclimb.main(argv + ["--variants", "ssd_bf16"]) == 0
     assert [r["variant"] for r in json.loads(out.read_text())] == [
         "baseline", "ssd_bf16"]
-    assert hillclimb.main(argv + ["--multi-pod"]) != 0
-    assert "item 1" in capsys.readouterr().err
+    (rec,) = mesh_runs["mamba"]
+    assert (rec["arch"], rec["mesh"], rec["variant"], rec["status"]) == (
+        "mamba2-370m", "2x16x16", "baseline", "ok")
+    assert rec["collective_s"] > 0
 
 
 def test_records_are_the_dry_runs(monkeypatch):
