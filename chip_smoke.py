@@ -307,6 +307,32 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     ``dryrun_sharded`` line, ``ok``, with collectives, FLOPs a chip times
     the chips at least the one-device trace's (phase 17's), a chip's peak
     below the one-device peak, and 2x16x16's FLOPs a chip at most 16x16's;
+21. the last slice (after 20, before the summary): (a) on phase 19's
+    group, ``core.population.population_mesh()`` (a ("data", "model")
+    (1, 1) ``DeviceMesh`` on the card) and
+    ``prefilter_schedule_runs(..., mesh=)`` at phase 10's grid (R = 5
+    cycling the five policies, K = 64, N = 10^4, 10^5 and 10^6, a warm-up
+    and 3 rounds), in turns with the mesh-less "device" prefilter: every
+    output bit for bit against it, the selections, costs and ``forced``
+    equal to the exact "device" schedule, ms a round of each path, the
+    collectives' bytes (``launch.dryrun.count_step``), then one round at
+    N = 10^6 forced to escalate (M = ``min_selected``); no K1-K6 launch;
+    (b) the example drivers' torch twins on the card, every launch count
+    set to 0 just before each and read just after, in a temporary working
+    directory: ``examples/quickstart_torch.py``'s ``main`` whole (12,000 /
+    2,000 samples, 6 rounds, K1 once a round, the accuracy higher at round
+    5 than at round 0, the first 2 rounds' selections those of the same
+    driver on the CPU), then through their functions at seed 0 and 2
+    rounds: ``poisoning_study_torch.curve`` (DQS, the constrained 5 MB
+    regime, omega (0.5, 0.5): K1), ``robustness_extensions_torch.matrix``
+    (the 9 scenarios x 2 defenses x 2 policies: K1 and K2) and
+    ``federated_llm_torch``'s three legs (``dqs_vs_random([0], 2)``,
+    ``loop_parity(2)``: the loop engine's selections those of the
+    vectorized engine, its loss within 1e-5 and its accuracy within one
+    evaluation unit, bit-equal on the CPU only (ROADMAP P24, whose cause
+    is recorded beside it: one float32 product alone and inside a
+    ``bmm`` of 1, 2, 8 and 50), ``flash_leg(1)``: K3 and K1), each timed
+    beside the card's name and power limit;
 15. one JSON line of per-kernel numbers (K6's bf16-compute route a row
     of its own), then the result line.
 
@@ -322,6 +348,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import importlib.util
 import io
 import json
 import os
@@ -329,6 +356,7 @@ import platform
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -4551,6 +4579,217 @@ def zoo_sharded_phases(mesh, jobs, smi):
     return dict(launches)
 
 
+# ---------------------------------------------------------------------------
+# 21. the last slice: the population prefilter on a mesh (on phase 19's
+# group) and the example drivers' torch twins on the card
+# ---------------------------------------------------------------------------
+EXAMPLES = Path(__file__).resolve().parent / "examples"
+DRIVER_ROUNDS = 2          # the drivers' functions: seed 0, 2 rounds
+
+
+def mesh_round(state, g, rr, omega, mesh, mesh_first, m=None):
+    """One round through the mesh-less "device" prefilter and the mesh
+    one, in the given order: (outputs, info, ms) by path."""
+    outs, info, ms = {}, {}, {}
+    for path in (("mesh", "device") if mesh_first else ("device", "mesh")):
+        t0 = time.perf_counter()
+        *outs[path], info[path] = tpop.prefilter_schedule_runs(
+            state, g, rr, *omega, m=m, kernel="device",
+            mesh=mesh if path == "mesh" else None)
+        ms[path] = (time.perf_counter() - t0) * 1e3
+    return outs, info, ms
+
+
+def check_mesh_round(label, state, g, rr, omega, outs, info):
+    """The mesh path bit for bit against the mesh-less one (every output
+    and ``info``), its selections, costs and ``forced`` against the exact
+    "device" schedule."""
+    for name, a, b in zip(("x", "alpha", "costs", "values", "forced"),
+                          outs["mesh"], outs["device"]):
+        assert a.dtype == b.dtype and np.array_equal(a, b), (label, name)
+    assert info["mesh"] == info["device"], (label, info)
+    exact = ctl.schedule_runs(state, g, rr, *omega, kernel="device")
+    for i in (0, 2, 4):
+        assert np.array_equal(outs["mesh"][i], exact[i]), (label, i)
+
+
+def population_mesh_phase(smi):
+    """Phase 21 (a), on phase 19's group: the prefilter on
+    ``population_mesh()`` at phase 10's grid, in turns with the mesh-less
+    "device" prefilter, then one forced escalation; returns the phase's
+    seconds."""
+    t0 = time.perf_counter()
+    mesh = tpop.population_mesh()
+    assert isinstance(mesh, DeviceMesh) and mesh.device_type == "cuda"
+    assert mesh.mesh_dim_names == ("data", "model"), mesh
+    assert tuple(mesh.shape) == (1, 1), mesh
+    reset_launches()
+    for n in POP_NS:
+        state, omega, draw = population_instance(n)
+        rows = []
+        for t in range(POP_ROUNDS + 1):       # round 0: the warm-up
+            g, rr = draw(t)
+            outs, info, ms = mesh_round(state, g, rr, omega, mesh,
+                                        mesh_first=t % 2 == 1)
+            check_mesh_round(f"N {n} round {t}", state, g, rr, omega, outs,
+                             info)
+            if t:
+                rows.append(ms)
+        counter = dryrun.count_step(
+            lambda: tpop.prefilter_schedule_runs(
+                state, g, rr, *omega, kernel="device", mesh=mesh), ())
+        emit(phase="population_mesh", n=n, runs=POP_RUNS, ues=POP_K,
+             m=info["mesh"]["m"], n_escalated=info["mesh"]["n_escalated"],
+             ms_a_round={p: float(np.mean([r[p] for r in rows]))
+                         for p in ("device", "mesh")},
+             ms_rounds=rows,
+             collective_bytes=rl.collective_bytes(
+                 counter.op_collective_bytes),
+             state_bytes=tpop.PopulationState.from_control(state).nbytes(),
+             gpu=smi)
+    m = state.cfg.min_selected
+    outs, info, ms = mesh_round(state, g, rr, omega, mesh, True, m=m)
+    check_mesh_round("forced escalation", state, g, rr, omega, outs, info)
+    assert info["mesh"]["n_escalated"] > 0, info
+    emit(phase="population_mesh_forced_escalation", n=POP_NS[-1], m=m,
+         ms=ms, n_escalated=info["mesh"]["n_escalated"], gpu=smi)
+    launches = read_launches()
+    assert launches == only(), launches
+    seconds = time.perf_counter() - t0
+    emit(phase="population_mesh_seconds", seconds=seconds, gpu=smi)
+    return seconds
+
+
+def example_twin(name):
+    """``examples/<name>_torch.py`` as a module (the examples are not a
+    package)."""
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", EXAMPLES / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def batched_product_gap(smi):
+    """ROADMAP P24 on the card: float32 products at ``lm_tiny``'s shapes
+    (8 windows of 32 tokens: the forward's x @ w into d_ff 128 and into
+    the 32 KV columns, the weight gradients' x^T @ dy) alone (``mm``) and
+    as element 0 of a ``bmm`` of n copies; the largest gap for each n,
+    with torch's default BLAS library (cuBLAS) and with cuBLASLt."""
+    shapes = {"ff": (256, 64, 128), "kv": (256, 64, 32),
+              "wgrad_ff": (64, 256, 128), "wgrad_down": (128, 256, 64)}
+    default = torch.backends.cuda.preferred_blas_library()
+    gaps = {}
+    try:
+        for lib in ("cublas", "cublaslt"):
+            torch.backends.cuda.preferred_blas_library(lib)
+            g = torch.Generator(device="cuda").manual_seed(0)
+            for name, (m, k, n) in shapes.items():
+                x = torch.randn(m, k, device="cuda", generator=g)
+                w = torch.randn(k, n, device="cuda", generator=g)
+                one = x @ w
+                gaps.setdefault(lib, {})[name] = {
+                    b: float((torch.bmm(x.expand(b, -1, -1).contiguous(),
+                                        w.expand(b, -1, -1).contiguous())[0]
+                              - one).abs().max())
+                    for b in (1, 2, 8, 50)}
+    finally:
+        torch.backends.cuda.preferred_blas_library(default)
+    emit(phase="batched_product_gap", shapes=shapes, gaps=gaps, gpu=smi)
+
+
+def counted(label, fn, smi):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after; (its result, the launches), a ``driver`` line emitted."""
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    emit(phase="driver", driver=label, seconds=seconds, launches=launches,
+         gpu=smi)
+    return out, launches
+
+
+def driver_phases(smi):
+    """Phase 21 (b): the example drivers' torch twins on the card, in a
+    temporary working directory; returns the launches by kernel."""
+    t0 = time.perf_counter()
+    total = collections.Counter()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            qs = example_twin("quickstart")
+            logs, got = counted("quickstart_torch.main",
+                                lambda: qs.main(["--device", "cuda"]), smi)
+            assert got == only(weighted_aggregate=qs.ROUNDS), got
+            accs = [log.global_acc for log in logs]
+            assert len(accs) == qs.ROUNDS and all(np.isfinite(accs)), accs
+            assert accs[-1] > accs[0], accs
+            total.update(got)
+            rounds, qs.ROUNDS = qs.ROUNDS, DRIVER_ROUNDS
+            try:
+                cpu = qs.main(["--device", "cpu"])
+            finally:
+                qs.ROUNDS = rounds
+            for a, b in zip(logs, cpu):
+                assert np.array_equal(a.selected, b.selected), (
+                    a.round, a.selected, b.selected)
+            emit(phase="driver_quickstart", accs=accs,
+                 selected=[int(log.selected.size) for log in logs],
+                 cpu_accs=[log.global_acc for log in cpu])
+
+            ps = example_twin("poisoning_study")
+            kw = dict(ps.FAST_KW, rounds=DRIVER_ROUNDS)
+            out, got = counted("poisoning_study_torch.curve", lambda: ps.curve(
+                "dqs", ps._flip((6, 2)), (0.5, 0.5),
+                FeelConfig(model_size_bits=5e6 * 8), (0,), device="cuda",
+                **kw), smi)
+            assert got["weighted_aggregate"] > 0 and got == only(
+                weighted_aggregate=got["weighted_aggregate"]), got
+            assert np.isfinite(out["acc"]).all(), out
+            total.update(got)
+            emit(phase="driver_poisoning_study", **out)
+
+            rb = example_twin("robustness_extensions")
+            kw = dict(rb.FAST_KW, rounds=DRIVER_ROUNDS)
+            cells, got = counted("robustness_extensions_torch.matrix",
+                                 lambda: rb.matrix(
+                                     (0,), FeelConfig(
+                                         model_size_bits=5e6 * 8),
+                                     device="cuda", **kw), smi)
+            assert got["weighted_aggregate"] > 0, got
+            assert got["robust_aggregate"] > 0, got
+            assert len(cells) == 36 and all(
+                np.isfinite(c["acc"]).all() for c in cells.values())
+            total.update(got)
+            emit(phase="driver_robustness", cells=len(cells),
+                 feature_noise_rep_gap=[
+                     cells["feature_noise_dqs"]["rep_gap"],
+                     cells["feature_noise_dqs_defended"]["rep_gap"]])
+
+            fl = example_twin("federated_llm")
+            batched_product_gap(smi)
+            for label, fn in (
+                    ("dqs_vs_random", lambda: fl.dqs_vs_random(
+                        [0], DRIVER_ROUNDS, "cuda")),
+                    ("loop_parity", lambda: fl.loop_parity(
+                        DRIVER_ROUNDS, "cuda")),
+                    ("flash_leg", lambda: fl.flash_leg(1, "cuda"))):
+                out, got = counted(f"federated_llm_torch.{label}", fn, smi)
+                assert got["flash_attention"] > 0, (label, got)
+                assert got["weighted_aggregate"] > 0, (label, got)
+                total.update(got)
+                emit(phase="driver_federated_llm", leg=label, result=out)
+        finally:
+            os.chdir(cwd)
+    emit(phase="drivers_seconds", seconds=time.perf_counter() - t0,
+         launches=dict(total), gpu=smi)
+    return dict(total)
+
+
 def quickstart(n_ues, n_malicious, n_train, n_test, device, seed=0):
     cfg = FeelConfig(n_ues=n_ues, n_malicious=n_malicious)
     train, test = generate(n_train, n_test, seed=seed)
@@ -4949,14 +5188,23 @@ def main():
     # 20. the sharded zoo on the same group
     gc.collect()
     torch.cuda.empty_cache()
-    k1_cohort, seconds, zoo_launches, zoo_s = sharded_phases(
-        server, smi, then=lambda mesh: zoo_sharded_phases(
-            mesh, sharded_jobs, smi))
+    # 21 (a). the population prefilter on a mesh, on the same group
+    k1_cohort, seconds, (zoo_launches, mesh_s), zoo_s = sharded_phases(
+        server, smi, then=lambda mesh: (
+            zoo_sharded_phases(mesh, sharded_jobs, smi),
+            population_mesh_phase(smi)))
     launches["weighted_aggregate"] += k1_cohort
     emit(phase="sharded_seconds", seconds=seconds)
     for name, n in zoo_launches.items():
         launches[name] += n
-    emit(phase="sharded_zoo_seconds", seconds=zoo_s, gpu=smi)
+    emit(phase="sharded_zoo_seconds", seconds=zoo_s - mesh_s, gpu=smi)
+
+    # 21 (b). the example drivers' torch twins
+    t0 = time.perf_counter()
+    for name, n in driver_phases(smi).items():
+        launches[name] += n
+    emit(phase="last_slice_seconds",
+         seconds=mesh_s + time.perf_counter() - t0, gpu=smi)
 
     # 15. summary and result
     emit(phase="done", seconds=time.perf_counter() - t_start)

@@ -34,8 +34,6 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.federated.aggregation import (fedavg, fedavg_stacked,
-                                               flatten_stacked)
 from repro_torch.kernels.robust_aggregate import robust_aggregate
 
 Params = Dict[str, torch.Tensor]
@@ -263,6 +261,8 @@ def aggregate_host(agg: RobustAggregator, params_list: List[Params],
     ``aggregate_stacked``). Returns (new global params, stats).
     The filtering/clipping aggregators combine through the stock
     ``fedavg``."""
+    # imported here: the federated package imports this one
+    from repro_torch.federated.aggregation import fedavg
     weights = np.asarray(weights, float)
     flat = np.stack([flatten_params_np(p) for p in params_list])
     if isinstance(agg, (TrimmedMean, Median)):
@@ -287,6 +287,9 @@ def aggregate_stacked(agg: RobustAggregator, stacked: Params,
     """Batched twin over the stacked cohort (leaves (N, ...), the n real
     rows first, any padding weight 0) — the defense path of both engines,
     on the cohort's device. Returns (new global params, stats)."""
+    # imported here: the federated package imports this one
+    from repro_torch.federated.aggregation import (fedavg_stacked,
+                                                   flatten_stacked)
     weights = np.asarray(weights, float)
     flat = flatten_stacked(stacked)
     if isinstance(agg, (TrimmedMean, Median)):

@@ -65,10 +65,13 @@ def diversity_index(element_diversity: np.ndarray,
                                 np.asarray(gamma, float))
 
 
-def normalize_last(values: torch.Tensor) -> torch.Tensor:
-    """``normalize_rows`` over a float64 tensor, any device."""
-    lo = values.amin(-1, keepdim=True)
-    hi = values.amax(-1, keepdim=True)
+def normalize_last(values: torch.Tensor, bounds=None) -> torch.Tensor:
+    """``normalize_rows`` over a float64 tensor, any device. ``bounds``,
+    a pair of (..., 1) tensors, replaces the row's min and max: the whole
+    population's, where the row is one rank's shard of it."""
+    if bounds is None:
+        bounds = values.amin(-1, keepdim=True), values.amax(-1, keepdim=True)
+    lo, hi = bounds
     span = hi - lo
     return torch.where(span < 1e-12, 1.0,
                        (values - lo) / torch.where(span < 1e-12, 1.0, span))
@@ -76,9 +79,11 @@ def normalize_last(values: torch.Tensor) -> torch.Tensor:
 
 def diversity_index_eq2(element_diversity: torch.Tensor,
                         dataset_sizes: torch.Tensor, ages: torch.Tensor,
-                        gamma: Sequence[float]) -> torch.Tensor:
+                        gamma: Sequence[float],
+                        bounds=(None, None, None)) -> torch.Tensor:
     """``diversity_index_rows`` over float64 tensors, in the same
-    left-to-right order."""
-    return (gamma[0] * normalize_last(element_diversity)
-            + gamma[1] * normalize_last(dataset_sizes)
-            + gamma[2] * normalize_last(ages))
+    left-to-right order; ``bounds`` are ``normalize_last``'s, one a
+    metric."""
+    return (gamma[0] * normalize_last(element_diversity, bounds[0])
+            + gamma[1] * normalize_last(dataset_sizes, bounds[1])
+            + gamma[2] * normalize_last(ages, bounds[2]))

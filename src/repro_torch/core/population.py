@@ -49,9 +49,12 @@ round of each candidate's last selection, whose difference to t is the
 dense ages in exact integers), bit for bit against the dense
 ``finalize_runs``.
 
-The population lives on one device: ``population_mesh`` is that device,
-``shard_population`` moves arrays to it and ``bytes_per_device`` counts the
-state's bytes on one of ``n_devices`` devices.
+A mesh splits the population axis: ``population_mesh`` is the
+("data", "model") host mesh over the process group, ``shard_population``
+places (R, N) arrays on it as ``DTensor``s split over "data", and
+``prefilter_schedule_runs(..., mesh=)`` runs the "device" layout on each
+rank's columns with explicit collectives (``_prefilter_device``), bit-equal
+to one device; ``bytes_per_device`` counts a rank's share of the state.
 """
 from __future__ import annotations
 
@@ -60,6 +63,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import FeelConfig
 from repro_torch.core import control as ctl
@@ -68,8 +72,11 @@ from repro_torch.core.diversity import (diversity_index_eq2,
 from repro_torch.core.quality import data_quality_value
 from repro_torch.core.scheduler import POLICY_IDS, pack_scan, priority_key
 from repro_torch.core.wireless import cost_bisect
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.obs import trace
+from repro_torch.sharding.specs import (MeshShape, data_axes, mesh_shape,
+                                        named)
 
 # Default M = PREFILTER_HEADROOM * K candidates survive the top-M cut. The
 # walk takes at most K UEs, so K of headroom covers the selection and the
@@ -302,29 +309,214 @@ def _prefilter_hybrid(state: ctl.ControlState, gains, rand_rank, w_rep,
 
 
 # ---------------------------------------------------------------------- #
-# "device" layout: every stage as float64 torch ops on the state's device
+# "device" layout: every stage as float64 torch ops on the state's device,
+# on one device or on each rank's columns of a mesh
 # ---------------------------------------------------------------------- #
+class _Shard:
+    """This rank's columns of the population: the N axis split over the
+    mesh's data axes in mesh order, each axis as ``torch.chunk`` splits
+    (the blocks of ceil(n / size) first, then what is left, an empty one
+    where nothing is), which is DTensor's ``Shard`` layout, uneven N
+    included. ``groups`` are the data axes' process groups, the innermost
+    first; no mesh (one device) and a ``MeshShape`` of one rank have none
+    and run no collective."""
+
+    def __init__(self, mesh, n: int):
+        if mesh is None:
+            mesh = MeshShape(("data",), (1,))
+        shape = mesh_shape(mesh)
+        axes = data_axes(mesh)
+        self.sizes = [shape.shape[a] for a in axes]
+        if isinstance(mesh, MeshShape):
+            if shape.size != 1:
+                raise ValueError(f"a MeshShape of {shape.size} ranks has no "
+                                 "process group: pass a DeviceMesh")
+            coords = [0] * len(axes)
+            self.groups = []
+        else:
+            coords = [mesh.get_local_rank(a) for a in axes]
+            self.groups = [mesh.get_group(a) for a in reversed(axes)]
+        self.blocks = self._blocks(n)
+        block = 0
+        for a, size in zip(coords, self.sizes):
+            block = block * size + a
+        self.lo, self.hi = self.blocks[block]
+        self.width = self.blocks[0][1]          # the widest block, padded to
+
+    def _blocks(self, n: int):
+        spans = [(0, n)]
+        for size in self.sizes:
+            out = []
+            for lo, hi in spans:
+                c = -(-(hi - lo) // size)
+                for i in range(size):
+                    a = min(lo + i * c, hi)
+                    out.append((a, min(a + c, hi)))
+            spans = out
+        return spans
+
+    @property
+    def n_local(self) -> int:
+        return self.hi - self.lo
+
+    def all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+        for g in self.groups:
+            dist.all_reduce(t, op=op, group=g)
+        return t
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """(*shape) on each rank -> (n_blocks, *shape), in block order."""
+        out = t[None]
+        for g in self.groups:
+            parts = [torch.empty_like(out)
+                     for _ in range(dist.get_world_size(g))]
+            dist.all_gather(parts, out.contiguous(), group=g)
+            out = torch.cat(parts)
+        return out
+
+    def pad(self, t: torch.Tensor, fill: float) -> torch.Tensor:
+        """(R, n_local, ...) -> (R, width, ...), ``fill`` past the end."""
+        extra = self.width - t.shape[1]
+        if not extra:
+            return t
+        return torch.cat([t, t.new_full((t.shape[0], extra, *t.shape[2:]),
+                                        fill)], 1)
+
+    def unpad(self, gathered: np.ndarray) -> np.ndarray:
+        """(n_blocks, R, width) host blocks -> the (R, N) array."""
+        return np.concatenate([g[:, :hi - lo] for g, (lo, hi)
+                               in zip(gathered, self.blocks)], 1)
+
+
+def _amax(t: torch.Tensor, empty: float) -> torch.Tensor:
+    """Row max of an (R, n) tensor, ``empty`` where n is 0."""
+    if t.shape[-1]:
+        return t.amax(-1)
+    return t.new_full(t.shape[:-1], empty)
+
+
+def _argmax_pair(t: torch.Tensor, lo: int, n: int):
+    """(row max, its first global index) of a rank's columns, as
+    ``torch.argmax`` picks it; (-inf, n) on a rank without columns, so
+    that any rank's pair wins over it."""
+    if not t.shape[-1]:
+        return t.new_full(t.shape[:-1], -torch.inf), t.new_full(
+            t.shape[:-1], float(n))
+    i = t.argmax(-1)
+    return t.gather(-1, i[:, None])[:, 0], (i + lo).to(torch.float64)
+
+
+def _merge_argmax(vals: torch.Tensor, idx: torch.Tensor):
+    """(n_blocks, R) pairs -> each row's max and its lowest global index
+    among the blocks that reach it: ``torch.argmax``'s first occurrence
+    over all N."""
+    best = vals.amax(0)
+    first = torch.where(vals == best, idx, torch.inf).amin(0)
+    return best, first.to(torch.int64)
+
+
+def _onehot(cols: torch.Tensor, sh: "_Shard", r: int,
+            dev) -> torch.Tensor:
+    """(R, k) global column indices -> the rank's (R, n_local) mask of
+    those that are its own (another rank's add 0 at a clamped column)."""
+    out = torch.zeros((r, sh.n_local), dtype=torch.int32, device=dev)
+    if not sh.n_local:
+        return out.bool()
+    inside = (cols >= sh.lo) & (cols < sh.hi)
+    local = (cols - sh.lo).clamp(0, sh.n_local - 1)
+    return out.scatter_add(-1, local, inside.to(torch.int32)) > 0
+
+
+def _merge_prefixes(sh: "_Shard", mine: torch.Tensor, key, costs_f,
+                    values, m: int, n: int):
+    """The global top-M from each rank's own (R, min(M, n_local)) prefix
+    ``mine``: (global index, cost, value) of the first M of the gathered
+    candidates in (key, global index) order, (R, M) each, the same on
+    every rank."""
+    R, m_loc = mine.shape
+    cand = torch.stack([key.gather(-1, mine),
+                        (mine + sh.lo).to(torch.float64),
+                        costs_f.gather(-1, mine),
+                        values.gather(-1, mine)], -1)
+    pad = torch.tensor([torch.inf, float(n), 0.0, 0.0], dtype=torch.float64,
+                       device=mine.device)
+    extra = min(m, sh.width) - m_loc
+    cand = torch.cat([cand, pad.expand(R, extra, 4)], 1)
+    cand = sh.all_gather(cand).transpose(0, 1).reshape(R, -1, 4)
+    cand = cand.gather(1, torch.argsort(cand[..., 1], dim=-1, stable=True)
+                       [..., None].expand(-1, -1, 4))
+    pos = _topm_prefix_rows(cand[..., 0].contiguous(), m)
+    return (cand[..., 1].gather(-1, pos).to(torch.int64),
+            cand[..., 2].gather(-1, pos), cand[..., 3].gather(-1, pos))
+
+
 def _prefilter_device(state: ctl.ControlState, gains, rand_rank, w_rep,
-                      w_div, m: int):
+                      w_div, m: int, mesh=None, dev=None):
     """The control plane's device layout (``control._schedule_device``)
-    with the walk over the kept prefix; the reductions over all N (the
-    fallback's, the forced rewrite's) are that layout's own, so the two
-    agree exactly whenever the selections do."""
+    with the walk over the kept prefix, on ``dev`` (the state's device by
+    default). Without ``mesh`` one block holds all N columns: no
+    collective runs, and the reductions over all N (the fallback's, the
+    forced rewrite's) are that layout's own, so the two agree exactly
+    whenever the selections do. With a mesh each rank computes on its own
+    columns and reduces over N by collectives over the mesh's data axes;
+    its outputs are one device's bit for bit.
+
+    Local tensors and explicit collectives (as ``federated/distributed.py``
+    runs the cohort step), not DTensor: DTensor's rule for ``topk`` or
+    ``argmax`` over a sharded dim first replicates the operands. The
+    stages:
+
+      1. Eq. 2's per-metric min and max, ``best_channel``'s max gain: one
+         ``all_reduce(MAX)`` (a min as the max of its negation; both
+         exact), then Eq. 2/3, Eq. 9 and the keys on the local columns.
+         The NaN check is one ``all_reduce(MAX)`` of a flag and one host
+         read.
+      2. The top-M: in one block the block's own prefix; split, each
+         rank's prefix of min(M, n_local) columns, as (key, global index,
+         cost, value), gathered, then the prefix of the gathered set in
+         (key, global index) order (``_merge_prefixes``). Every member of
+         the global prefix is in its rank's own prefix under that order,
+         so the two agree, ties at the M-th key included.
+      3. The walk over the kept (R, M), the same on every rank.
+      4. The certificate's min cost outside the kept set, the fallback's
+         and the forced rewrite's argmaxes (max, then the lowest global
+         index: ``torch.argmax``'s first occurrence): one gather of a
+         rank's (R, 6) row statistics.
+      5. The rank's columns of x and alpha, by the elementwise rewrites;
+         then, split over ranks, one gather of x, alpha, costs and values
+         to full (R, N) host arrays.
+    """
     cfg = state.cfg
     K = cfg.n_ues
     n_sel = cfg.min_selected
-    dev = state.device
+    R, N = state.reputations.shape
+    sh = _Shard(mesh, N)
+    cols = slice(sh.lo, sh.hi)
+    dev = state.device if dev is None else dev
 
     def f64(a):
-        return torch.as_tensor(a, dtype=torch.float64, device=dev)
+        return torch.as_tensor(np.asarray(a)[:, cols], dtype=torch.float64,
+                               device=dev)
 
     pid = torch.as_tensor(state.policy_id, device=dev)[:, None]
+    divs, sizes, ages = f64(state.divs), f64(state.sizes), f64(state.ages)
     g = f64(gains)
-    I = diversity_index_eq2(f64(state.divs), f64(state.sizes),
-                            f64(state.ages), cfg.gamma)
+    metrics = (divs, sizes, ages)
+    stats = torch.stack([s for v in metrics
+                         for s in (_amax(-v, -torch.inf),
+                                   _amax(v, -torch.inf))]
+                        + [_amax(g, -torch.inf)], -1)
+    stats = sh.all_reduce(stats, dist.ReduceOp.MAX)
+    bounds = [(-stats[:, 2 * i, None], stats[:, 2 * i + 1, None])
+              for i in range(3)]
+    I = diversity_index_eq2(divs, sizes, ages, cfg.gamma, bounds)
     values = data_quality_value(f64(state.reputations), I, None,
-                                omega=(f64(w_rep)[:, None],
-                                       f64(w_div)[:, None]))
+                                omega=(torch.as_tensor(
+                                    w_rep, dtype=torch.float64,
+                                    device=dev)[:, None],
+                                    torch.as_tensor(
+                                    w_div, dtype=torch.float64,
+                                    device=dev)[:, None]))
     costs = cost_bisect(g, f64(state.r_min), K, cfg.bandwidth_hz,
                         cfg.p_watt, cfg.n0_watt_hz)
     costs_f = costs.to(torch.float64)
@@ -334,51 +526,86 @@ def _prefilter_device(state: ctl.ControlState, gains, rand_rank, w_rep,
         torch.where(
             pid == POLICY_IDS["random"], f64(rand_rank),
             torch.where(pid == POLICY_IDS["best_channel"],
-                        costs_f * K - g / (g.amax(-1, keepdim=True) + 1e-12),
+                        costs_f * K - g / (stats[:, 6, None] + 1e-12),
                         costs_f)))
     top = pid == POLICY_IDS["top_value"]
     key = torch.where(top, -values, key)
-    if bool(key.isnan().any()):
+    nan = key.isnan().any().to(torch.float64).reshape(1)
+    if bool(sh.all_reduce(nan, dist.ReduceOp.MAX)):
         raise ValueError("NaN priority key: the control plane's inputs "
                          "hold a NaN")
 
-    kept = _topm_prefix_rows(key, m)                   # (R, m) visit order
-    c_kept = costs.gather(-1, kept)
+    # the top-M over all N: in one block this rank's own prefix, else
+    # the prefix of the ranks' own prefixes
+    one_block = len(sh.blocks) == 1
+    m_loc = min(m, sh.n_local)
+    mine = (_topm_prefix_rows(key, m_loc) if m_loc else
+            torch.zeros((R, 0), dtype=torch.int64, device=dev))
+    if one_block:
+        kept, c_kept, v_kept = mine, costs.gather(-1, mine), None
+    else:
+        kept, c_kept, v_kept = _merge_prefixes(sh, mine, key, costs_f,
+                                               values, m, N)
+        c_kept = c_kept.to(costs.dtype)
     take = pack_scan(c_kept, K)
-    x = torch.zeros_like(key, dtype=torch.bool).scatter(-1, kept, take)
+    x = _onehot(torch.where(take, kept, N), sh, R, dev)
     alpha = torch.where(x, costs_f / k_f, 0.0)
-
-    # the preservation certificate
     b_rem = K - torch.where(take, c_kept, 0).sum(-1)
-    dmin = costs.scatter(-1, kept, K + 2).amin(-1)
-    cert = (b_rem < dmin) | top[:, 0]
 
-    # dqs modified-greedy fallback over all N
+    # the row statistics over all N
+    kept_here = _onehot(kept, sh, R, dev)
     feas = costs <= K
     masked = torch.where(feas, values, -torch.inf)
-    k_best = masked.argmax(-1, keepdim=True)
-    use_fb = ((pid == POLICY_IDS["dqs"]) & feas.any(-1, keepdim=True)
-              & (masked.gather(-1, k_best)
-                 > (values * x).sum(-1, keepdim=True)))
-    onehot_best = torch.zeros_like(x).scatter(-1, k_best, True)
+    row = torch.stack([
+        *_argmax_pair(masked, sh.lo, N), *_argmax_pair(values, sh.lo, N),
+        _amax(feas.to(torch.float64), 0.0),
+        -_amax(-torch.where(kept_here, K + 2, costs).to(torch.float64),
+               -float(K + 2))], -1)
+    row = sh.all_gather(row)
+    best, k_best = _merge_argmax(row[..., 0], row[..., 1])
+    _, k_force = _merge_argmax(row[..., 2], row[..., 3])
+    feas_any = row[..., 4].amax(0) > 0
+    dmin = row[..., 5].amin(0)
+    cert = (b_rem < dmin) | top[:, 0]
+
+    # dqs modified-greedy fallback. In one block the pack's value is the
+    # exact layout's own sum over N. Split over ranks it sums the kept
+    # values in visit order, (R, M) with 0.0 where not taken, the same on
+    # every rank: the same terms among N - M fewer zeros. Adding 0.0 is
+    # exact, so the two differ only in the order the taken terms
+    # associate: not at all for one or two of them, otherwise within a few
+    # ulp of the pack's value, and the comparison with the best single
+    # value can only flip inside that gap.
+    pack = (values * x).sum(-1) if one_block else (v_kept * take).sum(-1)
+    use_fb = ((pid == POLICY_IDS["dqs"]) & feas_any[:, None]
+              & (best > pack)[:, None])
+    onehot_best = _onehot(k_best[:, None], sh, R, dev)
     x = torch.where(use_fb, onehot_best, x)
     alpha = torch.where(use_fb, torch.where(onehot_best, costs_f / k_f, 0.0),
                         alpha)
 
     # top_value: the first n_sel of the (-value)-ordered prefix
-    xt = torch.zeros_like(x).scatter(-1, kept[:, :n_sel], True)
+    xt = _onehot(kept[:, :n_sel], sh, R, dev)
     x = torch.where(top, xt, x)
     alpha = torch.where(top, torch.where(
         xt, torch.full_like(alpha, 1.0 / max(n_sel, 1)), 0.0), alpha)
 
-    # degenerate rounds: force the single highest-value UE
-    forced = ~x.any(-1, keepdim=True)
-    onehot_f = torch.zeros_like(x).scatter(
-        -1, values.argmax(-1, keepdim=True), True)
+    # degenerate rounds: no selection is left where the walk took none,
+    # the fallback did not fire, and the row is no top_value row
+    any_x = torch.where(top[:, 0], n_sel > 0, use_fb[:, 0] | take.any(-1))
+    forced = ~any_x[:, None]
+    onehot_f = _onehot(k_force[:, None], sh, R, dev)
     x = torch.where(forced, onehot_f, x)
     alpha = torch.where(forced, onehot_f.to(torch.float64), alpha)
-    return (x.cpu().numpy(), alpha.cpu().numpy(),
-            costs.cpu().numpy().astype(int), values.cpu().numpy(),
+
+    if one_block:
+        x, alpha, costs, values = (t.cpu().numpy()
+                                   for t in (x, alpha, costs, values))
+    else:
+        out = torch.stack([x.to(torch.float64), alpha, costs_f, values], -1)
+        out = sh.all_gather(sh.pad(out, 0.0)).cpu().numpy()
+        x, alpha, costs, values = (sh.unpad(out[..., i]) for i in range(4))
+    return (x.astype(bool), alpha, costs.astype(int), values,
             forced[:, 0].cpu().numpy(), cert.cpu().numpy())
 
 
@@ -395,7 +622,7 @@ def _state_nbytes(state: ctl.ControlState) -> int:
 
 def prefilter_schedule_runs(state: ctl.ControlState, gains, rand_rank,
                             w_rep, w_div, m: Optional[int] = None,
-                            kernel: Optional[str] = None):
+                            kernel: Optional[str] = None, mesh=None):
     """Schedule round t of all R runs through the top-M prefilter.
 
     The inputs and outputs of ``control.schedule_runs`` plus an ``info``
@@ -404,7 +631,14 @@ def prefilter_schedule_runs(state: ctl.ControlState, gains, rand_rank,
     path's: a row whose certificate holds by the preservation argument (the
     module docstring), a row whose certificate fails by escalation to
     ``schedule_runs`` itself. ``m`` defaults to ``default_m``; ``kernel``
-    is "hybrid" | "device" (None: the state's device decides).
+    is "hybrid" | "device" (None: the state's device decides, or "device"
+    where ``mesh`` is given).
+
+    ``mesh`` (``population_mesh``; "device" layout only, "hybrid" ignores
+    it) splits the population axis over the mesh's data axes: every rank
+    of the mesh calls this with the same host arrays, computes on its own
+    columns on its device (``_prefilter_device``) and gets the whole
+    outputs, bit-equal to the one-device "device" layout's.
     """
     cfg = state.cfg
     gains = np.asarray(gains, float)
@@ -416,7 +650,8 @@ def prefilter_schedule_runs(state: ctl.ControlState, gains, rand_rank,
     if m_eff < cfg.min_selected:
         raise ValueError(f"prefilter width {m_eff} below min_selected="
                          f"{cfg.min_selected}")
-    kern = ctl._layout(kernel, state.device)
+    kern = ctl._layout(kernel or ("device" if mesh is not None else None),
+                       state.device)
     R = state.n_runs
     with trace.span("schedule.prefilter") as sp:
         if m_eff >= N:      # no cut: the exact path is the prefilter
@@ -428,9 +663,15 @@ def prefilter_schedule_runs(state: ctl.ControlState, gains, rand_rank,
                                 float(_state_nbytes(state)))
             return (*out, {"m": N, "n_escalated": 0})
 
-        layout = _prefilter_hybrid if kern == "hybrid" else _prefilter_device
-        x, alpha, costs, values, forced, cert = layout(
-            state, gains, rand_rank, w_rep, w_div, m_eff)
+        args = (state, gains, rand_rank, w_rep, w_div, m_eff)
+        if kern == "hybrid":
+            outs = _prefilter_hybrid(*args)
+        else:
+            dev = (state.device if mesh is None or isinstance(mesh, MeshShape)
+                   else _mesh_device(mesh))
+            outs = _prefilter_device(*args, mesh, dev)
+            state = dataclasses.replace(state, device=dev)
+        x, alpha, costs, values, forced, cert = outs
 
         # escalate the rows whose certificate fails to the exact path, in
         # one batched call over just those rows
@@ -457,18 +698,42 @@ def prefilter_schedule_runs(state: ctl.ControlState, gains, rand_rank,
 
 
 # ---------------------------------------------------------------------- #
-# One device
+# The population split over a mesh
 # ---------------------------------------------------------------------- #
-def population_mesh(device: DeviceLike = None) -> torch.device:
-    """The device the population axis lives on (None: the GPU, which
-    raises without CUDA). The port runs a population on one device."""
-    return resolve_device(device)
+def _mesh_device(mesh) -> torch.device:
+    """This rank's device of a ``DeviceMesh``."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
 
 
-def shard_population(mesh: torch.device, *arrays):
-    """Place (R, N) control arrays on ``mesh``'s device, dtypes kept."""
-    out = tuple(torch.as_tensor(np.asarray(a), device=mesh) for a in arrays)
-    return out if len(out) != 1 else out[0]
+def population_mesh(model_parallel: int = 1, device_type: str = "cuda"):
+    """The host mesh (``launch.mesh.make_host_mesh``) the population axis
+    shards over: ("data", "model") of (ranks // model_parallel,
+    model_parallel) over the process group, a ``DeviceMesh``, or a (1, 1)
+    ``MeshShape`` without a group. ``device_type="cuda"`` raises without
+    CUDA."""
+    resolve_device(device_type)
+    return make_host_mesh(model_parallel, device_type=device_type)
+
+
+def shard_population(mesh, *arrays):
+    """Place (R, N) control arrays with the population (trailing) axis
+    split over the ``DeviceMesh``'s data axes and replicated over "model":
+    ``DTensor``s of ``[Shard(1), Replicate()]``, dtypes kept, uneven N
+    allowed. Each rank takes its own columns; nothing is communicated."""
+    from torch.distributed.tensor import DTensor
+    placements = named(mesh, (None, data_axes(mesh)))
+    dev = _mesh_device(mesh)
+    out = []
+    for a in arrays:
+        a = np.asarray(a)
+        sh = _Shard(mesh, a.shape[1])
+        local = torch.as_tensor(a[:, sh.lo:sh.hi], device=dev)
+        out.append(DTensor.from_local(local, mesh, placements,
+                                      run_check=False, shape=a.shape,
+                                      stride=(a.shape[1], 1)))
+    return tuple(out) if len(out) != 1 else out[0]
 
 
 def bytes_per_device(pop: PopulationState, n_devices: int = 1) -> int:

@@ -227,3 +227,13 @@ def top_value_schedule(values, costs, cfg, n: int) -> Schedule:
     x[order] = True
     alpha = np.where(x, 1.0 / max(n, 1), 0.0)
     return Schedule(x=x, alpha=alpha, cost=np.asarray(costs), value=values)
+
+
+# name -> host oracle of the four packing policies (top_value, which
+# takes the n highest values, has another signature)
+POLICIES = {
+    "dqs": dqs_schedule,
+    "random": random_schedule,
+    "best_channel": best_channel_schedule,
+    "max_count": max_count_schedule,
+}

@@ -31,7 +31,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import FeelConfig
+from repro_torch.configs.base import FeelConfig, dbm_to_watt  # noqa: F401
+# dbm_to_watt is defined beside FeelConfig's p_watt / n0_watt_hz and
+# re-exported here, as the JAX package's wireless module does
 
 
 @dataclasses.dataclass

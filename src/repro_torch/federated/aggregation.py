@@ -14,14 +14,17 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.weighted_aggregate import weighted_aggregate
 
 Params = Dict[str, torch.Tensor]
 
 
-def normalize_weights(weights, device="cpu") -> torch.Tensor:
+def normalize_weights(weights, device: DeviceLike = None) -> torch.Tensor:
     """(N,) weights -> (N,) float32 fractions summing to 1, normalised in
-    float64 on the host, then one rounding to float32."""
+    float64 on the host, then one rounding to float32, on ``device`` (None:
+    the GPU, which raises without CUDA)."""
+    device = resolve_device(device)
     w = np.asarray(weights, np.float64)
     s = w.sum()
     if not s > 0:

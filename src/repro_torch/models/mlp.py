@@ -15,6 +15,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.common import dense_init, sgd_step
 
 Params = Dict[str, torch.Tensor]
@@ -22,7 +23,11 @@ Params = Dict[str, torch.Tensor]
 
 def mlp_init(generator: torch.Generator, n_in: int = 28 * 28,
              n_hidden: int = 64, n_out: int = 10, dtype=torch.float32,
-             device="cpu") -> Params:
+             device: DeviceLike = None) -> Params:
+    """The MLP's params drawn from ``generator`` (on the CPU), placed on
+    ``device`` (None: the GPU, which raises without CUDA before any
+    draw)."""
+    device = resolve_device(device)
     params = {
         "w1": dense_init(generator, (n_in, n_hidden), dtype),
         "b1": torch.zeros((n_hidden,), dtype=dtype),

@@ -1,6 +1,7 @@
 """Port parity: synthetic MNIST, the non-IID partition with its label flip,
 and the padding/bucketing helpers are byte-equal to the JAX package's and
 consume the host RNG identically."""
+import importlib
 import types
 
 import numpy as np
@@ -8,8 +9,11 @@ import pytest
 from torch_parity import reference, single_threaded  # noqa: F401
 
 from repro_torch.core import poisoning as tpo
-from repro_torch.data import partition as tpa
 from repro_torch.data import synthetic_mnist as tsm
+
+# the module: the package's ``partition`` is the partition function, the
+# reference's public name
+tpa = importlib.import_module("repro_torch.data.partition")
 
 
 @pytest.fixture(scope="module")

@@ -389,7 +389,7 @@ try:
                              batch, w, s))
     g = torch.Generator().manual_seed(0)
     real = count_step(step, (
-        mlp_init(g), {"x": torch.randn(3, 32, 784, generator=g),
+        mlp_init(g, device="cpu"), {"x": torch.randn(3, 32, 784, generator=g),
                       "y": torch.randint(10, (3, 32), generator=g)},
         torch.tensor([1.0, 2.0, 3.0]), torch.tensor([1.0, 0.0, 1.0])))
     out = {k: [c.flops, c.bytes, dict(c.op_calls), c.memory(),

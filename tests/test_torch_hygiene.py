@@ -26,7 +26,7 @@ from repro_torch.kernels import build
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-EXAMPLE = ROOT / "examples" / "train_lm_torch.py"
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def _imported_modules(path):
@@ -37,18 +37,18 @@ def _imported_modules(path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", PORT_FILES + [EXAMPLE],
+@pytest.mark.parametrize("path", PORT_FILES + EXAMPLES,
                          ids=[str(p.relative_to(ROOT))
-                              for p in PORT_FILES + [EXAMPLE]])
+                              for p in PORT_FILES + EXAMPLES])
 def test_no_jax_or_repro_imports(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, f"{path} imports {bad}"
 
 
-@pytest.mark.parametrize("path", PORT_FILES + [EXAMPLE],
+@pytest.mark.parametrize("path", PORT_FILES + EXAMPLES,
                          ids=[str(p.relative_to(ROOT))
-                              for p in PORT_FILES + [EXAMPLE]])
+                              for p in PORT_FILES + EXAMPLES])
 def test_no_msgpack_import(path):
     """The checkpoint codec is the port's own: msgpack is not installed
     where the port runs on the card."""
@@ -161,6 +161,27 @@ def test_population_and_async_entry_points_default_to_cuda(monkeypatch,
         calls[entry]()
 
 
+@pytest.mark.parametrize("helper", ["mlp_init", "normalize_weights"])
+def test_helpers_default_to_the_card(monkeypatch, helper):
+    """``models.mlp.mlp_init`` and ``aggregation.normalize_weights`` place
+    their tensors on the GPU unless the caller asks for the CPU, and raise
+    where CUDA is absent (``mlp_init`` before any draw)."""
+    from repro_torch.federated.aggregation import normalize_weights
+    from repro_torch.models.mlp import mlp_init
+    _no_cuda(monkeypatch)
+    g = torch.Generator().manual_seed(0)
+    state = g.get_state()
+    call = {"mlp_init": lambda dev=None: mlp_init(g, device=dev),
+            "normalize_weights": lambda dev=None: normalize_weights(
+                [1.0, 3.0], dev)}[helper]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+    assert torch.equal(g.get_state(), state)
+    out = call("cpu")
+    for t in (out.values() if isinstance(out, dict) else [out]):
+        assert t.device == torch.device("cpu")
+
+
 @pytest.mark.parametrize("name", ["federated/async_engine.py",
                                   "launch/serve.py", "core/population.py"])
 def test_the_simulated_clock_reads_no_wall_clock(name):
@@ -192,3 +213,69 @@ def test_only_the_clock_module_reads_the_wall_clock(path):
     else:
         assert [v.format() for v in lint_wall_clock(src)
                 + lint_clock_imports(src)] == []
+
+
+# the reference's public names the port spells otherwise (None: not ported)
+RENAMED = {"core": {"greedy_pack_jnp": "greedy_pack_rows", "normalize": None}}
+
+
+def _reference_all(package):
+    """``repro.<package>.__all__``, read from its source (not imported)."""
+    tree = ast.parse((ROOT / "src" / "repro" / package / "__init__.py")
+                     .read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and node.targets[0].id == "__all__":
+            return [ast.literal_eval(e) for e in node.value.elts]
+    raise AssertionError(f"repro.{package} has no __all__")
+
+
+@pytest.mark.parametrize("package", ["core", "federated", "data", "configs"])
+def test_packages_export_the_reference_public_names(package):
+    """``repro_torch.<package>.__all__`` is the reference's, name for name
+    and in its order, but for the documented renames (RENAMED, the
+    ``repro_torch.core`` docstring); every name is bound."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.{package}")
+    renamed = RENAMED.get(package, {})
+    want = [renamed.get(n, n) for n in _reference_all(package)
+            if renamed.get(n, n) is not None]
+    assert mod.__all__ == want
+    assert all(hasattr(mod, n) for n in mod.__all__)
+    for old, new in renamed.items():
+        if new is not None:
+            assert old not in mod.__all__
+            assert old in mod.__doc__ and new in mod.__doc__
+
+
+def test_policies_name_the_ports_schedules():
+    """``scheduler.POLICIES`` maps the reference's four packing policies
+    (read from its source) to the port's schedule functions of the same
+    names."""
+    from repro_torch.core import scheduler
+    tree = ast.parse((ROOT / "src" / "repro" / "core" / "scheduler.py")
+                     .read_text())
+    want = next({ast.literal_eval(k): v.id
+                 for k, v in zip(n.value.keys, n.value.values)}
+                for n in tree.body if isinstance(n, ast.Assign)
+                and getattr(n.targets[0], "id", "") == "POLICIES")
+    assert {k: f.__name__ for k, f in scheduler.POLICIES.items()} == want
+    assert all(f is getattr(scheduler, f.__name__)
+               for f in scheduler.POLICIES.values())
+
+
+def test_importing_the_packages_builds_no_kernel():
+    """``import repro_torch.core`` (and the other three packages, whose
+    names pull in the server, the defenses and the kernels' wrappers)
+    imports neither jax nor the JAX package, and builds or loads no
+    kernel library."""
+    code = ("import sys, repro_torch.core, repro_torch.federated, "
+            "repro_torch.data, repro_torch.configs\n"
+            "from repro_torch.kernels import build\n"
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')), "
+            "build.load.cache_info().currsize)")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        check=True, cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert out.stdout.strip() == "[] 0"

@@ -149,10 +149,10 @@ def test_fedavg_stacked_matches_reference(ref, kernel):
 def test_normalize_weights_and_list_form(ref):
     weights = [3.0, 1.0, 0.0, 7.5]
     np.testing.assert_array_equal(
-        tag.normalize_weights(weights).numpy(),
+        tag.normalize_weights(weights, "cpu").numpy(),
         np.asarray(ref.agg.normalize_weights(weights)))
     with pytest.raises(ValueError):
-        tag.normalize_weights([0.0, 0.0])
+        tag.normalize_weights([0.0, 0.0], "cpu")
     st = {k: torch.from_numpy(v) for k, v in _stacked(4, seed=5).items()}
     listed = [{k: v[i] for k, v in st.items()} for i in range(4)]
     a, b = tag.fedavg(listed, weights), tag.fedavg_stacked(st, weights)

@@ -24,6 +24,9 @@ Tolerances, as tests/test_population.py holds the reference's:
   ``malicious_selected`` exact, ``acc`` within 1e-2.
 """
 import dataclasses
+import os
+import subprocess
+import sys
 import types
 
 import numpy as np
@@ -39,6 +42,7 @@ from repro_torch.core import scheduler as tsc
 from repro_torch.federated import simulation
 
 POLICIES = list(tsc.POLICY_IDS)
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 
 @pytest.fixture(scope="module")
@@ -364,17 +368,50 @@ def test_population_config_contract(ref):
     assert pop.default_m(FeelConfig(n_ues=10, population=1000)) == 80
 
 
-def test_one_device_mesh_helpers():
-    mesh = pop.population_mesh("cpu")
-    assert mesh == torch.device("cpu")
+_ONE_RANK_MESH = r"""
+import numpy as np, torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from repro_torch.core import population as pop
+from repro_torch.sharding.specs import MeshShape
+
+assert pop.population_mesh(device_type="cpu") == MeshShape(
+    ("data", "model"), (1, 1))
+dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                        world_size=1)
+try:
+    mesh = pop.population_mesh(device_type="cpu")
+    assert isinstance(mesh, DeviceMesh) and mesh.device_type == "cpu"
+    assert mesh.mesh_dim_names == ("data", "model")
+    assert tuple(mesh.shape) == (1, 1)
     arr = np.arange(12.0).reshape(3, 4)
     ranks = np.arange(12).reshape(3, 4)
     a, b = pop.shard_population(mesh, arr, ranks)
-    assert a.device == mesh and a.dtype == torch.float64
-    assert b.dtype == torch.int64
-    np.testing.assert_array_equal(a.numpy(), arr)
-    np.testing.assert_array_equal(pop.shard_population(mesh, arr).numpy(),
-                                  arr)
+    assert isinstance(a, DTensor) and isinstance(b, DTensor)
+    assert list(a.placements) == [Shard(1), Replicate()]
+    assert a.dtype == torch.float64 and b.dtype == torch.int64
+    np.testing.assert_array_equal(a.full_tensor().numpy(), arr)
+    np.testing.assert_array_equal(b.to_local().numpy(), ranks)
+    one = pop.shard_population(mesh, arr)
+    assert isinstance(one, DTensor)
+    np.testing.assert_array_equal(one.full_tensor().numpy(), arr)
+finally:
+    dist.destroy_process_group()
+print("OK")
+"""
+
+
+def test_one_device_mesh_helpers():
+    """``population_mesh`` is the reference's ("data", "model") host mesh:
+    a (1, 1) ``MeshShape`` without a process group, a ``DeviceMesh`` on a
+    gloo group of one (a subprocess: the group is global to its process);
+    ``shard_population`` places ``DTensor``s split over "data", dtypes
+    kept."""
+    r = subprocess.run([sys.executable, "-c", _ONE_RANK_MESH],
+                       capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "PYTHONPATH": SRC})
+    assert r.returncode == 0 and r.stdout.strip() == "OK", r.stderr[-3000:]
 
 
 # ---------------------------------------------------------------------- #
