@@ -333,6 +333,20 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     is recorded beside it: one float32 product alone and inside a
     ``bmm`` of 1, 2, 8 and 50), ``flash_leg(1)``: K3 and K1), each timed
     beside the card's name and power limit;
+22. the model init (after 21, before the summary): the reference's
+    threefry draw (``repro_torch.random``) on the card against the same
+    draw on the CPU — keys, splits and bits (past the flat index 2^32
+    too) equal, uniforms and a (1,024, 1,024) truncated normal within 2
+    ulp, the count of elements not bit-equal printed — for three seeds;
+    the MLP's, ``lm_tiny``'s and reduced ``deepseek-v3-671b``'s initial
+    params (bf16 and float32) likewise; the card's init seconds for the
+    MLP, ``lm_tiny`` and ``starcoder2-15b`` at full width (phase 12's)
+    beside the ``torch.Generator`` draw they replace; then
+    ``federated_llm_torch.py --fast``'s leg 1 (seeds 0 and 1, 6 rounds)
+    from the new init at init-seed offsets 0 and 1
+    (``examples/federated_llm_init_spread_torch.py``'s ``margin``; offset
+    0 is the leg), each margin printed with whether it passes the
+    driver's assertion, K3 and K1 counted;
 15. one JSON line of per-kernel numbers (K6's bf16-compute route a row
     of its own), then the result line.
 
@@ -351,6 +365,7 @@ import gc
 import importlib.util
 import io
 import json
+import math
 import os
 import platform
 import shutil
@@ -418,10 +433,11 @@ from repro_torch.models import blocks  # noqa: E402
 from repro_torch.models import encdec as ted  # noqa: E402
 from repro_torch.models import mlp as tmlp  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
-from repro_torch.models.common import MetaGenerator  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.obs import report as obs_report  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
+from repro_torch import random as rnd  # noqa: E402
+from repro_torch.random import PRNGKey  # noqa: E402
 from repro_torch.sharding import dtensor  # noqa: E402
 from repro_torch.sharding.ctx import activation_specs  # noqa: E402
 
@@ -2501,6 +2517,9 @@ def source_frames(cfg, b, s_src, seed=0):
     return torch.randn(b, s_src, cfg.d_model, device="cuda", generator=gen)
 
 
+SERVE_INIT_S = {}          # arch -> the serving run's init seconds
+
+
 def serve_phase(arch, cfg=None):
     """The serving main path of ``arch`` (``cfg``, by default the
     registry's, at full width): weights drawn on the card (seed 0), 8
@@ -2521,7 +2540,7 @@ def serve_phase(arch, cfg=None):
     t0 = time.perf_counter()
     params = api.init(cfg, 0)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    init_s = SERVE_INIT_S[arch] = time.perf_counter() - t0
     n_params = sum(v.numel() for v in params.values())
     tok = prompts(cfg, SERVE_BATCH, SERVE_PROMPT)
     batch = {"tokens": tok}
@@ -2830,7 +2849,7 @@ def zoo_cuda_vs_cpu(runs=ZOO_CUDA_VS_CPU):
                                   dtype="float32")
         if optimized:
             cfg = registry.optimized(cfg, 2)
-        host = api.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+        host = api.init(cfg, PRNGKey(0, "cpu"), device="cpu")
         rng = np.random.default_rng(4)
         n_prompt = 32 if cfg.ssm is not None else 8
         toks = rng.integers(0, cfg.vocab_size, (1 if mode == "ring" else 2,
@@ -3982,8 +4001,7 @@ def contracts_trace():
     assert launches == only(weighted_aggregate=2, robust_aggregate=2), (
         launches)
     from repro_torch.federated.task import TASKS
-    g = TASKS["mnist_mlp"].init_params(torch.Generator(device="cuda").manual_seed(0),
-                         "cuda")
+    g = TASKS["mnist_mlp"].init_params(PRNGKey(0, "cuda"), "cuda")
     st = broadcast_params(g, 2)
     st = {k: (v.double() if k == "w1" else v) for k, v in st.items()}
     vs = check_trace.assert_no_f64(
@@ -4142,9 +4160,7 @@ def cohort_inputs(server, device):
                            device=device)
     select = torch.zeros(n, device=device)
     select[torch.as_tensor(server.logs[0].selected, device=device)] = 1.0
-    params = tmlp.mlp_init(
-        torch.Generator(device="cuda").manual_seed(COHORT["seed"]),
-        device=device)
+    params = tmlp.mlp_init(PRNGKey(COHORT["seed"], device), device=device)
     return params, batch, weights, select
 
 
@@ -4269,7 +4285,7 @@ def cohort_checks(mesh, cpu_mesh, server, smi):
             "x": ((COHORT["samples"], 784), torch.float32),
             "y": ((COHORT["samples"],), torch.int64)})
     meta = dryrun.count_step(step, (
-        tmlp.mlp_init(MetaGenerator(), device="meta"), meta_batch, meta_w,
+        tmlp.mlp_init(PRNGKey(0, "meta"), device="meta"), meta_batch, meta_w,
         meta_s))
     card = dryrun.count_step(step, args)
     counts = {k: dict(flops=c.flops, bytes=c.bytes,
@@ -4790,6 +4806,153 @@ def driver_phases(smi):
     return dict(total)
 
 
+# ---------------------------------------------------------------------- #
+# 22. the model init: the reference's threefry draw on the card
+# ---------------------------------------------------------------------- #
+INIT_SEEDS = (0, 1, 2**31 - 1)
+INIT_ULP = 2               # the float bound the CPU tests hold jax to
+SPREAD_OFFSETS = (0, 1)
+_ULP_VIEW = {torch.float32: (torch.int32, 0x7FFFFFFF),
+             torch.bfloat16: (torch.int16, 0x7FFF)}
+
+
+def draw_gap(a, b):
+    """(elements not bit-equal, the largest gap) between two draws of one
+    shape and dtype on any devices: integers by value, floats in units in
+    the last place of their dtype."""
+    a, b = a.cpu(), b.cpu()
+    assert a.shape == b.shape and a.dtype == b.dtype, (a.shape, b.shape,
+                                                       a.dtype, b.dtype)
+    if a.is_floating_point():
+        view, mag = _ULP_VIEW[a.dtype]
+        a, b = (t.contiguous().view(view).long() for t in (a, b))
+        a, b = (torch.where(t < 0, -(t & mag), t) for t in (a, b))
+    d = (a - b).abs()
+    return int((d != 0).sum()), int(d.max()) if d.numel() else 0
+
+
+def tree_gap(a, b):
+    """``draw_gap`` summed over two param dicts' leaves: (elements not
+    bit-equal, the largest gap)."""
+    assert a.keys() == b.keys(), (sorted(a), sorted(b))
+    gaps = [draw_gap(a[k], b[k]) for k in a]
+    return sum(n for n, _ in gaps), max((g for _, g in gaps), default=0)
+
+
+def generator_draw(params):
+    """The draw the port made before it drew the reference's weights: a
+    float32 uniform from a ``torch.Generator`` on the card through the
+    inverse CDF, scaled and cast, for every leaf of two or more dims of
+    ``params``' shapes (the init's baseline seconds; nothing kept)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lo, hi = math.erf(-3 / math.sqrt(2)), math.erf(3 / math.sqrt(2))
+    for v in params.values():
+        if v.dim() >= 2:
+            u = torch.empty(v.shape, dtype=torch.float32,
+                            device="cuda").uniform_(lo, hi, generator=gen)
+            u.erfinv_().mul_(math.sqrt(2.0)).clamp_(-3.0, 3.0).mul_(0.02)
+            u.to(v.dtype)
+            del u
+
+
+def seconds(fn):
+    """(``fn()``, its seconds with the card synchronised on both ends)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def init_phases(smi):
+    """Phase 22: (a) keys, splits, bits (across the flat index 2^32 too),
+    uniforms and a truncated normal drawn on the card against the same
+    draws on the CPU; (b) the MLP's, ``lm_tiny``'s and reduced
+    ``deepseek-v3-671b``'s initial params likewise; (c) the card's init
+    seconds for the MLP and ``lm_tiny`` beside the generator draw they
+    replace, and ``starcoder2-15b``'s at full width (22.0 B parameters,
+    the largest init this script builds; its serving run's, phase 12)
+    beside the generator draw over the same leaves; (d) ``federated_llm_torch.py --fast``'s
+    leg 1 through the init-spread script's ``margin`` at offsets
+    ``SPREAD_OFFSETS`` (0 is the leg itself), every launch count set to 0
+    just before each and read just after. Returns the launches."""
+    # (a) the draws, card against CPU
+    for seed in INIT_SEEDS:
+        kc, kh = PRNGKey(seed, "cuda"), PRNGKey(seed, "cpu")
+        far = (2**32 - 3, 2**32 + 3)
+        row = {
+            "key": draw_gap(kc, kh),
+            "split": draw_gap(rnd.split(kc, 8), rnd.split(kh, 8)),
+            "nested_split": draw_gap(rnd.split(rnd.split(kc, 5)[3], 4),
+                                     rnd.split(rnd.split(kh, 5)[3], 4)),
+            "bits": draw_gap(rnd.bits(kc, (1001,)), rnd.bits(kh, (1001,))),
+            "bits_past_2^32": draw_gap(rnd._bits_i32(kc, *far),
+                                       rnd._bits_i32(kh, *far)),
+            "uniform": draw_gap(rnd.uniform(kc, (4096,), -2.0, 3.0),
+                                rnd.uniform(kh, (4096,), -2.0, 3.0)),
+            "truncated_normal": draw_gap(
+                rnd.truncated_normal(kc, -3.0, 3.0, (1024, 1024)),
+                rnd.truncated_normal(kh, -3.0, 3.0, (1024, 1024)))}
+        emit(phase="init_draws", seed=seed, **row)
+        assert all(n == 0 for k, (n, _) in row.items()
+                   if k not in ("uniform", "truncated_normal")), row
+        assert max(g for _, g in row.values()) <= INIT_ULP, row
+
+    # (b) the initial params, card against CPU
+    deepseek = registry.reduced(registry.get("deepseek-v3-671b"))
+    trees = {
+        "mlp_seed_0": lambda dev: tmlp.mlp_init(PRNGKey(0, dev), device=dev),
+        "mlp_seed_1": lambda dev: tmlp.mlp_init(PRNGKey(1, dev), device=dev),
+        "lm_tiny": lambda dev: tf.lm_init(PRNGKey(0, dev), LM_TINY),
+        "deepseek-v3-671b reduced, bf16": lambda dev: api.init(
+            deepseek, 0, device=dev),
+        "deepseek-v3-671b reduced, f32": lambda dev: api.init(
+            dataclasses.replace(deepseek, dtype="float32"), 0, device=dev)}
+    for name, init in trees.items():
+        off, gap = tree_gap(init("cuda"), init("cpu"))
+        emit(phase="init_trees", tree=name, not_bit_equal=off, max_ulp=gap)
+        assert gap <= INIT_ULP, (name, off, gap)
+
+    # (c) the card's init seconds beside the generator draw, in turns
+    for name, init in (
+            ("mnist_mlp", lambda: tmlp.mlp_init(PRNGKey(0, "cuda"),
+                                                device="cuda")),
+            ("lm_tiny", lambda: tf.lm_init(PRNGKey(0, "cuda"), LM_TINY))):
+        new, old = [], []
+        for _ in range(5):
+            params, s = seconds(init)
+            new.append(s)
+            old.append(seconds(lambda: generator_draw(params))[1])
+        emit(phase="init_seconds", model=name, n_params=sum(
+            v.numel() for v in params.values()), threefry_s=float(
+                np.median(new)), generator_s=float(np.median(old)), runs=5,
+             gpu=smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    meta = api.init(registry.get("starcoder2-15b"), 0, device="meta")
+    emit(phase="init_seconds", model="starcoder2-15b", n_params=sum(
+        v.numel() for v in meta.values()),
+         threefry_s=SERVE_INIT_S["starcoder2-15b"],
+         generator_s=seconds(lambda: generator_draw(meta))[1], runs=1,
+         gpu=smi)
+
+    # (d) the --fast leg 1 and the init-spread offsets from the new init
+    spread = example_twin("federated_llm_init_spread")
+    total = collections.Counter()
+    for off in SPREAD_OFFSETS:
+        (margin, end), got = counted(
+            f"init_spread.margin({off})", lambda: spread.margin(off, "cuda"),
+            smi)
+        assert got["flash_attention"] > 0 and got["weighted_aggregate"] > 0, (
+            off, got)
+        assert np.isfinite(margin), (off, margin)
+        total.update(got)
+        emit(phase="init_margin", offset=off, margin=margin, end_loss=end,
+             fast_leg_passes=bool(margin >= 0.0) if off == 0 else None,
+             gpu=smi)
+    return dict(total)
+
+
 def quickstart(n_ues, n_malicious, n_train, n_test, device, seed=0):
     cfg = FeelConfig(n_ues=n_ues, n_malicious=n_malicious)
     train, test = generate(n_train, n_test, seed=seed)
@@ -5205,6 +5368,15 @@ def main():
         launches[name] += n
     emit(phase="last_slice_seconds",
          seconds=mesh_s + time.perf_counter() - t0, gpu=smi)
+
+    # 22. the model init: the reference's draw on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for name, n in init_phases(smi).items():
+        launches[name] += n
+    emit(phase="init_phase_seconds", seconds=time.perf_counter() - t0,
+         gpu=smi)
 
     # 15. summary and result
     emit(phase="done", seconds=time.perf_counter() - t_start)

@@ -34,6 +34,7 @@ from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.federated.simulation import run_sweep  # noqa: E402
 from repro_torch.federated.task import LmTask  # noqa: E402
 from repro_torch.obs.clock import wall_clock  # noqa: E402
+from repro_torch.random import PRNGKey  # noqa: E402
 
 OFFSETS = tuple(range(8))
 OUT = "results/federated_llm_init_spread_torch.json"
@@ -42,13 +43,13 @@ OUT = "results/federated_llm_init_spread_torch.json"
 @dataclasses.dataclass(frozen=True)
 class ShiftedInit(LmTask):
     """``lm_tiny`` with its initial params drawn ``offset`` seeds past the
-    run's init seed."""
+    run's init seed: from ``PRNGKey(seed + offset)``, where the server's
+    key is ``PRNGKey(seed)`` (its low word; the seed is below 2^31)."""
     offset: int = 0
 
-    def init_params(self, generator: torch.Generator, device):
-        seed = generator.initial_seed() + self.offset
-        return super().init_params(torch.Generator().manual_seed(seed),
-                                   device)
+    def init_params(self, key: torch.Tensor, device):
+        seed = int(key[1]) + self.offset
+        return super().init_params(PRNGKey(seed, device), device)
 
 
 def margin(offset, device=None):

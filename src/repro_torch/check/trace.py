@@ -168,13 +168,17 @@ def trace_entries(device: torch.device) -> List[Tuple[str, str, Callable]]:
     from repro_torch.federated.task import TASKS
     from repro_torch.kernels.robust_aggregate import robust_aggregate
     from repro_torch.kernels.weighted_aggregate import weighted_aggregate
+    from repro_torch.random import PRNGKey
 
     f32 = torch.float32
     task = TASKS["mnist_mlp"]
 
+    # drawn once, outside every trace, as the reference's check draws its
+    # params: the draw's float64 products are not the data plane's
+    init = task.init_params(PRNGKey(0, device), device)
+
     def params():
-        return task.init_params(
-            torch.Generator(device=device).manual_seed(0), device)
+        return dict(init)
 
     def stacked():
         return cohort.broadcast_params(params(), N)

@@ -89,6 +89,7 @@ from repro_torch.federated import cohort
 from repro_torch.federated.aggregation import fedavg_stacked
 from repro_torch.federated.task import FeelTask, as_task
 from repro_torch.obs import trace
+from repro_torch.random import PRNGKey
 
 
 @dataclasses.dataclass
@@ -302,8 +303,8 @@ class FeelServer:
         self.wireless = WirelessModel(cfg, rng)
         self.reputation = ReputationTracker(cfg)
         seed = int(rng.integers(1 << 31))
-        self.params = self.task.init_params(
-            torch.Generator().manual_seed(seed), self.device)
+        self.params = self.task.init_params(PRNGKey(seed, self.device),
+                                            self.device)
         self.ages = np.ones(cfg.n_population)   # rounds since last selected
         self.cpu_hz = rng.uniform(cfg.cpu_hz_min, cfg.cpu_hz_max,
                                   cfg.n_population)

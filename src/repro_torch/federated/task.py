@@ -105,8 +105,8 @@ class MnistTask(FeelTask):
         return torch.as_tensor(test.y, device=device).long()
 
     # -- device plane (stacked cohort) ------------------------------------ #
-    def init_params(self, generator: torch.Generator, device):
-        return mlp_init(generator, device=device)
+    def init_params(self, key: torch.Tensor, device):
+        return mlp_init(key, device=device)
 
     def sgd_epoch(self, params, d, m, lr, batch_size: int):
         return mlp_sgd_epoch_masked(params, d["x"], d["y"], m, lr,
@@ -239,8 +239,8 @@ class LmTask(FeelTask):
                                device=device).long()
 
     # -- device plane (stacked cohort) ------------------------------------ #
-    def init_params(self, generator: torch.Generator, device):
-        return lm_init(generator, self.model, device=device)
+    def init_params(self, key: torch.Tensor, device):
+        return lm_init(key, self.model, device=device)
 
     def sgd_epoch(self, params, d, m, lr, batch_size: int):
         return lm_sgd_epoch_masked(self.model, params, d["tokens"], m, lr,

@@ -76,6 +76,7 @@ from repro_torch.launch import steps
 from repro_torch.launch.mesh import ADAFACTOR_ARCHS, make_production_mesh
 from repro_torch.models import api, common
 from repro_torch.obs.clock import wall_clock
+from repro_torch.random import PRNGKey
 from repro_torch.sharding.ctx import activation_specs
 from repro_torch.sharding.dtensor import place, sharded
 from repro_torch.sharding.specs import (batch_specs, data_axes, mesh_shape,
@@ -590,7 +591,7 @@ def cohort_dryrun(multi_pod: bool) -> dict:
                                         device_type="cpu")
             n_clients = math.prod(mesh_shape(mesh).shape[a] for a in axes)
             rec["shape"] = f"clients_{n_clients}"
-            params = mlp_init(common.MetaGenerator(), device="meta")
+            params = mlp_init(PRNGKey(0, "meta"), device="meta")
             batch, weights, select = cohort_input_specs(
                 mesh, n_clients, {"x": ((256, 784), torch.float32),
                                   "y": ((256,), torch.int64)}, axes)

@@ -63,6 +63,7 @@ from repro_torch.launch.mesh import (ADAFACTOR_ARCHS, make_host_mesh,
                                      make_production_mesh)
 from repro_torch.launch.steps import init_state, make_train_step
 from repro_torch.obs.clock import wall_clock
+from repro_torch.random import PRNGKey
 from repro_torch.sharding.dtensor import full, is_dtensor, place, sharded
 from repro_torch.sharding.specs import (MeshShape, data_axes,
                                         opt_state_specs, param_specs)
@@ -178,7 +179,8 @@ def _value(x) -> float:
 def _run(args, cfg, tcfg, device, B, S, mesh):
     """The training loop, on one device (``mesh`` None) or on ``mesh``."""
     import torch.distributed as dist
-    params, opt_state, step = init_state(cfg, tcfg, 0, device=device)
+    params, opt_state, step = init_state(cfg, tcfg, PRNGKey(0, device),
+                                         device=device)
     stream = make_stream(max(200_000, 2 * B * S), cfg.vocab_size, seed=0)
     it = batches(stream, B, S, np.random.default_rng(0))
     if args.ckpt:

@@ -31,29 +31,24 @@ from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import MetaGenerator
+from repro_torch.random import PRNGKey
 
 
 def _is_encdec(cfg) -> bool:
     return cfg.is_encoder_decoder
 
 
-def init(cfg: ModelConfig, key: Union[int, torch.Generator] = 0,
+def init(cfg: ModelConfig, key: Union[int, torch.Tensor] = 0,
          device: DeviceLike = None):
-    """Parameters on ``device``. ``key`` is a seed, drawn from a generator
-    on ``device`` (on a card, the draw never passes through the host), or
-    a ``torch.Generator``, drawn on its own device. On ``meta`` nothing
-    is drawn and ``key`` is not read."""
+    """The reference's ``init(cfg, key)``, drawn on ``device`` (on a card
+    the draw never passes through the host). ``key`` is a seed, taken as
+    ``random.PRNGKey(key)``, or a key. On ``meta`` nothing is drawn."""
     device = resolve_device(device)
-    if device.type == "meta":
-        generator = MetaGenerator()
-    elif isinstance(key, torch.Generator):
-        generator = key
-    else:
-        generator = torch.Generator(device=device).manual_seed(int(key))
+    key = (key.to(device) if isinstance(key, torch.Tensor)
+           else PRNGKey(key, device))
     if _is_encdec(cfg):
-        return ed.encdec_init(generator, cfg, device=device)
-    return tf.lm_init(generator, cfg, device=device)
+        return ed.encdec_init(key, cfg)
+    return tf.lm_init(key, cfg)
 
 
 def loss(cfg, params, batch, *, remat=False):

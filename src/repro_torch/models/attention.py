@@ -32,21 +32,23 @@ from repro_torch.kernels.flash_attention import band_mask, flash_attention
 from repro_torch.models.common import (apply_rope, dense_init, dtype_of,
                                        linear, ones, per_client, rms_norm,
                                        zeros)
+from repro_torch.random import split
 from repro_torch.sharding.dtensor import (heads_ready, merged_heads,
                                           write_slot)
 
 
-def attn_init(generator: torch.Generator, cfg, d_model=None):
+def attn_init(key: torch.Tensor, cfg, d_model=None):
     d = d_model or cfg.d_model
     hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    ks = split(key, 4)
     dt = dtype_of(cfg)
     p = {
-        "wq": dense_init(generator, (d, hq * hd), dt),
-        "wk": dense_init(generator, (d, hkv * hd), dt),
-        "wv": dense_init(generator, (d, hkv * hd), dt),
-        "wo": dense_init(generator, (hq * hd, d), dt, fan_in=hq * hd),
+        "wq": dense_init(ks[0], (d, hq * hd), dt),
+        "wk": dense_init(ks[1], (d, hkv * hd), dt),
+        "wv": dense_init(ks[2], (d, hkv * hd), dt),
+        "wo": dense_init(ks[3], (hq * hd, d), dt, fan_in=hq * hd),
     }
-    dev = generator.device
+    dev = key.device
     if cfg.qkv_bias:
         p["bq"] = zeros((hq * hd,), dt, dev)
         p["bk"] = zeros((hkv * hd,), dt, dev)

@@ -40,60 +40,64 @@ from repro_torch.models.common import (dtype_of, ones, prefixed, rms_norm,
 from repro_torch.models.mla import mla_apply, mla_decode, mla_init
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.ssm import ssm_apply, ssm_decode, ssm_init
+from repro_torch.random import split
 from repro_torch.sharding.ctx import constrain
 
 
 # ---------------------------------------------------------------------- #
 # Init
 # ---------------------------------------------------------------------- #
-def layer_init(generator: torch.Generator, cfg, kind,
+def layer_init(key: torch.Tensor, cfg, kind,
                cross_attention: bool = False):
-    """One layer's leaves, drawn on the generator's device."""
-    dt, d, dev = dtype_of(cfg), cfg.d_model, generator.device
+    """One layer's leaves, drawn on the key's device from the reference's
+    subkeys (mixer 0, MLP 1, cross-attention 3)."""
+    ks = split(key, 4)
+    dt, d, dev = dtype_of(cfg), cfg.d_model, key.device
     p = {"norm1": ones((d,), dt, dev)}
     if kind["mixer"] == "attn":
-        p.update(prefixed("mixer/", mla_init(generator, cfg)
+        p.update(prefixed("mixer/", mla_init(ks[0], cfg)
                           if cfg.mla is not None
-                          else attn_init(generator, cfg)))
+                          else attn_init(ks[0], cfg)))
     else:
-        p.update(prefixed("mixer/", ssm_init(generator, cfg)))
+        p.update(prefixed("mixer/", ssm_init(ks[0], cfg)))
     if cross_attention:
         p["norm_x"] = ones((d,), dt, dev)
-        p.update(prefixed("cross/", attn_init(generator, cfg)))
+        p.update(prefixed("cross/", attn_init(ks[3], cfg)))
     if kind["mlp"] != "none":
         p["norm2"] = ones((d,), dt, dev)
-        p.update(prefixed("mlp/", moe_init(generator, cfg)
+        p.update(prefixed("mlp/", moe_init(ks[1], cfg)
                           if kind["mlp"] == "moe"
-                          else swiglu_init(generator, d, cfg.d_ff, dt)))
+                          else swiglu_init(ks[1], d, cfg.d_ff, dt)))
     return p
 
 
-def block_init(generator: torch.Generator, cfg,
-               cross_attention: bool = False):
+def block_init(key: torch.Tensor, cfg, cross_attention: bool = False):
+    pattern = cfg.block_pattern()
+    ks = split(key, len(pattern))
     out = {}
-    for i, kind in enumerate(cfg.block_pattern()):
+    for i, kind in enumerate(pattern):
         out.update(prefixed(f"layers/{i}/", layer_init(
-            generator, cfg, kind, cross_attention)))
+            ks[i], cfg, kind, cross_attention)))
     return out
 
 
-def stacked_blocks_init(generator: torch.Generator, cfg, n_blocks=None,
-                        device=None, cross_attention: bool = False):
-    """The ``n_blocks`` blocks' leaves stacked on a leading axis, on
-    ``device`` (default: the generator's). Drawn block by block, in order,
-    into tensors allocated once: only one block's leaves exist apart from
-    the stack (a 22 B-parameter model has room on one card only so); one
-    block is its leaves with the axis added, no copy on their own device
+def stacked_blocks_init(key: torch.Tensor, cfg, n_blocks=None,
+                        cross_attention: bool = False):
+    """The ``n_blocks`` blocks' leaves stacked on a leading axis, drawn on
+    the key's device, block i from the reference's i-th subkey. Drawn
+    block by block into tensors allocated once: only one block's leaves
+    exist apart from the stack (a 22 B-parameter model has room on one
+    card only so); one block is its leaves with the axis added, no copy
     (a DeepSeek MoE block is 11.3 B parameters)."""
     n = n_blocks if n_blocks is not None else cfg.n_blocks
-    device = generator.device if device is None else torch.device(device)
-    first = block_init(generator, cfg, cross_attention)
+    ks = split(key, n)
+    first = block_init(ks[0], cfg, cross_attention)
     if n == 1:
-        return {k: v[None].to(device) for k, v in first.items()}
-    out = {k: torch.empty((n, *v.shape), dtype=v.dtype, device=device)
+        return {k: v[None] for k, v in first.items()}
+    out = {k: torch.empty((n, *v.shape), dtype=v.dtype, device=v.device)
            for k, v in first.items()}
     for i in range(n):
-        block = first if i == 0 else block_init(generator, cfg,
+        block = first if i == 0 else block_init(ks[i], cfg,
                                                 cross_attention)
         for k, v in block.items():
             out[k][i].copy_(v)

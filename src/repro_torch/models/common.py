@@ -14,6 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.random import split, truncated_normal
 from repro_torch.sharding.dtensor import reduced
 
 _TRUNC = 3.0    # truncation at +-3 sigma, as the JAX package's initializers
@@ -24,48 +25,25 @@ def dtype_of(cfg) -> torch.dtype:
 
 
 # ---------------------------------------------------------------------- #
-# Initialisation
+# Initialisation: the reference's draws (``repro_torch.random``), from a
+# key on the device that draws
 # ---------------------------------------------------------------------- #
-class MetaGenerator:
-    """Stands in for a ``torch.Generator`` where parameters are built on
-    the ``meta`` device (shapes and dtypes, no storage): torch has no
-    generator there, and nothing is drawn."""
-    device = torch.device("meta")
-
-
-def _truncated_normal(generator: torch.Generator, shape) -> torch.Tensor:
-    """Standard normal truncated at +-3, float32, by the inverse CDF of one
-    float32 uniform draw from ``generator``, on the generator's device:
-    unlike ``torch.nn.init.trunc_normal_``, whose sampling algorithm has
-    changed between torch releases, this gives the same values on every
-    torch version for the same seed and generator device (a CPU generator
-    draws on the host, a CUDA one on its card, where a 22 B-parameter model
-    can be drawn at all). A ``MetaGenerator`` gives a ``meta`` tensor of
-    the shape, drawing nothing."""
-    if generator.device.type == "meta":
-        return torch.empty(shape, dtype=torch.float32, device="meta")
-    cdf = lambda z: 0.5 * (1.0 + math.erf(z / math.sqrt(2.0)))
-    u = torch.empty(shape, dtype=torch.float32,
-                    device=generator.device).uniform_(
-        2.0 * cdf(-_TRUNC) - 1.0, 2.0 * cdf(_TRUNC) - 1.0,
-        generator=generator)
-    # in place: a DeepSeek expert weight is 15 GB as one float32 draw
-    return u.erfinv_().mul_(math.sqrt(2.0)).clamp_(-_TRUNC, _TRUNC)
-
-
-def dense_init(generator: torch.Generator, shape, dtype=torch.float32,
+def dense_init(key: torch.Tensor, shape, dtype=torch.float32,
                fan_in=None) -> torch.Tensor:
     """Truncated normal at +-3 sigma, sigma = 1/sqrt(fan_in), cast to
-    ``dtype``."""
+    ``dtype``: the reference's ``dense_init`` from the same key, drawn on
+    the key's device."""
     fan_in = fan_in if fan_in is not None else shape[0]
     std = 1.0 / math.sqrt(max(fan_in, 1))
-    return _truncated_normal(generator, shape).mul_(std).to(dtype)
+    return truncated_normal(key, -_TRUNC, _TRUNC, shape, scale=std,
+                            dtype=dtype)
 
 
-def embed_init(generator: torch.Generator, shape,
+def embed_init(key: torch.Tensor, shape,
                dtype=torch.float32) -> torch.Tensor:
     """Truncated normal at +-3 sigma, sigma = 0.02."""
-    return _truncated_normal(generator, shape).mul_(0.02).to(dtype)
+    return truncated_normal(key, -_TRUNC, _TRUNC, shape, scale=0.02,
+                            dtype=dtype)
 
 
 def ones(shape, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -163,13 +141,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------- #
 # MLP
 # ---------------------------------------------------------------------- #
-def swiglu_init(generator: torch.Generator, d_model: int, d_ff: int,
+def swiglu_init(key: torch.Tensor, d_model: int, d_ff: int,
                 dtype=torch.float32):
-    """The three SwiGLU weights, drawn on the generator's device."""
+    """The three SwiGLU weights, drawn on the key's device."""
+    k1, k2, k3 = split(key, 3)
     return {
-        "wg": dense_init(generator, (d_model, d_ff), dtype),
-        "wu": dense_init(generator, (d_model, d_ff), dtype),
-        "wd": dense_init(generator, (d_ff, d_model), dtype, fan_in=d_ff),
+        "wg": dense_init(k1, (d_model, d_ff), dtype),
+        "wu": dense_init(k2, (d_model, d_ff), dtype),
+        "wd": dense_init(k3, (d_ff, d_model), dtype, fan_in=d_ff),
     }
 
 

@@ -33,25 +33,24 @@ from repro_torch.models.common import (cross_entropy, dense_init, dtype_of,
                                        embed_init, linear, ones, prefixed,
                                        rms_norm, subtree)
 from repro_torch.models.transformer import _embed, grow_cache
+from repro_torch.random import split
 from repro_torch.sharding.ctx import constrain
 
 
-def encdec_init(generator: torch.Generator, cfg, device=None):
-    """The parameters on ``device`` (default: the generator's), drawn from
-    ``generator`` on its own device in the reference's order."""
-    device = generator.device if device is None else torch.device(device)
-    dt, d = dtype_of(cfg), cfg.d_model
-    params = {"src_proj": dense_init(generator, (d, d), dt).to(device)}
+def encdec_init(key: torch.Tensor, cfg):
+    """The reference's ``encdec_init`` from ``key``, drawn on the key's
+    device, each leaf from the reference's subkey."""
+    ks = split(key, 8)
+    dt, d, dev = dtype_of(cfg), cfg.d_model, key.device
+    params = {"src_proj": dense_init(ks[0], (d, d), dt)}
     params.update(prefixed("enc_blocks/", stacked_blocks_init(
-        generator, cfg, n_blocks=cfg.encoder_layers, device=device)))
-    params["enc_norm"] = ones((d,), dt, device)
-    params["embed"] = embed_init(generator, (cfg.vocab_size, d),
-                                 dt).to(device)
+        ks[1], cfg, n_blocks=cfg.encoder_layers)))
+    params["enc_norm"] = ones((d,), dt, dev)
+    params["embed"] = embed_init(ks[2], (cfg.vocab_size, d), dt)
     params.update(prefixed("dec_blocks/", stacked_blocks_init(
-        generator, cfg, device=device, cross_attention=True)))
-    params["final_norm"] = ones((d,), dt, device)
-    params["lm_head"] = dense_init(generator, (d, cfg.vocab_size),
-                                   dt).to(device)
+        ks[3], cfg, cross_attention=True)))
+    params["final_norm"] = ones((d,), dt, dev)
+    params["lm_head"] = dense_init(ks[4], (d, cfg.vocab_size), dt)
     return params
 
 

@@ -29,27 +29,29 @@ import torch
 from repro_torch.kernels.flash_attention import NEG_INF, band_mask
 from repro_torch.models.common import (apply_rope, dense_init, dtype_of,
                                        linear, ones, rms_norm)
+from repro_torch.random import split
 from repro_torch.sharding.dtensor import (heads_ready, is_dtensor,
                                           merged_heads, write_slot)
 
 
-def mla_init(generator: torch.Generator, cfg):
-    """The MLA leaves, drawn on the generator's device in the reference's
-    order."""
+def mla_init(key: torch.Tensor, cfg):
+    """The MLA leaves, drawn on the key's device from the reference's
+    subkeys, in its order."""
     m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
     qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
-    dt, dev = dtype_of(cfg), generator.device
+    ks = split(key, 8)
+    dt, dev = dtype_of(cfg), key.device
     return {
-        "wdq": dense_init(generator, (d, m.q_lora_rank), dt),
+        "wdq": dense_init(ks[0], (d, m.q_lora_rank), dt),
         "q_norm": ones((m.q_lora_rank,), dt, dev),
-        "wuq": dense_init(generator, (m.q_lora_rank, h * qk_hd), dt),
-        "wdkv": dense_init(generator, (d, m.kv_lora_rank), dt),
+        "wuq": dense_init(ks[1], (m.q_lora_rank, h * qk_hd), dt),
+        "wdkv": dense_init(ks[2], (d, m.kv_lora_rank), dt),
         "kv_norm": ones((m.kv_lora_rank,), dt, dev),
-        "wkr": dense_init(generator, (d, m.qk_rope_head_dim), dt),
-        "wuk": dense_init(generator, (m.kv_lora_rank, h * m.qk_nope_head_dim),
+        "wkr": dense_init(ks[3], (d, m.qk_rope_head_dim), dt),
+        "wuk": dense_init(ks[4], (m.kv_lora_rank, h * m.qk_nope_head_dim),
                           dt),
-        "wuv": dense_init(generator, (m.kv_lora_rank, h * m.v_head_dim), dt),
-        "wo": dense_init(generator, (h * m.v_head_dim, d), dt,
+        "wuv": dense_init(ks[5], (m.kv_lora_rank, h * m.v_head_dim), dt),
+        "wo": dense_init(ks[6], (h * m.v_head_dim, d), dt,
                          fan_in=h * m.v_head_dim),
     }
 

@@ -17,24 +17,25 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.common import dense_init, sgd_step
+from repro_torch.random import split
 
 Params = Dict[str, torch.Tensor]
 
 
-def mlp_init(generator: torch.Generator, n_in: int = 28 * 28,
+def mlp_init(key: torch.Tensor, n_in: int = 28 * 28,
              n_hidden: int = 64, n_out: int = 10, dtype=torch.float32,
              device: DeviceLike = None) -> Params:
-    """The MLP's params drawn from ``generator`` (on the CPU), placed on
-    ``device`` (None: the GPU, which raises without CUDA before any
-    draw)."""
+    """The reference's ``mlp_init`` from ``key`` (``random.PRNGKey``),
+    drawn on ``device`` (None: the GPU, which raises without CUDA before
+    any draw)."""
     device = resolve_device(device)
-    params = {
-        "w1": dense_init(generator, (n_in, n_hidden), dtype),
-        "b1": torch.zeros((n_hidden,), dtype=dtype),
-        "w2": dense_init(generator, (n_hidden, n_out), dtype),
-        "b2": torch.zeros((n_out,), dtype=dtype),
+    k1, k2 = split(key.to(device))
+    return {
+        "w1": dense_init(k1, (n_in, n_hidden), dtype),
+        "b1": torch.zeros((n_hidden,), dtype=dtype, device=device),
+        "w2": dense_init(k2, (n_hidden, n_out), dtype),
+        "b2": torch.zeros((n_out,), dtype=dtype, device=device),
     }
-    return {k: v.to(device) for k, v in params.items()}
 
 
 def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:

@@ -51,6 +51,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.moe_gemm import moe_gemm
 from repro_torch.models.common import (dense_init, dtype_of, prefixed,
                                        subtree, swiglu_apply, swiglu_init)
+from repro_torch.random import split
 from repro_torch.sharding.ctx import constrain
 from repro_torch.sharding.dtensor import as_replicated, replicated_local
 
@@ -59,21 +60,22 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def moe_init(generator: torch.Generator, cfg, d_model=None):
-    """The MoE MLP's leaves, drawn on the generator's device in the
-    reference's order (router, wg, wu, wd, shared). ``wg`` and ``wu`` take
-    their fan-in from their first axis, E, as the reference's
+def moe_init(key: torch.Tensor, cfg, d_model=None):
+    """The MoE MLP's leaves, drawn on the key's device from the
+    reference's subkeys (router, wg, wu, wd, shared). ``wg`` and ``wu``
+    take their fan-in from their first axis, E, as the reference's
     ``dense_init(…, (E, d, f))`` does (ROADMAP R4)."""
     m = cfg.moe
     d = d_model or cfg.d_model
     f, E, dt = m.d_ff_expert, m.n_routed, dtype_of(cfg)
-    p = {"router": dense_init(generator, (d, E), torch.float32),
-         "wg": dense_init(generator, (E, d, f), dt),
-         "wu": dense_init(generator, (E, d, f), dt),
-         "wd": dense_init(generator, (E, f, d), dt, fan_in=f)}
+    ks = split(key, 5)
+    p = {"router": dense_init(ks[0], (d, E), torch.float32),
+         "wg": dense_init(ks[1], (E, d, f), dt),
+         "wu": dense_init(ks[2], (E, d, f), dt),
+         "wd": dense_init(ks[3], (E, f, d), dt, fan_in=f)}
     if m.n_shared:
         p.update(prefixed("shared/",
-                          swiglu_init(generator, d, m.n_shared * f, dt)))
+                          swiglu_init(ks[4], d, m.n_shared * f, dt)))
     return p
 
 

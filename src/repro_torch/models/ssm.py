@@ -25,17 +25,19 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan  # noqa: F401
 from repro_torch.models.common import (dense_init, dtype_of, gated_rms_norm,
                                        linear, ones, zeros)
+from repro_torch.random import split
 from repro_torch.sharding.dtensor import (heads_ready, merged_heads,
                                           zero_pad)
 
 
-def ssm_init(generator: torch.Generator, cfg, d_model=None):
+def ssm_init(key: torch.Tensor, cfg, d_model=None):
     s = cfg.ssm
     d = d_model or cfg.d_model
     d_in = s.expand * d
     nh = d_in // s.head_dim
     conv_ch = d_in + 2 * s.n_groups * s.d_state
-    dt, dev = dtype_of(cfg), generator.device
+    ks = split(key, 4)
+    dt, dev = dtype_of(cfg), key.device
     # dt bias initialised so softplus(dt_bias) spans [dt_min, dt_max]: the
     # reference's own host draw, the same for every layer and seed
     u = np.random.RandomState(0).uniform(size=(nh,))
@@ -43,15 +45,15 @@ def ssm_init(generator: torch.Generator, cfg, d_model=None):
     dt_bias = dt0 + np.log(-np.expm1(-dt0))
     return {
         "in_proj": dense_init(
-            generator, (d, 2 * d_in + 2 * s.n_groups * s.d_state + nh), dt),
-        "conv_w": dense_init(generator, (s.conv_kernel, conv_ch), dt,
+            ks[0], (d, 2 * d_in + 2 * s.n_groups * s.d_state + nh), dt),
+        "conv_w": dense_init(ks[1], (s.conv_kernel, conv_ch), dt,
                              fan_in=s.conv_kernel),
         "conv_b": zeros((conv_ch,), dt, dev),
         "A_log": zeros((nh,), torch.float32, dev),        # A = -exp(0) = -1
         "D": ones((nh,), torch.float32, dev),
         "dt_bias": torch.tensor(dt_bias, dtype=torch.float32, device=dev),
         "norm": ones((d_in,), dt, dev),
-        "out_proj": dense_init(generator, (d_in, d), dt, fan_in=d_in),
+        "out_proj": dense_init(ks[2], (d_in, d), dt, fan_in=d_in),
     }
 
 

@@ -38,6 +38,7 @@ from repro_torch.models.blocks import (layer_apply, layer_cache_init,
 from repro_torch.models.common import (cross_entropy, dense_init, dtype_of,
                                        embed_init, linear, ones, prefixed,
                                        rms_norm, sgd_step, subtree)
+from repro_torch.random import split
 from repro_torch.sharding.ctx import constrain
 from repro_torch.sharding.dtensor import embed_lookup, zero_pad
 
@@ -45,34 +46,31 @@ from repro_torch.sharding.dtensor import embed_lookup, zero_pad
 HEAD_KIND = {"mixer": "attn", "mlp": "dense"}   # a leading dense layer's
 
 
-def lm_init(generator: torch.Generator, cfg, device=None):
-    """The LM's parameters on ``device`` (default: the generator's), drawn
-    from ``generator`` on its own device in a fixed order: embedding,
-    blocks (block by block), head, the leading dense layers, the MTP
-    head."""
-    device = generator.device if device is None else torch.device(device)
-    dt, d = dtype_of(cfg), cfg.d_model
-    params = {"embed": embed_init(generator, (cfg.vocab_size, d),
-                                  dt).to(device)}
-    params.update(prefixed("blocks/", stacked_blocks_init(generator, cfg,
-                                                          device=device)))
-    params["final_norm"] = ones((d,), dt, device)
-    params["lm_head"] = dense_init(generator, (d, cfg.vocab_size),
-                                   dt).to(device)
-    for i in range(cfg.first_dense_layers):
-        params.update(prefixed(f"head_layers/{i}/", _to(layer_init(
-            generator, cfg, HEAD_KIND), device)))
+def lm_init(key: torch.Tensor, cfg, device=None):
+    """The reference's ``lm_init`` from ``key``, drawn on ``device``
+    (default: the key's): embedding, blocks (block by block), head, the
+    leading dense layers, the MTP head, each from the reference's
+    subkey."""
+    if device is not None:
+        key = key.to(device)
+    ks = split(key, 8)
+    dt, d, dev = dtype_of(cfg), cfg.d_model, key.device
+    params = {"embed": embed_init(ks[0], (cfg.vocab_size, d), dt)}
+    params.update(prefixed("blocks/", stacked_blocks_init(ks[1], cfg)))
+    params["final_norm"] = ones((d,), dt, dev)
+    params["lm_head"] = dense_init(ks[2], (d, cfg.vocab_size), dt)
+    if cfg.first_dense_layers:
+        hks = split(ks[3], cfg.first_dense_layers)
+        for i in range(cfg.first_dense_layers):
+            params.update(prefixed(f"head_layers/{i}/", layer_init(
+                hks[i], cfg, HEAD_KIND)))
     if cfg.mtp:
-        mtp = {"proj": dense_init(generator, (2 * d, d), dt, fan_in=2 * d),
-               "norm_h": ones((d,), dt, generator.device),
-               "norm_e": ones((d,), dt, generator.device),
-               **prefixed("layer/", layer_init(generator, cfg, HEAD_KIND))}
-        params.update(prefixed("mtp/", _to(mtp, device)))
+        mtp = {"proj": dense_init(ks[4], (2 * d, d), dt, fan_in=2 * d),
+               "norm_h": ones((d,), dt, dev),
+               "norm_e": ones((d,), dt, dev),
+               **prefixed("layer/", layer_init(ks[5], cfg, HEAD_KIND))}
+        params.update(prefixed("mtp/", mtp))
     return params
-
-
-def _to(params, device):
-    return {k: v.to(device) for k, v in params.items()}
 
 
 def _embed(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

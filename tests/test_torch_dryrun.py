@@ -375,8 +375,8 @@ from repro_torch.federated.distributed import (cohort_input_specs,
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.dryrun import count_step
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.models.common import MetaGenerator
 from repro_torch.models.mlp import mlp_init, mlp_loss
+from repro_torch.random import PRNGKey
 
 dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
                         world_size=1)
@@ -385,11 +385,12 @@ try:
     step = make_cohort_step(mesh, mlp_loss, 0.1, 2)
     shapes = {"x": ((32, 784), torch.float32), "y": ((32,), torch.int64)}
     batch, w, s = cohort_input_specs(mesh, 3, shapes)
-    meta = count_step(step, (mlp_init(MetaGenerator(), device="meta"),
+    meta = count_step(step, (mlp_init(PRNGKey(0, "meta"), device="meta"),
                              batch, w, s))
     g = torch.Generator().manual_seed(0)
     real = count_step(step, (
-        mlp_init(g, device="cpu"), {"x": torch.randn(3, 32, 784, generator=g),
+        mlp_init(PRNGKey(0, "cpu"), device="cpu"),
+        {"x": torch.randn(3, 32, 784, generator=g),
                       "y": torch.randint(10, (3, 32), generator=g)},
         torch.tensor([1.0, 2.0, 3.0]), torch.tensor([1.0, 0.0, 1.0])))
     out = {k: [c.flops, c.bytes, dict(c.op_calls), c.memory(),

@@ -168,15 +168,16 @@ def test_helpers_default_to_the_card(monkeypatch, helper):
     where CUDA is absent (``mlp_init`` before any draw)."""
     from repro_torch.federated.aggregation import normalize_weights
     from repro_torch.models.mlp import mlp_init
+    from repro_torch.random import PRNGKey
     _no_cuda(monkeypatch)
-    g = torch.Generator().manual_seed(0)
-    state = g.get_state()
-    call = {"mlp_init": lambda dev=None: mlp_init(g, device=dev),
+    key = PRNGKey(0, "cpu")
+    state = key.clone()
+    call = {"mlp_init": lambda dev=None: mlp_init(key, device=dev),
             "normalize_weights": lambda dev=None: normalize_weights(
                 [1.0, 3.0], dev)}[helper]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
-    assert torch.equal(g.get_state(), state)
+    assert torch.equal(key, state)
     out = call("cpu")
     for t in (out.values() if isinstance(out, dict) else [out]):
         assert t.device == torch.device("cpu")

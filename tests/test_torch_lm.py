@@ -28,6 +28,7 @@ from repro_torch.federated.task import LM_TINY
 from repro_torch.models import attention as tatt
 from repro_torch.models import common as tcom
 from repro_torch.models import transformer as ttr
+from repro_torch.random import PRNGKey
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -241,13 +242,13 @@ def _tokens(shape, seed):
 def test_lm_init_layout_matches_the_reference(ref):
     trees, _ = _ref_params(ref, [0])
     want = flatten_tree(trees[0])
-    got = ttr.lm_init(torch.Generator().manual_seed(0), LM_TINY)
+    got = ttr.lm_init(PRNGKey(0, "cpu"), LM_TINY)
     assert sorted(got) == sorted(want)
     for k in got:
         assert tuple(got[k].shape) == want[k].shape, k
         assert got[k].dtype == torch.float32
     # the same draws on every call for one seed, spread like the reference
-    again = ttr.lm_init(torch.Generator().manual_seed(0), LM_TINY)
+    again = ttr.lm_init(PRNGKey(0, "cpu"), LM_TINY)
     assert all(torch.equal(got[k], again[k]) for k in got)
     for k in ("embed", "lm_head", "blocks/layers/0/mixer/wq"):
         assert abs(float(got[k].std()) - float(want[k].std())) < 0.1 * float(

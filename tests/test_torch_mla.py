@@ -38,6 +38,7 @@ from repro_torch.convert import flatten_tree, params_from_numpy
 from repro_torch.launch import roofline
 from repro_torch.models import api
 from repro_torch.models import mla as tmla
+from repro_torch.random import PRNGKey
 
 ARCH = "deepseek-v3-671b"
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -74,7 +75,7 @@ def _x(cfg, b, s, seed=0):
 def test_mla_init_layout_matches_the_reference(ref):
     cfg_ref, cfg = _cfgs(ref)
     want, _ = _mla_params(ref, cfg_ref)
-    got = tmla.mla_init(torch.Generator().manual_seed(0), cfg)
+    got = tmla.mla_init(PRNGKey(0, "cpu"), cfg)
     assert list(got) == list(want)          # the reference's draw order
     for k, v in want.items():
         assert tuple(got[k].shape) == v.shape, k

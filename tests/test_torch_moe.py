@@ -30,6 +30,7 @@ from torch_parity import reference, single_threaded  # noqa: F401
 from repro_torch.configs import registry
 from repro_torch.convert import flatten_tree, params_from_numpy
 from repro_torch.models import moe as tmoe
+from repro_torch.random import PRNGKey
 
 ARCHS = ["qwen2-moe-a2.7b", "moonshot-v1-16b-a3b"]
 
@@ -79,7 +80,7 @@ def test_moe_init_leaves_match_the_reference(ref, arch):
     cfg_ref, cfg = _cfgs(ref, arch)
     want = flatten_tree(ref.jax.tree.map(
         np.asarray, ref.moe.moe_init(ref.jax.random.PRNGKey(0), cfg_ref)))
-    got = tmoe.moe_init(torch.Generator().manual_seed(0), cfg)
+    got = tmoe.moe_init(PRNGKey(0, "cpu"), cfg)
     assert sorted(got) == sorted(want)
     for k, w in want.items():
         assert tuple(got[k].shape) == w.shape, k
@@ -96,7 +97,7 @@ def test_moe_init_leaves_match_the_reference(ref, arch):
 
 def test_moe_init_bfloat16_casts_the_experts_not_the_router():
     cfg = registry.reduced(registry.get("qwen2-moe-a2.7b"))
-    p = tmoe.moe_init(torch.Generator().manual_seed(0), cfg)
+    p = tmoe.moe_init(PRNGKey(0, "cpu"), cfg)
     assert p["router"].dtype == torch.float32
     assert {p[k].dtype for k in p if k != "router"} == {torch.bfloat16}
 
@@ -159,7 +160,7 @@ def test_grouped_equals_global_no_drops(ref, groups, seed):
     _, cfg0 = _cfgs(ref, cf=8.0, groups=0)
     cfgg = dataclasses.replace(cfg0, moe=dataclasses.replace(
         cfg0.moe, dispatch_groups=groups))
-    p = tmoe.moe_init(torch.Generator().manual_seed(0), cfg0)
+    p = tmoe.moe_init(PRNGKey(0, "cpu"), cfg0)
     x = torch.from_numpy(_x((8, 16, cfg0.d_model), seed=100 + seed))
     y0, a0 = tmoe.moe_apply(cfg0, p, x)
     yg, ag = tmoe.moe_apply(cfgg, p, x)
@@ -175,7 +176,7 @@ def test_grouped_gradients_flow():
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, dispatch_groups=2))
     p = {k: v.requires_grad_(True) for k, v in tmoe.moe_init(
-        torch.Generator().manual_seed(0), cfg).items()}
+        PRNGKey(0, "cpu"), cfg).items()}
     x = torch.from_numpy(_x((4, 8, cfg.d_model), seed=2))
     y, aux = tmoe.moe_apply(cfg, p, x)
     grads = torch.autograd.grad(y.square().sum() + aux, list(p.values()))
@@ -185,7 +186,7 @@ def test_grouped_gradients_flow():
 
 def test_a_stacked_cohort_raises():
     cfg = registry.reduced(registry.get("qwen2-moe-a2.7b"))
-    p = tmoe.moe_init(torch.Generator().manual_seed(0), cfg)
+    p = tmoe.moe_init(PRNGKey(0, "cpu"), cfg)
     stacked = {k: v[None] for k, v in p.items()}
     with pytest.raises(ValueError, match="dense-only"):
         tmoe.moe_apply(cfg, stacked, torch.zeros(1, 2, 4, cfg.d_model,

@@ -28,6 +28,7 @@ from repro_torch.convert import flatten_tree, params_from_numpy
 from repro_torch.kernels import ssd_scan as kssd
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
 from repro_torch.models import ssm as tssm
+from repro_torch.random import PRNGKey
 
 SHAPES = [  # B, L, H, P, N, G, chunk: tests/test_kernels.py's
     (2, 256, 4, 32, 16, 4, 64),
@@ -188,7 +189,7 @@ def _mamba(ref):
 
 def test_ssm_init_dt_bias_and_layout_match_reference(ref):
     cfg_ref, cfg, p_ref, _ = _mamba(ref)
-    got = tssm.ssm_init(torch.Generator().manual_seed(0), cfg)
+    got = tssm.ssm_init(PRNGKey(0, "cpu"), cfg)
     want = ref.jax.tree.map(np.asarray, p_ref)
     assert sorted(got) == sorted(want)
     for k, v in want.items():

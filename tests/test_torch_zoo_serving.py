@@ -37,6 +37,7 @@ from repro_torch.launch import steps
 from repro_torch.models import api
 from repro_torch.models import encdec as ted
 from repro_torch.models import transformer as ttr
+from repro_torch.random import PRNGKey
 
 ARCHS = ["chameleon-34b", "deepseek-v3-671b", "jamba-1.5-large-398b",
          "mamba2-370m", "moonshot-v1-16b-a3b", "qwen2-moe-a2.7b",
@@ -280,7 +281,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
         api.init(cfg, 0)
     with pytest.raises(RuntimeError, match="CUDA"):
         api.cache_init(cfg, 1, 8)
-    params = api.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = api.init(cfg, PRNGKey(0, "cpu"), device="cpu")
     assert params["embed"].device.type == "cpu"
 
 

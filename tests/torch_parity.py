@@ -21,7 +21,9 @@ still fail there.
 
 ``ref_init_task(name)`` gives the port's ``run_experiment`` the
 reference's initial params for task ``name`` (``mnist_mlp`` or
-``lm_tiny``), and ``run_recorded`` runs either package's
+``lm_tiny``), computed by the reference from the port's key: the oracle
+that ``tests/test_torch_init_parity.py`` holds the port's own init
+against. ``run_recorded`` runs either package's
 ``run_experiment`` and hands back the server it ran, whose logs and host
 RNG the result dict leaves out.
 
@@ -56,11 +58,11 @@ def reference(module: str):
 
 
 def ref_init_task(name: str = "mnist_mlp"):
-    """The port's task ``name`` with ``init_params(generator, device)``
-    replaced by the reference's: its ``task.init_params`` for
-    ``jax.random.PRNGKey(seed)``, with the seed the server drew from the
-    host RNG, flattened (``convert.flatten_tree``) and converted to torch.
-    The port's run then starts where the reference's does."""
+    """The port's task ``name`` with ``init_params(key, device)``
+    replaced by the reference's: its ``task.init_params`` for the same
+    key (``jax.random.PRNGKey(seed)``, with the seed the server drew from
+    the host RNG), flattened (``convert.flatten_tree``) and converted to
+    torch. The port's run then starts where the reference's does."""
     import jax
     import numpy as np
 
@@ -69,9 +71,9 @@ def ref_init_task(name: str = "mnist_mlp"):
     ref_task = reference("federated.task").as_task(name)
 
     class RefInitTask(type(as_task(name))):
-        def init_params(self, generator, device):
+        def init_params(self, key, device):
             p = ref_task.init_params(
-                jax.random.PRNGKey(generator.initial_seed()))
+                jax.numpy.asarray(key.cpu().numpy(), jax.numpy.uint32))
             return params_from_numpy(
                 flatten_tree(jax.tree.map(np.asarray, p)), device)
 
