@@ -1,8 +1,12 @@
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --rounds-against DIR
 
-Phases; any failure raises and exits non-zero, and no phase catches one:
+The second times the FEEL rounds of DIR's tree (DIR/src, e.g. the parent
+commit's ``git archive``) and of this one in turns and does nothing else
+(``rounds_against``). The first runs these phases; any failure raises and
+exits non-zero, and no phase catches one:
 
  1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
  2. build every kernel of the port from its source with nvcc (one process
@@ -45,13 +49,26 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     launcher's C threshold (the wgmma route from C = 128),
     qwen2-moe-a2.7b's prefill and decode shapes and deepseek-v3-671b's
     (256 experts, d 7,168, f 2,048, C 640 at prefill), with the largest
-    difference in bf16 ulps;
+    difference in bf16 ulps; the task plane's batch-invariant kernels at
+    the §V MLP's and ``lm_tiny``'s training and evaluation shapes:
+    ``bi_gemm`` within 1e-5·max|c| of ``torch.matmul``, its matrix 0
+    equal bit for bit to a batch of 1's and to a transposed-storage
+    operand's; ``bi_reduce`` (sums, logsumexp) within 1e-5 of torch's,
+    argmax exact, row 0 equal to one row's call and a sum unchanged by
+    appended zeros;
  4. the undefended main path at the paper's §V scale: K = 50 UEs,
     50,000/10,000 synthetic MNIST, 5 label flippers, DQS on the host
     control plane, the vectorized engine, 3 rounds on the GPU. Every
-    kernel's launch count is set to 0 just before and read just after;
+    kernel's launch count is set to 0 just before and read just after
+    (K1 once a round; the task plane's ``bi_gemm`` and ``bi_reduce`` at
+    least once: every product and sum of its training and evaluation);
     then one round split into its phases and one under ``torch.profiler``
-    say where the time goes;
+    say where the time goes, and one more the host ms of the task plane's
+    batch-invariant route by entry point, Function and kernel wrapper
+    (``route_host_split``), and the host µs of one routed call layer by
+    layer, beside torch's own op (``bi_host_cost``); the zoo's phases 12
+    to 17 then launch neither ``bi_gemm`` nor ``bi_reduce`` (counted from
+    0 across them);
  5. the defended path at the same scale through ``run_experiment``:
     (a) ``sign_flip`` under ``trimmed_mean+validation`` and (b)
     ``noise_0.8`` under ``median``, 3 rounds each, K2 launched once a round
@@ -68,7 +85,8 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     vocabulary-collapse attack, 2,000/400 windows, DQS, 3 rounds; every
     attention forward through K3, FedAvg of the 82,240-parameter updates
     through K1 once a round), then ``policy="random"`` beside it; one round
-    split into phases, one profiled; K3 again at the shape the run
+    split into phases, one profiled, one with the route's host ms split
+    (``route_host_split``); K3 again at the shape the run
     launched it at most; and a K = 8 run on the GPU and the CPU: the same
     selections, loss and accuracy within 1e-3;
  9. the batched control plane and the multi-run sweep: ``schedule_runs``
@@ -82,12 +100,14 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     50,000/10,000, the 5 MB update, 3 rounds), K1 launched 12 times a
     round, each round timed and the last profiled, its four seed-0 runs
     held against their sequential ``run_experiment`` (host control):
-    the same selections, accuracies within 1e-2; a defended sweep
+    the same selections, accuracies and losses bit for bit; a defended
+    sweep
     (``sign_flip`` under none, ``trimmed_mean+validation`` and
     ``median``, dqs and random x seeds 0-1, 12,000/2,000, 2 rounds) with
     K1 4 and K2 8 times a round and two runs held the same way; an
     ``lm_tiny`` sweep (K = 8, ``token_flip_1to5``, dqs and random, 2
-    rounds) launching K3 every round; and a K = 10 sweep on the GPU and
+    rounds) launching K3 every round, its two seed-0 runs held the same
+    way; and a K = 10 sweep on the GPU and
     the CPU: the same selections, accuracies within 1e-4;
 10. the population plane and the async plane: (a) the top-M prefilter at
     the reference bench's grid (benchmarks/bench_round.py's population
@@ -327,12 +347,17 @@ Phases; any failure raises and exits non-zero, and no phase catches one:
     regime, omega (0.5, 0.5): K1), ``robustness_extensions_torch.matrix``
     (the 9 scenarios x 2 defenses x 2 policies: K1 and K2) and
     ``federated_llm_torch``'s three legs (``dqs_vs_random([0], 2)``,
-    ``loop_parity(2)``: the loop engine's selections those of the
-    vectorized engine, its loss within 1e-5 and its accuracy within one
-    evaluation unit, bit-equal on the CPU only (ROADMAP P24, whose cause
-    is recorded beside it: one float32 product alone and inside a
-    ``bmm`` of 1, 2, 8 and 50), ``flash_leg(1)``: K3 and K1), each timed
-    beside the card's name and power limit;
+    ``loop_parity(2)``: the loop engine's loss, accuracy and selections
+    those of the vectorized engine bit for bit, as on the CPU,
+    ``flash_leg(1)``: K3 and K1), each timed beside the card's name and
+    power limit; before the LM legs, a float32 product alone and as
+    matrix 0 of a ``bmm`` / ``bi_gemm`` of 1, 2, 8 and 50 at
+    ``lm_tiny``'s and the §V MLP's shapes (cuBLAS parts them, ``bi_gemm``
+    must not) and ``invariance_probe``: one masked SGD step of the §V
+    MLP and of ``lm_tiny`` for a stack of 1, 8 and 50 under a
+    ``TorchDispatchMode``, the first operator whose client-0 slice
+    differs, with the task plane's batch-invariant route off (printed)
+    and on (none may; the loop oracle's step equal to the stack's);
 22. the model init (after 21, before the summary): the reference's
     threefry draw (``repro_torch.random``) on the card against the same
     draw on the CPU — keys, splits and bits (past the flat index 2^32
@@ -372,6 +397,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 from pathlib import Path
@@ -380,6 +406,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -408,6 +436,8 @@ from repro_torch.federated.distributed import (  # noqa: E402
 from repro_torch.federated.cohort import pad_count  # noqa: E402
 from repro_torch.federated.server import FeelServer  # noqa: E402
 from repro_torch.federated.task import LM_TINY  # noqa: E402
+from repro_torch.kernels import bi_gemm as kbg  # noqa: E402
+from repro_torch.kernels import bi_reduce as kbr  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import decode_attention as k4  # noqa: E402
 from repro_torch.kernels import flash_attention as k3  # noqa: E402
@@ -429,6 +459,7 @@ from repro_torch.launch.mesh import (ADAFACTOR_ARCHS, HBM_BW,  # noqa: E402
                                      PEAK_FLOPS_BF16, PEAK_FLOPS_F32,
                                      make_host_mesh)
 from repro_torch.models import api  # noqa: E402
+from repro_torch.models import batch_invariant as bi  # noqa: E402
 from repro_torch.models import blocks  # noqa: E402
 from repro_torch.models import encdec as ted  # noqa: E402
 from repro_torch.models import mlp as tmlp  # noqa: E402
@@ -474,7 +505,19 @@ KERNELS = {
     "ssd_scan": {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-        "replaces": "src/repro/kernels/ssd_scan.py:26"}}
+        "replaces": "src/repro/kernels/ssd_scan.py:26"},
+    # the port's own kernels, no TPU kernel's port: what they stand in for
+    # is XLA's product and reductions of the reference's task plane
+    "bi_gemm": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bi_gemm.cu",
+        "replaces": "src/repro/models/mlp.py:26 (an XLA product; no TPU "
+                    "kernel)"},
+    "bi_reduce": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bi_reduce.cu",
+        "replaces": "src/repro/models/common.py:91 (an XLA reduction; no "
+                    "TPU kernel)"}}
 # the kernels line's rows: each kernel, and K6's bf16-compute route (the
 # same source and counter, its own row)
 BF16_ROUTE = "ssd_scan_bf16_compute"
@@ -485,6 +528,10 @@ LAUNCH_COUNTERS = {"weighted_aggregate": weighted_aggregate,
                    "decode_attention": k4.decode_attention,
                    "moe_gemm": k5.moe_gemm,
                    "ssd_scan": k6.ssd_scan}
+# the task plane's batch-invariant kernels, counted apart: ``only`` holds
+# K1–K6's counts as before, and these are read where the task plane runs
+# (and must read 0 where it does not)
+BI_COUNTERS = {"bi_gemm": kbg.bi_gemm, "bi_reduce": kbr.bi_reduce}
 # examples/federated_llm.py's regime: the uplink of lm_tiny's 82,240 f32
 # parameters over a 100 kHz cell binds the knapsack at K = 20
 LM_CFG = dict(n_ues=20, n_malicious=6, deadline_s=60.0,
@@ -1129,9 +1176,151 @@ def check_moe(label, e, c, k, n, dtype, reps=50):
     return row
 
 
+# ---------------------------------------------------------------------- #
+# The task plane's batch-invariant kernels (bi_gemm, bi_reduce)
+# ---------------------------------------------------------------------- #
+# against torch's own order (cuBLAS, torch's reductions), of max|want|
+BI_RTOL = 1e-5
+
+
+def _randn(*shape, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(*shape, device="cuda", generator=g)
+
+
+def check_bi_gemm(label, batch, m, k, n, shared=False, timed=True,
+                  reps=20):
+    """bi_gemm against its plain version (torch.matmul) at one shape, a
+    shared by the whole batch with ``shared``: within ``BI_RTOL``, its
+    matrix 0 equal bit for bit to a batch of 1's, and equal to the product
+    with a stored transposed (the backward's strided operands). Returns
+    the numbers (the times only when ``timed``)."""
+    a = _randn(1 if shared else batch, m, k, seed=m * 7 + k)
+    b = _randn(batch, k, n, seed=n * 13 + k + batch)
+    got = kbg.bi_gemm(a, b)
+    want = kbg.bi_gemm_ref(a, b)
+    one = kbg.bi_gemm(a[:1], b[:1])
+    strided = kbg.bi_gemm(a.mT.contiguous().mT, b)
+    torch.cuda.synchronize()
+    assert got.shape == (batch, m, n), (label, got.shape)
+    err = (got - want).abs().max().item()
+    tol = BI_RTOL * want.abs().max().item()
+    assert err <= tol, (label, err, tol)
+    assert torch.equal(got[:1], one), label
+    assert torch.equal(got, strided), label
+    if not timed:
+        emit(phase="kernel_check", kernel="bi_gemm", case=label, batch=batch,
+             m=m, k=k, n=n, shared=shared, max_abs_err=err, tol=tol)
+        return None
+    kernel_ms, kernel_call_ms = time_ms(lambda: kbg.bi_gemm(a, b), reps)
+    plain_ms, plain_call_ms = time_ms(lambda: kbg.bi_gemm_ref(a, b), reps)
+    wide = a.expand(batch, m, k)
+    library_ms, library_call_ms = time_ms(lambda: torch.bmm(wide, b), reps)
+    flops, nbytes = kbg.cost(batch, a.shape[0], batch, m, n, k)
+    b_ms, b_by = roofline_ms(flops, nbytes, F32_FLOPS)
+    row = dict(phase="kernel_check", kernel="bi_gemm", case=label,
+               batch=batch, m=m, k=k, n=n, shared=shared, max_abs_err=err,
+               tol=tol, kernel_ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+               attained_tflops=flops / (kernel_ms * 1e-3) / 1e12,
+               kernel_call_ms=kernel_call_ms, plain_call_ms=plain_call_ms,
+               library_call_ms=library_call_ms)
+    emit(**row)
+    return row
+
+
+_BI_LIBRARY = {kbr.SUM: lambda x: x.sum(1),
+               kbr.LOGSUMEXP: lambda x: torch.logsumexp(x, 1),
+               kbr.ARGMAX: lambda x: torch.argmax(x, 1)}
+
+
+def check_bi_reduce(label, r, m, d, mode, timed=True, reps=50):
+    """bi_reduce against its plain version (torch's reduction) at one
+    shape: the sums and logsumexp within ``BI_RTOL``, argmax exact; row 0
+    equal bit for bit to one row's call, and a sum unchanged by zeros
+    appended to every row. Returns the numbers."""
+    x = _randn(r, m, d, seed=r + 31 * m + d)
+    got = kbr.bi_reduce(x, mode)
+    want = kbr.bi_reduce_ref(x, mode)
+    one = kbr.bi_reduce(x[:1], mode)
+    torch.cuda.synchronize()
+    if mode == kbr.ARGMAX:
+        err, tol = float((got != want).sum().item()), 0.0
+    else:
+        err = (got - want).abs().max().item()
+        tol = BI_RTOL * max(want.abs().max().item(), 1.0)
+    assert err <= tol, (label, err, tol)
+    assert torch.equal(got[:1], one), label
+    if mode == kbr.SUM:
+        padded = torch.cat([x, x.new_zeros(r, 8, d)], 1)
+        assert torch.equal(kbr.bi_reduce(padded), got), label
+    if not timed:
+        emit(phase="kernel_check", kernel="bi_reduce", case=label,
+             mode=kbr.MODES[mode], r=r, m=m, d=d, max_abs_err=err, tol=tol)
+        return None
+    kernel_ms, kernel_call_ms = time_ms(lambda: kbr.bi_reduce(x, mode),
+                                        reps)
+    plain_ms, plain_call_ms = time_ms(lambda: kbr.bi_reduce_ref(x, mode),
+                                      reps)
+    library = _BI_LIBRARY[mode]
+    library_ms, library_call_ms = time_ms(lambda: library(x), reps)
+    flops, nbytes = kbr.cost(r, m, d, mode)
+    b_ms, b_by = roofline_ms(flops, nbytes, F32_FLOPS)
+    row = dict(phase="kernel_check", kernel="bi_reduce", case=label,
+               mode=kbr.MODES[mode], r=r, m=m, d=d, max_abs_err=err, tol=tol,
+               kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=b_ms, bound_by=b_by,
+               attained_gbps=nbytes / (kernel_ms * 1e-3) / 1e9,
+               kernel_call_ms=kernel_call_ms, plain_call_ms=plain_call_ms,
+               library_call_ms=library_call_ms)
+    emit(**row)
+    return row
+
+
+# the main paths' shapes: the §V MLP's training (a bucket of 50 clients,
+# 50 samples of 784) and evaluation (50 models over the shared 10,000
+# test images); lm_tiny's training (a bucket of 24 clients, 8 windows of
+# 32 tokens: d 64, d_ff 128, the 32 KV columns, a client's 8 x 4 heads of
+# 32 x 32 x 16 in attention) and evaluation (16 models over 400 windows)
+BI_GEMM_CASES = (       # (label, batch, M, K, N, a shared, timed)
+    ("§V train x @ w1", 50, 50, 784, 64, False, True),
+    ("§V train dW1 = xT g", 50, 784, 50, 64, False, True),
+    ("§V train h @ w2", 50, 50, 64, 10, False, False),
+    ("§V eval x @ w1, x shared", 50, 10_000, 784, 64, True, True),
+    ("lm_tiny x @ w_ff", 24, 256, 64, 128, False, True),
+    ("lm_tiny x @ w_kv", 24, 256, 64, 32, False, False),
+    ("lm_tiny dW_ff = xT g", 24, 64, 256, 128, False, True),
+    ("lm_tiny attention q kT", 24 * 32, 32, 16, 32, False, True),
+    ("lm_tiny eval x @ w_ff", 16, 400 * 32, 64, 128, False, True),
+    ("ragged", 3, 37, 29, 71, False, False))
+BI_REDUCE_CASES = (     # (label, R, M, D, mode, timed)
+    ("§V masked loss sums", 50, 50, 1, kbr.SUM, True),
+    ("§V bias gradient", 50, 50, 64, kbr.SUM, True),
+    ("§V eval accuracy sums", 56, 10_000, 1, kbr.SUM, True),
+    ("lm_tiny masked loss sums", 24, 8 * 31, 1, kbr.SUM, False),
+    ("lm_tiny norm-scale gradient", 24, 256, 64, kbr.SUM, True),
+    ("lm_tiny rms_norm mean", 24 * 256, 64, 1, kbr.SUM, True),
+    ("§V logsumexp", 50 * 50, 10, 1, kbr.LOGSUMEXP, False),
+    ("lm_tiny logsumexp", 24 * 8 * 31, 64, 1, kbr.LOGSUMEXP, True),
+    ("§V eval argmax", 50 * 10_000, 10, 1, kbr.ARGMAX, False),
+    ("lm_tiny eval argmax", 16 * 400 * 31, 64, 1, kbr.ARGMAX, True),
+    ("ragged", 7, 33, 5, kbr.SUM, False))
+
+
 def reset_launches():
     for fn in LAUNCH_COUNTERS.values():
         fn.launches = 0
+
+
+def reset_bi():
+    """The batch-invariant kernels' counts to 0 (``reset_launches`` leaves
+    them, so a count can span phases that reset K1–K6's)."""
+    for fn in BI_COUNTERS.values():
+        fn.launches = 0
+
+
+def read_bi():
+    return {k: fn.launches for k, fn in BI_COUNTERS.items()}
 
 
 def read_launches():
@@ -1215,6 +1404,74 @@ def profile_round(server, t):
                 top_kernels_us=[[k[:80], v] for k, v in top])
 
 
+# what route_host_split times: models/batch_invariant.py's entry points
+# (each makes a Function or calls a kernel directly), its Functions'
+# forward and backward, and the two kernels' wrappers
+ROUTE_ENTRIES = ("_product", "expand", "sum_trailing", "nll", "embed",
+                 "attention", "argmax", "count", "bi_gemm", "bi_reduce")
+ROUTE_FUNCTIONS = ("_Affine", "_Expand", "_SumTrailing", "_NLL", "_Embed",
+                   "_Attention")
+
+
+def route_host_split(server, t):
+    """Round ``t`` with the task plane's route timed on the host: for each
+    of ``ROUTE_ENTRIES`` and each Function's forward and backward, its
+    calls, its host ms with what it calls (inclusive) and without what
+    it calls of these (self), on whichever thread runs it; the round's
+    wall beside (no timer synchronises: host ms is the time the host took
+    to issue the work). An entry's self ms is its Python and its
+    ``Function.apply``; a wrapper's self ms its dispatcher call, its
+    allocation and its ctypes launch."""
+    stats = collections.defaultdict(lambda: [0, 0.0, 0.0])
+    local = threading.local()
+
+    def timed(name, fn):
+        def inner(*a, **kw):
+            stack = local.__dict__.setdefault("stack", [])
+            stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                child = stack.pop()
+                if stack:
+                    stack[-1] += dt
+                row = stats[name]
+                row[0] += 1
+                row[1] += dt
+                row[2] += dt - child
+        return inner
+
+    real = {n: getattr(bi, n) for n in ROUTE_ENTRIES}
+    methods = {(c, m): getattr(bi, c).__dict__[m] for c in ROUTE_FUNCTIONS
+               for m in ("forward", "backward")}
+    for n, fn in real.items():
+        setattr(bi, n, timed(n, fn))
+    for (c, m), sm in methods.items():
+        setattr(getattr(bi, c), m,
+                staticmethod(timed(f"{c}.{m}", sm.__func__)))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server.run_round(t)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for n, fn in real.items():
+            setattr(bi, n, fn)
+        for (c, m), sm in methods.items():
+            setattr(getattr(bi, c), m, sm)
+    rows = {n: dict(calls=c, ms=ms * 1e3, self_ms=own * 1e3)
+            for n, (c, ms, own) in sorted(stats.items(),
+                                          key=lambda kv: -kv[1][2])}
+    wrappers = sum(rows[n]["self_ms"] for n in ("bi_gemm", "bi_reduce")
+                   if n in rows)
+    return dict(round=t, wall_ms=wall_ms,
+                route_self_ms=sum(r["self_ms"] for r in rows.values()),
+                wrapper_self_ms=wrappers, by_name=rows)
+
+
 class TimedServer(FeelServer):
     """A FeelServer that records each round's wall time (ending in a GPU
     synchronise), each round's kernel launches, and itself, so a path
@@ -1287,6 +1544,7 @@ def lm_run(policy, shapes=None):
     if shapes is not None:
         k3._kernel = recording
     reset_launches()
+    reset_bi()
     try:
         out, server = experiment(
             cfg=FeelConfig(**LM_CFG), scenario=COLLAPSE, task="lm_tiny",
@@ -1303,7 +1561,10 @@ def lm_run(policy, shapes=None):
              attack_success=log.attack_success,
              launches=server.round_launches[t],
              selected=log.selected.tolist())
-    emit(phase="lm_path_launches", policy=policy, launches=launches)
+    bi_lm = read_bi()
+    emit(phase="lm_path_launches", policy=policy, launches=launches,
+         **bi_lm)
+    assert all(n > 0 for n in bi_lm.values()), bi_lm
     assert all(np.isfinite(out["loss"])) and all(np.isfinite(out["acc"]))
     return out, server
 
@@ -1333,6 +1594,7 @@ def lm_phases():
          **round_phases(server_lm, 3))
     row = profile_round(server_lm, 4)
     emit(phase="profile_round", run="lm", **row)
+    emit(phase="route_host_split", run="lm", **route_host_split(server_lm, 5))
     # every attention forward of the round is K3's: a renamed kernel fails
     assert row["flash_kernel_us"] > 0, row
     (b, h, s_, d), _ = shapes.most_common(1)[0]
@@ -1537,22 +1799,28 @@ def sweep_run(**kw):
 
 def hold_against_sequential(label, run, **kw):
     """One sweep run against its own sequential run_experiment on the card
-    (host control plane): the same selections in every round, accuracies
-    within 1e-2. Returns the sequential run's round ms."""
+    (host control plane): the same selections in every round, and the
+    accuracies and global losses bit for bit (the task plane is
+    batch-invariant on the card). Returns the sequential run's round
+    ms."""
     out, server = experiment(
         policy=run.policy, seed=run.seed, scenario=run.scenario,
         defense=run.defense, task=run.task, control="host", device="cuda",
         **kw)
+    assert len(server.logs) == len(run.server.logs), label
     for a, b in zip(run.server.logs, server.logs):
         assert np.array_equal(a.selected, b.selected), (label, a.round)
-        assert abs(a.global_acc - b.global_acc) <= 1e-2, (
-            label, a.global_acc, b.global_acc)
-    assert len(server.logs) == len(run.server.logs), label
+    sweep_acc = [l.global_acc for l in run.server.logs]
+    sweep_loss = [l.global_loss for l in run.server.logs]
     emit(phase="sweep_vs_sequential", run=label, policy=run.policy,
-         seed=run.seed, defense=run.defense.name,
-         sweep_acc=[l.global_acc for l in run.server.logs],
-         sequential_acc=out["acc"], sequential_round_ms=server.round_ms,
+         seed=run.seed, defense=run.defense.name, sweep_acc=sweep_acc,
+         sequential_acc=out["acc"], sweep_loss=sweep_loss,
+         sequential_loss=out["loss"], sequential_round_ms=server.round_ms,
          selected=[l.selected.tolist() for l in server.logs])
+    assert np.array_equal(sweep_acc, out["acc"]), (label, sweep_acc,
+                                                   out["acc"])
+    assert np.array_equal(sweep_loss, out["loss"], equal_nan=True), (
+        label, sweep_loss, out["loss"])
     return server.round_ms
 
 
@@ -1625,10 +1893,11 @@ def sweep_phases():
     # lm_tiny: every attention forward of the sweep through K3
     t_phase = time.perf_counter()
     reset_launches()
-    res_lm, _, rounds_lm = sweep_run(
+    lm_kw = dict(cfg=FeelConfig(n_ues=8, n_malicious=2), n_train=960,
+                 n_test=240, rounds=2)
+    res_lm, runs_lm, rounds_lm = sweep_run(
         policies=["dqs", "random"], seeds=(0,), tasks=["lm_tiny"],
-        scenarios=["token_flip_1to5"], cfg=FeelConfig(n_ues=8, n_malicious=2),
-        n_train=960, n_test=240, rounds=2, device="cuda")
+        scenarios=["token_flip_1to5"], device="cuda", **lm_kw)
     launches["sweep_lm"] = read_launches()
     for row in rounds_lm:
         emit(phase="sweep_lm", **row)
@@ -1637,6 +1906,8 @@ def sweep_phases():
                            flash_attention=got["flash_attention"]) \
             and got["flash_attention"] > 0, row
     assert all(np.isfinite(r["loss"]).all() for r in res_lm.runs)
+    for r in runs_lm:
+        hold_against_sequential(f"sweep_lm {r.policy}", r, **lm_kw)
     emit(phase="sweep_lm_summary", loss=[r["loss"] for r in res_lm.runs],
          seconds=time.perf_counter() - t_phase)
 
@@ -3901,6 +4172,66 @@ def k4_host_cost(turns=3):
     return row
 
 
+BI_HOST_CALLS = 200
+
+
+def bi_host_cost(turns=3):
+    """The host µs of one call of the task plane's kernels at the §V
+    training shapes (x @ w1: 50 x 50 x 784 x 64; the bias gradient's sum:
+    50 x 50 x 64), layer by layer in turns: torch's own op (the parent's
+    call), the ctypes launch alone, ``_kernel`` (the output's allocation,
+    the device guard and stream, the launch), the ``torch.library``
+    operator, the wrapper (its checks, then the operator) and the route's
+    entry with a Function (``bi._product`` / ``bi.sum_trailing`` on an
+    input that needs a gradient: ``Function.apply``, the forward, the
+    wrapper). Each reading: ``BI_HOST_CALLS`` calls back to back, host
+    seconds before the synchronise over the calls."""
+    a, b = _randn(50, 50, 784, seed=1), _randn(50, 784, 64, seed=2)
+    x = _randn(50, 50, 64, seed=3)
+    ag, xg = a.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    out = torch.empty(50, 50, 64, device="cuda")
+    red = torch.empty(50, 64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    gemm = kbg._launcher()
+    reduce_ = kbr._launchers()[kbr.SUM]
+    ways = {
+        "gemm": {
+            "torch": lambda: torch.bmm(a, b),
+            "launch": lambda: gemm(a.data_ptr(), b.data_ptr(),
+                                   out.data_ptr(), 50, 50, 64, 784,
+                                   *a.stride(), *b.stride(), stream),
+            "kernel": lambda: kbg._kernel(a, b),
+            "op": lambda: kbg._op(a, b),
+            "wrapper": lambda: kbg.bi_gemm(a, b),
+            "function": lambda: bi._product(ag, b)},
+        "reduce": {
+            "torch": lambda: x.sum(1),
+            "launch": lambda: reduce_(x.data_ptr(), red.data_ptr(), 50, 50,
+                                      64, stream),
+            "kernel": lambda: kbr._kernel(x, kbr.SUM),
+            "op": lambda: kbr._op(x, kbr.SUM),
+            "wrapper": lambda: kbr.bi_reduce(x),
+            "function": lambda: bi.sum_trailing(xg.reshape(50, -1, 1), 1)}}
+    rows = {}
+    for kind, fns in ways.items():
+        us = {name: [] for name in fns}
+        for fn in fns.values():
+            fn()
+        for _ in range(turns):
+            for name in (*fns, *reversed(fns)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(BI_HOST_CALLS):
+                    fns[name]()
+                us[name].append((time.perf_counter() - t0) / BI_HOST_CALLS
+                                * 1e6)
+                torch.cuda.synchronize()
+        rows[kind] = dict(host_us=us, median_us={
+            name: float(np.median(v_)) for name, v_ in us.items()})
+    emit(phase="bi_host_cost", calls=BI_HOST_CALLS, **rows)
+    return rows
+
+
 def step_cost_phases(dry_job, climb_job):
     """Phase 17: (a) the full dry run (started after the build) and the
     serving trace of moonshot-v1-16b-a3b; (b) the dry run against the card
@@ -4691,11 +5022,27 @@ def batched_product_gap(smi):
     (8 windows of 32 tokens: the forward's x @ w into d_ff 128 and into
     the 32 KV columns, the weight gradients' x^T @ dy) alone (``mm``) and
     as element 0 of a ``bmm`` of n copies; the largest gap for each n,
-    with torch's default BLAS library (cuBLAS) and with cuBLASLt."""
+    with torch's default BLAS library (cuBLAS) and with cuBLASLt; and the
+    same for the task plane's ``bi_gemm`` (at the §V MLP's shapes too),
+    which must read 0 at every n."""
     shapes = {"ff": (256, 64, 128), "kv": (256, 64, 32),
               "wgrad_ff": (64, 256, 128), "wgrad_down": (128, 256, 64)}
+    mlp_shapes = {"mlp_w1": (50, 784, 64), "mlp_w2": (50, 64, 10),
+                  "mlp_wgrad_w1": (784, 50, 64)}
     default = torch.backends.cuda.preferred_blas_library()
     gaps = {}
+    # the task plane's product on the card: matrix 0 of a bi_gemm of n
+    # against a bi_gemm of 1, at lm_tiny's and the §V MLP's shapes
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for name, (m, k, n) in {**shapes, **mlp_shapes}.items():
+        x = torch.randn(50, m, k, device="cuda", generator=g)
+        w = torch.randn(50, k, n, device="cuda", generator=g)
+        one = kbg.bi_gemm(x[:1], w[:1])[0]
+        gaps.setdefault("bi_gemm", {})[name] = {
+            b: float((kbg.bi_gemm(x[:b], w[:b])[0] - one).abs().max())
+            for b in (1, 2, 8, 50)}
+    assert not any(v for row in gaps["bi_gemm"].values()
+                   for v in row.values()), gaps["bi_gemm"]
     try:
         for lib in ("cublas", "cublaslt"):
             torch.backends.cuda.preferred_blas_library(lib)
@@ -4712,6 +5059,132 @@ def batched_product_gap(smi):
     finally:
         torch.backends.cuda.preferred_blas_library(default)
     emit(phase="batched_product_gap", shapes=shapes, gaps=gaps, gpu=smi)
+
+
+class _SliceRecorder(TorchDispatchMode):
+    """Every operator's outputs, client 0's slice of each (the first 1/N
+    of its leading axis, None where that axis is not a multiple of N)."""
+
+    def __init__(self, n):
+        super().__init__()
+        self.n, self.ops = n, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.ops.append((str(func.overloadpacket), [
+            t[:t.shape[0] // self.n].detach().clone()
+            if t.shape[0] % self.n == 0 else None
+            for t in tree_leaves(out)
+            if isinstance(t, torch.Tensor) and t.dim() > 0]))
+        return out
+
+
+def _first_slice_gap(ref_ops, ops):
+    """(the first operator whose client-0 slice differs, with its largest
+    gap, or None; the differing operators' names), over the same
+    operator sequence."""
+    assert [o for o, _ in ref_ops] == [o for o, _ in ops]
+    first, names = None, set()
+    for i, ((name, a), (_, b)) in enumerate(zip(ref_ops, ops)):
+        for x, y in zip(a, b):
+            if x is None or y is None or x.shape != y.shape \
+                    or torch.equal(x, y):
+                continue
+            if first is None:
+                first = dict(index=i, op=name, max_abs=float(
+                    (x.double() - y.double()).abs().max()
+                    if x.is_floating_point() else -1))
+            names.add(name)
+            break
+    return first, sorted(names)
+
+
+def invariance_probe(smi):
+    """Which operators of one masked SGD step of the vectorized engine
+    make client 0's slice differ between a stack of 1 and stacks of 8 and
+    50, for the §V MLP (50 samples) and lm_tiny (8 windows of 32), with
+    the task plane's batch-invariant route off (the plain ops, as before
+    it) and on (none may, none may be one of ``bi.TORCH_SUMS``, and the
+    recorder must see every ``bi_gemm`` launch of the step, the backward's
+    on autograd's device thread too); and the loop oracle's unstacked
+    step against the stack of 1's params (equal on the route)."""
+    for model in ("mlp", "lm"):
+        key = PRNGKey(0, "cuda")
+        if model == "mlp":
+            params, lr = tmlp.mlp_init(key, device="cuda"), 0.1
+        else:
+            params, lr = tf.lm_init(key, LM_TINY, device="cuda"), 0.3
+        batches = {}
+        for n in (1, 8, 50):
+            g = np.random.default_rng(n)
+            if model == "mlp":
+                b = {"x": torch.as_tensor(g.random((n, 50, 784),
+                                                   dtype=np.float32)),
+                     "y": torch.as_tensor(g.integers(0, 10, (n, 50))),
+                     "m": torch.ones(n, 50)}
+            else:
+                b = {"tokens": torch.as_tensor(g.integers(0, 64,
+                                                          (n, 8, 32))),
+                     "m": torch.ones(n, 8)}
+            batches[n] = {k: v.cuda() for k, v in b.items()}
+            for k in b:               # client 0's rows in every stack
+                batches[n][k][0] = batches[1][k][0]
+
+        def loss(b):
+            if model == "mlp":
+                return lambda p: tmlp.mlp_loss_masked(p, b)
+            return lambda p: tf.lm_loss_masked(LM_TINY, p, b)
+
+        def step(n, routed, record=True):
+            rec = _SliceRecorder(n)
+            stack = {k: v.expand((n,) + v.shape).clone()
+                     for k, v in params.items()}
+            before = kbg.bi_gemm.launches
+            with (bi.route() if routed else contextlib.nullcontext()), \
+                    (rec if record else contextlib.nullcontext()):
+                out = tf.sgd_step(stack, loss(batches[n]), lr)
+            if record and routed:
+                # no torch product or reduction, the backward's included
+                # (it runs on autograd's device thread): every bi_gemm
+                # launch of the step was recorded
+                names = {o for o, _ in rec.ops}
+                seen = sum(o == "repro_torch.bi_gemm" for o, _ in rec.ops)
+                assert not names & bi.TORCH_SUMS, names & bi.TORCH_SUMS
+                assert seen == kbg.bi_gemm.launches - before > 0, (
+                    seen, kbg.bi_gemm.launches - before)
+            return rec.ops, {k: v[0] for k, v in out.items()}
+        step(1, True, record=False)             # the caches, made once
+        for routed in (False, True):
+            ref_ops, ref_p = step(1, routed)
+            row = dict(phase="invariance_probe", model=model,
+                       routed=routed, n_ops=len(ref_ops),
+                       torch_sums=sorted({o for o, _ in ref_ops}
+                                         & bi.TORCH_SUMS), gpu=smi)
+            for n in (8, 50):
+                ops, p = step(n, routed)
+                first, names = _first_slice_gap(ref_ops, ops)
+                row[f"n{n}"] = dict(first=first, differing_ops=names,
+                                    params_equal=all(torch.equal(
+                                        p[k], ref_p[k]) for k in p))
+                if routed:
+                    assert first is None and row[f"n{n}"]["params_equal"], \
+                        row
+            b1 = batches[1]
+            rec = _SliceRecorder(1)
+            with (bi.route() if routed else contextlib.nullcontext()), rec:
+                if model == "mlp":
+                    one = tf.sgd_step(params, lambda p: tmlp.mlp_loss(
+                        p, {"x": b1["x"][0], "y": b1["y"][0]}), lr)
+                else:
+                    one = tf.sgd_step(params, lambda p: tf.lm_loss(
+                        LM_TINY, p, {"tokens": b1["tokens"][0]}), lr)
+            row["loop_equal"] = all(torch.equal(one[k], ref_p[k])
+                                    for k in one)
+            row["loop_torch_sums"] = sorted({o for o, _ in rec.ops}
+                                            & bi.TORCH_SUMS)
+            assert row["loop_equal"] or not routed, row
+            assert not row["loop_torch_sums"] or not routed, row
+            emit(**row)
 
 
 def counted(label, fn, smi):
@@ -4788,6 +5261,7 @@ def driver_phases(smi):
 
             fl = example_twin("federated_llm")
             batched_product_gap(smi)
+            invariance_probe(smi)
             for label, fn in (
                     ("dqs_vs_random", lambda: fl.dqs_vs_random(
                         [0], DRIVER_ROUNDS, "cuda")),
@@ -4795,6 +5269,9 @@ def driver_phases(smi):
                         DRIVER_ROUNDS, "cuda")),
                     ("flash_leg", lambda: fl.flash_leg(1, "cuda"))):
                 out, got = counted(f"federated_llm_torch.{label}", fn, smi)
+                if label == "loop_parity":
+                    # the reference's check, on the card too
+                    assert out["bit_exact"], out
                 assert got["flash_attention"] > 0, (label, got)
                 assert got["weighted_aggregate"] > 0, (label, got)
                 total.update(got)
@@ -4962,6 +5439,104 @@ def quickstart(n_ues, n_malicious, n_train, n_test, device, seed=0):
                         LabelFlipAttack(*EASY_PAIR))
     return FeelServer(cfg, clients, test, rng, policy="dqs",
                       engine="vectorized", control="host", device=device)
+
+
+# ---------------------------------------------------------------------- #
+# --rounds-against DIR: two trees' rounds in turns
+# ---------------------------------------------------------------------- #
+# one turn: a tree's rounds in a process of its own (argv: its src/ dir),
+# built from that tree's sources, through run_experiment on the card:
+# "v_vectorized" / "v_loop" the §V cell (K = 50, 50,000/10,000, the (6, 2)
+# flip, DQS, host control) on each engine, "lm_vectorized" / "lm_loop"
+# lm_tiny in examples/federated_llm.py's regime (K = 20, 6 malicious,
+# token_flip_1to5, 2,000/400 windows, DQS); 4 rounds vectorized, 3 loop.
+# Prints one JSON line: each run's round ms (host clock ending in a
+# synchronise) and curves
+_ROUND_TURN = """import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+from repro_torch.configs.base import FeelConfig
+from repro_torch.federated import simulation
+from repro_torch.kernels import build
+build.build([k for k in build.KERNELS if k in (
+    "weighted_aggregate", "flash_attention", "bi_gemm", "bi_reduce")])
+made = []
+
+class Timed(simulation.FeelServer):
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.round_ms = []
+        made.append(self)
+
+    def run_round(self, t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        log = super().run_round(t)
+        torch.cuda.synchronize()
+        self.round_ms.append((time.perf_counter() - t0) * 1e3)
+        return log
+
+simulation.FeelServer = Timed
+runs = {}
+for name, engine, rounds in (("v_vectorized", "vectorized", 4),
+                             ("v_loop", "loop", 3),
+                             ("lm_vectorized", "vectorized", 4),
+                             ("lm_loop", "loop", 3)):
+    if name.startswith("lm"):
+        kw = dict(task="lm_tiny", n_train=2_000, n_test=400,
+                  scenario="token_flip_1to5", cfg=FeelConfig(
+                      n_ues=20, n_malicious=6, deadline_s=60.0,
+                      model_size_bits=82240 * 32.0, bandwidth_hz=1e5))
+    else:
+        kw = dict(task="mnist_mlp", n_train=50_000, n_test=10_000,
+                  scenario="flip_6to2", cfg=FeelConfig(n_ues=50,
+                                                       n_malicious=5))
+    res = simulation.run_experiment(policy="dqs", seed=0, control="host",
+                                    device="cuda", engine=engine,
+                                    rounds=rounds, **kw)
+    runs[name] = dict(
+        round_ms=made[-1].round_ms, acc=[float(x) for x in res["acc"]],
+        loss=[float(x) for x in np.asarray(res["loss"], float)],
+        malicious_selected=[int(x) for x in res["malicious_selected"]])
+print(json.dumps({"src": sys.argv[1], "runs": runs}))
+"""
+
+
+def rounds_against(other: Path, smi: str) -> dict:
+    """The §V and lm_tiny rounds of ``other``'s tree (``other/src``, e.g. a
+    ``git archive`` of the parent) and of this one in turns (other, this,
+    this, other), a process a turn; each turn's line, then the median
+    round ms of rounds 2 on by tree and run, whether the two trees'
+    curves agree bit for bit, and whether each tree's loop engine gave
+    its vectorized engine's curves."""
+    here = Path(__file__).resolve().parent
+    trees = {"against": str(other.resolve() / "src"),
+             "this": str(here / "src")}
+    rows = []
+    for label in ("against", "this", "this", "against"):
+        line = subprocess.run(
+            [sys.executable, "-c", _ROUND_TURN, trees[label]],
+            capture_output=True, text=True, check=True,
+            cwd=here).stdout.strip().splitlines()[-1]
+        rows.append(dict(json.loads(line), tree=label))
+        emit(phase="round_turn", gpu=smi, **rows[-1])
+    names = list(rows[0]["runs"])
+    median = {n: {label: float(np.median([
+        ms for r in rows if r["tree"] == label
+        for ms in r["runs"][n]["round_ms"][1:]])) for label in trees}
+        for n in names}
+    fields = ("acc", "loss", "malicious_selected")
+    same = {n: all(np.array_equal(rows[0]["runs"][n][k],
+                                  rows[1]["runs"][n][k], equal_nan=True)
+                   for k in fields) for n in names}
+    engines = {r["tree"]: {task: all(np.array_equal(
+        r["runs"][f"{task}_vectorized"][k][:3], r["runs"][f"{task}_loop"][k],
+        equal_nan=True) for k in fields) for task in ("v", "lm")}
+        for r in rows[:2]}
+    out = dict(median_round_ms=median, curves_equal=same,
+               loop_equals_vectorized=engines)
+    emit(phase="rounds_against", gpu=smi, **out)
+    return out
 
 
 def main():
@@ -5195,8 +5770,15 @@ def main():
     check_moe("deepseek-v3 prefill down", e, c_pre, f, d, bf16, reps=10)
     check_moe("deepseek-v3 decode gate/up", e, 8, d, f, bf16, reps=20)
 
+    # the task plane's batch-invariant kernels at the main paths' shapes
+    for case in BI_GEMM_CASES:
+        check_bi_gemm(*case)
+    for case in BI_REDUCE_CASES:
+        check_bi_reduce(*case)
+
     # 4. the undefended main path at the paper's §V scale
     reset_launches()
+    reset_bi()
     server = quickstart(50, 5, 50_000, 10_000, "cuda")
     emit(phase="main_path_init",
          w1_sum=float(server.params["w1"].double().sum()),
@@ -5214,8 +5796,12 @@ def main():
             selected=log.selected.tolist()))
         emit(phase="main_path", **rounds[-1])
     launches = read_launches()
-    emit(phase="main_path_launches", launches=launches)
+    bi_main = read_bi()
+    emit(phase="main_path_launches", launches=launches, **bi_main)
     assert launches == only(weighted_aggregate=3), launches
+    # every product and sum of the task plane went through the two kernels
+    assert all(n > 0 for n in bi_main.values()), bi_main
+    launches.update(bi_main)
     accs = [r["acc"] for r in rounds]
     assert all(np.isfinite(accs)), accs
     assert accs[2] > accs[0], accs
@@ -5225,11 +5811,22 @@ def main():
     emit(phase="round_phases", run="main", round=3,
          **round_phases(server, 3))
     emit(phase="profile_round", run="main", **profile_round(server, 4))
+    emit(phase="route_host_split", run="main", gpu=smi,
+         **route_host_split(server, 5))
 
     # the kernel at the main path's aggregation shape, for the summary
     n_main = max(r["agg_rows"] for r in rounds)
     summary = {"weighted_aggregate": check_aggregate(
         n_main, M_MLP, torch.float32, "main path rows")}
+    # the batch-invariant kernels at the main path's largest calls: the
+    # evaluation's product (its models over the shared test images) and
+    # argmax (each model's 10,000 rows of 10 logits)
+    summary["bi_gemm"] = check_bi_gemm("main path eval", n_main, 10_000,
+                                       784, 64, shared=True)
+    summary["bi_reduce"] = check_bi_reduce(
+        "main path eval argmax", n_main * 10_000, 10, 1, kbr.ARGMAX)
+    # what a routed call costs the host, layer by layer
+    bi_host_cost()
 
     # 5. the defended path at the same scale, through run_experiment
     out_a, server_a = defended_run(
@@ -5308,7 +5905,9 @@ def main():
     obs_phases(out_a, server_a, cli_untraced)
     emit(phase="obs_seconds", seconds=time.perf_counter() - t0)
 
-    # 12./13. serving the decoder-only zoo, experts included
+    # 12./13. serving the decoder-only zoo, experts included; from here to
+    # phase 17 nothing enters the task plane, and its kernels stay idle
+    reset_bi()
     (launches["decode_attention"], launches["moe_gemm"],
      launches["ssd_scan"]) = zoo_phases()
     # K4 at the serving path's median cache length (2,049 to 2,080 valid
@@ -5342,6 +5941,9 @@ def main():
     summary[BF16_ROUTE], launches[BF16_ROUTE] = step_cost_phases(dry_job,
                                                                  climb_job)
     emit(phase="step_cost_seconds", seconds=time.perf_counter() - t0)
+    zoo_bi = read_bi()
+    emit(phase="zoo_bi_launches", **zoo_bi)
+    assert not any(zoo_bi.values()), zoo_bi
 
     # 18. the contract checker on the card
     emit(phase="contracts_seconds",
@@ -5392,4 +5994,19 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1:
+        import argparse
+        ap = argparse.ArgumentParser(description="With no argument, the "
+                                     "whole check above.")
+        ap.add_argument("--rounds-against", type=Path, required=True,
+                        metavar="DIR", help="time the FEEL rounds of DIR's "
+                        "tree and this one in turns, and nothing else")
+        args = ap.parse_args()
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device; the rounds run on the GPU")
+        rounds_against(args.rounds_against, subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip())
+    else:
+        main()

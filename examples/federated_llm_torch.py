@@ -21,8 +21,8 @@ Three legs:
 
 2. Loop-engine parity: the per-client ``engine="loop"`` oracle reproduces
    the vectorized cohort engine's loss/acc curves bit-for-bit on the LM
-   task on the CPU; on the card within the card's measured rounding gap
-   (``loop_parity``: a looser check, ROADMAP P24).
+   task, on the CPU and on the card (where the task plane's products and
+   sums run on the batch-invariant kernels, ``models/batch_invariant.py``).
 
 3. Flash attention: a small run whose every attention forward goes
    through ``kernels.flash_attention``. On the card that is the
@@ -66,11 +66,6 @@ COLLAPSE = atk.AttackScenario(
 FAST = ([0, 1], 6, 1)
 FULL = ([0, 1, 2], 8, 2)
 PARITY_ROUNDS = 2
-# the card's engine parity at PARITY_ROUNDS, looser than the CPU's bit
-# for bit (ROADMAP P24): the loss within 1e-5 (the H100's gap is 2.4e-7,
-# one float32 ulp), the accuracy within one of its n_test * (seq - 1)
-# evaluation units (the H100's gap is 0)
-CARD_LOSS_TOL, CARD_ACC_UNITS = 1e-5, 1
 OUT = "results/federated_llm_torch.json"
 
 
@@ -119,17 +114,12 @@ def dqs_vs_random(seeds, rounds, device=None):
 
 
 def loop_parity(rounds, device=None):
-    """The per-client loop engine against the vectorized one.
-
-    On the CPU bit for bit, as the reference's leg, with torch on one
-    thread (multi-threaded CPU matmuls split their sums by thread count
-    and batch size). On the card the two round differently (ROADMAP P24):
-    cuBLAS sums a stack of clients' products in another order than one
-    client's. There the selections must be equal, the loss within
-    ``CARD_LOSS_TOL`` and the accuracy within ``CARD_ACC_UNITS``
-    evaluation units: a check looser than the CPU's, set from the card's
-    readings at ``PARITY_ROUNDS``. ``bit_exact`` says whether the curves
-    were identical."""
+    """The per-client loop engine against the vectorized one, bit for bit
+    on loss, acc and malicious_selected, as the reference's leg. On the
+    CPU torch runs on one thread for it (multi-threaded CPU matmuls split
+    their sums by thread count and batch size); on the card the task
+    plane's batch-invariant kernels give a client the same sums alone and
+    in a stack."""
     print("== leg 2: loop-engine parity on lm_tiny ==")
     kw = dict(policy="dqs", scenario=atk.as_scenario("token_flip_1to5"),
               cfg=FeelConfig(n_ues=8, n_malicious=2, task="lm_tiny"),
@@ -143,28 +133,13 @@ def loop_parity(rounds, device=None):
         loop = run_experiment(engine="loop", **kw)
     finally:
         torch.set_num_threads(threads)
-    same = {key: np.array_equal(np.asarray(vec[key]), np.asarray(loop[key]),
-                                equal_nan=True)
-            for key in ("loss", "acc", "malicious_selected")}
-    gaps = {key: float(np.max(np.abs(np.asarray(vec[key], float)
-                                      - np.asarray(loop[key], float))))
-            for key in ("loss", "acc")}
-    units = kw["n_test"] * (as_task("lm_tiny").seq - 1)
-    gaps["acc_units"] = round(gaps["acc"] * units)
-    if on_cpu:
-        for key, ok in same.items():
-            if not ok:
-                raise AssertionError(f"engine mismatch on {key}")
-    elif not (same["malicious_selected"]
-              and gaps["loss"] <= CARD_LOSS_TOL
-              and gaps["acc_units"] <= CARD_ACC_UNITS):
-        raise AssertionError(f"engine mismatch: equal {same}, gaps {gaps}")
-    bit_exact = all(same.values())
-    print(f"  loop {'==' if bit_exact else '~='} vectorized on "
-          f"loss/acc/selection (largest gaps {gaps}; loss curve "
-          f"{[round(float(x), 4) for x in vec['loss']]})")
+    for key in ("loss", "acc", "malicious_selected"):
+        assert np.array_equal(np.asarray(vec[key]), np.asarray(loop[key]),
+                              equal_nan=True), f"engine mismatch on {key}"
+    print(f"  loop == vectorized on loss/acc/selection "
+          f"(loss curve {[round(float(x), 4) for x in vec['loss']]})")
     return {"loss": [round(float(x), 6) for x in vec["loss"]],
-            "bit_exact": bit_exact}
+            "bit_exact": True}
 
 
 def flash_leg(rounds, device=None):

@@ -18,6 +18,11 @@ local trainings run together with an explicit client axis:
         runs train in one call, and per-row unit labels, so the attack
         success rate scores beside the accuracy in one call.
 
+The two evaluations run inside the batch-invariant route
+(``models/batch_invariant.py``): on the card their sums over the units, as
+the task's products, take the port's own kernels, so a row's score does
+not depend on how many rows share the call.
+
 Shapes depend on the cohort, so the server pads the cohort axis to a stable
 multiple (``pad_count``) with null rows: all-zero data and mask, a strict
 training no-op, weight 0 in FedAvg and score 0 in evaluation.
@@ -28,6 +33,8 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.models import batch_invariant as bi
 
 Params = Dict[str, torch.Tensor]
 
@@ -110,6 +117,7 @@ def broadcast_params(params: Params, n: int) -> Params:
     return {k: v.expand((n,) + v.shape) for k, v in params.items()}
 
 
+@bi.task_plane
 def cohort_eval(task, stacked_params: Params, eval_inputs,
                 y_units: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
     """Score every uploaded model on the public test set at once.
@@ -120,9 +128,10 @@ def cohort_eval(task, stacked_params: Params, eval_inputs,
     """
     correct = (task.predict_units(stacked_params, eval_inputs)
                == y_units).float()
-    return (correct * masks).sum(-1) / masks.sum(-1).clamp_min(1.0)
+    return bi.masked_mean(correct, masks, 1)
 
 
+@bi.task_plane
 def cohort_eval_rows(task, stacked_params: Params, eval_inputs,
                      y_rows: torch.Tensor,
                      masks: torch.Tensor) -> torch.Tensor:
@@ -132,7 +141,7 @@ def cohort_eval_rows(task, stacked_params: Params, eval_inputs,
     call."""
     correct = (task.predict_units(stacked_params, eval_inputs)
                == y_rows).float()
-    return (correct * masks).sum(-1) / masks.sum(-1).clamp_min(1.0)
+    return bi.masked_mean(correct, masks, 1)
 
 
 def unstack(stacked_params: Params, i: int) -> Params:

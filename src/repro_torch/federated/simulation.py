@@ -59,6 +59,8 @@ from repro_torch.federated import cohort
 from repro_torch.federated.async_engine import AsyncFeelEngine
 from repro_torch.federated.server import FeelServer, build_cohort_data
 from repro_torch.federated.task import FeelTask, as_task
+from repro_torch.kernels.bi_gemm import bi_gemm
+from repro_torch.kernels.bi_reduce import bi_reduce
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.moe_gemm import moe_gemm
@@ -69,7 +71,7 @@ from repro_torch.obs import trace
 
 # every kernel wrapper; each counts its launches in ``.launches``
 _KERNELS = (weighted_aggregate, robust_aggregate, flash_attention,
-            decode_attention, moe_gemm, ssd_scan)
+            decode_attention, moe_gemm, ssd_scan, bi_gemm, bi_reduce)
 
 
 def _scenarios(scenarios, attack_pairs, no_attack, model_poison_scale,

@@ -18,6 +18,12 @@ The server orchestrates Alg. 1 over the task's methods:
         each UE's label or token histogram.
     loop oracle  — local_train / eval_units_loop / global_metrics: the
         sequential per-client path (``engine="loop"``).
+
+The device plane and the loop oracle run inside the batch-invariant route
+(``models/batch_invariant.py``, ``bi.task_plane``): on the card their
+float32 products and sums go to the port's own kernels, so a client's
+result does not depend on how many clients share a call and the two
+engines agree bit for bit there too.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from repro_torch.data.partition import (GROUP_SIZE, MAX_GROUPS, MIN_GROUPS,
 from repro_torch.data.synthetic_mnist import N_CLASSES, generate
 from repro_torch.data.tokens import make_windows
 from repro_torch.federated.client import ClientReport, local_train
+from repro_torch.models import batch_invariant as bi
 from repro_torch.models.mlp import (mlp_accuracy, mlp_accuracy_masked,
                                     mlp_apply, mlp_init,
                                     mlp_sgd_epoch_masked)
@@ -108,25 +115,31 @@ class MnistTask(FeelTask):
     def init_params(self, key: torch.Tensor, device):
         return mlp_init(key, device=device)
 
+    @bi.task_plane
     def sgd_epoch(self, params, d, m, lr, batch_size: int):
         return mlp_sgd_epoch_masked(params, d["x"], d["y"], m, lr,
                                     batch_size)
 
+    @bi.task_plane
     def local_metric(self, params, d, m):
         return mlp_accuracy_masked(params, d["x"], d["y"], m)
 
+    @bi.task_plane
     def predict_units(self, params, ei) -> torch.Tensor:
-        return torch.argmax(mlp_apply(params, ei["x"]), -1)
+        return bi.argmax(mlp_apply(params, ei["x"]))
 
+    @bi.task_plane
     def eval_loss(self, params, ei):
         return None          # accuracy is the task's only global metric
 
     # -- loop oracle ----------------------------------------------------- #
+    @bi.task_plane
     def local_train(self, client, global_params, epochs: int, lr: float,
                     batch_size: int) -> ClientReport:
         return local_train(client, global_params, epochs, lr,
                            batch_size=batch_size)
 
+    @bi.task_plane
     def eval_units_loop(self, params, test, m: np.ndarray) -> float:
         if not m.any():
             return 0.0
@@ -135,6 +148,7 @@ class MnistTask(FeelTask):
             params, torch.as_tensor(test.x[m], device=device),
             torch.as_tensor(test.y[m], device=device).long()))
 
+    @bi.task_plane
     def global_metrics(self, params, test, ei, ey, watch_class,
                        watch_target):
         """(global_acc, global_loss, source_acc, attack_success)."""
@@ -165,7 +179,7 @@ def _lm_predict(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
     """(..., W, S) tokens -> (..., W*(S-1)) greedy next-token predictions
     (the eval units)."""
     logits = lm_forward(cfg, params, tokens, window=cfg.sliding_window)
-    pred = torch.argmax(logits[..., :-1, :], -1)
+    pred = bi.argmax(logits[..., :-1, :])
     return pred.reshape(*pred.shape[:-2], -1)
 
 
@@ -242,13 +256,16 @@ class LmTask(FeelTask):
     def init_params(self, key: torch.Tensor, device):
         return lm_init(key, self.model, device=device)
 
+    @bi.task_plane
     def sgd_epoch(self, params, d, m, lr, batch_size: int):
         return lm_sgd_epoch_masked(self.model, params, d["tokens"], m, lr,
                                    batch_size)
 
+    @bi.task_plane
     def local_metric(self, params, d, m):
         return lm_accuracy_masked(self.model, params, d["tokens"], m)
 
+    @bi.task_plane
     def predict_units(self, params, ei) -> torch.Tensor:
         """Stacked params (N, ...) -> (N, U) predictions on the shared
         held-out windows."""
@@ -257,11 +274,13 @@ class LmTask(FeelTask):
         return _lm_predict(self.model, params,
                            tokens.expand(n, *tokens.shape))
 
+    @bi.task_plane
     def eval_loss(self, params, ei) -> torch.Tensor:
         """Held-out per-token cross-entropy (the LM quality metric)."""
         return lm_loss(self.model, params, {"tokens": ei["tokens"]})
 
     # -- loop oracle ----------------------------------------------------- #
+    @bi.task_plane
     def local_train(self, client, global_params, epochs: int, lr: float,
                     batch_size: int) -> ClientReport:
         device = global_params["embed"].device
@@ -275,6 +294,7 @@ class LmTask(FeelTask):
         return ClientReport(ue_id=client.ue_id, params=params,
                             acc_local=acc, n_samples=client.size)
 
+    @bi.task_plane
     def eval_units_loop(self, params, test, m: np.ndarray) -> float:
         if not m.any():
             return 0.0
@@ -283,6 +303,7 @@ class LmTask(FeelTask):
         pred = _lm_predict(self.model, params, tokens).cpu().numpy()
         return _f32_masked_acc(pred == self.unit_labels(test), m)
 
+    @bi.task_plane
     def global_metrics(self, params, test, ei, ey, watch_class,
                        watch_target):
         """(global_acc, global_loss, source_acc, attack_success) — unit

@@ -25,7 +25,8 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 KERNELS = ("weighted_aggregate", "robust_aggregate", "flash_attention",
-           "decode_attention", "moe_gemm", "ssd_scan")
+           "decode_attention", "moe_gemm", "ssd_scan", "bi_gemm",
+           "bi_reduce")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.kernels.decode_attention import NEG_INF, decode_attention
 from repro_torch.kernels.flash_attention import band_mask, flash_attention
+from repro_torch.models import batch_invariant as bi
 from repro_torch.models.common import (apply_rope, dense_init, dtype_of,
                                        linear, ones, per_client, rms_norm,
                                        zeros)
@@ -59,14 +60,21 @@ def attn_init(key: torch.Tensor, cfg, d_model=None):
     return p
 
 
+def _add_bias(y, v):
+    """y + a bias (or a stacked one, ``per_client``); in the task plane on
+    the card its gradient is summed on the batch-invariant kernel."""
+    b = per_client(v, y)
+    return y + (bi.expand(b, y.shape) if bi.on(y) else b)
+
+
 def _project_qkv(cfg, p, x):
     """x (..., S, d) -> q (..., S, Hq, D), k/v (..., S, Hkv, D)."""
     lead, hd = x.shape[:-1], cfg.head_dim
     q, k, v = linear(x, p["wq"]), linear(x, p["wk"]), linear(x, p["wv"])
     if cfg.qkv_bias:
-        q = q + per_client(p["bq"], q)
-        k = k + per_client(p["bk"], k)
-        v = v + per_client(p["bv"], v)
+        q = _add_bias(q, p["bq"])
+        k = _add_bias(k, p["bk"])
+        v = _add_bias(v, p["bv"])
     q = heads_ready(q, cfg.n_heads).reshape(*lead, cfg.n_heads, hd)
     k = heads_ready(k, cfg.n_kv_heads).reshape(*lead, cfg.n_kv_heads, hd)
     v = heads_ready(v, cfg.n_kv_heads).reshape(*lead, cfg.n_kv_heads, hd)
@@ -124,10 +132,11 @@ def _full_attention(q, k, v, window, causal=True):
     q = q.reshape(-1, S, Hq, D)
     k = k.reshape(-1, T, Hkv, D)
     v = v.reshape(-1, T, Hkv, D)
-    out = flash_attention(q.transpose(1, 2).contiguous(),
-                          k.transpose(1, 2).contiguous(),
-                          v.transpose(1, 2).contiguous(),
-                          causal=causal, window=window)
+    attend = bi.attention if bi.on(q) else flash_attention
+    out = attend(q.transpose(1, 2).contiguous(),
+                 k.transpose(1, 2).contiguous(),
+                 v.transpose(1, 2).contiguous(),
+                 causal=causal, window=window)
     return merged_heads(out.transpose(1, 2).reshape(*lead, S, Hq * D), Hq)
 
 

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import batch_invariant as bi
 from repro_torch.random import split, truncated_normal
 from repro_torch.sharding.dtensor import reduced
 
@@ -73,7 +74,10 @@ def subtree(params, prefix: str):
 # ---------------------------------------------------------------------- #
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., d) @ w (d, f); a stacked w (N, d, f) multiplies client i's
-    rows x[i] (x (N, ..., d)) by its own w[i]."""
+    rows x[i] (x (N, ..., d)) by its own w[i]. In the task plane on the
+    card, the batch-invariant product (``models/batch_invariant.py``)."""
+    if bi.on(x):
+        return bi.linear(x, w)
     if w.dim() == 2:
         return x @ w
     n = w.shape[0]
@@ -94,6 +98,8 @@ def per_client(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------- #
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
+    if bi.on(x):
+        return bi.rms_norm(x, per_client(scale, x), eps)
     xf = x.float()
     var = xf.square().mean(-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
@@ -162,7 +168,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None,
     """Mean next-token cross-entropy, float32; logits (..., V), labels
     int64. ``mask`` weights each position: sum(nll * w) / max(sum(w), 1).
     The first ``keep`` axes are kept (the client axis of a stacked
-    cohort: one loss per client)."""
+    cohort: one loss per client). In the task plane on the card the sums
+    and the logsumexp are the batch-invariant kernels' and the mean a
+    quotient by a count tensor (``models/batch_invariant.py``)."""
+    if bi.on(logits):
+        return bi.cross_entropy(logits, labels, mask, keep)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     ll = reduced(torch.gather(logits, -1, labels.unsqueeze(-1))).squeeze(-1)
@@ -178,8 +188,12 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None,
 # ---------------------------------------------------------------------- #
 def sgd_step(params, loss_fn, lr: float):
     """p <- p - lr * grad(loss_fn)(p). ``loss_fn`` returns one loss per
-    client; their sum is differentiated, and since the clients' terms are
-    disjoint each client's gradient is its own."""
+    client; their sum is differentiated (a gradient of 1 seeded into every
+    client's loss, the sum's own backward without running the sum), and
+    since the clients' terms are disjoint each client's gradient is its
+    own."""
     p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    grads = torch.autograd.grad(loss_fn(p).sum(), list(p.values()))
+    loss = loss_fn(p)
+    grads = torch.autograd.grad(loss, list(p.values()),
+                                torch.ones_like(loss))
     return {k: (v - lr * g).detach() for (k, v), g in zip(p.items(), grads)}

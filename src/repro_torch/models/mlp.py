@@ -16,6 +16,7 @@ from typing import Dict
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import batch_invariant as bi
 from repro_torch.models.common import dense_init, sgd_step
 from repro_torch.random import split
 
@@ -39,7 +40,12 @@ def mlp_init(key: torch.Tensor, n_in: int = 28 * 28,
 
 
 def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """x (..., B, 784) -> logits (..., B, 10)."""
+    """x (..., B, 784) -> logits (..., B, 10); in the task plane on the
+    card through the batch-invariant kernels (``models/batch_invariant.py``).
+    """
+    if bi.on(x):
+        h = torch.relu(bi.affine(x, params["w1"], params["b1"]))
+        return bi.affine(h, params["w2"], params["b2"])
     h = torch.relu(x @ params["w1"] + params["b1"].unsqueeze(-2))
     return h @ params["w2"] + params["b2"].unsqueeze(-2)
 
@@ -47,17 +53,21 @@ def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
 def _nll(params: Params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Per-sample cross-entropy (..., B); ``y`` int64."""
     logits = mlp_apply(params, x)
+    if bi.on(logits):
+        return bi.nll(logits, y)
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, y.unsqueeze(-1)).squeeze(-1)
     return logz - ll
 
 
 def mlp_loss(params: Params, batch) -> torch.Tensor:
-    return _nll(params, batch["x"], batch["y"]).mean(-1)
+    nll = _nll(params, batch["x"], batch["y"])
+    return bi.mean(nll, nll.dim() - 1)
 
 
 def mlp_accuracy(params: Params, x, y) -> torch.Tensor:
-    return (torch.argmax(mlp_apply(params, x), -1) == y).float().mean(-1)
+    correct = (bi.argmax(mlp_apply(params, x)) == y).float()
+    return bi.mean(correct, correct.dim() - 1)
 
 
 def mlp_sgd_epoch(params: Params, x, y, lr: float,
@@ -88,13 +98,13 @@ def mlp_loss_masked(params: Params, batch) -> torch.Tensor:
     """
     m = batch["m"]
     nll = _nll(params, batch["x"], batch["y"])
-    return (nll * m).sum(-1) / m.sum(-1).clamp_min(1.0)
+    return bi.masked_mean(nll, m, nll.dim() - 1)
 
 
 def mlp_accuracy_masked(params: Params, x, y, m) -> torch.Tensor:
     """Accuracy over the valid samples only (0.0 when the mask is empty)."""
-    correct = (torch.argmax(mlp_apply(params, x), -1) == y).float()
-    return (correct * m).sum(-1) / m.sum(-1).clamp_min(1.0)
+    correct = (bi.argmax(mlp_apply(params, x)) == y).float()
+    return bi.masked_mean(correct, m, correct.dim() - 1)
 
 
 def mlp_sgd_epoch_masked(params: Params, x, y, m, lr: float,

@@ -31,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models import batch_invariant as bi
 from repro_torch.models.blocks import (layer_apply, layer_cache_init,
                                        layer_decode, layer_init, scan_blocks,
                                        scan_blocks_decode,
@@ -77,7 +78,12 @@ def _embed(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (..., S) -> (..., S, d); a stacked table (N, V, d) looks up
     client i's tokens (tokens (N, ..., S)) in its own rows. A ``DTensor``
     table (a sharded step) is read on each rank's shards
-    (``sharding.dtensor.embed_lookup``)."""
+    (``sharding.dtensor.embed_lookup``). In the task plane on the card
+    its gradient is a one-hot product on the batch-invariant kernel
+    (``models/batch_invariant.py``), where autograd would accumulate with
+    ``index_put``."""
+    if bi.on(embed):
+        return bi.embed(embed, tokens)
     if embed.dim() == 2:
         return embed_lookup(embed, tokens)
     n = embed.shape[0]
@@ -210,10 +216,9 @@ def lm_accuracy_masked(cfg, params, tokens, m):
     """Masked greedy next-token accuracy (Alg. 1 line 11's local metric);
     0.0 on an empty mask."""
     logits = lm_forward(cfg, params, tokens, window=cfg.sliding_window)
-    correct = (torch.argmax(logits[..., :-1, :], -1)
-               == tokens[..., 1:]).float()
-    w = _token_weights(tokens, m)
-    return (correct * w).sum((-2, -1)) / w.sum((-2, -1)).clamp_min(1.0)
+    correct = (bi.argmax(logits[..., :-1, :]) == tokens[..., 1:]).float()
+    return bi.masked_mean(correct, _token_weights(tokens, m),
+                          correct.dim() - 2)
 
 
 def lm_sgd_epoch(cfg, params, tokens, lr: float, batch_size: int = 8):

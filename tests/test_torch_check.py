@@ -656,7 +656,7 @@ def test_kernel_twin_needs_an_operator_and_a_test(monkeypatch, tmp_path):
     # no test file names the pair
     (tmp_path / "test_torch_x.py").write_text("x = 1\n")
     vs = check_kernel_twins(types.SimpleNamespace(tests_root=tmp_path))
-    assert len(vs) == 6 and all("never referenced" in v.message
+    assert len(vs) == 8 and all("never referenced" in v.message
                                 for v in vs)
 
 

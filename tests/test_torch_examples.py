@@ -262,6 +262,30 @@ def test_federated_llm_legs_match_the_reference(lm_pair, leg):
     _close(got[leg], want[leg], leg)
 
 
+@pytest.mark.parametrize("key", ["loss", "acc", "malicious_selected"])
+def test_loop_parity_holds_the_engines_bit_for_bit(twin, key, monkeypatch):
+    """The restored reference check: curves one ulp apart fail
+    ``loop_parity`` on every device (no looser check for the card)."""
+    fl = twin.federated_llm
+    base = {"loss": [1.5, 1.25], "acc": [0.25, 0.5],
+            "malicious_selected": [1, 0]}
+
+    def fake(engine, **kw):
+        out = {k: list(v) for k, v in base.items()}
+        if engine == "loop":
+            out[key][1] = float(np.nextafter(np.float32(out[key][1]),
+                                             np.float32(2.0)))
+        return out
+    monkeypatch.setattr(fl, "run_experiment", fake)
+    with pytest.raises(AssertionError, match=f"engine mismatch on {key}"):
+        fl.loop_parity(2, device="cpu")
+    monkeypatch.setattr(fl, "run_experiment",
+                        lambda engine, **kw: {k: list(v)
+                                              for k, v in base.items()})
+    assert fl.loop_parity(2, device="cpu")["bit_exact"] is True
+    assert not hasattr(fl, "CARD_LOSS_TOL")
+
+
 # ---------------------------------------------------------------------- #
 # the CLIs
 # ---------------------------------------------------------------------- #

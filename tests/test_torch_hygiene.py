@@ -111,7 +111,7 @@ def test_kernel_build_goes_to_an_ignored_directory():
     keyed by the source hash; nothing is built at import."""
     assert build.KERNELS == ("weighted_aggregate", "robust_aggregate",
                              "flash_attention", "decode_attention",
-                             "moe_gemm", "ssd_scan")
+                             "moe_gemm", "ssd_scan", "bi_gemm", "bi_reduce")
     for name in build.KERNELS:
         path = build.library_path(name)
         assert path.parent == ROOT / "build" / "repro_torch_kernels"

@@ -86,7 +86,7 @@ def test_every_kernel_is_an_operator_with_its_cost():
     names = {str(p).split(".")[-1] for p in oplib.COSTS}
     assert names == {"weighted_aggregate", "robust_aggregate",
                      "flash_attention", "decode_attention", "moe_gemm",
-                     "ssd_scan"}
+                     "ssd_scan", "bi_gemm", "bi_reduce"}
     for name in names:
         assert getattr(torch.ops.repro_torch, name) in oplib.COSTS
 
