@@ -2,11 +2,15 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --rounds-against DIR
+    python3 chip_smoke.py --kernels-against DIR
 
 The second times the FEEL rounds of DIR's tree (DIR/src, e.g. the parent
 commit's ``git archive``) and of this one in turns and does nothing else
-(``rounds_against``). The first runs these phases; any failure raises and
-exits non-zero, and no phase catches one:
+(``rounds_against``); the third builds DIR's ``bi_gemm`` and ``bi_reduce``
+beside this tree's, holds them equal bit for bit and times them and the
+library's call in turns at phase 3's timed shapes (``kernels_against``).
+The first runs these phases; any failure raises and exits non-zero, and no
+phase catches one:
 
  1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
  2. build every kernel of the port from its source with nvcc (one process
@@ -17,7 +21,10 @@ exits non-zero, and no phase catches one:
     (``cp.async``), K6's chunk-state and chunk-scan kernels HMMA, and K2's
     instances up to 64 rows no shared- or local-memory access (LDS, STS,
     LDL, STL: the sort stays in registers), each looked up by name, K2's
-    with its registers and spills;
+    with its registers and spills; ``bi_gemm``'s twenty instances (four
+    tiles, five ways of staging a and b) cp.async (LDGSTS) and FFMA from
+    128-bit shared loads, no HMMA or HGMMA, no spill (LDL, STL), and
+    ``bi_reduce``'s long-row sum LDGSTS;
  3. hold each kernel against its plain PyTorch version on the card — the
     main paths' shapes, ragged and misaligned shapes, bf16 and one
     bandwidth-sized case — with its time, the plain version's, one PyTorch
@@ -52,10 +59,13 @@ exits non-zero, and no phase catches one:
     difference in bf16 ulps; the task plane's batch-invariant kernels at
     the §V MLP's and ``lm_tiny``'s training and evaluation shapes:
     ``bi_gemm`` within 1e-5·max|c| of ``torch.matmul``, its matrix 0
-    equal bit for bit to a batch of 1's and to a transposed-storage
-    operand's; ``bi_reduce`` (sums, logsumexp) within 1e-5 of torch's,
-    argmax exact, row 0 equal to one row's call and a sum unchanged by
-    appended zeros;
+    equal bit for bit to a batch of 1's, the product equal bit for bit with
+    a or b stored transposed, with a misaligned and with zeros appended to
+    K, and at the ragged and training shapes to its order in plain PyTorch
+    (``bi_gemm_chain_ref``: the FFMA chain, each step rounded once);
+    ``bi_reduce`` (sums, logsumexp) within 1e-5 of torch's, argmax exact,
+    row 0 equal to one row's call, a sum unchanged by appended zeros and
+    by a misaligned x, and equal bit for bit to ``bi_reduce_chain_ref``;
  4. the undefended main path at the paper's §V scale: K = 50 UEs,
     50,000/10,000 synthetic MNIST, 5 label flippers, DQS on the host
     control plane, the vectorized engine, 3 rounds on the GPU. Every
@@ -279,9 +289,14 @@ exits non-zero, and no phase catches one:
     K5 at qwen2-moe-a2.7b's decode, K6 at mamba2-370m's prefill), then
     one forward and backward each of K3 (lm_tiny f32: the plain VJP), K5
     (qwen2-moe-a2.7b's decode gate/up: two more K5 launches) and K6
-    (mamba2-370m's heads over 512 positions: the chunked VJP), counted
-    (K1, K2, K4 once, K3 3 times, K5 4, K6 2): none synchronises with the
-    host, while ``.item()`` under the same mode raises;
+    (mamba2-370m's heads over 512 positions: the chunked VJP), then one
+    routed masked SGD step of the §V MLP (50 clients) and one of lm_tiny
+    (24 clients) on the task plane's route (every product and sum
+    ``bi_gemm`` or ``bi_reduce``, forward and backward), counted (K1, K2,
+    K4 once, K3 3 times and once an lm_tiny layer, K5 4, K6 2; ``bi_gemm``
+    and ``bi_reduce`` as often as the same steps unarmed): none
+    synchronises with the host, while ``.item()`` under the same mode
+    raises;
 19. the sharded plane (after 18, before the summary): an NCCL process
     group of one rank in process (a ``HashStore``, no network; its
     default backend ``cpu:gloo,cuda:nccl``, so that CUDA tensors go to
@@ -384,6 +399,7 @@ launch overhead.
 import atexit
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import gc
@@ -605,16 +621,17 @@ def ptxas_summary(log):
     return out
 
 
-SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDSM", "LDGSTS", "LDS", "STS",
-            "LDL", "STL")
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDSM", "LDGSTS", "LDS", "LDS.128",
+            "STS", "LDL", "STL", "FFMA")
 
 
 def sass_ops(name):
     """{kernel: {SASS op: count}} of the built library ``name``, from
     ``cuobjdump -sass``: HGMMA is wgmma, UTMALDG a TMA tensor load, HMMA
     mma.sync, LDSM ldmatrix, LDGSTS cp.async, LDS/STS a shared-memory and
-    LDL/STL a local-memory (spill) load and store; a predicated
-    instruction counts as its op."""
+    LDL/STL a local-memory (spill) load and store, FFMA a float32 fused
+    multiply-add on the CUDA cores; a predicated instruction counts as its
+    op, and a 128-bit shared load as LDS.128 too."""
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass",
                            str(build.library_path(name))],
@@ -630,7 +647,38 @@ def sass_ops(name):
                 op = op[1:]
             if op and op[0].split(".")[0] in out[fn]:
                 out[fn][op[0].split(".")[0]] += 1
+                if op[0].split(".")[0] == "LDS" and ".128" in op[0]:
+                    out[fn]["LDS.128"] += 1
     return out
+
+
+# bi_gemm's instances: each tile configuration (BM, BN, TM, TN, slice
+# depth, stages, blocks an SM) at each way of staging a and b (kK, kW,
+# kAny: 0, 1, 2)
+BI_GEMM_TILES = ("64,64,8,4,32,4,3", "64,64,4,4,16,6,2", "32,64,4,4,32,4,4",
+                 "32,32,4,4,32,4,4")
+BI_GEMM_STAGINGS = ("0,0", "0,1", "1,0", "1,1", "2,2")
+
+
+def check_bi_sass(gemm, reduce):
+    """bi_gemm's instances, each looked up by name: fed by cp.async
+    (LDGSTS), multiplying with FFMA from 128-bit shared loads (the kAny
+    staging aside, whose copies are 4-byte), no tensor-core instruction
+    (HMMA, HGMMA), no spill (LDL, STL); the long-row sum's copies LDGSTS."""
+    for tile in BI_GEMM_TILES:
+        for staging in BI_GEMM_STAGINGS:
+            name = f"bi_gemm_kernel<{tile},{staging}>"
+            ops = gemm[name]
+            assert ops["LDGSTS"] > 0 and ops["FFMA"] > 0, (name, ops)
+            assert ops["LDS.128"] > 0, (name, ops)
+            assert not any(ops[op] for op in ("HMMA", "HGMMA", "LDL",
+                                              "STL")), (name, ops)
+    assert len(gemm) == len(BI_GEMM_TILES) * len(BI_GEMM_STAGINGS), gemm
+    ops = reduce["sum_long_rows_kernel"]
+    assert ops["LDGSTS"] > 0 and not ops["LDL"] and not ops["STL"], ops
+    for name, ops in reduce.items():
+        assert not any(ops[op] for op in ("HMMA", "HGMMA", "LDL", "STL")), (
+            name, ops)
 
 
 def device_us(prof):
@@ -1188,12 +1236,21 @@ def _randn(*shape, seed):
     return torch.randn(*shape, device="cuda", generator=g)
 
 
+def bits_equal(a, b):
+    """Equal bit for bit (a -0 is not a +0; NaNs by their bits)."""
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
 def check_bi_gemm(label, batch, m, k, n, shared=False, timed=True,
-                  reps=20):
+                  twin=False, reps=20):
     """bi_gemm against its plain version (torch.matmul) at one shape, a
     shared by the whole batch with ``shared``: within ``BI_RTOL``, its
-    matrix 0 equal bit for bit to a batch of 1's, and equal to the product
-    with a stored transposed (the backward's strided operands). Returns
+    matrix 0 equal bit for bit to a batch of 1's, equal to the product with
+    a or b stored transposed (the backward's strided operands, staged
+    another way) and with a misaligned (4-byte copies), unchanged by zeros
+    appended to K (columns of a, rows of b), and with ``twin`` equal bit
+    for bit to its order in plain PyTorch (``bi_gemm_chain_ref``). Returns
     the numbers (the times only when ``timed``)."""
     a = _randn(1 if shared else batch, m, k, seed=m * 7 + k)
     b = _randn(batch, k, n, seed=n * 13 + k + batch)
@@ -1201,16 +1258,26 @@ def check_bi_gemm(label, batch, m, k, n, shared=False, timed=True,
     want = kbg.bi_gemm_ref(a, b)
     one = kbg.bi_gemm(a[:1], b[:1])
     strided = kbg.bi_gemm(a.mT.contiguous().mT, b)
+    strided_b = kbg.bi_gemm(a, b.mT.contiguous().mT)
+    off = torch.empty(a.numel() + 1, device="cuda")
+    off[1:].copy_(a.reshape(-1))
+    misaligned = kbg.bi_gemm(off[1:].view(a.shape), b)
+    padded = kbg.bi_gemm(torch.cat([a, a.new_zeros(a.shape[0], m, 5)], 2),
+                         torch.cat([b, b.new_zeros(batch, 5, n)], 1))
     torch.cuda.synchronize()
     assert got.shape == (batch, m, n), (label, got.shape)
     err = (got - want).abs().max().item()
     tol = BI_RTOL * want.abs().max().item()
     assert err <= tol, (label, err, tol)
-    assert torch.equal(got[:1], one), label
-    assert torch.equal(got, strided), label
+    assert bits_equal(got[:1], one), label
+    for other in (strided, strided_b, misaligned, padded):
+        assert bits_equal(got, other), label
+    if twin:
+        assert bits_equal(got, kbg.bi_gemm_chain_ref(a, b)), label
     if not timed:
         emit(phase="kernel_check", kernel="bi_gemm", case=label, batch=batch,
-             m=m, k=k, n=n, shared=shared, max_abs_err=err, tol=tol)
+             m=m, k=k, n=n, shared=shared, max_abs_err=err, tol=tol,
+             chain_equal=twin or None, zero_k_equal=True)
         return None
     kernel_ms, kernel_call_ms = time_ms(lambda: kbg.bi_gemm(a, b), reps)
     plain_ms, plain_call_ms = time_ms(lambda: kbg.bi_gemm_ref(a, b), reps)
@@ -1220,7 +1287,8 @@ def check_bi_gemm(label, batch, m, k, n, shared=False, timed=True,
     b_ms, b_by = roofline_ms(flops, nbytes, F32_FLOPS)
     row = dict(phase="kernel_check", kernel="bi_gemm", case=label,
                batch=batch, m=m, k=k, n=n, shared=shared, max_abs_err=err,
-               tol=tol, kernel_ms=kernel_ms, plain_ms=plain_ms,
+               tol=tol, chain_equal=twin or None, zero_k_equal=True,
+               kernel_ms=kernel_ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
                attained_tflops=flops / (kernel_ms * 1e-3) / 1e12,
                kernel_call_ms=kernel_call_ms, plain_call_ms=plain_call_ms,
@@ -1238,7 +1306,9 @@ def check_bi_reduce(label, r, m, d, mode, timed=True, reps=50):
     """bi_reduce against its plain version (torch's reduction) at one
     shape: the sums and logsumexp within ``BI_RTOL``, argmax exact; row 0
     equal bit for bit to one row's call, and a sum unchanged by zeros
-    appended to every row. Returns the numbers."""
+    appended to every row and equal bit for bit to its order in plain
+    PyTorch (``bi_reduce_chain_ref``), misaligned too. Returns the
+    numbers."""
     x = _randn(r, m, d, seed=r + 31 * m + d)
     got = kbr.bi_reduce(x, mode)
     want = kbr.bi_reduce_ref(x, mode)
@@ -1250,13 +1320,18 @@ def check_bi_reduce(label, r, m, d, mode, timed=True, reps=50):
         err = (got - want).abs().max().item()
         tol = BI_RTOL * max(want.abs().max().item(), 1.0)
     assert err <= tol, (label, err, tol)
-    assert torch.equal(got[:1], one), label
+    assert bits_equal(got[:1], one), label
     if mode == kbr.SUM:
         padded = torch.cat([x, x.new_zeros(r, 8, d)], 1)
-        assert torch.equal(kbr.bi_reduce(padded), got), label
+        assert bits_equal(kbr.bi_reduce(padded), got), label
+        off = torch.empty(x.numel() + 1, device="cuda")
+        off[1:].copy_(x.reshape(-1))
+        assert bits_equal(kbr.bi_reduce(off[1:].view(x.shape)), got), label
+        assert bits_equal(kbr.bi_reduce_chain_ref(x), got), label
     if not timed:
         emit(phase="kernel_check", kernel="bi_reduce", case=label,
-             mode=kbr.MODES[mode], r=r, m=m, d=d, max_abs_err=err, tol=tol)
+             mode=kbr.MODES[mode], r=r, m=m, d=d, max_abs_err=err, tol=tol,
+             chain_equal=mode == kbr.SUM or None)
         return None
     kernel_ms, kernel_call_ms = time_ms(lambda: kbr.bi_reduce(x, mode),
                                         reps)
@@ -1268,7 +1343,8 @@ def check_bi_reduce(label, r, m, d, mode, timed=True, reps=50):
     b_ms, b_by = roofline_ms(flops, nbytes, F32_FLOPS)
     row = dict(phase="kernel_check", kernel="bi_reduce", case=label,
                mode=kbr.MODES[mode], r=r, m=m, d=d, max_abs_err=err, tol=tol,
-               kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+               chain_equal=mode == kbr.SUM or None, kernel_ms=kernel_ms,
+               plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=b_ms, bound_by=b_by,
                attained_gbps=nbytes / (kernel_ms * 1e-3) / 1e9,
                kernel_call_ms=kernel_call_ms, plain_call_ms=plain_call_ms,
@@ -1282,17 +1358,18 @@ def check_bi_reduce(label, r, m, d, mode, timed=True, reps=50):
 # test images); lm_tiny's training (a bucket of 24 clients, 8 windows of
 # 32 tokens: d 64, d_ff 128, the 32 KV columns, a client's 8 x 4 heads of
 # 32 x 32 x 16 in attention) and evaluation (16 models over 400 windows)
-BI_GEMM_CASES = (       # (label, batch, M, K, N, a shared, timed)
-    ("§V train x @ w1", 50, 50, 784, 64, False, True),
-    ("§V train dW1 = xT g", 50, 784, 50, 64, False, True),
-    ("§V train h @ w2", 50, 50, 64, 10, False, False),
-    ("§V eval x @ w1, x shared", 50, 10_000, 784, 64, True, True),
-    ("lm_tiny x @ w_ff", 24, 256, 64, 128, False, True),
-    ("lm_tiny x @ w_kv", 24, 256, 64, 32, False, False),
-    ("lm_tiny dW_ff = xT g", 24, 64, 256, 128, False, True),
-    ("lm_tiny attention q kT", 24 * 32, 32, 16, 32, False, True),
-    ("lm_tiny eval x @ w_ff", 16, 400 * 32, 64, 128, False, True),
-    ("ragged", 3, 37, 29, 71, False, False))
+BI_GEMM_CASES = (       # (label, batch, M, K, N, a shared, timed, twin)
+    ("§V train x @ w1", 50, 50, 784, 64, False, True, True),
+    ("§V train dW1 = xT g", 50, 784, 50, 64, False, True, True),
+    ("§V train h @ w2", 50, 50, 64, 10, False, False, True),
+    ("§V eval x @ w1, x shared", 50, 10_000, 784, 64, True, True, False),
+    ("lm_tiny x @ w_ff", 24, 256, 64, 128, False, True, True),
+    ("lm_tiny x @ w_kv", 24, 256, 64, 32, False, False, True),
+    ("lm_tiny dW_ff = xT g", 24, 64, 256, 128, False, True, True),
+    ("lm_tiny attention q kT", 24 * 32, 32, 16, 32, False, True, True),
+    ("lm_tiny eval x @ w_ff", 16, 400 * 32, 64, 128, False, True, False),
+    ("ragged", 3, 37, 29, 71, False, False, True),
+    ("ragged K 48, N 10", 5, 33, 48, 10, False, False, True))
 BI_REDUCE_CASES = (     # (label, R, M, D, mode, timed)
     ("§V masked loss sums", 50, 50, 1, kbr.SUM, True),
     ("§V bias gradient", 50, 50, 64, kbr.SUM, True),
@@ -4425,14 +4502,66 @@ def host_sync_backwards(rnd):
     ]
 
 
+def host_sync_routed_steps():
+    """One routed masked SGD step each of the §V MLP (a bucket of 50
+    clients of 50 samples) and lm_tiny (24 clients of 8 windows), as the
+    vectorized engine runs it: inside the task plane's route, so every
+    product and sum is ``bi_gemm`` or ``bi_reduce``, forward and backward
+    (a list like ``host_sync_inputs``'). The params and batches are made on
+    the card beforehand, and each step runs once here unarmed (the route's
+    count tensors and K3's mask are cached at a first call). Returns the
+    calls and the two kernels' launches of one run of all of them."""
+    g = np.random.default_rng(28)
+    mlp_p = tmlp.mlp_init(PRNGKey(0, "cuda"), device="cuda")
+    lm_p = tf.lm_init(PRNGKey(1, "cuda"), LM_TINY, device="cuda")
+
+    def stack(params, n):
+        return {k: v.expand((n,) + v.shape).clone() for k, v in
+                params.items()}
+
+    mlp_b = {"x": torch.as_tensor(g.random((50, 50, 784), dtype=np.float32)),
+             "y": torch.as_tensor(g.integers(0, 10, (50, 50))),
+             "m": torch.ones(50, 50)}
+    lm_b = {"tokens": torch.as_tensor(g.integers(0, 64, (24, 8, 32))),
+            "m": torch.ones(24, 8)}
+    mlp_b = {k: v.cuda() for k, v in mlp_b.items()}
+    lm_b = {k: v.cuda() for k, v in lm_b.items()}
+    mlp_s, lm_s = stack(mlp_p, 50), stack(lm_p, 24)
+
+    def mlp_step():
+        with bi.route():
+            return tf.sgd_step(mlp_s, lambda p: tmlp.mlp_loss_masked(
+                p, mlp_b), 0.1)["w1"]
+
+    def lm_step():
+        with bi.route():
+            return tf.sgd_step(lm_s, lambda p: tf.lm_loss_masked(
+                LM_TINY, p, lm_b), 0.3)["embed"]
+
+    calls = [("the §V MLP's routed masked SGD step (50 clients)", mlp_step),
+             ("lm_tiny's routed masked SGD step (24 clients)", lm_step)]
+    torch.cuda.synchronize()
+    reset_launches()
+    reset_bi()
+    for _, call in calls:
+        call()
+    torch.cuda.synchronize()
+    return calls, read_bi(), read_launches()
+
+
 def contracts_host_sync(k2_rows, k2_n):
     """(c) each of K1-K6's public wrappers once, then a forward and
-    backward of each of K3, K5 and K6, under
+    backward of each of K3, K5 and K6, then one routed masked SGD step of
+    the §V MLP and one of lm_tiny (``bi_gemm``, ``bi_reduce``, the route's
+    Functions, forward and backward), under
     ``torch.cuda.set_sync_debug_mode("error")``: none may synchronise
     with the host; the control, ``.item()``, must raise."""
     calls = host_sync_inputs(k2_rows, k2_n)
+    routed, bi_want, routed_launches = host_sync_routed_steps()
+    calls += routed
     torch.cuda.synchronize()
     reset_launches()
+    reset_bi()
     outs = []
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -4449,17 +4578,26 @@ def contracts_host_sync(k2_rows, k2_n):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches, bi_got = read_launches(), read_bi()
     for (label, _), out in zip(calls, outs):
         y = out[0] if isinstance(out, tuple) else out
         emit(phase="contracts_host_sync", call=label, shape=list(y.shape),
              finite=bool(torch.isfinite(y).all()))
         assert torch.isfinite(y).all(), label
     emit(phase="contracts_host_sync_launches", launches=launches,
-         control=control)
+         control=control, **bi_got)
+    # lm_tiny's step launches K3 once a layer (its forward; the backward is
+    # the route's invariant VJP on bi_gemm and bi_reduce)
+    assert routed_launches == only(flash_attention=LM_TINY.n_layers), (
+        routed_launches)
     assert launches == only(weighted_aggregate=1, robust_aggregate=1,
-                            flash_attention=3, decode_attention=1,
-                            moe_gemm=4, ssd_scan=2), launches
+                            flash_attention=3 + LM_TINY.n_layers,
+                            decode_attention=1, moe_gemm=4,
+                            ssd_scan=2), launches
+    # the routed steps' every product and sum: the two kernels, as many
+    # launches as the same steps made unarmed
+    assert bi_got == bi_want and all(n > 0 for n in bi_got.values()), (
+        bi_got, bi_want)
 
 
 def contracts_phases(k2_rows, k2_n):
@@ -5539,6 +5677,113 @@ def rounds_against(other: Path, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------- #
+# --kernels-against DIR: two trees' batch-invariant kernels in turns
+# ---------------------------------------------------------------------- #
+AGAINST_DIR = build.BUILD_DIR.parent / "kernels_against"
+
+
+def _against_kernels(other: Path):
+    """DIR's ``bi_gemm.cu`` and ``bi_reduce.cu`` built (one nvcc each, in
+    parallel, with this tree's flags) and loaded: their C launchers
+    ``bi_gemm_f32`` and ``bi_sum_f32``, whose interfaces this tree keeps."""
+    AGAINST_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in ("bi_gemm", "bi_reduce"):
+        src = other / "src" / "repro_torch" / "kernels" / "csrc" / f"{name}.cu"
+        procs[name] = subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o",
+             str(AGAINST_DIR / f"{name}.so"), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {other}'s {name}:\n{log}")
+        libs[name] = ctypes.CDLL(str(AGAINST_DIR / f"{name}.so"))
+    gemm, total = libs["bi_gemm"].bi_gemm_f32, libs["bi_reduce"].bi_sum_f32
+    gemm.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                     + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
+    total.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3
+                      + [ctypes.c_void_p])
+    gemm.restype = total.restype = ctypes.c_int
+    return gemm, total
+
+
+def _gemm_with(fn, a, b):
+    """``bi_gemm(a, b)`` through another tree's launcher ``fn``."""
+    batch = max(a.shape[0], b.shape[0])
+    out = torch.empty((batch, a.shape[1], b.shape[2]), device="cuda")
+    sa, sb = list(a.stride()), list(b.stride())
+    sa[0] = 0 if a.shape[0] == 1 else sa[0]
+    sb[0] = 0 if b.shape[0] == 1 else sb[0]
+    assert fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), batch, a.shape[1],
+              b.shape[2], a.shape[2], *sa, *sb,
+              torch.cuda.current_stream().cuda_stream) == 0
+    return out
+
+
+def _sum_with(fn, x):
+    """``bi_reduce(x, SUM)`` through another tree's launcher ``fn``."""
+    out = torch.empty((x.shape[0], x.shape[2]), device="cuda")
+    assert fn(x.data_ptr(), out.data_ptr(), *x.shape,
+              torch.cuda.current_stream().cuda_stream) == 0
+    return out
+
+
+def median_turns(fns, reps, rounds=2):
+    """{label: device ms}: each of ``fns`` timed by ``time_ms`` in the
+    order given and then reversed, ``rounds`` times; the median."""
+    got = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k in list(fns) + list(fns)[::-1]:
+            got[k].append(time_ms(fns[k], reps)[0])
+    return {k: float(np.median(v)) for k, v in got.items()}
+
+
+def kernels_against(other: Path, smi: str) -> list:
+    """``bi_gemm`` and ``bi_reduce``'s sum of ``other``'s tree (``other/
+    src``, e.g. a ``git archive`` of the parent) and of this one at every
+    timed shape of ``BI_GEMM_CASES`` and ``BI_REDUCE_CASES`` and the main
+    path's evaluation: the two equal bit for bit, then each and the
+    library's call (cuBLAS ``bmm``, torch's ``sum``) in turns (against,
+    this, library, library, this, against, twice; the median device ms of
+    four)."""
+    old_gemm, old_sum = _against_kernels(other)
+    build.build(["bi_gemm", "bi_reduce"])
+    rows = []
+    gemm_cases = [c[:6] for c in BI_GEMM_CASES if c[6]] + [
+        ("main path eval", 48, 10_000, 784, 64, True)]
+    for label, batch, m, k, n, shared in gemm_cases:
+        a = _randn(1 if shared else batch, m, k, seed=m * 7 + k)
+        b = _randn(batch, k, n, seed=n * 13 + k + batch)
+        assert bits_equal(_gemm_with(old_gemm, a, b), kbg.bi_gemm(a, b)), label
+        wide = a.expand(batch, m, k)
+        ms = median_turns({
+            "against": lambda a=a, b=b: _gemm_with(old_gemm, a, b),
+            "this": lambda a=a, b=b: kbg.bi_gemm(a, b),
+            "library": lambda wide=wide, b=b: torch.bmm(wide, b)},
+            10 if m * k > 1_000_000 else 50)
+        rows.append(dict(kernel="bi_gemm", case=label, shape=[batch, m, k, n],
+                         **ms))
+    for label, r, m, d, mode, timed in BI_REDUCE_CASES:
+        if mode != kbr.SUM or not timed:
+            continue
+        x = _randn(r, m, d, seed=r + 31 * m + d)
+        assert bits_equal(_sum_with(old_sum, x), kbr.bi_reduce(x)), label
+        ms = median_turns({
+            "against": lambda x=x: _sum_with(old_sum, x),
+            "this": lambda x=x: kbr.bi_reduce(x),
+            "library": lambda x=x: x.sum(1)}, 100)
+        rows.append(dict(kernel="bi_reduce", case=label, shape=[r, m, d],
+                         **ms))
+    for row in rows:
+        emit(phase="kernel_turns", gpu=smi, bits_equal=True,
+             speedup=row["against"] / row["this"],
+             of_library=row["this"] / row["library"], **row)
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this check runs on the GPU")
@@ -5567,8 +5812,9 @@ def main():
     # (LDGSTS), K6's chunk states and chunk scan on mma.sync
     sass = {name: sass_ops(name) for name in (
         "flash_attention", "moe_gemm", "decode_attention", "ssd_scan",
-        "robust_aggregate")}
+        "robust_aggregate", "bi_gemm", "bi_reduce")}
     emit(phase="sass", **sass)
+    check_bi_sass(sass["bi_gemm"], sass["bi_reduce"])
     # K2 sorts each column in registers: no instance up to 64 rows may
     # touch shared or local memory; each instance's registers and spills
     k2_ptxas = ptxas_summary(logs.get("robust_aggregate", ""))
@@ -5998,15 +6244,24 @@ if __name__ == "__main__":
         import argparse
         ap = argparse.ArgumentParser(description="With no argument, the "
                                      "whole check above.")
-        ap.add_argument("--rounds-against", type=Path, required=True,
-                        metavar="DIR", help="time the FEEL rounds of DIR's "
-                        "tree and this one in turns, and nothing else")
+        which = ap.add_mutually_exclusive_group(required=True)
+        which.add_argument("--rounds-against", type=Path, metavar="DIR",
+                           help="time the FEEL rounds of DIR's tree and "
+                           "this one in turns, and nothing else")
+        which.add_argument("--kernels-against", type=Path, metavar="DIR",
+                           help="hold bi_gemm and bi_reduce's sum of DIR's "
+                           "tree against this one's, bit for bit, and time "
+                           "them in turns, and nothing else")
         args = ap.parse_args()
         if not torch.cuda.is_available():
-            sys.exit("chip_smoke: no CUDA device; the rounds run on the GPU")
-        rounds_against(args.rounds_against, subprocess.run(
+            sys.exit("chip_smoke: no CUDA device; this runs on the GPU")
+        smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip())
+            check=True).stdout.strip()
+        if args.rounds_against:
+            rounds_against(args.rounds_against, smi)
+        else:
+            kernels_against(args.kernels_against, smi)
     else:
         main()

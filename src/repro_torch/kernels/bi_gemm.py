@@ -9,6 +9,9 @@ any strides (a transposed operand is a strided view, ``x.mT``).
 CUDA tensors and runs the plain PyTorch version ``bi_gemm_ref``
 (``torch.matmul``) on CPU tensors; there is no other path. Both routes are
 the operator ``torch.ops.repro_torch.bi_gemm`` (``kernels/oplib.py``).
+``bi_gemm_chain_ref`` is the kernel's order in plain PyTorch, bit for bit
+on any device: the oracle of the tests and of ``chip_smoke.py``, on no
+path of the port.
 
 It replaces no TPU kernel: it is the port's own, for the task plane
 (``models/batch_invariant.py``), whose every float32 product on the card
@@ -19,8 +22,11 @@ over k in order, in one thread, whatever the batch count, M, N or launch
 ``models/batch_invariant.py``'s autograd Function, whose backward launches
 this kernel again.
 
-Bound on the card: operations at the §V evaluation (50 models x 10,000 x
-784 x 64: 0.75 ms at 67 TFLOP/s), the launch at the training shapes.
+Bound on the card: operations at the §V evaluation (48 models x 10,000 x
+784 x 64: 0.72 ms at 67 TFLOP/s), bytes at the training shapes. The
+kernel's tile is chosen by shape (64 x 64 at the evaluation down to
+32 x 64 at a client's 50 rows and 32 x 32 where N is at most 32), which
+changes who computes an element, never how.
 """
 from __future__ import annotations
 
@@ -62,6 +68,41 @@ def bi_gemm_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: ``torch.matmul`` (a batch of 1 broadcasts)."""
     _check(a, b)
     return torch.matmul(a, b)
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``fmaf(a, b, c)`` elementwise on float32 tensors: a·b + c rounded to
+    float32 once. torch has no fused float32 multiply-add, so it is
+    emulated in float64: the product of two float32 values is exact there,
+    the sum is taken with its exact error (TwoSum) and rounded to odd (its
+    last bit set, toward the error, where the sum was inexact and even),
+    and a value rounded to odd with 53 bits rounds to float32's 24 bits as
+    the exact value would (Boldo & Melquiond)."""
+    # repro: allow(dtype-f64) the exact product and sum, rounded to float32
+    p = a.double() * b.double()
+    q = c.double()  # repro: allow(dtype-f64) as above
+    s = p + q
+    bv = s - p
+    err = (p - (s - bv)) + (q - bv)
+    odd = (err != 0) & (s.view(torch.int64) & 1 == 0) & torch.isfinite(s)
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s)
+    return torch.where(odd, torch.nextafter(s, toward), s).float()
+
+
+def bi_gemm_chain_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernel's order in plain PyTorch: each element one chain
+    ``acc = fmaf(a[m, k], b[k, n], acc)`` from +0 over k = 0, ..., K - 1,
+    then over zeros to the next multiple of 16 (``acc + 0``, which turns
+    only a -0 into +0). Equal to ``bi_gemm`` bit for bit on every input, on
+    any device; K steps of a few float64 passes, so for tests."""
+    _check(a, b)
+    batch, m, k, n = _batch(a, b), a.shape[1], a.shape[2], b.shape[2]
+    acc = a.new_zeros((batch, m, n))
+    for j in range(k):
+        acc = fma32(a[:, :, j:j + 1], b[:, j:j + 1, :], acc)
+    if k % 16:
+        acc = acc + torch.zeros_like(acc)
+    return acc
 
 
 def cost(batch: int, ba: int, bb: int, m: int, n: int, k: int):

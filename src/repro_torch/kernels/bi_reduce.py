@@ -14,10 +14,15 @@ It replaces no TPU kernel: it is the port's own, for the task plane
 (``models/batch_invariant.py``), whose every float32 reduction on the
 card it computes so that a row's result depends on the row alone, not on
 how many rows share the call, and zeros appended to a row change no bit
-(see the source for the order).
+(see the source for the order). ``bi_reduce_chain_ref`` is the sum's
+order in plain PyTorch, bit for bit on any device: the oracle of the
+tests and of ``chip_smoke.py``, on no path of the port.
 
 Bound on the card: bytes, each input read once and each output written
-once; at the task plane's sizes (at most a few MB a call) the launch.
+once; at the task plane's sizes (at most a few MB a call) the launch and
+a chain's latency. A sum runs a warp a row or a thread a column, 8 loads
+of a chain in flight; a long row (D = 1) gets a block, whose other warps
+keep the row's next elements in flight in shared memory.
 """
 from __future__ import annotations
 
@@ -52,6 +57,32 @@ def bi_reduce_ref(x: torch.Tensor, mode: int = SUM) -> torch.Tensor:
     if mode == LOGSUMEXP:
         return torch.logsumexp(x, 1)
     return torch.argmax(x, 1)
+
+
+def bi_reduce_chain_ref(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's sum in its own order, in plain PyTorch float32 adds
+    (exact IEEE on any device): D > 1, each column's chain over m in
+    order from +0; D = 1, lane j's chain over the elements j, j + 32, ...
+    from +0 (the row padded with zeros to a multiple of 32, which changes
+    no chain), then the lanes' tree: lane j plus lane j + h for h = 16, 8,
+    4, 2, 1. Equal to ``bi_reduce(x, SUM)`` bit for bit."""
+    _check(x, SUM)
+    r, m, d = x.shape
+    if d > 1:
+        acc = x.new_zeros((r, d))
+        for i in range(m):
+            acc = acc + x[:, i]
+        return acc
+    lanes = torch.cat([x[:, :, 0], x.new_zeros((r, -m % 32))], 1)
+    lanes = lanes.reshape(r, -1, 32)
+    acc = x.new_zeros((r, 32))
+    for i in range(lanes.shape[1]):
+        acc = acc + lanes[:, i]
+    h = 16
+    while h:
+        acc = acc[:, :h] + acc[:, h:2 * h]
+        h //= 2
+    return acc
 
 
 def _out_shape(x: torch.Tensor):

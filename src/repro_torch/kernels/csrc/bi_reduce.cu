@@ -24,14 +24,31 @@
 //          (shuffles down by 16, 8, 4, 2, 1).
 // In both, element m always lands at the same place of the same chain, so
 // zeros appended to a row (a padded client's masked-out samples) change
-// no bit, and nothing depends on R.
+// no bit, and nothing depends on R. A chain starts at +0 and so never holds
+// -0 (x + y is -0 only when both are), so adding a +0 changes no chain:
+// the kernels fill what lies past a row's end with zeros and add them.
 // logsumexp and argmax take one thread per row (their rows are a
 // vocabulary or a head's keys long): the maximum (NaN first, as torch's
 // amax), then the sum of exp(x - max) in order; argmax keeps the first of
 // equal maxima and takes a NaN as the largest, as torch.argmax does.
 //
 // Bound: bytes — each input read once, each output written once. Every
-// call of the task plane moves at most a few MB, so the launch dominates.
+// call of the task plane moves at most a few MB, so the launch and the
+// chains' latency dominate.
+//
+// Design of the sums (the chains above, scheduled by shape on the host;
+// none changes an order):
+//   a warp a row (D = 1) or a thread a column (D > 1), each thread loading
+//     the next 8 elements of its chain into registers before it adds them
+//     in order (a chain of 8 or more steps), in blocks of 32, 64 or 256
+//     threads: the smallest that still makes ~132 blocks, 256 for chains
+//     shorter than 8 (there more blocks only cost their launch);
+//   a block a row for D = 1 rows of kLongRow or more (the evaluation's
+//     10,000 predictions a model): warp 0 adds while warps 1-4 keep the
+//     row's next kStages - 1 chunks of kChunk steps (kChunk * 32
+//     neighbouring elements) in flight into shared memory by cp.async, 16
+//     bytes a copy where the row starts on 16 bytes, zeros past its end;
+//     so 56 rows run on 56 SMs at the rate of their adds.
 //
 // Plain C interface, loaded with ctypes; the functions return the
 // cudaError_t of the launch (0 on success) and never synchronise.
@@ -43,32 +60,137 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kUnroll = 8;         // loads a short chain has in flight
+constexpr int kChunk = 32;         // chain steps a stage of a long row
+constexpr int kStages = 4;
+constexpr int kCopiers = 128;      // threads of a long row's block that copy
+constexpr int kRowThreads = 32 + kCopiers;     // and warp 0, which adds
+constexpr int kLongRow = 32 * 32;  // M from which a row takes a block
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ unsigned smem(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem(dst)), "l"(src),
+               "r"(bytes));
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem(dst)), "l"(src),
+               "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float warp_tree(float acc) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+  return acc;
+}
+
+// UNROLL: 8 loads of the chain in flight (a chain of 8 steps or more)
+template <int THREADS, bool UNROLL>
+__global__ void __launch_bounds__(THREADS)
 sum_columns_kernel(const float* __restrict__ x, float* __restrict__ out,
                    int64_t r, int64_t m, int64_t d) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
   if (i >= r * d) return;
   const int64_t row = i / d, col = i % d;
   const float* p = x + row * m * d + col;
   float acc = 0.f;
-  for (int64_t k = 0; k < m; ++k) acc += p[k * d];
+  int64_t k = 0;
+  for (; UNROLL && k + kUnroll <= m; k += kUnroll) {   // the loads first, then the adds
+    float v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) v[u] = p[(k + u) * d];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) acc += v[u];
+  }
+  for (; k < m; ++k) acc += p[k * d];
   out[i] = acc;
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int THREADS, bool UNROLL>
+__global__ void __launch_bounds__(THREADS)
 sum_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
                 int64_t r, int64_t m) {
-  const int64_t row = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / 32;
+  const int64_t row = (static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x) / 32;
   const int lane = threadIdx.x & 31;
-  if (row >= r) return;  // a whole warp: kThreads is a multiple of 32
+  if (row >= r) return;  // a whole warp: THREADS is a multiple of 32
   const float* p = x + row * m;
   float acc = 0.f;
-  for (int64_t k = lane; k < m; k += 32) acc += p[k];
+  int64_t k = lane;
+  for (; UNROLL && k + 32 * (kUnroll - 1) < m; k += 32 * kUnroll) {
+    float v[kUnroll];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
+    for (int u = 0; u < kUnroll; ++u) v[u] = p[k + 32 * u];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) acc += v[u];
+  }
+  for (; k < m; k += 32) acc += p[k];
+  acc = warp_tree(acc);
   if (lane == 0) out[row] = acc;
+}
+
+// D = 1, long rows: a block a row. Lane j's step i is element 32 i + j;
+// the row is walked in chunks of kChunk steps (kChunk * 32 neighbouring
+// elements), which warps 1.. copy kStages - 1 chunks ahead (16 bytes a
+// copy where the row starts on 16 bytes, `vec`; zeros past its end) while
+// warp 0 adds the chunk that is in, then meets its lanes in the tree.
+__global__ void __launch_bounds__(kRowThreads)
+sum_long_rows_kernel(const float* __restrict__ x, float* __restrict__ out, int64_t m,
+                     bool vec) {
+  __shared__ __align__(16) float ring[kStages][kChunk * 32];
+  const float* p = x + static_cast<int64_t>(blockIdx.x) * m;
+  const int tid = threadIdx.x, q = tid - 32;
+  const int64_t chunks = (m + kChunk * 32 - 1) / (kChunk * 32);
+
+  auto load = [&](int64_t c) {
+    if (q < 0) return;
+    float* s = ring[c % kStages];
+    const int64_t e0 = c * kChunk * 32;
+    if (vec) {
+#pragma unroll
+      for (int u = 0; u < kChunk * 8 / kCopiers; ++u) {
+        const int e = 4 * (q + u * kCopiers);
+        const int64_t left = m - e0 - e;
+        const int bytes = left <= 0 ? 0 : left >= 4 ? 16 : static_cast<int>(4 * left);
+        cp_async16(s + e, bytes ? p + e0 + e : x, bytes);
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < kChunk * 32 / kCopiers; ++u) {
+        const int e = q + u * kCopiers;
+        const bool ok = e0 + e < m;
+        cp_async4(s + e, ok ? p + e0 + e : x, ok ? 4 : 0);
+      }
+    }
+  };
+#pragma unroll
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (c < chunks) load(c);
+    cp_async_commit();
+  }
+  float acc = 0.f;
+  for (int64_t c = 0; c < chunks; ++c) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // chunk c is in; warp 0 is done with c - 1
+    if (c + kStages - 1 < chunks) load(c + kStages - 1);
+    cp_async_commit();
+    if (tid < 32) {    // the loads first, then the adds in order
+      const float* s = ring[c % kStages] + tid;
+      float v[kChunk];
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) v[i] = s[32 * i];
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) acc += v[i];
+    }
+  }
+  if (tid >= 32) return;
+  acc = warp_tree(acc);
+  if (tid == 0) out[blockIdx.x] = acc;
 }
 
 __device__ __forceinline__ bool above(float v, float best) {
@@ -110,16 +232,41 @@ unsigned blocks(int64_t threads) {
   return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
 }
 
+template <int THREADS, bool UNROLL>
+void launch_short(const float* x, float* out, int64_t r, int64_t m, int64_t d,
+                  int64_t threads, cudaStream_t s) {
+  const unsigned grid = static_cast<unsigned>((threads + THREADS - 1) / THREADS);
+  if (d == 1)
+    sum_rows_kernel<THREADS, UNROLL><<<grid, THREADS, 0, s>>>(x, out, r, m);
+  else
+    sum_columns_kernel<THREADS, UNROLL><<<grid, THREADS, 0, s>>>(x, out, r, m, d);
+}
+
 }  // namespace
 
+// The route: a block a row for long rows (D = 1); else a warp a row or a
+// thread a column, in blocks of 256 threads, or of 64 or 32 where chains of
+// 8 or more steps would leave most of the card's 132 SMs empty.
 extern "C" int bi_sum_f32(const float* x, float* out, long long r,
                           long long m, long long d, void* stream) {
   if (r <= 0 || d <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 1)
-    sum_rows_kernel<<<blocks(r * 32), kThreads, 0, s>>>(x, out, r, m);
-  else
-    sum_columns_kernel<<<blocks(r * d), kThreads, 0, s>>>(x, out, r, m, d);
+  const long long len = d == 1 ? (m + 31) / 32 : m;
+  if (d == 1 && m >= kLongRow) {
+    if (r > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && m % 4 == 0;
+    sum_long_rows_kernel<<<static_cast<unsigned>(r), kRowThreads, 0, s>>>(x, out, m, vec);
+  } else {
+    const long long threads = d == 1 ? r * 32 : r * d;
+    if (len < kUnroll)
+      launch_short<kThreads, false>(x, out, r, m, d, threads, s);
+    else if ((threads + kThreads - 1) / kThreads >= 132)
+      launch_short<kThreads, true>(x, out, r, m, d, threads, s);
+    else if ((threads + 63) / 64 >= 132)
+      launch_short<64, true>(x, out, r, m, d, threads, s);
+    else
+      launch_short<32, true>(x, out, r, m, d, threads, s);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
