@@ -7,8 +7,10 @@
 The second times the FEEL rounds of DIR's tree (DIR/src, e.g. the parent
 commit's ``git archive``) and of this one in turns and does nothing else
 (``rounds_against``); the third builds DIR's ``bi_gemm`` and ``bi_reduce``
-beside this tree's, holds them equal bit for bit and times them and the
-library's call in turns at phase 3's timed shapes (``kernels_against``).
+beside this tree's, holds them equal bit for bit (the sums, logsumexp
+and argmax at every phase 3 shape, and logsumexp and argmax on the edge
+rows) and times them and the library's call in turns at phase 3's timed
+shapes (``kernels_against``).
 The first runs these phases; any failure raises and exits non-zero, and no
 phase catches one:
 
@@ -24,7 +26,9 @@ phase catches one:
     with its registers and spills; ``bi_gemm``'s twenty instances (four
     tiles, five ways of staging a and b) cp.async (LDGSTS) and FFMA from
     128-bit shared loads, no HMMA or HGMMA, no spill (LDL, STL), and
-    ``bi_reduce``'s long-row sum LDGSTS;
+    ``bi_reduce``'s long-row sum LDGSTS, its logsumexp and argmax tiles
+    (three tile heights, 16- and 4-byte copies) LDGSTS, walked by LDS.128
+    where the copies are 16 bytes;
  3. hold each kernel against its plain PyTorch version on the card — the
     main paths' shapes, ragged and misaligned shapes, bf16 and one
     bandwidth-sized case — with its time, the plain version's, one PyTorch
@@ -64,14 +68,22 @@ phase catches one:
     K, and at the ragged and training shapes to its order in plain PyTorch
     (``bi_gemm_chain_ref``: the FFMA chain, each step rounded once);
     ``bi_reduce`` (sums, logsumexp) within 1e-5 of torch's, argmax exact,
-    row 0 equal to one row's call, a sum unchanged by appended zeros and
-    by a misaligned x, and equal bit for bit to ``bi_reduce_chain_ref``;
+    row 0 equal to one row's call and every row to a misaligned x's, a
+    sum unchanged by appended zeros and equal bit for bit to
+    ``bi_reduce_chain_ref``, a logsumexp to ``bi_logsumexp_chain_ref``
+    (at lm_tiny's attention backward too: 24,576 rows of 32 scores, the
+    causal band at -1e30); logsumexp and argmax on edge rows (NaN, +-inf,
+    -1e30, ties, +-0) at M = 1 to 500, aligned and misaligned: the
+    logsumexp equal to its twin, NaN where the row's maximum is infinite
+    (torch: +-inf), the argmax equal to ``torch.argmax``;
  4. the undefended main path at the paper's §V scale: K = 50 UEs,
     50,000/10,000 synthetic MNIST, 5 label flippers, DQS on the host
     control plane, the vectorized engine, 3 rounds on the GPU. Every
     kernel's launch count is set to 0 just before and read just after
     (K1 once a round; the task plane's ``bi_gemm`` and ``bi_reduce`` at
-    least once: every product and sum of its training and evaluation);
+    least once: every product and sum of its training and evaluation;
+    ``bi_reduce`` by mode, each of sum, logsumexp and argmax at least
+    once, as on the LM path's);
     then one round split into its phases and one under ``torch.profiler``
     say where the time goes, and one more the host ms of the task plane's
     batch-invariant route by entry point, Function and kernel wrapper
@@ -233,7 +245,10 @@ phase catches one:
     (qwen2-moe: K3 4 forward + 4 recompute, K5 12 + 12 + 24 backward;
     mamba2: K6 48 + 48), step ms, tokens/s, peak memory and each step's
     loss (finite, the last below the first), then one more step under the
-    profiler split by phase at one-thread marker kernels (``TrainProbe``):
+    profiler split by phase at ``TrainProbe``'s markers (each device
+    event placed by its launch's host call, through the correlation id,
+    after the last marker's ``record_function`` range; a step that cannot
+    be split is profiled again, at most twice, then fails the phase):
     K3/K5/K6 forward and recompute, K5's backward, the plain VJPs of K3
     and K6, the optimizer, idle; (e) a remat step against a no-remat step
     of qwen2-moe at full width and 1 layer (the same routes, the same
@@ -397,6 +412,7 @@ reported beside the CUDA-event time per call, which includes the host's
 launch overhead.
 """
 import atexit
+import bisect
 import collections
 import contextlib
 import ctypes
@@ -664,7 +680,10 @@ def check_bi_sass(gemm, reduce):
     """bi_gemm's instances, each looked up by name: fed by cp.async
     (LDGSTS), multiplying with FFMA from 128-bit shared loads (the kAny
     staging aside, whose copies are 4-byte), no tensor-core instruction
-    (HMMA, HGMMA), no spill (LDL, STL); the long-row sum's copies LDGSTS."""
+    (HMMA, HGMMA), no spill (LDL, STL); the long-row sum's copies LDGSTS;
+    logsumexp's and argmax's tiles too, and read by LDS.128 where the
+    copies are 16 bytes; no bi_reduce kernel spills or issues a
+    tensor-core instruction."""
     for tile in BI_GEMM_TILES:
         for staging in BI_GEMM_STAGINGS:
             name = f"bi_gemm_kernel<{tile},{staging}>"
@@ -676,6 +695,15 @@ def check_bi_sass(gemm, reduce):
     assert len(gemm) == len(BI_GEMM_TILES) * len(BI_GEMM_STAGINGS), gemm
     ops = reduce["sum_long_rows_kernel"]
     assert ops["LDGSTS"] > 0 and not ops["LDL"] and not ops["STL"], ops
+    # logsumexp's and argmax's staged tiles: copied by cp.async, walked
+    # 16 bytes a load where the copies are 16 bytes (VEC 1)
+    for kernel in ("logsumexp_tile_kernel", "argmax_tile_kernel"):
+        for rows in (32, 64, 128):
+            for vec in (0, 1):
+                name = f"{kernel}<{rows},{vec}>"
+                ops = reduce[name]
+                assert ops["LDGSTS"] > 0 and (ops["LDS.128"] > 0 or not vec), (
+                    name, ops)
     for name, ops in reduce.items():
         assert not any(ops[op] for op in ("HMMA", "HGMMA", "LDL", "STL")), (
             name, ops)
@@ -1242,6 +1270,13 @@ def bits_equal(a, b):
         a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
 
 
+def misaligned(x):
+    """x's values at a base 4 bytes past a 16-byte boundary."""
+    off = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    off[1:].copy_(x.reshape(-1))
+    return off[1:].view(x.shape)
+
+
 def check_bi_gemm(label, batch, m, k, n, shared=False, timed=True,
                   twin=False, reps=20):
     """bi_gemm against its plain version (torch.matmul) at one shape, a
@@ -1259,9 +1294,7 @@ def check_bi_gemm(label, batch, m, k, n, shared=False, timed=True,
     one = kbg.bi_gemm(a[:1], b[:1])
     strided = kbg.bi_gemm(a.mT.contiguous().mT, b)
     strided_b = kbg.bi_gemm(a, b.mT.contiguous().mT)
-    off = torch.empty(a.numel() + 1, device="cuda")
-    off[1:].copy_(a.reshape(-1))
-    misaligned = kbg.bi_gemm(off[1:].view(a.shape), b)
+    unaligned = kbg.bi_gemm(misaligned(a), b)
     padded = kbg.bi_gemm(torch.cat([a, a.new_zeros(a.shape[0], m, 5)], 2),
                          torch.cat([b, b.new_zeros(batch, 5, n)], 1))
     torch.cuda.synchronize()
@@ -1270,7 +1303,7 @@ def check_bi_gemm(label, batch, m, k, n, shared=False, timed=True,
     tol = BI_RTOL * want.abs().max().item()
     assert err <= tol, (label, err, tol)
     assert bits_equal(got[:1], one), label
-    for other in (strided, strided_b, misaligned, padded):
+    for other in (strided, strided_b, unaligned, padded):
         assert bits_equal(got, other), label
     if twin:
         assert bits_equal(got, kbg.bi_gemm_chain_ref(a, b)), label
@@ -1302,14 +1335,36 @@ _BI_LIBRARY = {kbr.SUM: lambda x: x.sum(1),
                kbr.ARGMAX: lambda x: torch.argmax(x, 1)}
 
 
-def check_bi_reduce(label, r, m, d, mode, timed=True, reps=50):
+def same_bits(a, b):
+    """Equal bit for bit, NaN exactly where NaN (its payload aside)."""
+    nan = torch.isnan(a)
+    return a.shape == b.shape and torch.equal(nan, torch.isnan(b)) and \
+        bits_equal(a[~nan], b[~nan])
+
+
+def bi_reduce_input(r, m, d, band=False):
+    """check_bi_reduce's x (R, M, D) on the card, from a seed; with
+    ``band`` the causal band of an attention's scores: rows in groups of
+    M queries over M keys, key j of query i past the band (j > i) set to
+    the kernels' -1e30, as ``bi.invariant_vjp`` masks its scores."""
+    x = _randn(r, m, d, seed=r + 31 * m + d)
+    if band:
+        i = torch.arange(r, device="cuda")[:, None] % m
+        x[:, :, 0].masked_fill_(torch.arange(m, device="cuda") > i,
+                                k3.NEG_INF)
+    return x
+
+
+def check_bi_reduce(label, r, m, d, mode, timed=True, band=False, reps=50):
     """bi_reduce against its plain version (torch's reduction) at one
     shape: the sums and logsumexp within ``BI_RTOL``, argmax exact; row 0
-    equal bit for bit to one row's call, and a sum unchanged by zeros
+    equal bit for bit to one row's call and every row to the call on a
+    misaligned copy of x (4-byte copies); a sum unchanged by zeros
     appended to every row and equal bit for bit to its order in plain
-    PyTorch (``bi_reduce_chain_ref``), misaligned too. Returns the
+    PyTorch (``bi_reduce_chain_ref``), a logsumexp equal to its order
+    (``bi_logsumexp_chain_ref``, NaNs aside: none here). Returns the
     numbers."""
-    x = _randn(r, m, d, seed=r + 31 * m + d)
+    x = bi_reduce_input(r, m, d, band)
     got = kbr.bi_reduce(x, mode)
     want = kbr.bi_reduce_ref(x, mode)
     one = kbr.bi_reduce(x[:1], mode)
@@ -1321,17 +1376,18 @@ def check_bi_reduce(label, r, m, d, mode, timed=True, reps=50):
         tol = BI_RTOL * max(want.abs().max().item(), 1.0)
     assert err <= tol, (label, err, tol)
     assert bits_equal(got[:1], one), label
+    assert bits_equal(kbr.bi_reduce(misaligned(x), mode), got), label
     if mode == kbr.SUM:
         padded = torch.cat([x, x.new_zeros(r, 8, d)], 1)
         assert bits_equal(kbr.bi_reduce(padded), got), label
-        off = torch.empty(x.numel() + 1, device="cuda")
-        off[1:].copy_(x.reshape(-1))
-        assert bits_equal(kbr.bi_reduce(off[1:].view(x.shape)), got), label
         assert bits_equal(kbr.bi_reduce_chain_ref(x), got), label
+    elif mode == kbr.LOGSUMEXP:
+        assert same_bits(kbr.bi_logsumexp_chain_ref(x), got), label
+    chain = mode != kbr.ARGMAX or None
     if not timed:
         emit(phase="kernel_check", kernel="bi_reduce", case=label,
-             mode=kbr.MODES[mode], r=r, m=m, d=d, max_abs_err=err, tol=tol,
-             chain_equal=mode == kbr.SUM or None)
+             mode=kbr.MODES[mode], r=r, m=m, d=d, band=band,
+             max_abs_err=err, tol=tol, chain_equal=chain)
         return None
     kernel_ms, kernel_call_ms = time_ms(lambda: kbr.bi_reduce(x, mode),
                                         reps)
@@ -1342,15 +1398,94 @@ def check_bi_reduce(label, r, m, d, mode, timed=True, reps=50):
     flops, nbytes = kbr.cost(r, m, d, mode)
     b_ms, b_by = roofline_ms(flops, nbytes, F32_FLOPS)
     row = dict(phase="kernel_check", kernel="bi_reduce", case=label,
-               mode=kbr.MODES[mode], r=r, m=m, d=d, max_abs_err=err, tol=tol,
-               chain_equal=mode == kbr.SUM or None, kernel_ms=kernel_ms,
-               plain_ms=plain_ms, library_ms=library_ms,
+               mode=kbr.MODES[mode], r=r, m=m, d=d, band=band,
+               max_abs_err=err, tol=tol, chain_equal=chain,
+               kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=b_ms, bound_by=b_by,
                attained_gbps=nbytes / (kernel_ms * 1e-3) / 1e9,
                kernel_call_ms=kernel_call_ms, plain_call_ms=plain_call_ms,
                library_call_ms=library_call_ms)
     emit(**row)
     return row
+
+
+# the widths of the edge rows' cases: M = 1 and short rows (walked in
+# device memory), the paths' 10, 32 and 64, 33 (a tile of 4-byte copies),
+# and 500, past the longest row a tile stages
+EDGE_MS = (1, 2, 7, 10, 32, 33, 64, 500)
+EDGE_R = 300            # rows a case: the edges, then random rows
+
+
+def edge_rows(m, seed):
+    """(``EDGE_R``, M) float32 rows from a seed: the edges — all -1e30, a
+    causal band (the first half finite, then -1e30), a tie of the maximum,
+    signed zeros, a +inf, all -inf, -inf among finite values, a NaN, two
+    NaNs after a larger value, each whose width allows it — then random
+    rows at two scales; on the card."""
+    rng = np.random.default_rng(seed)
+    rows = [np.full(m, -1e30), np.where(np.arange(m) <= m // 2,
+                                        rng.standard_normal(m), -1e30),
+            np.where(np.arange(m) % 2, -0.0, 0.0), np.full(m, -np.inf)]
+    one = rng.standard_normal(m)
+    one[m // 2] = np.inf
+    rows.append(one)
+    if m > 1:
+        tie = rng.standard_normal(m)
+        tie[[0, m - 1]] = tie.max() + 1
+        lo = rng.standard_normal(m)
+        lo[::2] = -np.inf
+        rows += [tie, lo]
+    nan = rng.standard_normal(m)
+    nan[m // 2] = np.nan
+    rows.append(nan)
+    if m > 2:
+        two = rng.standard_normal(m)
+        two[0], two[1], two[-1] = 100.0, np.nan, np.nan
+        rows.append(two)
+    rest = rng.standard_normal((EDGE_R - len(rows), m)) * np.where(
+        np.arange(EDGE_R - len(rows)) % 2, 30.0, 1.0)[:, None]
+    x = np.concatenate([np.stack(rows), rest]).astype(np.float32)
+    return torch.from_numpy(x).to("cuda")[:, :, None]
+
+
+def check_bi_reduce_edges():
+    """logsumexp and argmax on ``edge_rows`` at every width of
+    ``EDGE_MS``, aligned and on a misaligned base: the logsumexp equal
+    bit for bit to ``bi_logsumexp_chain_ref`` on the card (NaN where it
+    is NaN; whether the NaNs' payloads agree too is printed), within
+    ``BI_RTOL`` · max(1, |torch.logsumexp|) of ``torch.logsumexp`` row by
+    row where the row's maximum is finite (``max_rel_err``),
+    NaN where it is +-inf (torch: +-inf; the kernel subtracts the
+    infinite maximum itself); the argmax equal to ``torch.argmax``; the
+    misaligned call equal bit for bit to the aligned one."""
+    for m in EDGE_MS:
+        x = edge_rows(m, seed=m)
+        lse = kbr.bi_reduce(x, kbr.LOGSUMEXP)
+        arg = kbr.bi_reduce(x, kbr.ARGMAX)
+        twin = kbr.bi_logsumexp_chain_ref(x)
+        plain = torch.logsumexp(x, 1)
+        torch.cuda.synchronize()
+        assert same_bits(lse, twin), m
+        assert bits_equal(kbr.bi_reduce(misaligned(x), kbr.LOGSUMEXP),
+                          lse), m
+        assert torch.equal(kbr.bi_reduce(misaligned(x), kbr.ARGMAX), arg), m
+        assert torch.equal(arg, torch.argmax(x, 1)), m
+        mx = torch.gather(x[:, :, 0], 1, arg)
+        nan = torch.isnan(mx)
+        inf = torch.isinf(mx)
+        fin = ~nan & ~inf
+        # row by row: the all -1e30 rows would set a tolerance of 1e25
+        gap = (lse[fin] - plain[fin]).abs() / plain[fin].abs().clamp_min(1.0)
+        err, tol = gap.max().item(), BI_RTOL
+        assert err <= tol, (m, err, tol)
+        assert torch.isnan(lse[nan | inf]).all(), m
+        assert torch.isinf(plain[inf]).all(), m
+        emit(phase="kernel_check", kernel="bi_reduce", case="edge rows",
+             mode="logsumexp, argmax", r=EDGE_R, m=m, d=1,
+             max_rel_err=err, tol=tol, chain_equal=True,
+             nan_rows=int(nan.sum()), infinite_max_rows=int(inf.sum()),
+             nan_payloads_equal=bits_equal(lse, twin), argmax_exact=True,
+             misaligned_equal=True)
 
 
 # the main paths' shapes: the §V MLP's training (a bucket of 50 clients,
@@ -1370,18 +1505,23 @@ BI_GEMM_CASES = (       # (label, batch, M, K, N, a shared, timed, twin)
     ("lm_tiny eval x @ w_ff", 16, 400 * 32, 64, 128, False, True, False),
     ("ragged", 3, 37, 29, 71, False, False, True),
     ("ragged K 48, N 10", 5, 33, 48, 10, False, False, True))
-BI_REDUCE_CASES = (     # (label, R, M, D, mode, timed)
-    ("§V masked loss sums", 50, 50, 1, kbr.SUM, True),
-    ("§V bias gradient", 50, 50, 64, kbr.SUM, True),
-    ("§V eval accuracy sums", 56, 10_000, 1, kbr.SUM, True),
-    ("lm_tiny masked loss sums", 24, 8 * 31, 1, kbr.SUM, False),
-    ("lm_tiny norm-scale gradient", 24, 256, 64, kbr.SUM, True),
-    ("lm_tiny rms_norm mean", 24 * 256, 64, 1, kbr.SUM, True),
-    ("§V logsumexp", 50 * 50, 10, 1, kbr.LOGSUMEXP, False),
-    ("lm_tiny logsumexp", 24 * 8 * 31, 64, 1, kbr.LOGSUMEXP, True),
-    ("§V eval argmax", 50 * 10_000, 10, 1, kbr.ARGMAX, False),
-    ("lm_tiny eval argmax", 16 * 400 * 31, 64, 1, kbr.ARGMAX, True),
-    ("ragged", 7, 33, 5, kbr.SUM, False))
+# (label, R, M, D, mode, timed, band): lm_tiny's attention backward takes
+# a logsumexp of each query's 32 scores, a client's 8 windows x 4 heads x
+# 32 queries, the causal band's keys at -1e30
+BI_REDUCE_CASES = (
+    ("§V masked loss sums", 50, 50, 1, kbr.SUM, True, False),
+    ("§V bias gradient", 50, 50, 64, kbr.SUM, True, False),
+    ("§V eval accuracy sums", 56, 10_000, 1, kbr.SUM, True, False),
+    ("lm_tiny masked loss sums", 24, 8 * 31, 1, kbr.SUM, False, False),
+    ("lm_tiny norm-scale gradient", 24, 256, 64, kbr.SUM, True, False),
+    ("lm_tiny rms_norm mean", 24 * 256, 64, 1, kbr.SUM, True, False),
+    ("§V logsumexp", 50 * 50, 10, 1, kbr.LOGSUMEXP, False, False),
+    ("lm_tiny logsumexp", 24 * 8 * 31, 64, 1, kbr.LOGSUMEXP, True, False),
+    ("lm_tiny attention backward logsumexp", 24 * 8 * 4 * 32, 32, 1,
+     kbr.LOGSUMEXP, True, True),
+    ("§V eval argmax", 50 * 10_000, 10, 1, kbr.ARGMAX, False, False),
+    ("lm_tiny eval argmax", 16 * 400 * 31, 64, 1, kbr.ARGMAX, True, False),
+    ("ragged", 7, 33, 5, kbr.SUM, False, False))
 
 
 def reset_launches():
@@ -1402,6 +1542,26 @@ def read_bi():
 
 def read_launches():
     return {k: fn.launches for k, fn in LAUNCH_COUNTERS.items()}
+
+
+@contextlib.contextmanager
+def bi_reduce_modes():
+    """Within the block, ``bi_reduce``'s launches by mode (a Counter of
+    "sum", "logsumexp", "argmax"): the wrapper's launch, ``kbr._kernel``,
+    wrapped here, adding what the package's count adds."""
+    modes, real = collections.Counter(), kbr._kernel
+
+    def counted(x, mode):
+        before = kbr.bi_reduce.launches
+        out = real(x, mode)
+        modes[kbr.MODES[mode]] += kbr.bi_reduce.launches - before
+        return out
+
+    kbr._kernel = counted
+    try:
+        yield modes
+    finally:
+        kbr._kernel = real
 
 
 def only(**counts):
@@ -1623,10 +1783,12 @@ def lm_run(policy, shapes=None):
     reset_launches()
     reset_bi()
     try:
-        out, server = experiment(
-            cfg=FeelConfig(**LM_CFG), scenario=COLLAPSE, task="lm_tiny",
-            n_train=2000, n_test=400, policy=policy, engine="vectorized",
-            control="host", device="cuda", rounds=3, seed=0)
+        with bi_reduce_modes() as modes:
+            out, server = experiment(
+                cfg=FeelConfig(**LM_CFG), scenario=COLLAPSE,
+                task="lm_tiny", n_train=2000, n_test=400, policy=policy,
+                engine="vectorized", control="host", device="cuda",
+                rounds=3, seed=0)
     finally:
         k3._kernel = real
     launches = read_launches()
@@ -1640,8 +1802,10 @@ def lm_run(policy, shapes=None):
              selected=log.selected.tolist())
     bi_lm = read_bi()
     emit(phase="lm_path_launches", policy=policy, launches=launches,
-         **bi_lm)
+         bi_reduce_by_mode=dict(modes), **bi_lm)
     assert all(n > 0 for n in bi_lm.values()), bi_lm
+    assert sum(modes.values()) == bi_lm["bi_reduce"], (modes, bi_lm)
+    assert all(modes[k] > 0 for k in kbr.MODES.values()), modes
     assert all(np.isfinite(out["loss"])) and all(np.isfinite(out["acc"]))
     return out, server
 
@@ -3420,15 +3584,20 @@ def check_ssd_grad(label, b, length, h, p, n, g, chunk,
     return row
 
 
+TRAIN_MARKER = "repro_train_marker/"
+
+
 class TrainProbe:
     """What a train step does, by phase, read without changing it: the
     launch counts when the loss returns (the forward), the launches made
-    inside K5's backward, and — when ``markers`` — a one-thread
-    ``torch.cuda._sleep(1)`` kernel (``spin_kernel``) at each phase
-    boundary, with the boundaries' labels in order, so that a profile's
-    device timeline splits into the forward, the backward (block
-    recomputes and the rest), K5's backward launches, the plain VJPs of K3
-    and K6, and the optimizer. Installed by ``train_probes``."""
+    inside K5's backward, and — when ``markers`` — at each phase boundary
+    a ``record_function`` range named ``TRAIN_MARKER`` and the marker's
+    index around two one-thread ``torch.cuda._sleep(1)`` kernels
+    (``spin_kernel``, the device's witness of the marker), with the
+    boundaries' labels in order, so that a profile's device timeline
+    splits into the forward, the backward (block recomputes and the rest),
+    K5's backward launches, the plain VJPs of K3 and K6, and the
+    optimizer (``split_profile``). Installed by ``train_probes``."""
 
     def __init__(self):
         self.markers, self.labels = False, []
@@ -3440,9 +3609,11 @@ class TrainProbe:
 
     def mark(self, label):
         self.labels.append(label)
-        if self.markers:            # twice (see ``split_profile``)
-            torch.cuda._sleep(1)
-            torch.cuda._sleep(1)
+        if self.markers:
+            with torch.profiler.record_function(
+                    f"{TRAIN_MARKER}{len(self.labels) - 1}"):
+                torch.cuda._sleep(1)
+                torch.cuda._sleep(1)
 
 
 @contextlib.contextmanager
@@ -3499,48 +3670,86 @@ def train_probes():
             cls.backward = real
 
 
+def _launch_name(name):
+    """A CUDA runtime or driver call that enqueues device work
+    (``cudaLaunchKernel``, ``cuLaunchKernel``, ``cudaMemcpyAsync``, ...)."""
+    return name.startswith(("cudaLaunch", "cuLaunch", "cudaMemcpy",
+                            "cuMemcpy", "cudaMemset", "cuMemset"))
+
+
 def split_profile(prof, labels):
-    """A profiled train step's device time by phase: the device events in
-    start order, cut at the markers into the labelled segments.
-    ``TrainProbe.mark`` launches each marker as two ``spin_kernel``
-    events, so that one dropped event loses no marker: a run of L
-    adjacent spins is ceil(L/2) markers (two markers with nothing
-    launched between them are one run).
-    Returns {segment label: {"all": us, kernel: us}} summed over the
-    segments of that label, or None when the profile does not hold every
-    marker."""
-    evs = sorted((ev for ev in prof.events()
-                  if ev.device_type == torch.autograd.DeviceType.CUDA
-                  and not getattr(ev, "is_user_annotation", False)),
+    """A profiled train step's device time by phase. Each device event
+    (kernel, copy, set) is placed by its launch: the host runtime call of
+    the same correlation id (``FunctionEvent.id``), in the phase of the
+    last ``TrainProbe`` marker range that opened before that call; a
+    device event whose launch call the profile lacks takes the phase of
+    the device event before it on the timeline (one stream). Nothing
+    counts the spin kernels: they only witness, per marker, that the
+    device saw it (a marker whose spins are missing is named in the
+    record). Returns (({segment label: {"all": us, kernel: us}} summed
+    over the segments of that label, or None when a marker's range is
+    missing from the profile), the record: markers found on the host,
+    spin events, the markers missing spins, device events placed by their
+    launch and by their neighbour, and launches whose device event is
+    missing, by phase)."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    evs = list(prof.events())
+    opened = {}                 # marker index: its host range
+    launched = {}               # correlation id: the launch's host start
+    for ev in evs:
+        if ev.device_type != cpu:
+            continue
+        if ev.name.startswith(TRAIN_MARKER):
+            opened[int(ev.name[len(TRAIN_MARKER):])] = ev.time_range
+        elif _launch_name(ev.name):
+            launched[ev.id] = ev.time_range.start
+    dev = sorted((ev for ev in evs if ev.device_type == cuda
+                  and not getattr(ev, "is_user_annotation", False)
+                  and not ev.name.startswith(TRAIN_MARKER)),
                  key=lambda ev: ev.time_range.start)
-    spin = ["spin_kernel" in ev.name for ev in evs]
-    runs = {}                   # first index of a run of spins: markers
-    for i, s in enumerate(spin):
-        if s and (i == 0 or not spin[i - 1]):
-            start = i
-            runs[start] = 0
+    spin = ["spin_kernel" in ev.name for ev in dev]
+    witnessed = collections.Counter()
+    for ev, s in zip(dev, spin):
+        at = launched.get(ev.id)
+        for i, rng in opened.items():
+            if s and at is not None and rng.start <= at <= rng.end:
+                witnessed[i] += 1
+    record = dict(labels=len(labels), markers_on_host=len(opened),
+                  spin_events=sum(spin), device_events=len(dev),
+                  markers_missing_spins=[
+                      [i, labels[i], witnessed[i]]
+                      for i in range(len(labels)) if witnessed[i] < 2])
+    if sorted(opened) != list(range(len(labels))):
+        return None, record
+    starts = [opened[i].start for i in range(len(labels))]
+    assert starts == sorted(starts), starts
+    out = collections.defaultdict(lambda: collections.defaultdict(float))
+    label, by_launch, by_neighbour = "before", 0, 0
+    for ev, s in zip(dev, spin):
+        at = launched.get(ev.id)
+        if at is not None:
+            i = bisect.bisect_right(starts, at) - 1
+            label = labels[i] if i >= 0 else "before"
+            by_launch += 1
+        else:
+            by_neighbour += 1
         if s:
-            runs[start] += 1
-    runs = {i: (n + 1) // 2 for i, n in runs.items()}
-    if sum(runs.values()) != len(labels):
-        emit(phase="train_profile_markers", found=sum(runs.values()),
-             labels=len(labels), device_events=len(evs),
-             spin_events=sum(spin))
-        return None
-    out, label = collections.defaultdict(
-        lambda: collections.defaultdict(float)), "before"
-    it = iter(labels)
-    for i, ev in enumerate(evs):
-        for _ in range(runs.get(i, 0)):
-            label = next(it)
-        if spin[i]:
             continue
         us = ev.time_range.elapsed_us()
         out[label]["all"] += us
         for kernel, names in KERNEL_NAMES.items():
             if any(nm in ev.name for nm in names):
                 out[label][kernel] += us
-    return {k: dict(v) for k, v in out.items()}
+    # launches whose device event the profile lacks, by phase
+    seen = {ev.id for ev in dev}
+    lost = collections.Counter(
+        labels[i] if i >= 0 else "before" for i in (
+            bisect.bisect_right(starts, at) - 1
+            for cid, at in launched.items() if cid not in seen))
+    record.update(placed_by_launch=by_launch,
+                  placed_by_neighbour=by_neighbour,
+                  launches_without_device_event=dict(lost))
+    return {k: dict(v) for k, v in out.items()}, record
 
 
 def train_cell(label, cfg, tcfg, expect):
@@ -3550,8 +3759,9 @@ def train_cell(label, cfg, tcfg, expect):
     K5, K6 forward, remat recompute and K5 backward counted apart and held
     to ``expect``), the step's wall ms, loss and grad norm; the peak
     memory; then one more step profiled (``profile_fn``) and split by
-    phase (``split_profile``; profiled again, at most twice, when the
-    profiler drops a marker). Returns the summary row."""
+    phase (``split_profile``; profiled again, at most twice, when a
+    marker's range is missing; a step that still cannot be split fails
+    the cell). Returns the summary row."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3594,9 +3804,9 @@ def train_cell(label, cfg, tcfg, expect):
                                     for k, v in expect.items()}), total
         # one more step under the profiler, split at its markers (the
         # profiler settles first: the first marker went unrecorded
-        # without it); a step whose markers do not all come back is
-        # profiled again, at most twice more
-        for _ in range(3):
+        # without it); a step whose marker ranges do not all come back is
+        # profiled again, at most twice more, and then the cell fails
+        for attempt in range(3):
             tokens = torch.from_numpy(next(it)["tokens"]).to("cuda",
                                                              torch.int64)
             probe.reset(markers=True)
@@ -3605,26 +3815,29 @@ def train_cell(label, cfg, tcfg, expect):
                 lambda: train_step(*state, {"tokens": tokens}),
                 keep_prof=True, settle_s=0.05)
             prof = prof_row.pop("prof")
-            split = split_profile(prof, probe.labels)
+            split, record = split_profile(prof, probe.labels)
+            emit(phase="train_profile_markers", cell=label, attempt=attempt,
+                 split=split is not None, **record)
             if split is not None:
                 break
+    assert split is not None, (label, "the profiled step cannot be split",
+                               record)
     wall_us = prof_row["wall_us"]
-    shares = None
-    if split is not None:
-        def seg(lbl, key="all"):
-            return split.get(lbl, {}).get(key, 0.0)
-        fwd_k = sum(seg("forward", k) for k in KERNEL_NAMES)
-        rec_k = sum(seg("backward", k) for k in KERNEL_NAMES)
-        shares = {name: us / wall_us for name, us in (
-            ("kernels_forward", fwd_k), ("kernels_remat_recompute", rec_k),
-            ("k5_backward_launches", seg("k5_backward", "moe_gemm")),
-            ("k5_backward_all", seg("k5_backward")),
-            ("k3_plain_vjp", seg("k3_vjp")),
-            ("k6_plain_vjp", seg("k6_vjp")),
-            ("optimizer", seg("optimizer")),
-            ("forward_all", seg("forward")),
-            ("backward_rest", seg("backward")))}
-        shares["idle"] = prof_row["device_idle_share"]
+
+    def seg(lbl, key="all"):
+        return split.get(lbl, {}).get(key, 0.0)
+    fwd_k = sum(seg("forward", k) for k in KERNEL_NAMES)
+    rec_k = sum(seg("backward", k) for k in KERNEL_NAMES)
+    shares = {name: us / wall_us for name, us in (
+        ("kernels_forward", fwd_k), ("kernels_remat_recompute", rec_k),
+        ("k5_backward_launches", seg("k5_backward", "moe_gemm")),
+        ("k5_backward_all", seg("k5_backward")),
+        ("k3_plain_vjp", seg("k3_vjp")),
+        ("k6_plain_vjp", seg("k6_vjp")),
+        ("optimizer", seg("optimizer")),
+        ("forward_all", seg("forward")),
+        ("backward_rest", seg("backward")))}
+    shares["idle"] = prof_row["device_idle_share"]
     losses = [r["loss"] for r in rows]
     step_ms = float(np.median([r["ms"] for r in rows[1:]]))
     kernel_us = {kernel: sum(us for name, us in device_us(prof).items()
@@ -5686,7 +5899,9 @@ AGAINST_DIR = build.BUILD_DIR.parent / "kernels_against"
 def _against_kernels(other: Path):
     """DIR's ``bi_gemm.cu`` and ``bi_reduce.cu`` built (one nvcc each, in
     parallel, with this tree's flags) and loaded: their C launchers
-    ``bi_gemm_f32`` and ``bi_sum_f32``, whose interfaces this tree keeps."""
+    ``bi_gemm_f32``, ``bi_sum_f32``, ``bi_logsumexp_f32`` and
+    ``bi_argmax_f32``, whose interfaces this tree keeps; the last three
+    by mode."""
     AGAINST_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in ("bi_gemm", "bi_reduce"):
@@ -5701,13 +5916,18 @@ def _against_kernels(other: Path):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {other}'s {name}:\n{log}")
         libs[name] = ctypes.CDLL(str(AGAINST_DIR / f"{name}.so"))
-    gemm, total = libs["bi_gemm"].bi_gemm_f32, libs["bi_reduce"].bi_sum_f32
+    gemm = libs["bi_gemm"].bi_gemm_f32
     gemm.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                      + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
-    total.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3
-                      + [ctypes.c_void_p])
-    gemm.restype = total.restype = ctypes.c_int
-    return gemm, total
+    gemm.restype = ctypes.c_int
+    reduce = {kbr.SUM: libs["bi_reduce"].bi_sum_f32,
+              kbr.LOGSUMEXP: libs["bi_reduce"].bi_logsumexp_f32,
+              kbr.ARGMAX: libs["bi_reduce"].bi_argmax_f32}
+    for mode, fn in reduce.items():
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * (
+            3 if mode == kbr.SUM else 2) + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return gemm, reduce
 
 
 def _gemm_with(fn, a, b):
@@ -5723,11 +5943,13 @@ def _gemm_with(fn, a, b):
     return out
 
 
-def _sum_with(fn, x):
-    """``bi_reduce(x, SUM)`` through another tree's launcher ``fn``."""
-    out = torch.empty((x.shape[0], x.shape[2]), device="cuda")
-    assert fn(x.data_ptr(), out.data_ptr(), *x.shape,
-              torch.cuda.current_stream().cuda_stream) == 0
+def _reduce_with(fns, x, mode=kbr.SUM):
+    """``bi_reduce(x, mode)`` through another tree's launchers ``fns``."""
+    out = torch.empty((x.shape[0], x.shape[2]), device="cuda",
+                      dtype=torch.int64 if mode == kbr.ARGMAX else x.dtype)
+    sizes = x.shape if mode == kbr.SUM else x.shape[:2]
+    assert fns[mode](x.data_ptr(), out.data_ptr(), *sizes,
+                     torch.cuda.current_stream().cuda_stream) == 0
     return out
 
 
@@ -5742,14 +5964,17 @@ def median_turns(fns, reps, rounds=2):
 
 
 def kernels_against(other: Path, smi: str) -> list:
-    """``bi_gemm`` and ``bi_reduce``'s sum of ``other``'s tree (``other/
-    src``, e.g. a ``git archive`` of the parent) and of this one at every
-    timed shape of ``BI_GEMM_CASES`` and ``BI_REDUCE_CASES`` and the main
-    path's evaluation: the two equal bit for bit, then each and the
-    library's call (cuBLAS ``bmm``, torch's ``sum``) in turns (against,
-    this, library, library, this, against, twice; the median device ms of
-    four)."""
-    old_gemm, old_sum = _against_kernels(other)
+    """``bi_gemm`` and ``bi_reduce`` (its sums, logsumexp and argmax) of
+    ``other``'s tree (``other/src``, e.g. a ``git archive`` of the
+    parent) and of this one: equal bit for bit (int32 views) at every
+    shape of ``BI_GEMM_CASES`` and ``BI_REDUCE_CASES``, the main path's
+    evaluation product and argmax, and, for logsumexp and argmax,
+    ``edge_rows`` at every width of ``EDGE_MS``, aligned and misaligned;
+    then at the timed shapes and the main path's evaluation each tree's
+    kernel and the library's call (cuBLAS ``bmm``, torch's ``sum``,
+    ``logsumexp``, ``argmax``) in turns (against, this, library, library,
+    this, against, twice; the median device ms of four)."""
+    old_gemm, old_reduce = _against_kernels(other)
     build.build(["bi_gemm", "bi_reduce"])
     rows = []
     gemm_cases = [c[:6] for c in BI_GEMM_CASES if c[6]] + [
@@ -5766,17 +5991,36 @@ def kernels_against(other: Path, smi: str) -> list:
             10 if m * k > 1_000_000 else 50)
         rows.append(dict(kernel="bi_gemm", case=label, shape=[batch, m, k, n],
                          **ms))
-    for label, r, m, d, mode, timed in BI_REDUCE_CASES:
-        if mode != kbr.SUM or not timed:
+    edges = 0
+    for m in EDGE_MS:
+        x = edge_rows(m, seed=m)
+        for mode in (kbr.LOGSUMEXP, kbr.ARGMAX):
+            for xx in (x, misaligned(x)):
+                assert bits_equal(_reduce_with(old_reduce, xx, mode),
+                                  kbr.bi_reduce(xx, mode)), (m, mode)
+                edges += 1
+    emit(phase="kernel_edges_against", gpu=smi, cases=edges,
+         widths=list(EDGE_MS), rows=EDGE_R, bits_equal=True)
+    reduce_cases = list(BI_REDUCE_CASES) + [
+        ("main path eval argmax", 48 * 10_000, 10, 1, kbr.ARGMAX, True,
+         False)]
+    for label, r, m, d, mode, timed, band in reduce_cases:
+        x = bi_reduce_input(r, m, d, band)
+        assert bits_equal(_reduce_with(old_reduce, x, mode),
+                          kbr.bi_reduce(x, mode)), label
+        if not timed:
+            emit(phase="kernel_turns", gpu=smi, kernel="bi_reduce",
+                 case=label, mode=kbr.MODES[mode], shape=[r, m, d],
+                 bits_equal=True, timed=False)
             continue
-        x = _randn(r, m, d, seed=r + 31 * m + d)
-        assert bits_equal(_sum_with(old_sum, x), kbr.bi_reduce(x)), label
+        library = _BI_LIBRARY[mode]
         ms = median_turns({
-            "against": lambda x=x: _sum_with(old_sum, x),
-            "this": lambda x=x: kbr.bi_reduce(x),
-            "library": lambda x=x: x.sum(1)}, 100)
-        rows.append(dict(kernel="bi_reduce", case=label, shape=[r, m, d],
-                         **ms))
+            "against": lambda x=x, mode=mode: _reduce_with(old_reduce, x,
+                                                           mode),
+            "this": lambda x=x, mode=mode: kbr.bi_reduce(x, mode),
+            "library": lambda x=x, library=library: library(x)}, 100)
+        rows.append(dict(kernel="bi_reduce", case=label,
+                         mode=kbr.MODES[mode], shape=[r, m, d], **ms))
     for row in rows:
         emit(phase="kernel_turns", gpu=smi, bits_equal=True,
              speedup=row["against"] / row["this"],
@@ -6021,6 +6265,7 @@ def main():
         check_bi_gemm(*case)
     for case in BI_REDUCE_CASES:
         check_bi_reduce(*case)
+    check_bi_reduce_edges()
 
     # 4. the undefended main path at the paper's §V scale
     reset_launches()
@@ -6030,23 +6275,29 @@ def main():
          w1_sum=float(server.params["w1"].double().sum()),
          w1_head=server.params["w1"][0, :4].tolist())
     rounds = []
-    for t in range(3):
-        t0 = time.perf_counter()
-        log = server.run_round(t)
-        torch.cuda.synchronize()
-        rounds.append(dict(
-            round=t, acc=log.global_acc, n_selected=int(log.selected.size),
-            n_malicious_selected=int(log.n_malicious_selected),
-            agg_rows=pad_count(int(log.selected.size)),
-            wall_ms=(time.perf_counter() - t0) * 1e3,
-            selected=log.selected.tolist()))
-        emit(phase="main_path", **rounds[-1])
+    with bi_reduce_modes() as modes:
+        for t in range(3):
+            t0 = time.perf_counter()
+            log = server.run_round(t)
+            torch.cuda.synchronize()
+            rounds.append(dict(
+                round=t, acc=log.global_acc,
+                n_selected=int(log.selected.size),
+                n_malicious_selected=int(log.n_malicious_selected),
+                agg_rows=pad_count(int(log.selected.size)),
+                wall_ms=(time.perf_counter() - t0) * 1e3,
+                selected=log.selected.tolist()))
+            emit(phase="main_path", **rounds[-1])
     launches = read_launches()
     bi_main = read_bi()
-    emit(phase="main_path_launches", launches=launches, **bi_main)
+    emit(phase="main_path_launches", launches=launches,
+         bi_reduce_by_mode=dict(modes), **bi_main)
     assert launches == only(weighted_aggregate=3), launches
-    # every product and sum of the task plane went through the two kernels
+    # every product and sum of the task plane went through the two
+    # kernels, the reductions in each of their three modes
     assert all(n > 0 for n in bi_main.values()), bi_main
+    assert sum(modes.values()) == bi_main["bi_reduce"], (modes, bi_main)
+    assert all(modes[k] > 0 for k in kbr.MODES.values()), modes
     launches.update(bi_main)
     accs = [r["acc"] for r in rounds]
     assert all(np.isfinite(accs)), accs
@@ -6249,9 +6500,10 @@ if __name__ == "__main__":
                            help="time the FEEL rounds of DIR's tree and "
                            "this one in turns, and nothing else")
         which.add_argument("--kernels-against", type=Path, metavar="DIR",
-                           help="hold bi_gemm and bi_reduce's sum of DIR's "
-                           "tree against this one's, bit for bit, and time "
-                           "them in turns, and nothing else")
+                           help="hold bi_gemm and bi_reduce (sum, "
+                           "logsumexp, argmax) of DIR's tree against this "
+                           "one's, bit for bit, and time them in turns, "
+                           "and nothing else")
         args = ap.parse_args()
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device; this runs on the GPU")

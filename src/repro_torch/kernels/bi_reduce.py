@@ -14,15 +14,19 @@ It replaces no TPU kernel: it is the port's own, for the task plane
 (``models/batch_invariant.py``), whose every float32 reduction on the
 card it computes so that a row's result depends on the row alone, not on
 how many rows share the call, and zeros appended to a row change no bit
-(see the source for the order). ``bi_reduce_chain_ref`` is the sum's
-order in plain PyTorch, bit for bit on any device: the oracle of the
-tests and of ``chip_smoke.py``, on no path of the port.
+(see the source for the order). ``bi_reduce_chain_ref`` and
+``bi_logsumexp_chain_ref`` are the sum's and the logsumexp's order in
+plain PyTorch: the oracles of the tests and of ``chip_smoke.py``, on no
+path of the port.
 
 Bound on the card: bytes, each input read once and each output written
 once; at the task plane's sizes (at most a few MB a call) the launch and
 a chain's latency. A sum runs a warp a row or a thread a column, 8 loads
 of a chain in flight; a long row (D = 1) gets a block, whose other warps
-keep the row's next elements in flight in shared memory.
+keep the row's next elements in flight in shared memory. logsumexp and
+argmax stage a tile of rows of more than 12 in shared memory by
+coalesced copies, and a thread walks each row there; shorter rows are
+walked in device memory.
 """
 from __future__ import annotations
 
@@ -83,6 +87,29 @@ def bi_reduce_chain_ref(x: torch.Tensor) -> torch.Tensor:
         acc = acc[:, :h] + acc[:, h:2 * h]
         h //= 2
     return acc
+
+
+def bi_logsumexp_chain_ref(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's logsumexp in its own order, in plain PyTorch float32
+    operations: the maximum the first element that no later one is above
+    (greater, or a NaN over a number: the first NaN stays), from -inf;
+    then s += exp(x[m] - max) for m in order from +0; then log(s) plus
+    the maximum, or +0 for an infinite one. So a row holding +-inf reads
+    NaN (inf - inf), where ``torch.logsumexp`` reads +-inf. Equal to
+    ``bi_reduce(x, LOGSUMEXP)`` bit for bit where ``torch.exp`` and
+    ``torch.log`` round as the kernel's ``expf`` and ``logf`` do (on the
+    card)."""
+    _check(x, LOGSUMEXP)
+    v = x[:, :, 0]
+    mx = v.new_full((v.shape[0],), float("-inf"))
+    for i in range(v.shape[1]):
+        c = v[:, i]
+        mx = torch.where((c > mx) | (c.isnan() & ~mx.isnan()), c, mx)
+    e = torch.exp(v - mx[:, None])
+    s = v.new_zeros(v.shape[0])
+    for i in range(v.shape[1]):
+        s = s + e[:, i]
+    return (torch.log(s) + torch.where(mx.isinf(), 0.0, mx))[:, None]
 
 
 def _out_shape(x: torch.Tensor):

@@ -27,10 +27,12 @@
 // no bit, and nothing depends on R. A chain starts at +0 and so never holds
 // -0 (x + y is -0 only when both are), so adding a +0 changes no chain:
 // the kernels fill what lies past a row's end with zeros and add them.
-// logsumexp and argmax take one thread per row (their rows are a
-// vocabulary or a head's keys long): the maximum (NaN first, as torch's
-// amax), then the sum of exp(x - max) in order; argmax keeps the first of
-// equal maxima and takes a NaN as the largest, as torch.argmax does.
+// logsumexp and argmax walk a row in one thread, in order (their rows are
+// a vocabulary or a head's keys long): logsumexp the maximum (the first
+// element that no later one is above(): a NaN wins and the first NaN
+// stays), then s += expf(x[m] - max) for m in order from +0, then
+// logf(s) + max (+0 for an infinite max); argmax the index of that first
+// maximal element, as torch.argmax does.
 //
 // Bound: bytes — each input read once, each output written once. Every
 // call of the task plane moves at most a few MB, so the launch and the
@@ -49,6 +51,27 @@
 //     neighbouring elements) in flight into shared memory by cp.async, 16
 //     bytes a copy where the row starts on 16 bytes, zeros past its end;
 //     so 56 rows run on 56 SMs at the rate of their adds.
+// Design of logsumexp and argmax (the walk above, unchanged):
+//   a block stages a tile of ROWS consecutive rows (one contiguous range
+//     of x) in shared memory by cp.async, neighbouring threads on
+//     neighbouring addresses: 16 bytes a copy where M is a multiple of 4
+//     and x starts on 16 bytes (each row's chunks land whole, at a stride
+//     of M + 4 floats where M / 4 is even, so that the 8 rows a quarter
+//     warp reads with one 16-byte load fill the 32 banks), else 4 bytes a
+//     copy at an odd stride (M, or M + 1); then thread i walks row i from
+//     shared memory. So a row is read from device memory once, in whole
+//     sectors (a thread walking its row there made each warp load touch
+//     32 sectors for 4 bytes of each, and logsumexp walked it twice);
+//   ROWS (128, 64 or 32 threads and rows a block) is the largest whose
+//     tile fits 48 KB and still makes two blocks an SM, else the smallest
+//     that fits: 5,952 rows of 64 take 186 blocks of 32;
+//   rows of kShortRow or fewer (the §V MLP's 10 classes) keep the walk
+//     over device memory, a thread a row in blocks of 256: a warp's 32
+//     rows span at most 1.5 KB, whose sectors the L1 cache holds from
+//     one load to the next; on an H100 that walk reads 480,000 rows of
+//     10 at its bytes bound, where a tile's copy, wait and walk in turn
+//     take longer; so does a row too long for a 32-row tile (a stride
+//     over 384 floats: M over 383; none is on a path).
 //
 // Plain C interface, loaded with ctypes; the functions return the
 // cudaError_t of the launch (0 on success) and never synchronise.
@@ -66,6 +89,9 @@ constexpr int kStages = 4;
 constexpr int kCopiers = 128;      // threads of a long row's block that copy
 constexpr int kRowThreads = 32 + kCopiers;     // and warp 0, which adds
 constexpr int kLongRow = 32 * 32;  // M from which a row takes a block
+constexpr int kTileFloats = 48 * 1024 / 4;  // the most a staged tile holds
+constexpr int kShortRow = 12;      // M up to which a row is walked in place
+constexpr int kSMs = 132;
 
 __device__ __forceinline__ unsigned smem(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -228,6 +254,87 @@ argmax_kernel(const float* __restrict__ x, int64_t* __restrict__ out,
   out[row] = at;
 }
 
+// The tile of (at most) ROWS rows from row blockIdx.x * ROWS into shared
+// memory, row i at tile + i * stride (see the design above); returns the
+// rows it holds. Copy c of the tile is (row i, chunk j) with i = c / n
+// taken as (c * magic) >> 32, exact while c * n < 2^32 (c, n < 2^14).
+template <int ROWS, bool VEC>
+__device__ __forceinline__ int stage_tile(float* tile, const float* __restrict__ x,
+                                          int64_t r, int m, int stride) {
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * ROWS;
+  const int rows = static_cast<int>(r - row0 < ROWS ? r - row0 : ROWS);
+  const float* src = x + row0 * m;
+  const int n = VEC ? m / 4 : m;       // copies a row
+  const uint64_t magic = (uint64_t{1} << 32) / n + 1;
+  for (int c = threadIdx.x; c < rows * n; c += ROWS) {
+    const int i = static_cast<int>((static_cast<uint64_t>(c) * magic) >> 32);
+    const int j = c - i * n;
+    if (VEC)
+      cp_async16(tile + i * stride + 4 * j, src + 4 * static_cast<int64_t>(c), 16);
+    else
+      cp_async4(tile + i * stride + j, src + c, 4);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  return rows;
+}
+
+// f(k, x[k]) for k = 0 .. m - 1 in order, from a staged row (16-byte
+// loads where VEC)
+template <bool VEC, class F>
+__device__ __forceinline__ void walk(const float* row, int m, F&& f) {
+  if (VEC) {
+    for (int k = 0; k < m; k += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(row + k);
+      f(k, v.x);
+      f(k + 1, v.y);
+      f(k + 2, v.z);
+      f(k + 3, v.w);
+    }
+  } else {
+    for (int k = 0; k < m; ++k) f(k, row[k]);
+  }
+}
+
+template <int ROWS, bool VEC>
+__global__ void __launch_bounds__(ROWS)
+logsumexp_tile_kernel(const float* __restrict__ x, float* __restrict__ out,
+                      int64_t r, int m, int stride) {
+  extern __shared__ __align__(16) float tile[];
+  const int rows = stage_tile<ROWS, VEC>(tile, x, r, m, stride);
+  if (static_cast<int>(threadIdx.x) >= rows) return;
+  const float* row = tile + threadIdx.x * stride;
+  float mx = -INFINITY;
+  walk<VEC>(row, m, [&](int, float v) {
+    if (above(v, mx)) mx = v;
+  });
+  float s = 0.f;
+  walk<VEC>(row, m, [&](int, float v) { s += expf(v - mx); });
+  out[static_cast<int64_t>(blockIdx.x) * ROWS + threadIdx.x] =
+      logf(s) + (isinf(mx) ? 0.f : mx);
+}
+
+// starts at k = 0 with x[0] as the best: x[0] is never above itself
+template <int ROWS, bool VEC>
+__global__ void __launch_bounds__(ROWS)
+argmax_tile_kernel(const float* __restrict__ x, int64_t* __restrict__ out,
+                   int64_t r, int m, int stride) {
+  extern __shared__ __align__(16) float tile[];
+  const int rows = stage_tile<ROWS, VEC>(tile, x, r, m, stride);
+  if (static_cast<int>(threadIdx.x) >= rows) return;
+  const float* row = tile + threadIdx.x * stride;
+  float best = row[0];
+  int at = 0;
+  walk<VEC>(row, m, [&](int k, float v) {
+    if (above(v, best)) {
+      best = v;
+      at = k;
+    }
+  });
+  out[static_cast<int64_t>(blockIdx.x) * ROWS + threadIdx.x] = at;
+}
+
 unsigned blocks(int64_t threads) {
   return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
 }
@@ -240,6 +347,49 @@ void launch_short(const float* x, float* out, int64_t r, int64_t m, int64_t d,
     sum_rows_kernel<THREADS, UNROLL><<<grid, THREADS, 0, s>>>(x, out, r, m);
   else
     sum_columns_kernel<THREADS, UNROLL><<<grid, THREADS, 0, s>>>(x, out, r, m, d);
+}
+
+template <bool LSE, int ROWS, bool VEC>
+void launch_tile(const float* x, void* out, int64_t r, int m, int stride, cudaStream_t s) {
+  const unsigned grid = static_cast<unsigned>((r + ROWS - 1) / ROWS);
+  const size_t bytes = sizeof(float) * ROWS * stride;
+  if (LSE)
+    logsumexp_tile_kernel<ROWS, VEC><<<grid, ROWS, bytes, s>>>(
+        x, static_cast<float*>(out), r, m, stride);
+  else
+    argmax_tile_kernel<ROWS, VEC><<<grid, ROWS, bytes, s>>>(
+        x, static_cast<int64_t*>(out), r, m, stride);
+}
+
+template <bool LSE, bool VEC>
+void launch_tiles(const float* x, void* out, int64_t r, int m, int stride, int rows,
+                  cudaStream_t s) {
+  if (rows == 128)
+    launch_tile<LSE, 128, VEC>(x, out, r, m, stride, s);
+  else if (rows == 64)
+    launch_tile<LSE, 64, VEC>(x, out, r, m, stride, s);
+  else
+    launch_tile<LSE, 32, VEC>(x, out, r, m, stride, s);
+}
+
+// A thread a row from a staged tile (the design above); false where a row
+// is short enough or too long to stage, and the caller keeps the walk over
+// device memory.
+template <bool LSE>
+bool launch_staged(const float* x, void* out, long long r, long long m, cudaStream_t s) {
+  const bool vec = m % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const long long stride = vec ? (m / 4 % 2 ? m : m + 4) : (m % 2 ? m : m + 1);
+  if (m <= kShortRow || 32 * stride > kTileFloats || (r + 31) / 32 > 0x7fffffffLL)
+    return false;
+  int rows = 128;
+  while (rows > 32 && (rows * stride > kTileFloats || (r + rows - 1) / rows < 2 * kSMs))
+    rows /= 2;
+  const int mi = static_cast<int>(m), st = static_cast<int>(stride);
+  if (vec)
+    launch_tiles<LSE, true>(x, out, r, mi, st, rows, s);
+  else
+    launch_tiles<LSE, false>(x, out, r, mi, st, rows, s);
+  return true;
 }
 
 }  // namespace
@@ -273,15 +423,17 @@ extern "C" int bi_sum_f32(const float* x, float* out, long long r,
 extern "C" int bi_logsumexp_f32(const float* x, float* out, long long r,
                                 long long m, void* stream) {
   if (r <= 0) return 0;
-  logsumexp_kernel<<<blocks(r), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, out, r, m);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!launch_staged<true>(x, out, r, m, s))
+    logsumexp_kernel<<<blocks(r), kThreads, 0, s>>>(x, out, r, m);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int bi_argmax_f32(const float* x, long long* out, long long r,
                              long long m, void* stream) {
   if (r <= 0) return 0;
-  argmax_kernel<<<blocks(r), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, reinterpret_cast<int64_t*>(out), r, m);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!launch_staged<false>(x, out, r, m, s))
+    argmax_kernel<<<blocks(r), kThreads, 0, s>>>(x, reinterpret_cast<int64_t*>(out), r, m);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,6 @@
 """The batch-invariant kernels' order twins (``kernels/bi_gemm.py``'s
 ``bi_gemm_chain_ref`` and ``fma32``, ``kernels/bi_reduce.py``'s
-``bi_reduce_chain_ref``), on the CPU.
+``bi_reduce_chain_ref`` and ``bi_logsumexp_chain_ref``), on the CPU.
 
 Each twin is its kernel's documented order in plain PyTorch, bit for bit
 on any device; ``chip_smoke.py`` holds the kernels against them on the
@@ -10,7 +10,11 @@ differ, so a twin that rounded twice would fail); the product's chain is
 that rounding step by step; the sum's chains are float32 adds in the
 documented order; neither twin changes with zeros appended to K or M or
 with the number of batch rows; both agree with the reference's
-``jnp.matmul`` and ``jnp.sum``. The sources keep the order's rules.
+``jnp.matmul`` and ``jnp.sum``. The logsumexp's twin is its maximum and
+chain of exps in order, and agrees with ``jax.nn.logsumexp`` on finite
+rows; the argmax's plain version is the first maximal element and
+``jnp.argmax``'s on ties, signed zeros, infinities and NaNs. The sources
+keep the order's rules.
 """
 from __future__ import annotations
 
@@ -25,7 +29,10 @@ from torch_parity import single_threaded  # noqa: F401
 
 from repro_torch.kernels import build
 from repro_torch.kernels.bi_gemm import bi_gemm_chain_ref, fma32
-from repro_torch.kernels.bi_reduce import SUM, bi_reduce_chain_ref
+from repro_torch.kernels.bi_reduce import (ARGMAX, LOGSUMEXP, SUM,
+                                           bi_logsumexp_chain_ref,
+                                           bi_reduce,
+                                           bi_reduce_chain_ref)
 
 F32 = np.float32
 
@@ -247,6 +254,139 @@ def test_the_sum_twin_takes_only_sums():
 
 
 # ---------------------------------------------------------------------- #
+# logsumexp and argmax: the walk's order, edge rows
+# ---------------------------------------------------------------------- #
+INF, NAN = F32(np.inf), F32(np.nan)
+
+
+def _edge_rows(m, seed):
+    """(rows, M) float32: random rows at two scales, then the edges —
+    all -1e30, a causal band (the first half finite, then -1e30), a tie
+    of the maximum, signed zeros, a +inf, all -inf, -inf among finite
+    values, a NaN, two NaNs after a larger value — each whose width
+    allows it."""
+    rng = np.random.default_rng(seed)
+    rows = [rng.standard_normal(m), 30 * rng.standard_normal(m),
+            np.full(m, -1e30), np.where(np.arange(m) <= m // 2,
+                                        rng.standard_normal(m), -1e30),
+            np.where(np.arange(m) % 2, -0.0, 0.0), np.full(m, -np.inf)]
+    one = rng.standard_normal(m)
+    one[m // 2] = np.inf
+    rows.append(one)
+    if m > 1:
+        tie = rng.standard_normal(m)
+        tie[[0, m - 1]] = tie.max() + 1
+        rows.append(tie)
+        lo = rng.standard_normal(m)
+        lo[::2] = -np.inf
+        rows.append(lo)
+    nan = rng.standard_normal(m)
+    nan[m // 2] = np.nan
+    rows.append(nan)
+    if m > 2:
+        two = rng.standard_normal(m)
+        two[0], two[1], two[-1] = 100.0, np.nan, np.nan
+        rows.append(two)
+    return np.stack(rows).astype(F32)
+
+
+def _above(v, best):
+    return v > best or (np.isnan(v) and not np.isnan(best))
+
+
+def _first_max(row):
+    """(the first maximal value, its index): the walk from x[0]."""
+    best, at = row[0], 0
+    for k, v in enumerate(row):
+        if _above(v, best):
+            best, at = v, k
+    return best, at
+
+
+def _same(a, b):
+    """Equal bit for bit, NaN only where NaN (a NaN's payload aside)."""
+    nan = np.isnan(a)
+    return np.array_equal(nan, np.isnan(b)) and np.array_equal(
+        a[~nan].view(np.int32), b[~nan].view(np.int32))
+
+
+EDGE_MS = [1, 2, 10, 33, 64]
+
+
+@pytest.mark.parametrize("m", EDGE_MS)
+def test_the_logsumexp_twin_is_the_documented_order(m):
+    """The twin against its order written out: the maximum by the walk
+    from -inf, the exps given (``torch.exp`` of x - max, as the twin
+    takes them), then numpy float32 adds in order from +0, ``log``, and
+    the maximum added unless it is infinite."""
+    x = _edge_rows(m, seed=m)
+    want = np.empty(len(x), F32)
+    for i, row in enumerate(x):
+        mx = F32(-np.inf)
+        for v in row:
+            if _above(v, mx):
+                mx = v
+        with np.errstate(invalid="ignore"):     # inf - inf
+            e = torch.exp(torch.from_numpy(row - mx)).numpy()
+        s = F32(0)
+        for v in e:
+            s = F32(s + v)
+        log = torch.log(torch.tensor(s)).numpy()
+        want[i] = F32(log + (F32(0) if np.isinf(mx) else mx))
+    got = bi_logsumexp_chain_ref(torch.from_numpy(x)[:, :, None])
+    assert got.shape == (len(x), 1)
+    assert _same(got[:, 0].numpy(), want)
+
+
+@pytest.mark.parametrize("m", EDGE_MS)
+def test_the_logsumexp_twin_agrees_with_jax_logsumexp(m):
+    """Within 1e-5 · max(1, |want|) of ``jax.nn.logsumexp`` on the rows
+    whose maximum is finite, -inf entries among them (the chain of M
+    float32 adds against XLA's order); NaN on a NaN row as jax; and NaN
+    where the maximum is +-inf (a +inf, or all -inf), where jax reads
+    +-inf: the kernel subtracts the infinite maximum itself."""
+    import jax
+    x = _edge_rows(m, seed=m + 1)
+    want = np.asarray(jax.nn.logsumexp(x, axis=1))
+    got = bi_logsumexp_chain_ref(torch.from_numpy(x)[:, :, None])[:, 0]
+    got = got.numpy()
+    nan = np.isnan(x).any(1)
+    inf = np.isinf(np.array([_first_max(row)[0] for row in x])) & ~nan
+    fin = ~inf & ~nan
+    assert fin.sum() >= 4 and inf.sum() == 2
+    tol = 1e-5 * np.maximum(1.0, np.abs(want[fin]))
+    assert (np.abs(got[fin] - want[fin]) <= tol).all()
+    assert np.isnan(got[nan]).all() and np.isnan(want[nan]).all()
+    assert np.isnan(got[inf]).all()
+    assert np.array_equal(want[inf], x[inf].max(1))
+
+
+@pytest.mark.parametrize("m", EDGE_MS)
+def test_argmax_is_the_first_maximal_and_jnp_argmax(m):
+    """``bi_reduce(x, ARGMAX)`` on the CPU (the kernel's plain version)
+    is the walk's first maximal element and ``jnp.argmax``'s, on ties,
+    +-0 ties, +-inf rows, all -1e30 rows and NaN rows; the twin's maximum
+    is that element's value."""
+    import jax.numpy as jnp
+    x = _edge_rows(m, seed=m + 2)
+    got = bi_reduce(torch.from_numpy(x)[:, :, None], ARGMAX)[:, 0].numpy()
+    walk = np.array([_first_max(row)[1] for row in x])
+    assert np.array_equal(got, walk)
+    assert np.array_equal(got, np.asarray(jnp.argmax(x, axis=1)))
+
+
+def test_the_logsumexp_twin_ignores_batch_rows():
+    x = torch.from_numpy(_edge_rows(33, seed=9))[:, :, None]
+    want = bi_logsumexp_chain_ref(x)
+    for rows in (1, 3, len(x) - 1):
+        assert _same(bi_logsumexp_chain_ref(x[:rows]).numpy(),
+                     want[:rows].numpy())
+    with pytest.raises(ValueError):
+        bi_logsumexp_chain_ref(torch.zeros(2, 3, 2))
+    assert LOGSUMEXP == 1
+
+
+# ---------------------------------------------------------------------- #
 # the sources keep the order's rules
 # ---------------------------------------------------------------------- #
 @pytest.mark.parametrize("name", ["bi_gemm", "bi_reduce"])
@@ -257,10 +397,14 @@ def test_the_sources_keep_the_order(name):
     code = "\n".join(line.split("//")[0] for line in src.splitlines())
     for banned in (r"\batomic", r"\bw?gmma\b", r"\bmma\.", r"tf32",
                    r"__shfl_xor", r"__shfl_up", r"__f[a-z]+_r[zdu]\b",
-                   r"__fdividef", r"__expf\b"):
+                   r"__fdividef", r"__expf\b", r"\bexp2f\b", r"__logf\b"):
         assert not re.search(banned, code, re.I), (name, banned)
     assert not any("fast_math" in f or "fmad" in f for f in build.NVCC_FLAGS)
     if name == "bi_gemm":
         assert "fmaf(" in code and "cp.async" in code
     else:
         assert code.count("__shfl_down_sync") == 1
+        # logsumexp's chain and its last step, in the staged walk and in
+        # the walk over device memory
+        assert code.count("s += expf(") == 2
+        assert code.count("logf(s) + (isinf(mx) ? 0.f : mx)") == 2
