@@ -74,8 +74,10 @@ phase catches one:
     (at lm_tiny's attention backward too: 24,576 rows of 32 scores, the
     causal band at -1e30); logsumexp and argmax on edge rows (NaN, +-inf,
     -1e30, ties, +-0) at M = 1 to 500, aligned and misaligned: the
-    logsumexp equal to its twin, NaN where the row's maximum is infinite
-    (torch: +-inf), the argmax equal to ``torch.argmax``;
+    logsumexp equal to its twin, and to torch's +-inf where the row's
+    maximum is infinite, the argmax equal to ``torch.argmax``; the NLL
+    and attention backwards on rows whose maximum is +-inf, NaN where
+    the CPU's are NaN;
  4. the undefended main path at the paper's §V scale: K = 50 UEs,
     50,000/10,000 synthetic MNIST, 5 label flippers, DQS on the host
     control plane, the vectorized engine, 3 rounds on the GPU. Every
@@ -116,7 +118,11 @@ phase catches one:
     layout on the card against the "hybrid" layout on the host at R = 12
     and 64 runs, K = 50, every policy, and a round where no UE is
     feasible — integers exact, floats within 4 ulp — with the median ms a
-    call of each; then ``run_sweep`` on the card: the paper's Fig. 3
+    call of each, the card's own sort against numpy's on NaN keys and
+    signed zeros (``card_sort_order``), and two rounds with NaN priority
+    keys (NaN reputations of both signs and payloads), "device" equal to
+    "hybrid" bit for bit;
+    then ``run_sweep`` on the card: the paper's Fig. 3
     setting (``examples/poisoning_study.py``: dqs, random, best_channel
     and max_count x seeds 0-2 under the (6, 2) label flip, K = 50,
     50,000/10,000, the 5 MB update, 3 rounds), K1 launched 12 times a
@@ -142,8 +148,10 @@ phase catches one:
     within 4 ulp, the same escalations), with the ms a round of each path,
     M, the escalations, the budget walk's steps, the state's bytes and the
     peak device memory, one more call of each "device" path at N = 10^6
-    under the profiler (the device traced alone: busy, copies, idle), then
-    one round at N = 10^6 forced to escalate (M = min_selected); (b) ``run_experiment(population=500)`` at the §V
+    under the profiler (the device traced alone: busy, copies, idle), one
+    round at N = 10^4 with NaN priority keys filling a run's kept prefix
+    (the prefilter equal to the exact schedule, "device" to "hybrid"),
+    then one round at N = 10^6 forced to escalate (M = min_selected); (b) ``run_experiment(population=500)`` at the §V
     scale (K = 50, 50,000/10,000, the (6, 2) label flip, DQS, 3 rounds, K1
     once a round) with the selections of its ``control="host"`` run,
     ``population=50`` equal to ``population=None`` on every curve, and a
@@ -1454,9 +1462,9 @@ def check_bi_reduce_edges():
     bit for bit to ``bi_logsumexp_chain_ref`` on the card (NaN where it
     is NaN; whether the NaNs' payloads agree too is printed), within
     ``BI_RTOL`` · max(1, |torch.logsumexp|) of ``torch.logsumexp`` row by
-    row where the row's maximum is finite (``max_rel_err``),
-    NaN where it is +-inf (torch: +-inf; the kernel subtracts the
-    infinite maximum itself); the argmax equal to ``torch.argmax``; the
+    row where the row's maximum is finite (``max_rel_err``), and equal
+    to torch's +-inf where it is +-inf (the kernel subtracts +0 there, as
+    ``jax.nn.logsumexp`` does); the argmax equal to ``torch.argmax``; the
     misaligned call equal bit for bit to the aligned one."""
     for m in EDGE_MS:
         x = edge_rows(m, seed=m)
@@ -1478,14 +1486,82 @@ def check_bi_reduce_edges():
         gap = (lse[fin] - plain[fin]).abs() / plain[fin].abs().clamp_min(1.0)
         err, tol = gap.max().item(), BI_RTOL
         assert err <= tol, (m, err, tol)
-        assert torch.isnan(lse[nan | inf]).all(), m
+        assert torch.isnan(lse[nan]).all(), m
         assert torch.isinf(plain[inf]).all(), m
+        assert torch.equal(lse[inf], plain[inf]), m
+        assert torch.equal(lse[inf], mx[inf]), m
         emit(phase="kernel_check", kernel="bi_reduce", case="edge rows",
              mode="logsumexp, argmax", r=EDGE_R, m=m, d=1,
              max_rel_err=err, tol=tol, chain_equal=True,
              nan_rows=int(nan.sum()), infinite_max_rows=int(inf.sum()),
              nan_payloads_equal=bits_equal(lse, twin), argmax_exact=True,
              misaligned_equal=True)
+
+
+def infinite_max_inputs(dev):
+    """From a seed, on ``dev``: the NLL's logits (5, 10) and labels, rows
+    with a +inf off and at the label, a row of -inf and -inf among finite
+    values; an attention's q, k, v, g (1, 2, 4, 8) whose scores hold
+    +-inf (head 0: key 2 has +inf in dim 0, and the queries' dim 0 has
+    both signs) and a row of -inf (head 1: every key has +inf in dim 0,
+    query 1's dim 0 is negative)."""
+    rng = np.random.default_rng(0)
+    logits = rng.standard_normal((5, 10)).astype(np.float32)
+    logits[1, 3] = logits[3, 4] = np.inf
+    logits[2] = -np.inf
+    logits[4, ::2] = -np.inf
+    labels = np.array([0, 1, 2, 4, 1])
+    rng = np.random.default_rng(1)
+    q, k, v, g = (rng.standard_normal((1, 2, 4, 8)).astype(np.float32)
+                  for _ in range(4))
+    k[0, 0, 2, 0] = np.inf
+    q[0, 0, :, 0] = [1.0, -1.0, 2.0, 0.5]
+    k[0, 1, :, 0] = np.inf
+    q[0, 1, :, 0] = [1.0, -1.0, 1.0, 1.0]
+    return [torch.from_numpy(a).to(dev)
+            for a in (logits, labels, q, k, v, g)]
+
+
+def check_infinite_max_backwards():
+    """The NLL (forward and backward) and ``bi.attention``'s backward
+    (``bi.invariant_vjp``) on rows whose maximum is +-inf
+    (``infinite_max_inputs``), on the card's route (``bi_reduce``'s
+    logsumexp, ``bi_gemm``) against the same calls on the CPU: NaN
+    exactly where the CPU's is NaN, +-inf where it is, the rest within
+    ``BI_RTOL`` · max(1, |cpu|). On the CPU the NLL's equal
+    ``jax.grad`` of the reference's loss, NaN where it is NaN, and so
+    do attention's dq and dk; its dv is NaN on fewer entries than
+    jax's (ROADMAP P30; tests/test_torch_batch_invariant.py)."""
+    def run(dev):
+        logits, labels, q, k, v, g = infinite_max_inputs(dev)
+        logits.requires_grad_(True)
+        with bi.route():
+            nll = bi.nll(logits, labels)
+            nll.sum().backward()
+            grads = bi.invariant_vjp(q, k, v, g, False, None, 8 ** -0.5)
+        return {"nll": nll.detach(), "dlogits": logits.grad,
+                **dict(zip(("dq", "dk", "dv"), grads))}
+
+    card, cpu = run("cuda"), run("cpu")
+    torch.cuda.synchronize()
+    nans, err = {}, 0.0
+    for name, want in cpu.items():
+        got = card[name].cpu()
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan), name
+        inf = torch.isinf(want)
+        assert torch.equal(got[inf], want[inf]), name
+        fin = ~nan & ~inf
+        gap = ((got[fin] - want[fin]).abs() / want[fin].abs().clamp_min(
+            1.0)).max().item() if fin.any() else 0.0
+        assert gap <= BI_RTOL, (name, gap)
+        nans[name] = [int(nan.sum()), want.numel()]
+        err = max(err, gap)
+    emit(phase="kernel_check", kernel="bi_reduce",
+         case="infinite maximum backwards", nan_of={k: v for k, v in
+                                                    nans.items()},
+         nll=[float(x) for x in card["nll"].cpu()],
+         nan_where_cpu_nan=True, max_rel_err=err, tol=BI_RTOL)
 
 
 # the main paths' shapes: the §V MLP's training (a bucket of 50 clients,
@@ -1920,6 +1996,78 @@ def check_layouts(label, got, want):
     return gaps
 
 
+def with_nan_reputations(state, cells_a_run, seed, crowd=None):
+    """A copy of ``state`` whose reputations hold NaN at ``cells_a_run``
+    random cells of every run, of both signs and two payloads (the quiet
+    NaN and one with low bits set); ``crowd`` = (run, n) also makes n
+    cells of that run NaN, so that the NaN keys reach a prefilter's kept
+    prefix. A NaN reputation makes the candidate's value and its dqs and
+    top_value keys NaN."""
+    rng = np.random.default_rng(seed)
+    rep = state.reputations.copy()
+    r, n = rep.shape
+    nans = np.array([np.nan, -np.nan]).view(np.uint64)
+    payloads = np.concatenate([nans, nans | np.uint64(0x5A5A)]).view(
+        np.float64)
+    for i in range(r):
+        cols = rng.choice(n, cells_a_run, replace=False)
+        rep[i, cols] = payloads[rng.integers(0, 4, cells_a_run)]
+    if crowd is not None:
+        i, k = crowd
+        cols = rng.choice(n, k, replace=False)
+        rep[i, cols] = payloads[rng.integers(0, 4, k)]
+    return dataclasses.replace(state, reputations=rep)
+
+
+def card_sort_order():
+    """The card's own float64 ``torch.argsort(stable=True)`` against
+    numpy's stable argsort, on rows of keys drawn from NaNs of both signs
+    and two payloads, +-inf, +-0 and a few numbers, at widths a small and
+    a large sort take, and on rows of +-0 ties alone: the rows where the
+    raw sort differs are counted (it orders a NaN by its sign bit); the
+    argsort of ``scheduler.order_key``, which the "device" layouts sort
+    by, must equal numpy's on every row."""
+    nans = np.array([np.nan, -np.nan]).view(np.uint64)
+    pool = np.concatenate([
+        np.concatenate([nans, nans | np.uint64(0x77)]).view(np.float64),
+        [np.inf, -np.inf, 0.0, -0.0, 1.5, -1.5, 2.0]])
+    for n in (16, 40, 2_048, 100_000):
+        rng = np.random.default_rng(n)
+        keys = pool[rng.integers(0, len(pool), (6, n))]
+        zeros = np.where(rng.random((4, n)) < 0.5, -0.0, 0.0)
+        zeros[:, ::5] = 1.0
+        rows = {}
+        for label, k in (("mixed", keys), ("signed_zeros", zeros)):
+            want = np.argsort(k, axis=-1, kind="stable")
+            t = torch.from_numpy(k).to("cuda")
+            raw = torch.argsort(t, dim=-1, stable=True).cpu().numpy()
+            ours = torch.argsort(tsc.order_key(t), dim=-1,
+                                 stable=True).cpu().numpy()
+            assert np.array_equal(ours, want), (n, label)
+            rows[label] = int((raw != want).any(-1).sum())
+        emit(phase="card_sort_order", n=n, rows=6, zero_rows=4,
+             raw_rows_differing=rows["mixed"],
+             signed_zero_rows_differing=rows["signed_zeros"],
+             order_key_equals_numpy=True)
+
+
+def check_nan_layouts(label, got, want):
+    """A NaN-key round: selection, alpha, costs and forced equal bit for
+    bit; values NaN exactly where NaN, the rest within CTRL_ULPS ulp.
+    Returns the values' largest gap in ulps."""
+    for name, a, b in zip(("x", "alpha", "costs", "forced"),
+                          (got[0], got[1], got[2], got[4]),
+                          (want[0], want[1], want[2], want[4])):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape and a.tobytes() == b.tobytes(), (label,
+                                                                    name)
+    nan = np.isnan(got[3])
+    assert np.array_equal(nan, np.isnan(want[3])), label
+    gap = ulp_gap(got[3][~nan], want[3][~nan])
+    assert gap <= CTRL_ULPS, (label, gap)
+    return gap
+
+
 def median_ms(fn, reps=15):
     """Median host ms of one call (the call returns host arrays, so it
     ends synchronised)."""
@@ -1937,7 +2085,9 @@ def control_layouts():
     card against "hybrid" on the host, on random instances at R = 12 and
     64 runs, K = 50, every policy, and a round where every UE is
     infeasible (integers exact, floats within CTRL_ULPS ulp, reputations
-    within REP_TOL); the median ms of a call of each layout."""
+    within REP_TOL); the median ms of a call of each layout; then the
+    card's sort order (``card_sort_order``) and two rounds with NaN
+    priority keys, "device" equal to "hybrid" (``check_nan_layouts``)."""
     for r in (12, 64):
         gaps = []
         for seed in (0, 1, 2):
@@ -1983,6 +2133,26 @@ def control_layouts():
     assert np.all(costs == CTRL_K + 1) and np.all(forced == ~top), forced
     emit(phase="control_layouts", runs=12, ues=CTRL_K, all_infeasible=True,
          forced=int(forced.sum()))
+    # NaN priority keys: NaN reputations of both signs and two payloads in
+    # every run (dqs and top_value keys NaN), and a round where every UE
+    # is infeasible (the forced rewrite picks the first NaN value)
+    card_sort_order()
+    nan_cells = 0
+    for label, deadline in (("NaN keys", None), ("NaN keys infeasible",
+                                                 1e-6)):
+        st, gains, rr, om = control_instance(4, 12, CTRL_K,
+                                             deadline=deadline)
+        st = with_nan_reputations(st, 6, seed=4)
+        dev = ctl.schedule_runs(st, gains, rr, *om, kernel="device")
+        gap = check_nan_layouts(label, dev, ctl.schedule_runs(
+            st, gains, rr, *om, kernel="hybrid"))
+        nan_cells = int(np.isnan(st.reputations).sum())
+        emit(phase="control_layouts", runs=12, ues=CTRL_K, nan_keys=True,
+             case=label, nan_reputations=nan_cells,
+             nan_selected=int((dev[0] & np.isnan(dev[3])).sum()),
+             forced=int(dev[4].sum()), device_equals_hybrid=True,
+             bit_equal=["x", "alpha", "costs", "forced"],
+             values_max_ulps=gap)
 
 
 def sweep_run(**kw):
@@ -2330,8 +2500,8 @@ def population_control():
     K = 64, N = 10^4, 10^5, 10^6), held round by round against the exact
     schedule on the card and both layouts on the host; ms a round of each
     path, M, the escalations, the walk's steps, the state's bytes and the
-    peak device memory; then one round at N = 10^6 forced to escalate
-    (M = min_selected)."""
+    peak device memory; a round with NaN keys (``population_nan_keys``);
+    then one round at N = 10^6 forced to escalate (M = min_selected)."""
     walk_ab()
     for n in POP_NS:
         state, omega, draw = population_instance(n)
@@ -2377,6 +2547,7 @@ def population_control():
              device_idle_share=1.0 - busy_us / wall_us,
              n_device_events=sum(c for _, c in events.values()),
              top_us=[[name[:60], us, c] for name, (us, c) in top])
+    population_nan_keys()
     # N = 10^6 at M = min_selected: the certificate fails, the rows
     # escalate to the exact schedule on the card
     m = state.cfg.min_selected
@@ -2385,6 +2556,40 @@ def population_control():
     assert info["device"]["n_escalated"] > 0, info
     emit(phase="population_forced_escalation", n=POP_NS[-1], m=m, ms=ms,
          n_escalated=info["device"]["n_escalated"], walk_steps=steps)
+
+
+def population_nan_keys():
+    """One round at N = 10^4 with NaN reputations of both signs and two
+    payloads (20 cells a run, and all but 300 of the dqs run's, so that
+    its NaN keys fill the kept prefix past its 300 numbers): the
+    prefilter on the card equal to the exact schedule on the card bit for
+    bit (NaN values by their bits), and the "device" layouts equal to
+    the "hybrid" ones (``check_nan_layouts``), the same escalations."""
+    n = POP_NS[0]
+    state, omega, draw = population_instance(n)
+    state = with_nan_reputations(state, 20, seed=5, crowd=(0, n - 300))
+    g, rr = draw(0)
+    outs, ms, info, _ = population_round(state, g, rr, omega)
+    got, exact = outs["prefilter_device"], outs["exact_device"]
+    for name, a, b in zip(("x", "alpha", "costs", "values", "forced"),
+                          got, exact):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape and a.tobytes() == b.tobytes(), name
+    gaps = {"prefilter": check_nan_layouts(
+        "population NaN keys prefilter", got, outs["prefilter_hybrid"]),
+        "exact": check_nan_layouts("population NaN keys exact", exact,
+                                   outs["exact_hybrid"])}
+    assert info["device"] == info["hybrid"], info
+    m = info["device"]["m"]
+    assert 300 < m          # the dqs run's NaN keys reach the prefix
+    emit(phase="population_control", n=n, runs=POP_RUNS, ues=POP_K,
+         nan_keys=True, nan_reputations=int(np.isnan(
+             state.reputations).sum()), m=m,
+         n_escalated=info["device"]["n_escalated"],
+         nan_selected=int((exact[0] & np.isnan(exact[3])).sum()),
+         device_equals_hybrid=True, prefilter_equals_exact=True,
+         bit_equal=["x", "alpha", "costs", "forced"],
+         values_max_ulps=gaps, ms=ms)
 
 
 def curves_equal(a, b, fields):
@@ -5963,13 +6168,32 @@ def median_turns(fns, reps, rounds=2):
     return {k: float(np.median(v)) for k, v in got.items()}
 
 
+def _lse_against(old_reduce, x):
+    """The logsumexp of ``x`` by ``other``'s kernel and by this one: equal
+    bit for bit (int32 views) on every row but those whose maximum is
+    +-inf, where this tree reads torch's +-inf (the rule of ``jax.nn.
+    logsumexp``) and a tree without that rule reads NaN; returns (the
+    rows that differ, the rows whose maximum is +-inf)."""
+    old = _reduce_with(old_reduce, x, kbr.LOGSUMEXP)
+    new = kbr.bi_reduce(x, kbr.LOGSUMEXP)
+    inf = torch.isinf(torch.gather(x[:, :, 0], 1,
+                                   kbr.bi_reduce(x, kbr.ARGMAX)))[:, 0]
+    differ = (old.view(torch.int32) != new.view(torch.int32))[:, 0]
+    assert not (differ & ~inf).any().item(), "a finite or NaN row moved"
+    assert torch.equal(new[inf], torch.logsumexp(x[inf], 1))
+    return int(differ.sum()), int(inf.sum())
+
+
 def kernels_against(other: Path, smi: str) -> list:
     """``bi_gemm`` and ``bi_reduce`` (its sums, logsumexp and argmax) of
     ``other``'s tree (``other/src``, e.g. a ``git archive`` of the
     parent) and of this one: equal bit for bit (int32 views) at every
     shape of ``BI_GEMM_CASES`` and ``BI_REDUCE_CASES``, the main path's
     evaluation product and argmax, and, for logsumexp and argmax,
-    ``edge_rows`` at every width of ``EDGE_MS``, aligned and misaligned;
+    ``edge_rows`` at every width of ``EDGE_MS``, aligned and misaligned,
+    but for the logsumexp's rows whose maximum is +-inf, which this tree
+    reads as torch's +-inf (``_lse_against``: the rows that differ are
+    counted, and a tree without that rule differs on each of them);
     then at the timed shapes and the main path's evaluation each tree's
     kernel and the library's call (cuBLAS ``bmm``, torch's ``sum``,
     ``logsumexp``, ``argmax``) in turns (against, this, library, library,
@@ -5991,23 +6215,30 @@ def kernels_against(other: Path, smi: str) -> list:
             10 if m * k > 1_000_000 else 50)
         rows.append(dict(kernel="bi_gemm", case=label, shape=[batch, m, k, n],
                          **ms))
-    edges = 0
+    edges = differ = infinite = 0
     for m in EDGE_MS:
         x = edge_rows(m, seed=m)
-        for mode in (kbr.LOGSUMEXP, kbr.ARGMAX):
-            for xx in (x, misaligned(x)):
-                assert bits_equal(_reduce_with(old_reduce, xx, mode),
-                                  kbr.bi_reduce(xx, mode)), (m, mode)
-                edges += 1
+        for xx in (x, misaligned(x)):
+            assert bits_equal(_reduce_with(old_reduce, xx, kbr.ARGMAX),
+                              kbr.bi_reduce(xx, kbr.ARGMAX)), m
+            d, i = _lse_against(old_reduce, xx)
+            assert d in (0, i), (m, d, i)   # the other tree has the rule
+            differ, infinite, edges = differ + d, infinite + i, edges + 2
     emit(phase="kernel_edges_against", gpu=smi, cases=edges,
-         widths=list(EDGE_MS), rows=EDGE_R, bits_equal=True)
+         widths=list(EDGE_MS), rows=EDGE_R, argmax_bits_equal=True,
+         logsumexp_rows=EDGE_R * edges // 2, rows_differing=differ,
+         infinite_max_rows=infinite, against_reads_nan_there=differ > 0,
+         only_infinite_max_rows_differ=True)
     reduce_cases = list(BI_REDUCE_CASES) + [
         ("main path eval argmax", 48 * 10_000, 10, 1, kbr.ARGMAX, True,
          False)]
     for label, r, m, d, mode, timed, band in reduce_cases:
         x = bi_reduce_input(r, m, d, band)
-        assert bits_equal(_reduce_with(old_reduce, x, mode),
-                          kbr.bi_reduce(x, mode)), label
+        if mode == kbr.LOGSUMEXP:
+            assert _lse_against(old_reduce, x) == (0, 0), label
+        else:
+            assert bits_equal(_reduce_with(old_reduce, x, mode),
+                              kbr.bi_reduce(x, mode)), label
         if not timed:
             emit(phase="kernel_turns", gpu=smi, kernel="bi_reduce",
                  case=label, mode=kbr.MODES[mode], shape=[r, m, d],
@@ -6266,6 +6497,7 @@ def main():
     for case in BI_REDUCE_CASES:
         check_bi_reduce(*case)
     check_bi_reduce_edges()
+    check_infinite_max_backwards()
 
     # 4. the undefended main path at the paper's §V scale
     reset_launches()

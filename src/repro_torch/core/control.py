@@ -27,7 +27,9 @@ Two layouts compute the same schedule:
         reciprocal), but the card's log2 may differ from libm's by an ulp
         and its sums group otherwise than numpy's, so the integer outputs
         (selection, costs, forced) are exact and the floats agree within a
-        few ulp.
+        few ulp. Its sorts take ``scheduler.order_key``, so a NaN value or
+        priority key is ordered as numpy orders it (last, in index
+        order), and the schedule is the hybrid layout's.
 
 ``default_kernel(device)`` picks "device" for a CUDA device and "hybrid"
 for the CPU. Randomness stays on the host: each run draws its channel
@@ -50,7 +52,7 @@ from repro_torch.core.diversity import (diversity_index_eq2,
 from repro_torch.core.quality import data_quality_value
 from repro_torch.core.reputation import reputation_update_eq1
 from repro_torch.core.scheduler import (POLICY_IDS, greedy_pack_rows,
-                                        pack_scan, priority_key)
+                                        order_key, pack_scan, priority_key)
 from repro_torch.core.wireless import cost_bisect
 from repro_torch.obs import trace
 
@@ -246,21 +248,22 @@ def _schedule_device(state: ControlState, gains, rand_rank, w_rep, w_div):
     x, alpha = greedy_pack_rows(key, costs, K)
 
     # dqs modified-greedy fallback: the best single feasible UE against
-    # the pack
+    # the pack, whose value sums the selected values alone (the host
+    # oracle's values[x].sum(): an unselected NaN value adds nothing)
     feas = costs <= K
     masked = torch.where(feas, values, -torch.inf)
     k_best = masked.argmax(-1, keepdim=True)
     use_fb = ((pid == POLICY_IDS["dqs"]) & feas.any(-1, keepdim=True)
               & (masked.gather(-1, k_best)
-                 > (values * x).sum(-1, keepdim=True)))
+                 > torch.where(x, values, 0.0).sum(-1, keepdim=True)))
     onehot_best = torch.zeros_like(x).scatter(-1, k_best, True)
     x = torch.where(use_fb, onehot_best, x)
     alpha = torch.where(use_fb, torch.where(onehot_best, costs_f / k_f, 0.0),
                         alpha)
 
-    # top_value override
-    rank = torch.argsort(torch.argsort(-values, dim=-1, stable=True),
-                         dim=-1, stable=True)
+    # top_value override (numpy's stable order of -values: NaN last)
+    rank = torch.argsort(torch.argsort(order_key(-values), dim=-1,
+                                       stable=True), dim=-1, stable=True)
     top = pid == POLICY_IDS["top_value"]
     x = torch.where(top, rank < n_sel, x)
     alpha = torch.where(top, torch.where(

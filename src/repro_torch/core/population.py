@@ -70,7 +70,8 @@ from repro_torch.core import control as ctl
 from repro_torch.core.diversity import (diversity_index_eq2,
                                         diversity_index_rows)
 from repro_torch.core.quality import data_quality_value
-from repro_torch.core.scheduler import POLICY_IDS, pack_scan, priority_key
+from repro_torch.core.scheduler import (POLICY_IDS, order_key, pack_scan,
+                                        priority_key)
 from repro_torch.core.wireless import cost_bisect
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_host_mesh
@@ -192,8 +193,12 @@ def _topm_prefix(keys: np.ndarray, m: int) -> np.ndarray:
         k = keys[i]
         part = np.argpartition(k, m - 1)[:m]
         pivot = k[part].max()
-        strict = np.flatnonzero(k < pivot)
-        ties = np.flatnonzero(k == pivot)[:m - strict.size]
+        if np.isnan(pivot):     # numpy sorts NaN last: the prefix reaches
+            strict = np.flatnonzero(~np.isnan(k))    # the NaN keys
+            ties = np.flatnonzero(np.isnan(k))[:m - strict.size]
+        else:
+            strict = np.flatnonzero(k < pivot)
+            ties = np.flatnonzero(k == pivot)[:m - strict.size]
         idx = np.concatenate([strict, ties])
         # equal keys keep their ascending-index layout
         out[i] = idx[np.argsort(k[idx], kind="stable")]
@@ -203,12 +208,15 @@ def _topm_prefix(keys: np.ndarray, m: int) -> np.ndarray:
 def _topm_prefix_rows(keys: torch.Tensor, m: int) -> torch.Tensor:
     """``_topm_prefix`` over an (R, N) float64 tensor on any device.
 
+    The keys are compared as ``scheduler.order_key``'s integers, so NaN
+    keys come last in index order and -0.0 ties with +0.0, as in numpy.
     Only the VALUES of ``torch.topk`` are read — its M-th smallest key, the
     pivot — never the order it returns ties in. Every key below the pivot
     is kept, then the pivot's ties in index order (a running count) up to
     M; ``nonzero`` lists the M kept positions of each row in index order,
     and a stable sort by key puts them in visit order."""
     R = keys.shape[0]
+    keys = order_key(keys)
     pivot = torch.topk(keys, m, dim=-1, largest=False,
                        sorted=False).values.amax(-1, keepdim=True)
     below = keys < pivot
@@ -409,9 +417,10 @@ def _argmax_pair(t: torch.Tensor, lo: int, n: int):
 def _merge_argmax(vals: torch.Tensor, idx: torch.Tensor):
     """(n_blocks, R) pairs -> each row's max and its lowest global index
     among the blocks that reach it: ``torch.argmax``'s first occurrence
-    over all N."""
+    over all N (a NaN is the max, as in ``torch.argmax`` and numpy's)."""
     best = vals.amax(0)
-    first = torch.where(vals == best, idx, torch.inf).amin(0)
+    hit = (vals == best) | (vals.isnan() & best.isnan())
+    first = torch.where(hit, idx, torch.inf).amin(0)
     return best, first.to(torch.int64)
 
 
@@ -438,7 +447,9 @@ def _merge_prefixes(sh: "_Shard", mine: torch.Tensor, key, costs_f,
                         (mine + sh.lo).to(torch.float64),
                         costs_f.gather(-1, mine),
                         values.gather(-1, mine)], -1)
-    pad = torch.tensor([torch.inf, float(n), 0.0, 0.0], dtype=torch.float64,
+    # a pad's key is NaN, the last in the order, and its index n follows
+    # every real candidate's: no pad enters the prefix ahead of one
+    pad = torch.tensor([torch.nan, float(n), 0.0, 0.0], dtype=torch.float64,
                        device=mine.device)
     extra = min(m, sh.width) - m_loc
     cand = torch.cat([cand, pad.expand(R, extra, 4)], 1)
@@ -469,8 +480,8 @@ def _prefilter_device(state: ctl.ControlState, gains, rand_rank, w_rep,
       1. Eq. 2's per-metric min and max, ``best_channel``'s max gain: one
          ``all_reduce(MAX)`` (a min as the max of its negation; both
          exact), then Eq. 2/3, Eq. 9 and the keys on the local columns.
-         The NaN check is one ``all_reduce(MAX)`` of a flag and one host
-         read.
+         A NaN key sorts last, in index order, as numpy's sort puts it
+         (``scheduler.order_key``).
       2. The top-M: in one block the block's own prefix; split, each
          rank's prefix of min(M, n_local) columns, as (key, global index,
          cost, value), gathered, then the prefix of the gathered set in
@@ -530,10 +541,6 @@ def _prefilter_device(state: ctl.ControlState, gains, rand_rank, w_rep,
                         costs_f)))
     top = pid == POLICY_IDS["top_value"]
     key = torch.where(top, -values, key)
-    nan = key.isnan().any().to(torch.float64).reshape(1)
-    if bool(sh.all_reduce(nan, dist.ReduceOp.MAX)):
-        raise ValueError("NaN priority key: the control plane's inputs "
-                         "hold a NaN")
 
     # the top-M over all N: in one block this rank's own prefix, else
     # the prefix of the ranks' own prefixes
@@ -576,7 +583,8 @@ def _prefilter_device(state: ctl.ControlState, gains, rand_rank, w_rep,
     # associate: not at all for one or two of them, otherwise within a few
     # ulp of the pack's value, and the comparison with the best single
     # value can only flip inside that gap.
-    pack = (values * x).sum(-1) if one_block else (v_kept * take).sum(-1)
+    pack = (torch.where(x, values, 0.0).sum(-1) if one_block
+            else torch.where(take, v_kept, 0.0).sum(-1))
     use_fb = ((pid == POLICY_IDS["dqs"]) & feas_any[:, None]
               & (best > pack)[:, None])
     onehot_best = _onehot(k_best[:, None], sh, R, dev)

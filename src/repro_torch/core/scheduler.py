@@ -25,7 +25,8 @@ small K (test oracle).
 A numpy copy of the host half of ``repro.core.scheduler``: the same inputs
 and RNG give the same schedules exactly. ``pack_scan`` and
 ``greedy_pack_rows`` are the batched control plane's tensor twins of
-``greedy_pack`` (core/control.py), over (R, N) rows on any device.
+``greedy_pack`` (core/control.py), over (R, N) rows on any device;
+``order_key`` makes a tensor sort order keys as numpy's does.
 """
 from __future__ import annotations
 
@@ -113,16 +114,27 @@ def pack_scan(c_sorted: torch.Tensor, k: int) -> torch.Tensor:
     return take[:, :n].reshape(*lead, n)
 
 
+def order_key(key: torch.Tensor) -> torch.Tensor:
+    """An int64 tensor whose stable ascending argsort is numpy's stable
+    ascending argsort of the float64 ``key`` (``np.argsort(kind=
+    "stable")``, ``jnp.argsort(stable=True)``): the order of (is NaN,
+    key, index). -0.0 ties with +0.0, and every NaN follows +inf whatever
+    its sign or payload: the key's bits, with -0.0 folded into +0.0 and
+    the negative half's magnitude bits flipped, are an integer that grows
+    with the float, and a NaN is the largest int64. An integer sort knows
+    no NaN, where the card's float sort orders one by its sign bit."""
+    bits = (key + 0.0).view(torch.int64)
+    bits = torch.where(bits < 0, bits ^ 0x7FFF_FFFF_FFFF_FFFF, bits)
+    return torch.where(key.isnan(), torch.iinfo(torch.int64).max, bits)
+
+
 def greedy_pack_rows(sort_key: torch.Tensor, costs: torch.Tensor, k: int):
     """``greedy_pack`` for every row of (R, N) tensors at once: the stable
-    ascending argsort of the float64 priority key, then the ``pack_scan``
+    ascending argsort of the float64 priority key (``order_key``: NaN keys
+    last, in index order, as numpy sorts them), then the ``pack_scan``
     budget walk. ``k`` is only the budget; the width is N. ``costs`` int32;
-    returns (x bool (R, N), alpha float64 (R, N)). A NaN key raises: the
-    card's sort orders NaN by its sign bit, numpy's puts it last."""
-    if bool(sort_key.isnan().any()):
-        raise ValueError("NaN priority key: the control plane's inputs "
-                         "hold a NaN")
-    order = torch.argsort(sort_key, dim=-1, stable=True)
+    returns (x bool (R, N), alpha float64 (R, N))."""
+    order = torch.argsort(order_key(sort_key), dim=-1, stable=True)
     take = pack_scan(torch.gather(costs, -1, order), k)
     x = torch.zeros_like(take).scatter(-1, order, take)
     alpha = torch.where(x, costs.to(torch.float64)

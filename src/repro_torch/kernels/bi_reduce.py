@@ -93,23 +93,25 @@ def bi_logsumexp_chain_ref(x: torch.Tensor) -> torch.Tensor:
     """The kernel's logsumexp in its own order, in plain PyTorch float32
     operations: the maximum the first element that no later one is above
     (greater, or a NaN over a number: the first NaN stays), from -inf;
-    then s += exp(x[m] - max) for m in order from +0; then log(s) plus
-    the maximum, or +0 for an infinite one. So a row holding +-inf reads
-    NaN (inf - inf), where ``torch.logsumexp`` reads +-inf. Equal to
-    ``bi_reduce(x, LOGSUMEXP)`` bit for bit where ``torch.exp`` and
-    ``torch.log`` round as the kernel's ``expf`` and ``logf`` do (on the
-    card)."""
+    then, with ``sub`` the maximum, or +0 where it is infinite (as
+    ``jax.nn.logsumexp`` and ``torch.logsumexp`` take it), s += exp(x[m]
+    - sub) for m in order from +0; then log(s) + sub. So a row holding
+    +inf reads +inf and a row of -inf reads log(0) = -inf, as theirs do;
+    a finite or NaN maximum is subtracted itself. Equal to ``bi_reduce(x,
+    LOGSUMEXP)`` bit for bit where ``torch.exp`` and ``torch.log`` round
+    as the kernel's ``expf`` and ``logf`` do (on the card)."""
     _check(x, LOGSUMEXP)
     v = x[:, :, 0]
     mx = v.new_full((v.shape[0],), float("-inf"))
     for i in range(v.shape[1]):
         c = v[:, i]
         mx = torch.where((c > mx) | (c.isnan() & ~mx.isnan()), c, mx)
-    e = torch.exp(v - mx[:, None])
+    sub = torch.where(mx.isinf(), 0.0, mx)
+    e = torch.exp(v - sub[:, None])
     s = v.new_zeros(v.shape[0])
     for i in range(v.shape[1]):
         s = s + e[:, i]
-    return (torch.log(s) + torch.where(mx.isinf(), 0.0, mx))[:, None]
+    return (torch.log(s) + sub)[:, None]
 
 
 def _out_shape(x: torch.Tensor):

@@ -30,9 +30,11 @@
 // logsumexp and argmax walk a row in one thread, in order (their rows are
 // a vocabulary or a head's keys long): logsumexp the maximum (the first
 // element that no later one is above(): a NaN wins and the first NaN
-// stays), then s += expf(x[m] - max) for m in order from +0, then
-// logf(s) + max (+0 for an infinite max); argmax the index of that first
-// maximal element, as torch.argmax does.
+// stays), then, with sub the maximum or +0 for an infinite one (as
+// jax.nn.logsumexp and torch.logsumexp take it), s += expf(x[m] - sub)
+// for m in order from +0, then logf(s) + sub: a row holding +inf reads
+// +inf, a row of -inf reads logf(0) = -inf; argmax the index of that
+// first maximal element, as torch.argmax does.
 //
 // Bound: bytes — each input read once, each output written once. Every
 // call of the task plane moves at most a few MB, so the launch and the
@@ -234,9 +236,10 @@ logsumexp_kernel(const float* __restrict__ x, float* __restrict__ out,
     const float v = p[k];
     if (above(v, mx)) mx = v;
   }
+  const float sub = isinf(mx) ? 0.f : mx;
   float s = 0.f;
-  for (int64_t k = 0; k < m; ++k) s += expf(p[k] - mx);
-  out[row] = logf(s) + (isinf(mx) ? 0.f : mx);
+  for (int64_t k = 0; k < m; ++k) s += expf(p[k] - sub);
+  out[row] = logf(s) + sub;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -309,10 +312,10 @@ logsumexp_tile_kernel(const float* __restrict__ x, float* __restrict__ out,
   walk<VEC>(row, m, [&](int, float v) {
     if (above(v, mx)) mx = v;
   });
+  const float sub = isinf(mx) ? 0.f : mx;
   float s = 0.f;
-  walk<VEC>(row, m, [&](int, float v) { s += expf(v - mx); });
-  out[static_cast<int64_t>(blockIdx.x) * ROWS + threadIdx.x] =
-      logf(s) + (isinf(mx) ? 0.f : mx);
+  walk<VEC>(row, m, [&](int, float v) { s += expf(v - sub); });
+  out[static_cast<int64_t>(blockIdx.x) * ROWS + threadIdx.x] = logf(s) + sub;
 }
 
 // starts at k = 0 with x[0] as the best: x[0] is never above itself

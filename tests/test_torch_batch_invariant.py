@@ -330,6 +330,98 @@ def test_k3s_invariant_vjp_is_the_plain_vjp(causal, window, hkv):
                                    atol=1e-6)
 
 
+def _infinite_max_inputs():
+    """chip_smoke.py's ``infinite_max_inputs``: the NLL's logits with a
+    +inf off and at the label, a row of -inf and -inf among finite
+    values; an attention's q, k, v, g whose scores hold +-inf (head 0)
+    and a row of -inf (head 1)."""
+    rng = np.random.default_rng(0)
+    logits = rng.standard_normal((5, 10)).astype(np.float32)
+    logits[1, 3] = logits[3, 4] = np.inf
+    logits[2] = -np.inf
+    logits[4, ::2] = -np.inf
+    labels = np.array([0, 1, 2, 4, 1])
+    rng = np.random.default_rng(1)
+    q, k, v, g = (rng.standard_normal((1, 2, 4, 8)).astype(np.float32)
+                  for _ in range(4))
+    k[0, 0, 2, 0] = np.inf
+    q[0, 0, :, 0] = [1.0, -1.0, 2.0, 0.5]
+    k[0, 1, :, 0] = np.inf
+    q[0, 1, :, 0] = [1.0, -1.0, 1.0, 1.0]
+    return logits, labels, q, k, v, g
+
+
+def _nan_and_close(got, want, label):
+    """NaN exactly where ``want`` is NaN, +-inf where it is, the rest
+    within 1e-6 · max(1, |want|)."""
+    nan = np.isnan(want)
+    assert np.array_equal(np.isnan(got), nan), label
+    inf = np.isinf(want)
+    assert np.array_equal(got[inf], want[inf]), label
+    fin = ~nan & ~inf
+    np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=1e-6 * max(
+        1.0, float(np.abs(want[fin]).max(initial=0.0))), err_msg=label)
+
+
+@pytest.mark.parametrize("lse", ["plain", "kernel_order"])
+@pytest.mark.parametrize("op", ["nll", "attention"])
+def test_an_infinite_maximum_backward_against_jax_grad(forced, monkeypatch,
+                                                       op, lse):
+    """The route's NLL and attention backward on rows whose maximum is
+    +-inf, against ``jax.grad`` of the reference's loss
+    (``jax.scipy.special.logsumexp`` of the logits less the picked one)
+    and ``jax.vjp`` of its attention oracle (``kernels/ref.py``), with
+    ``bi_reduce``'s logsumexp its plain version (``torch.logsumexp``, the
+    CPU's) or its kernel's order (``bi_logsumexp_chain_ref``, the card's):
+    the NLL and its gradient NaN where jax's are NaN and within 1e-6
+    elsewhere; attention's dq and dk too. Its dv is NaN only on the rows
+    of the keys that hold the +inf (and on the -inf row's keys), where
+    jax's softmax is NaN across a row whose maximum is +inf and so dv on
+    every key: ROADMAP P30, pinned here."""
+    from torch_parity import reference
+    import jax
+    import jax.numpy as jnp
+
+    from repro_torch.kernels import bi_reduce as kbr
+    if lse == "kernel_order":
+        real = kbr.bi_reduce
+        monkeypatch.setattr(bi, "bi_reduce", lambda x, mode=SUM: (
+            kbr.bi_logsumexp_chain_ref(x) if mode == LOGSUMEXP
+            else real(x, mode)))
+    logits, labels, q, k, v, g = _infinite_max_inputs()
+    if op == "nll":
+        def loss(z):
+            lse_ = jax.scipy.special.logsumexp(z, axis=-1)
+            return lse_ - jnp.take_along_axis(z, jnp.asarray(labels)[:, None],
+                                              -1)[:, 0]
+        want, vjp = jax.vjp(loss, jnp.asarray(logits))
+        (dwant,) = vjp(jnp.ones(5, jnp.float32))
+        x = torch.from_numpy(logits).requires_grad_(True)
+        with forced():
+            got = bi.nll(x, torch.from_numpy(labels))
+            got.sum().backward()
+        _nan_and_close(got.detach().numpy(), np.asarray(want), "nll")
+        _nan_and_close(x.grad.numpy(), np.asarray(dwant), "dlogits")
+        assert np.isinf(got[1].item()) and np.isnan(got[2].item())
+        return
+    ref = reference("kernels.ref")
+    scale = 8 ** -0.5
+    _, vjp = jax.vjp(lambda a, b, c: ref.flash_attention_ref(
+        a, b, c, causal=False, scale=scale),
+        *(jnp.asarray(t) for t in (q, k, v)))
+    want = [np.asarray(t) for t in vjp(jnp.asarray(g))]
+    with forced():
+        got = [t.numpy() for t in bi.invariant_vjp(
+            *(torch.from_numpy(t) for t in (q, k, v, g)), False, None,
+            scale)]
+    for name, a, b in zip(("dq", "dk"), got, want):
+        _nan_and_close(a, b, name)
+    dv, dv_jax = got[2], want[2]
+    assert np.isnan(dv_jax).all() and np.isnan(dv).sum() == 40
+    assert np.isnan(dv[0, 0, 2]).all() and np.isnan(dv[0, 1]).all()
+    assert np.isfinite(np.delete(dv[0, 0], 2, 0)).all()
+
+
 @pytest.mark.parametrize("stacked", [True, False])
 def test_the_embedding_gradient_is_a_one_hot_product(stacked, forced):
     table = _rand(3, 64, 16) if stacked else _rand(64, 16)

@@ -27,8 +27,8 @@ import types
 import numpy as np
 import pytest
 import torch
-from torch_parity import (ref_init_task, reference, run_recorded,  # noqa: F401
-                          single_threaded)
+from torch_parity import (nan64, ref_init_task, reference,  # noqa: F401
+                          run_recorded, single_threaded)
 
 from repro_torch.configs.base import FeelConfig
 from repro_torch.core import control as ctl
@@ -197,10 +197,83 @@ def test_default_layout_follows_the_device():
         _schedule(inst, "jax")
 
 
-def test_nan_priority_key_raises():
-    key = torch.tensor([[0.5, float("nan"), 0.1]], dtype=torch.float64)
-    with pytest.raises(ValueError, match="NaN"):
-        tsc.greedy_pack_rows(key, torch.ones(1, 3, dtype=torch.int32), 3)
+def _odd_keys(seed, r=6, n=40):
+    """(R, N) float64 priority keys from a small set, so that ties are
+    many: NaNs of both signs and two payloads, +-inf, +-0 and a few
+    numbers; row 0 all NaN, row 1 only NaN and +inf."""
+    rng = np.random.default_rng(seed)
+    pool = np.array([nan64(1), nan64(-1), nan64(1, 0x77), nan64(-1, 0x77),
+                     np.inf, -np.inf, 0.0, -0.0, 1.5, -1.5, 2.0, 1e-300])
+    keys = pool[rng.integers(0, len(pool), (r, n))]
+    keys[0] = pool[rng.integers(0, 4, n)]
+    keys[1] = pool[rng.integers(0, 5, n)]
+    return keys
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_nan_priority_keys_sort_as_numpy(seed):
+    """``greedy_pack_rows`` on keys holding NaN (both signs, two
+    payloads), +-inf and +-0 ties: ``scheduler.order_key``'s stable
+    argsort is numpy's stable argsort (NaN last in index order, -0 tied
+    with +0), and the pack is ``greedy_pack`` over that order, row by
+    row."""
+    keys = _odd_keys(seed)
+    want_order = np.argsort(keys, axis=-1, kind="stable")
+    got_order = torch.argsort(tsc.order_key(torch.from_numpy(keys)), dim=-1,
+                              stable=True).numpy()
+    np.testing.assert_array_equal(got_order, want_order)
+    rng = np.random.default_rng(seed + 100)
+    k = 10
+    costs = rng.integers(1, k + 2, keys.shape).astype(np.int32)
+    x, alpha = tsc.greedy_pack_rows(torch.from_numpy(keys),
+                                    torch.from_numpy(costs), k)
+    for i in range(len(keys)):
+        hx, ha = tsc.greedy_pack(want_order[i], costs[i], k)
+        np.testing.assert_array_equal(x[i].numpy(), hx)
+        np.testing.assert_array_equal(alpha[i].numpy(), ha)
+
+
+NAN_CELLS = ((0, 3, 1, 0), (0, 7, -1, 0x1234), (1, 5, -1, 0),
+             (2, 1, 1, 0x1234), (3, 0, -1, 0x1234), (4, 9, 1, 0),
+             (4, 2, -1, 0), (5, 4, 1, 0), (5, 6, -1, 0), (7, 8, 1, 0x1234),
+             (9, 0, -1, 0))
+
+
+@pytest.mark.parametrize("infeasible", [False, True])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_nan_reputations_schedule_as_the_reference(ref, policy, infeasible):
+    """NaN reputations (both signs, two payloads, several runs, two in a
+    row) make NaN values and dqs / top_value priority keys. Every run of
+    one policy, and a round where every UE is infeasible (the forced
+    rewrite takes the first NaN value): the port's "device" layout on CPU
+    tensors, its "hybrid" layout and the reference's "jax" and "hybrid"
+    layouts give the same selection, alpha, costs and forced, exactly;
+    values NaN where NaN, the rest within rtol 1e-12."""
+    inst = _instance(7, 10, deadline=1e-6 if infeasible else None)
+    st = inst.state
+    st.policy_id[:] = tsc.POLICY_IDS[policy]
+    for i, j, sign, payload in NAN_CELLS:
+        st.reputations[i, j] = nan64(sign, payload)
+    outs = {"device": _schedule(inst, "device"),
+            "hybrid": _schedule(inst, "hybrid"),
+            "ref jax": _schedule(inst, "jax", ref.ctl, _ref_state(ref, st)),
+            "ref hybrid": _schedule(inst, "hybrid", ref.ctl,
+                                    _ref_state(ref, st))}
+    want = outs["ref hybrid"]
+    assert np.isnan(want[3]).sum() == len(NAN_CELLS)
+    for label, got in outs.items():
+        for i in (0, 1, 2, 4):
+            np.testing.assert_array_equal(np.asarray(got[i]), want[i],
+                                          err_msg=f"{label} {i}")
+        np.testing.assert_allclose(np.asarray(got[3]), want[3], rtol=1e-12,
+                                   atol=0, equal_nan=True, err_msg=label)
+    if infeasible:
+        assert np.asarray(want[4]).all() == (policy != "top_value")
+    x, values = outs["device"][0], outs["device"][3]
+    if policy == "top_value":        # NaN keys sort last: past the top n
+        assert not (x & np.isnan(values)).any()
+    if policy == "dqs" and not infeasible:   # the walk reaches them last
+        assert (x & np.isnan(values)).any()
 
 
 # ---------------------------------------------------------------------- #

@@ -11,8 +11,8 @@ that rounding step by step; the sum's chains are float32 adds in the
 documented order; neither twin changes with zeros appended to K or M or
 with the number of batch rows; both agree with the reference's
 ``jnp.matmul`` and ``jnp.sum``. The logsumexp's twin is its maximum and
-chain of exps in order, and agrees with ``jax.nn.logsumexp`` on finite
-rows; the argmax's plain version is the first maximal element and
+chain of exps in order, agrees with ``jax.nn.logsumexp`` on finite rows
+and reads its +-inf where the maximum is infinite; the argmax's plain version is the first maximal element and
 ``jnp.argmax``'s on ties, signed zeros, infinities and NaNs. The sources
 keep the order's rules.
 """
@@ -313,38 +313,66 @@ def _same(a, b):
 EDGE_MS = [1, 2, 10, 33, 64]
 
 
-@pytest.mark.parametrize("m", EDGE_MS)
-def test_the_logsumexp_twin_is_the_documented_order(m):
-    """The twin against its order written out: the maximum by the walk
-    from -inf, the exps given (``torch.exp`` of x - max, as the twin
-    takes them), then numpy float32 adds in order from +0, ``log``, and
-    the maximum added unless it is infinite."""
-    x = _edge_rows(m, seed=m)
+def _documented_logsumexp(x, infinite_max_subtracted=False):
+    """The order written out: the maximum by the walk from -inf, the exps
+    given (``torch.exp`` of x - sub, as the twin takes them), numpy
+    float32 adds in order from +0, ``log``, then + sub; sub is the
+    maximum, or +0 where it is infinite. With
+    ``infinite_max_subtracted`` the order before the infinite maximum's
+    rule: the maximum subtracted whatever it is, +0 added for an infinite
+    one."""
     want = np.empty(len(x), F32)
     for i, row in enumerate(x):
         mx = F32(-np.inf)
         for v in row:
             if _above(v, mx):
                 mx = v
+        sub = F32(0) if np.isinf(mx) else mx
         with np.errstate(invalid="ignore"):     # inf - inf
-            e = torch.exp(torch.from_numpy(row - mx)).numpy()
+            e = torch.exp(torch.from_numpy(
+                row - (mx if infinite_max_subtracted else sub))).numpy()
         s = F32(0)
         for v in e:
             s = F32(s + v)
         log = torch.log(torch.tensor(s)).numpy()
-        want[i] = F32(log + (F32(0) if np.isinf(mx) else mx))
+        want[i] = F32(log + sub)
+    return want
+
+
+@pytest.mark.parametrize("m", EDGE_MS)
+def test_the_logsumexp_twin_is_the_documented_order(m):
+    """The twin against its order written out (``_documented_logsumexp``)
+    on every edge row, the infinite maxima's included."""
+    x = _edge_rows(m, seed=m)
+    want = _documented_logsumexp(x)
     got = bi_logsumexp_chain_ref(torch.from_numpy(x)[:, :, None])
     assert got.shape == (len(x), 1)
     assert _same(got[:, 0].numpy(), want)
 
 
 @pytest.mark.parametrize("m", EDGE_MS)
+def test_the_logsumexp_twin_keeps_the_old_order_off_infinite_maxima(m):
+    """The infinite maximum's rule moves those rows alone: every row whose
+    maximum is finite or NaN is bit for bit the order that subtracted the
+    maximum whatever it was, and a row whose maximum is +-inf, which that
+    order read as NaN (inf - inf), now reads +-inf."""
+    x = _edge_rows(m, seed=m + 3)
+    old = _documented_logsumexp(x, infinite_max_subtracted=True)
+    got = bi_logsumexp_chain_ref(torch.from_numpy(x)[:, :, None])[:, 0]
+    got = got.numpy()
+    inf = np.isinf(np.array([_first_max(row)[0] for row in x]))
+    assert inf.sum() == 2 and np.isnan(old[inf]).all()
+    assert _same(got[~inf], old[~inf])
+    assert np.array_equal(got[inf], [_first_max(row)[0] for row in x[inf]])
+
+
+@pytest.mark.parametrize("m", EDGE_MS)
 def test_the_logsumexp_twin_agrees_with_jax_logsumexp(m):
     """Within 1e-5 · max(1, |want|) of ``jax.nn.logsumexp`` on the rows
     whose maximum is finite, -inf entries among them (the chain of M
-    float32 adds against XLA's order); NaN on a NaN row as jax; and NaN
-    where the maximum is +-inf (a +inf, or all -inf), where jax reads
-    +-inf: the kernel subtracts the infinite maximum itself."""
+    float32 adds against XLA's order); NaN on a NaN row as jax; and
+    exactly jax's +-inf where the maximum is +-inf (a +inf, or all
+    -inf): the kernel subtracts +0 there, as jax does."""
     import jax
     x = _edge_rows(m, seed=m + 1)
     want = np.asarray(jax.nn.logsumexp(x, axis=1))
@@ -357,7 +385,7 @@ def test_the_logsumexp_twin_agrees_with_jax_logsumexp(m):
     tol = 1e-5 * np.maximum(1.0, np.abs(want[fin]))
     assert (np.abs(got[fin] - want[fin]) <= tol).all()
     assert np.isnan(got[nan]).all() and np.isnan(want[nan]).all()
-    assert np.isnan(got[inf]).all()
+    assert np.array_equal(got[inf], want[inf])
     assert np.array_equal(want[inf], x[inf].max(1))
 
 
@@ -405,6 +433,8 @@ def test_the_sources_keep_the_order(name):
     else:
         assert code.count("__shfl_down_sync") == 1
         # logsumexp's chain and its last step, in the staged walk and in
-        # the walk over device memory
+        # the walk over device memory: +0 subtracted for an infinite max
+        assert code.count("const float sub = isinf(mx) ? 0.f : mx;") == 2
         assert code.count("s += expf(") == 2
-        assert code.count("logf(s) + (isinf(mx) ? 0.f : mx)") == 2
+        assert code.count(" - sub);") == 2
+        assert code.count("logf(s) + sub;") == 2

@@ -32,8 +32,8 @@ import types
 import numpy as np
 import pytest
 import torch
-from torch_parity import (ref_init_task, reference, run_recorded,  # noqa: F401
-                          single_threaded)
+from torch_parity import (nan64, ref_init_task, reference,  # noqa: F401
+                          run_recorded, single_threaded)
 
 from repro_torch.configs.base import FeelConfig
 from repro_torch.core import control as ctl
@@ -249,15 +249,107 @@ def test_escalation_is_exercised(ref):
     assert info == {"m": 64, "n_escalated": 0}
 
 
-def test_prefilter_refuses_a_width_below_min_selected_and_nan_keys():
+def test_prefilter_refuses_a_width_below_min_selected_and_schedules_nan_keys(
+        ref):
+    """A width below ``min_selected`` raises; NaN reputations (the
+    instance of ROADMAP P9) are scheduled, both layouts giving the
+    reference's exact schedule ("jax" and "hybrid" agree on it)."""
     cfg, state, gains, rand_rank, omega = _instance(0, 8, 40)
     with pytest.raises(ValueError, match="min_selected"):
         pop.prefilter_schedule_runs(state, gains, rand_rank, *omega,
                                     m=cfg.min_selected - 1)
-    state.reputations[0, 3] = np.nan
-    with pytest.raises(ValueError, match="NaN"):
-        pop.prefilter_schedule_runs(state, gains, rand_rank, *omega, m=16,
-                                    kernel="device")
+    state.reputations[0, 3] = state.reputations[1, 5] = np.nan
+    want = {kern: ref.ctl.schedule_runs(_ref_state(ref, state), gains,
+                                        rand_rank, *omega, kernel=kern)
+            for kern in ("jax", "hybrid")}
+    for kern in ("device", "hybrid"):
+        *got, _ = pop.prefilter_schedule_runs(state, gains, rand_rank,
+                                              *omega, m=16, kernel=kern)
+        for w in want.values():
+            for i in (0, 1, 2, 4):
+                np.testing.assert_array_equal(got[i], w[i])
+
+
+# (run, candidate, sign, payload): dqs runs 0 and 5, top_value 4 and 9,
+# and a NaN in each other policy's run; runs 0 and 4 also get a crowd
+NAN_CELLS = ((0, 3, -1, 0), (0, 7, 1, 0x1234), (1, 5, -1, 0x77),
+             (2, 1, 1, 0), (3, 0, -1, 0), (4, 39, 1, 0), (4, 2, -1, 0),
+             (5, 11, 1, 0x77), (9, 20, -1, 0x1234))
+
+
+def _nan_instance(k, n, crowd):
+    """``_instance(1, k, n)`` with NaN reputations at ``NAN_CELLS`` and,
+    with ``crowd``, all but k + 2 candidates of runs 0 (dqs) and 4
+    (top_value) NaN, so that NaN keys tie at the M-th key and fill the
+    kept prefix."""
+    cfg, state, gains, rand_rank, omega = _instance(1, k, n)
+    for i, j, sign, payload in NAN_CELLS:
+        state.reputations[i, j] = nan64(sign, payload)
+    if crowd:
+        rng = np.random.default_rng(n)
+        for i in (0, 4):
+            cols = rng.choice(n, n - k - 2, replace=False)
+            state.reputations[i, cols] = [nan64((-1) ** c, c % 3)
+                                          for c in cols]
+    return cfg, state, gains, rand_rank, omega
+
+
+@pytest.mark.parametrize("crowd", [False, True])
+@pytest.mark.parametrize("k,n", [(8, 40), (6, 72)])
+def test_prefilter_with_nan_keys_is_the_exact_schedule(ref, k, n, crowd):
+    """NaN priority keys (both signs, payloads; crowded past M): the
+    prefilter's "device" and "hybrid" layouts give the exact schedule's
+    selection, alpha, costs and forced exactly, at every M, and the same
+    escalations; the exact schedule is the reference's ("hybrid" exactly,
+    "jax" with alpha within rtol 1e-12); values NaN where NaN."""
+    cfg, state, gains, rand_rank, omega = _nan_instance(k, n, crowd)
+    exact = ctl.schedule_runs(state, gains, rand_rank, *omega,
+                              kernel="hybrid")
+    for kern in ("jax", "hybrid"):
+        want = ref.ctl.schedule_runs(_ref_state(ref, state), gains,
+                                     rand_rank, *omega, kernel=kern)
+        for i in (0, 2, 4):
+            np.testing.assert_array_equal(exact[i], want[i], err_msg=kern)
+        # "jax" rounds a top_value alpha otherwise (1 ulp), NaN or not
+        np.testing.assert_allclose(exact[1], want[1], rtol=1e-12, atol=0,
+                                   err_msg=kern)
+        if kern == "hybrid":
+            np.testing.assert_array_equal(exact[1], want[1])
+    for m in _ms(cfg, k, n) + [n - 1]:
+        infos = {}
+        for kern in ("device", "hybrid"):
+            *got, infos[kern] = pop.prefilter_schedule_runs(
+                state, gains, rand_rank, *omega, m=m, kernel=kern)
+            for i in (0, 1, 2, 4):
+                np.testing.assert_array_equal(got[i], exact[i],
+                                              err_msg=f"{kern} m={m} {i}")
+            np.testing.assert_allclose(got[3], exact[3], rtol=1e-12,
+                                       equal_nan=True)
+        assert infos["device"] == infos["hybrid"], (m, infos)
+
+
+def test_r10_the_reference_prefilter_misorders_nan_keys(ref):
+    """ROADMAP R10: the reference's own prefilter disagrees with its exact
+    schedule on NaN keys. Its "jax" layout takes ``lax.top_k(values,
+    n_sel)`` for a top_value row, which puts a positive NaN value first
+    (run 4 takes candidate 39 in place of 3); its "hybrid" layout's prefix
+    (``_topm_prefix``) finds no key below a NaN pivot and raises once M
+    passes a row's numbers. The port follows the exact schedule (the test
+    above)."""
+    cfg, state, gains, rand_rank, omega = _nan_instance(8, 40, False)
+    rs = _ref_state(ref, state)
+    exact = ref.ctl.schedule_runs(rs, gains, rand_rank, *omega,
+                                  kernel="hybrid")
+    x, *_ = ref.pop.prefilter_schedule_runs(rs, gains, rand_rank, *omega,
+                                            m=16, kernel="jax")
+    differ = np.flatnonzero((x != exact[0]).any(-1))
+    assert differ.tolist() == [4]
+    assert x[4, 39] and not x[4, 3] and exact[0][4, 3]
+    *_, info = ref.pop.prefilter_schedule_runs(rs, gains, rand_rank, *omega,
+                                               m=16, kernel="hybrid")
+    with pytest.raises(ValueError, match="broadcast"):
+        ref.pop.prefilter_schedule_runs(rs, gains, rand_rank, *omega, m=39,
+                                        kernel="hybrid")
 
 
 def test_all_infeasible_population_round():
@@ -282,6 +374,23 @@ def test_kept_set_is_the_stable_argsort_prefix(seed):
     rng = np.random.default_rng(seed)
     keys = rng.integers(0, 6, (4, 40)).astype(float)
     keys[1, ::3] = -0.0                 # signed zeros tie with 0.0
+    for m in (3, 7, 13, 30, 39):
+        want = np.argsort(keys, axis=-1, kind="stable")[:, :m]
+        np.testing.assert_array_equal(pop._topm_prefix(keys, m), want)
+        np.testing.assert_array_equal(
+            pop._topm_prefix_rows(torch.as_tensor(keys), m).numpy(), want)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_kept_set_with_nan_keys_is_the_stable_argsort_prefix(seed):
+    """NaN keys of both signs and payloads, +-inf and +-0: the kept set of
+    either layout is numpy's stable argsort prefix (NaN last, in index
+    order), M reaching into the NaN keys too."""
+    rng = np.random.default_rng(seed)
+    pool = np.array([nan64(1), nan64(-1), nan64(1, 5), nan64(-1, 5),
+                     np.inf, -np.inf, 0.0, -0.0, 1.0, 2.0])
+    keys = pool[rng.integers(0, len(pool), (4, 40))]
+    keys[0, :30] = nan64(-1)
     for m in (3, 7, 13, 30, 39):
         want = np.argsort(keys, axis=-1, kind="stable")[:, :m]
         np.testing.assert_array_equal(pop._topm_prefix(keys, m), want)

@@ -14,8 +14,9 @@ The instances are tests/test_population.py's generator: ``_instance(11,
 8, 160)`` at M = 32 (the reference's own mesh case), the same at N = 161
 (uneven shards; one row escalates), N = 40 (every rank holds fewer than M
 columns), every row ``max_count`` (integer keys: ties at the M-th key),
-M = ``min_selected`` (forced escalation) and N = 9 over 4 ranks (a rank
-with no column).
+M = ``min_selected`` (forced escalation), N = 9 over 4 ranks (a rank
+with no column) and NaN reputations of both signs and payloads whose NaN
+keys fill the M = 32 prefix of two runs (``nan_keys``; ROADMAP P9).
 
 Tolerances: every output and ``info`` bit for bit against the port's
 one-device "device" prefilter; the selections, costs and ``forced``
@@ -24,7 +25,7 @@ prefilter (``kernel="jax"``, no mesh: R9, below) integers exact and
 floats within 4 ulp. No rank's tensors before the output gather are
 wider than its (R, ceil(N/d)) columns or the gathered candidates (d
 prefixes of min(M, ceil(N/d))), and the path reads the host where the
-one-device layout does (the NaN check, the walk's steps).
+one-device layout does (the walk's steps).
 
 R9: the reference's own ``mesh=`` call raises ``ShardingTypeError`` under
 jax 0.9.0 (4 XLA host devices, in a subprocess); the test pins it, and
@@ -40,7 +41,7 @@ import numpy as np
 import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch_parity import reference
+from torch_parity import nan64, reference
 
 from repro_torch.configs.base import FeelConfig
 from repro_torch.core import control as ctl
@@ -60,7 +61,15 @@ INSTANCES = {
     "max_count_ties": (7, 8, 160, 32, True),
     "forced_escalation": (11, 8, 160, None, False),
     "empty_block": (3, 8, 9, 6, False),
+    "nan_keys": (11, 8, 161, 32, False),
 }
+# the "nan_keys" instance's NaN reputations (both signs, two payloads):
+# (run, candidate, sign, payload), and all but 10 candidates of runs 0
+# (dqs) and 4 (top_value), so that NaN keys fill the M = 32 prefix and
+# tie across the ranks' blocks
+NAN_CELLS = ((1, 5, -1, 0x77), (2, 100, 1, 0), (3, 0, -1, 0),
+             (5, 11, 1, 0x77), (5, 160, -1, 0), (9, 20, -1, 0x1234))
+NAN_CROWD = (0, 4)
 # name: (world, mesh kind)
 MESHES = {"host2": (2, "host"), "host4": (4, "host"),
           "replicas": (4, "model2"), "pod_data": (4, "pod")}
@@ -90,6 +99,13 @@ def _case(name):
     seed, k, n, m, mc = INSTANCES[name]
     cfg, state, gains, rand_rank, omega = _instance(seed, k, n,
                                                     max_count=mc)
+    if name == "nan_keys":
+        for i, j, sign, payload in NAN_CELLS:
+            state.reputations[i, j] = nan64(sign, payload)
+        rng = np.random.default_rng(n)
+        for i in NAN_CROWD:
+            for c in rng.choice(n, n - 10, replace=False):
+                state.reputations[i, c] = nan64((-1) ** c, c % 3)
     return state, gains, rand_rank, omega, m or cfg.min_selected
 
 
@@ -232,6 +248,10 @@ def test_the_instances_cover_what_they_name(one_device):
     m = INSTANCES["max_count_ties"][3]
     costs = np.sort(one_device["max_count_ties"][0][2], -1)
     assert all(c[m - 1] == c[m] for c in costs)
+    x, _, _, values, _ = one_device["nan_keys"][0]
+    nan = np.isnan(values)
+    assert nan[list(NAN_CROWD)].sum() == 2 * (INSTANCES["nan_keys"][2] - 10)
+    assert (x[0] & nan[0]).any() and not (x[4] & nan[4]).any()
     assert math.ceil(INSTANCES["narrow"][2] / 2) < INSTANCES["narrow"][3]
     assert 3 * math.ceil(INSTANCES["empty_block"][2] / 4) == \
         INSTANCES["empty_block"][2]
@@ -243,7 +263,7 @@ def test_no_rank_holds_more_than_its_columns(ranks, one_device, label,
                                             name):
     """Before the outputs are gathered, a rank's widest 2-D tensor is its
     (R, ceil(N/d)) block or the gathered prefixes; the host is read where
-    the one-device layout reads it (the NaN check, the walk's steps)."""
+    the one-device layout reads it (the walk's steps)."""
     world, _ = MESHES[label]
     d = world // (2 if label == "replicas" else 1)
     _, k, n, m, _ = INSTANCES[name]
@@ -314,17 +334,29 @@ def _ulps(a, b):
 @pytest.mark.parametrize("name", list(INSTANCES))
 def test_mesh_prefilter_against_the_reference(ranks, ref, name):
     """Against the reference's one-device prefilter (its "jax" layout, no
-    mesh: R9): integers exact, floats within 4 ulp, the same ``info``."""
+    mesh: R9): integers exact, floats within 4 ulp, the same ``info``.
+    With NaN keys against the reference's exact schedule (its "hybrid"
+    layout), which its prefilter does not give there (R10): the same
+    checks, NaN values where NaN."""
     state, gains, rr, omega, m = _case(name)
-    *want, info = ref.pop.prefilter_schedule_runs(
-        _ref_state(ref, state), gains, rr, *omega, m=m, kernel="jax")
+    if name == "nan_keys":
+        want = ref.ctl.schedule_runs(_ref_state(ref, state), gains, rr,
+                                     *omega, kernel="hybrid")
+        info = None
+    else:
+        *want, info = ref.pop.prefilter_schedule_runs(
+            _ref_state(ref, state), gains, rr, *omega, m=m, kernel="jax")
     got = ranks["host4"][0]
     for i, k in enumerate(NAMES):
         if i in (0, 2, 4):
             np.testing.assert_array_equal(got[f"{name}.{k}"], want[i])
         else:
-            assert _ulps(got[f"{name}.{k}"], want[i]) <= 4, k
-    assert got[f"{name}.info"].tolist() == [info["m"], info["n_escalated"]]
+            nan = np.isnan(want[i])
+            assert np.array_equal(np.isnan(got[f"{name}.{k}"]), nan), k
+            assert _ulps(got[f"{name}.{k}"][~nan], want[i][~nan]) <= 4, k
+    if info is not None:
+        assert got[f"{name}.info"].tolist() == [info["m"],
+                                                info["n_escalated"]]
 
 
 def test_a_mesh_shape_of_one_is_one_device():

@@ -17,7 +17,9 @@ the whole suite ``tests/test_wireless.py`` (11 tests) collects and passes,
 where alone, under a jax without the name, it fails at collection. The
 files collected before the first ``test_torch_*`` file are collected as
 they are alone: the 15 that import ``repro.core`` when they are imported
-still fail there.
+still fail there. Importing it also points jax's persistent compilation
+cache at a directory that the workers of one pytest-xdist run share
+(``_share_compiled_programs``).
 
 ``ref_init_task(name)`` gives the port's ``run_experiment`` the
 reference's initial params for task ``name`` (``mnist_mlp`` or
@@ -49,6 +51,27 @@ def _install_enable_x64_alias():
 
 
 _install_enable_x64_alias()
+
+
+def _share_compiled_programs():
+    """Under pytest-xdist, point jax's persistent compilation cache at one
+    directory for the run's workers (named by the run's id, in the
+    temporary directory), unless a cache is set already: a reference
+    program that two test files compile (the same model at the same
+    shapes) is compiled once in the run. A cached executable is the one
+    the compiler made, so no result changes."""
+    import os
+    import tempfile
+
+    import jax
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    if run is None or jax.config.jax_compilation_cache_dir:
+        return
+    jax.config.update("jax_compilation_cache_dir", os.path.join(
+        tempfile.gettempdir(), f"repro-jax-cache-{run}"))
+
+
+_share_compiled_programs()
 
 
 def reference(module: str):
@@ -95,6 +118,19 @@ def run_recorded(sim, **kw):
         mp.setattr(sim, "FeelServer", Recording)
         out = sim.run_experiment(**kw)
     return out, servers[0]
+
+
+def nan64(sign: int = 1, payload: int = 0) -> float:
+    """A float64 NaN of the given sign whose quiet NaN bits are OR-ed with
+    ``payload``: the control plane's tests place NaNs of both signs and
+    payloads, which numpy sorts alike and a sort by bits would not."""
+    import numpy as np
+    bits = np.array([np.nan]).view(np.uint64) | np.uint64(payload)
+    if sign < 0:
+        bits |= np.uint64(1 << 63)
+    else:
+        bits &= ~np.uint64(1 << 63)
+    return float(bits.view(np.float64)[0])
 
 
 @pytest.fixture(scope="module", autouse=True)
