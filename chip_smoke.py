@@ -10,7 +10,13 @@ commit's ``git archive``) and of this one in turns and does nothing else
 beside this tree's, holds them equal bit for bit (the sums, logsumexp
 and argmax at every phase 3 shape, and logsumexp and argmax on the edge
 rows) and times them and the library's call in turns at phase 3's timed
-shapes (``kernels_against``).
+shapes (``kernels_against``); then it builds DIR's ``moe_gemm`` (K5) too,
+times both trees' and ``torch.bmm`` in turns at qwen2-moe-a2.7b's and
+deepseek-v3-671b's decode products, on a decode step's dispatch and with
+every expert occupied, and at qwen2-moe's prefill (``k5_against``), and
+decodes both models at full width (DeepSeek cut to 4 layers) with each
+tree's K5 in turns: tokens/s, the device's idle share and K5's device time
+a step (``decode_steps_against``).
 The first runs these phases; any failure raises and exits non-zero, and no
 phase catches one:
 
@@ -60,7 +66,14 @@ phase catches one:
     launcher's C threshold (the wgmma route from C = 128),
     qwen2-moe-a2.7b's prefill and decode shapes and deepseek-v3-671b's
     (256 experts, d 7,168, f 2,048, C 640 at prefill), with the largest
-    difference in bf16 ulps; the task plane's batch-invariant kernels at
+    difference in bf16 ulps; both decodes again on the x that one MoE
+    layer's dispatch of a decode step's 8 tokens gives K5 at full width
+    (``moe_decode_checks``): the empty experts' rows bit-equal to the plain
+    version's and +0, the rest within 2e-1, the rolled-experts control
+    rejected, the occupied experts counted and timed against their bytes
+    bound and every expert's, and P31 (an empty expert with an inf weight:
+    the kernel +0, the plain version NaN); the task plane's
+    batch-invariant kernels at
     the §V MLP's and ``lm_tiny``'s training and evaluation shapes:
     ``bi_gemm`` within 1e-5·max|c| of ``torch.matmul``, its matrix 0
     equal bit for bit to a batch of 1's, the product equal bit for bit with
@@ -77,7 +90,8 @@ phase catches one:
     logsumexp equal to its twin, and to torch's +-inf where the row's
     maximum is infinite, the argmax equal to ``torch.argmax``; the NLL
     and attention backwards on rows whose maximum is +-inf, NaN where
-    the CPU's are NaN;
+    the CPU's are NaN, and attention's every finite element bit-equal to
+    its formula before the P30 repair (``vjp_before_p30``);
  4. the undefended main path at the paper's §V scale: K = 50 UEs,
     50,000/10,000 synthetic MNIST, 5 label flippers, DQS on the host
     control plane, the vectorized engine, 3 rounds on the GPU. Every
@@ -140,7 +154,7 @@ phase catches one:
 10. the population plane and the async plane: (a) the top-M prefilter at
     the reference bench's grid (benchmarks/bench_round.py's population
     instance: R = 5 runs cycling the five policies, K = 64, N = 10^4, 10^5
-    and 10^6, 3 rounds each after a warm-up; first the budget walk
+    and 10^6, 2 rounds each after a warm-up; first the budget walk
     ``pack_scan`` against the N-step walk it replaced, in turns, at
     K = 50 and at N = 10^4), the "device" layout on the
     card held against the exact "device" schedule (every output bit for
@@ -370,7 +384,7 @@ phase catches one:
     (1, 1) ``DeviceMesh`` on the card) and
     ``prefilter_schedule_runs(..., mesh=)`` at phase 10's grid (R = 5
     cycling the five policies, K = 64, N = 10^4, 10^5 and 10^6, a warm-up
-    and 3 rounds), in turns with the mesh-less "device" prefilter: every
+    and 2 rounds), in turns with the mesh-less "device" prefilter: every
     output bit for bit against it, the selections, costs and ``forced``
     equal to the exact "device" schedule, ms a round of each path, the
     collectives' bytes (``launch.dryrun.count_step``), then one round at
@@ -406,9 +420,9 @@ phase catches one:
     MLP, ``lm_tiny`` and ``starcoder2-15b`` at full width (phase 12's)
     beside the ``torch.Generator`` draw they replace; then
     ``federated_llm_torch.py --fast``'s leg 1 (seeds 0 and 1, 6 rounds)
-    from the new init at init-seed offsets 0 and 1
+    from the new init at init-seed offset 0
     (``examples/federated_llm_init_spread_torch.py``'s ``margin``; offset
-    0 is the leg), each margin printed with whether it passes the
+    0 is the leg), its margin printed with whether it passes the
     driver's assertion, K3 and K1 counted;
 15. one JSON line of per-kernel numbers (K6's bf16-compute route a row
     of its own), then the result line.
@@ -1260,6 +1274,164 @@ def check_moe(label, e, c, k, n, dtype, reps=50):
     return row
 
 
+# K5's decode route: its kernels' slot-tile counts (CT tiles of 8 slots)
+K5_DECODE_TILES = (1, 2, 4, 8, 16)
+# the archs whose decode step K5 is held on, at full width
+K5_DECODE_ARCHS = ("qwen2-moe-a2.7b", "deepseek-v3-671b")
+K5_BF16_TOL = 2e-1
+
+
+def empty_experts(x):
+    """(E,) bool: the experts whose x block is all +-0 (bits & 0x7FFF ==
+    0), as the dispatch leaves an expert no token was routed to; K5's
+    decode route writes them +0 and never reads their weights."""
+    return ((x.view(torch.int16) & 0x7FFF) == 0).flatten(1).all(1)
+
+
+def occupied_bound(x, w):
+    """(least ms, bytes) of K5 at a decode: x and the output once at the
+    memory rate, and the weights of the occupied experts only (what the
+    data needs: an empty expert's weights are never read)."""
+    e, c, k = x.shape
+    n = w.shape[2]
+    occupied = e - int(empty_experts(x).sum())
+    nbytes = (e * c * k + occupied * k * n + e * c * n) * x.element_size()
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def moe_decode_calls(arch, seed=0):
+    """One MoE layer of ``arch`` at full width on a decode step's 8 tokens
+    through the port's own router, top-k and sort-based dispatch
+    (``models/moe._dispatch``), the router and experts drawn on the card
+    from a seed (σ 1/√fan-in) and the hidden states unit normal, bf16:
+    ([(product, x, w)] for the gate, up and down products as K5 received
+    them, and the routes)."""
+    cfg = registry.get(arch)
+    m, d = cfg.moe, cfg.d_model
+    E, f = m.n_routed, m.d_ff_expert
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape, fan_in):
+        return torch.randn(*shape, device="cuda", generator=g,
+                           dtype=torch.bfloat16).mul_(fan_in ** -0.5)
+
+    p = {"router": torch.randn(d, E, device="cuda", generator=g) / d ** 0.5,
+         "wg": draw(E, d, f, fan_in=d), "wu": draw(E, d, f, fan_in=d),
+         "wd": draw(E, f, d, fan_in=f)}
+    x3 = torch.randn(1, SERVE_BATCH, d, device="cuda", generator=g,
+                     dtype=torch.bfloat16)
+    calls, real = [], tmoe.moe_gemm
+
+    def recording(x, w):
+        calls.append((x, w))
+        return real(x, w)
+
+    tmoe.moe_gemm = recording
+    try:
+        with torch.no_grad():
+            tmoe._dispatch(cfg, p, x3, False)
+    finally:
+        tmoe.moe_gemm = real
+    torch.cuda.synchronize()
+    return ([(name, *call) for name, call in zip(("gate", "up", "down"),
+                                                  calls)],
+            SERVE_BATCH * m.top_k)
+
+
+def k5_holds(out, want, empty, tol=K5_BF16_TOL):
+    """(the empty experts' rows bit-equal to ``want``'s, the rest within
+    tol + tol·|want|, max|Δ| there)."""
+    bits = torch.equal(out[empty].view(torch.int16),
+                       want[empty].view(torch.int16))
+    diff = (out[~empty].float() - want[~empty].float()).abs()
+    close = bool((diff <= tol + tol * want[~empty].float().abs()).all())
+    return bits, close, diff.max().item() if diff.numel() else 0.0
+
+
+def check_moe_decode(arch, product, x, w, routes, reps=50):
+    """K5 on the x that a decode step's dispatch gave it
+    (``moe_decode_calls``): the empty experts' rows bit-equal to the plain
+    version's and +0, every other row within the bf16 tolerance of
+    ``check_moe``; the negative control (``_k5_control``, the experts
+    rolled by one) must fail the same test. Timed beside the plain
+    version and ``torch.bmm`` (which read every expert), with both bounds:
+    every expert's bytes (K5's ``cost``) and the occupied experts'."""
+    e, c, k = x.shape
+    n = w.shape[2]
+    got = k5.moe_gemm(x, w)
+    want = k5.moe_gemm_ref(x, w)
+    torch.cuda.synchronize()
+    empty = empty_experts(x)
+    bits, close, err = k5_holds(got, want, empty)
+    assert bits and bool((got[empty].view(torch.int16) == 0).all()), (
+        arch, product)
+    assert close, (arch, product, err)
+    c_bits, c_close, _ = k5_holds(_k5_control(x, w), want, empty)
+    assert not (c_bits and c_close), (arch, product, "control accepted")
+    kernel_ms, kernel_call_ms = time_ms(lambda: k5.moe_gemm(x, w), reps)
+    plain_ms, _ = time_ms(lambda: k5.moe_gemm_ref(x, w), max(reps // 10, 2))
+    library_ms, _ = time_ms(lambda: torch.bmm(x, w), reps)
+    all_ms, by, _ = moe_bound(e, c, k, n, x.dtype)
+    occ_ms, occ_bytes = occupied_bound(x, w)
+    row = dict(phase="kernel_check", kernel="moe_gemm",
+               case=f"{arch} decode {product}, a decode step's routing",
+               e=e, c=c, k=k, n=n, dtype="bfloat16", routes=routes,
+               occupied_experts=e - int(empty.sum()),
+               empty_experts=int(empty.sum()), max_abs_err=err,
+               tol=K5_BF16_TOL, empty_rows_bits_equal=True,
+               empty_rows_plus_zero=True, control_rejected=True,
+               kernel_ms=kernel_ms, plain_ms=plain_ms, library="torch.bmm",
+               library_ms=library_ms, bound_ms=all_ms, bound_by=by,
+               bound_occupied_ms=occ_ms, occupied_bytes=occ_bytes,
+               of_occupied_bound=kernel_ms / occ_ms,
+               of_library=kernel_ms / library_ms,
+               kernel_call_ms=kernel_call_ms)
+    emit(**row)
+    return row
+
+
+def check_p31(x, w):
+    """ROADMAP P31 on the card: an empty expert whose weights hold an inf.
+    The plain version gives NaN across that column of its rows (0·inf),
+    the kernel +0 (it never reads those weights); the combine never reads
+    an empty expert's rows. w is restored."""
+    empty = empty_experts(x)
+    e0 = int(empty.nonzero()[0])
+    old = w[e0, 0, 0].clone()
+    w[e0, 0, 0] = float("inf")
+    try:
+        got, want = k5.moe_gemm(x, w), k5.moe_gemm_ref(x, w)
+        torch.cuda.synchronize()
+        kernel_zero = bool((got[e0].view(torch.int16) == 0).all())
+        plain_nan = int(torch.isnan(want[e0]).sum())
+    finally:
+        w[e0, 0, 0] = old
+    emit(phase="kernel_check", kernel="moe_gemm", case="P31: an empty "
+         "expert with an inf weight", expert=e0, kernel_rows_plus_zero=
+         kernel_zero, plain_nan_elements=plain_nan, slots=x.shape[1])
+    assert kernel_zero and plain_nan == x.shape[1], (kernel_zero, plain_nan)
+
+
+def moe_decode_checks():
+    """``check_moe_decode`` at qwen2-moe-a2.7b's and deepseek-v3-671b's
+    decode (gate and down; up shares gate's x and shape), then P31 on
+    qwen2-moe's gate. Returns the rows."""
+    rows = []
+    for arch in K5_DECODE_ARCHS:
+        calls, routes = moe_decode_calls(arch)
+        for product, x, w in calls:
+            if product != "up":
+                rows.append(check_moe_decode(
+                    arch, product, x, w, routes,
+                    reps=20 if x.shape[0] > 128 else 50))
+        if arch == "qwen2-moe-a2.7b":
+            check_p31(*calls[0][1:])
+        del calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------- #
 # The task plane's batch-invariant kernels (bi_gemm, bi_reduce)
 # ---------------------------------------------------------------------- #
@@ -1529,9 +1701,13 @@ def check_infinite_max_backwards():
     logsumexp, ``bi_gemm``) against the same calls on the CPU: NaN
     exactly where the CPU's is NaN, +-inf where it is, the rest within
     ``BI_RTOL`` · max(1, |cpu|). On the CPU the NLL's equal
-    ``jax.grad`` of the reference's loss, NaN where it is NaN, and so
-    do attention's dq and dk; its dv is NaN on fewer entries than
-    jax's (ROADMAP P30; tests/test_torch_batch_invariant.py)."""
+    ``jax.grad`` of the reference's loss, NaN where it is NaN, and so do
+    attention's dq, dk and dv (tests/test_torch_batch_invariant.py). Then
+    the P30 repair on the card: ``invariant_vjp`` against its formula
+    before the repair (``vjp_before_p30``) on these inputs and on the same
+    inputs without the infinities: every element that the repaired
+    function gives finite is bit-equal to the old formula's, dq and dk
+    are bit-equal throughout, and the finite inputs' every element."""
     def run(dev):
         logits, labels, q, k, v, g = infinite_max_inputs(dev)
         logits.requires_grad_(True)
@@ -1562,6 +1738,44 @@ def check_infinite_max_backwards():
                                                     nans.items()},
          nll=[float(x) for x in card["nll"].cpu()],
          nan_where_cpu_nan=True, max_rel_err=err, tol=BI_RTOL)
+    assert nans["dv"] == [64, 64], nans["dv"]       # P30: as jax's softmax
+
+    old_vjp = vjp_before_p30()
+    _, _, q, k, v, g = infinite_max_inputs("cuda")
+    finite = [torch.nan_to_num(t, posinf=3.0, neginf=-3.0)
+              for t in (q, k, v, g)]
+    moved = {}
+    for label, args in (("infinite", (q, k, v, g)), ("finite", finite)):
+        with bi.route():
+            new = bi.invariant_vjp(*args, False, None, 8 ** -0.5)
+            old = old_vjp(*args, False, None, 8 ** -0.5)
+        for name, a, b in zip(("dq", "dk", "dv"), new, old):
+            fin = torch.isfinite(a)
+            assert bits_equal(a[fin], b[fin]), (label, name)
+            if name != "dv":    # NaN where it was, and nowhere else
+                assert torch.equal(torch.isfinite(b), fin), (label, name)
+            if label == "finite":
+                assert bool(fin.all()), (label, name)
+            moved[f"{label} {name}"] = int((~fin & torch.isfinite(b)).sum())
+    emit(phase="kernel_check", kernel="bi_reduce", case="P30 repair: "
+         "attention backward against the formula before it",
+         finite_elements_bits_equal=True, finite_inputs_bits_equal=True,
+         now_nan_before_finite=moved)
+
+
+def vjp_before_p30():
+    """``bi.invariant_vjp`` as it was before P30's repair: its source
+    without the ``+ (lse - lse)`` that makes p NaN across a row whose
+    logsumexp is +inf, compiled in the module's namespace."""
+    import inspect
+    import textwrap
+    src = textwrap.dedent(inspect.getsource(bi.invariant_vjp))
+    repaired = "p = torch.exp(sc - lse) + (lse - lse)"
+    assert src.count(repaired) == 1, "the repair moved"
+    space = dict(vars(bi))
+    exec(compile(src.replace(repaired, "p = torch.exp(sc - lse)"),
+                 bi.__file__, "exec"), space)
+    return space["invariant_vjp"]
 
 
 # the main paths' shapes: the §V MLP's training (a bucket of 50 clients,
@@ -2346,7 +2560,9 @@ def sweep_phases():
 # ---------------------------------------------------------------------- #
 # The population plane and the async plane
 # ---------------------------------------------------------------------- #
-POP_K, POP_RUNS, POP_ROUNDS = 64, 5, 3
+# the timed rounds a size: two, one of each order on the mesh, for the
+# script's time limit (the host layouts take seconds a round at 10^6)
+POP_K, POP_RUNS, POP_ROUNDS = 64, 5, 2
 POP_NS = (10_000, 100_000, 1_000_000)
 POP_PATHS = ("exact_device", "prefilter_device", "prefilter_hybrid",
              "exact_hybrid")
@@ -3079,7 +3295,8 @@ def plain_route(module, control=False):
 
 def profile_fn(fn, keep_prof=False, settle_s=0.0):
     """``fn()`` once under torch.profiler: (its result, wall us, device
-    busy us, idle share, device events, top kernels by device time, and
+    busy us, K5's device us, idle share, device events, top kernels by
+    device time, and
     with ``keep_prof`` the profile itself under "prof"). With
     ``settle_s`` the profiler runs that long, after one marker-free
     kernel, before ``fn`` starts and the wall clock with it: kernels
@@ -3108,6 +3325,8 @@ def profile_fn(fn, keep_prof=False, settle_s=0.0):
         and ("Synchronize" in ev.name or ev.name in (
             "cudaMemcpy", "aten::item", "aten::_local_scalar_dense")))
     row = dict(wall_us=wall_us, device_busy_us=busy_us,
+               moe_gemm_us=sum(us for name, us in by_kernel.items()
+                               if "moe_gemm" in name),
                host_waits=dict(waits),
                device_idle_share=1.0 - busy_us / wall_us,
                n_device_events=sum(
@@ -3659,8 +3878,9 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 5
 GRAD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-3}
 # kernel names (substrings) of each ported kernel in a profile
 KERNEL_NAMES = {"flash_attention": ("flash_f32_kernel", "flash_bf16_kernel"),
-                "moe_gemm": ("moe_gemm_bf16_kernel", "moe_gemm_wgmma_kernel",
-                             "moe_gemm_f32_kernel"),
+                "moe_gemm": ("moe_gemm_decode_kernel",
+                             "moe_gemm_decode_tma_kernel",
+                             "moe_gemm_wgmma_kernel", "moe_gemm_f32_kernel"),
                 "ssd_scan": ("ssd_kernel", "ssd_state_kernel",
                              "ssd_pass_kernel", "ssd_chunk_scan_kernel")}
 
@@ -5844,7 +6064,9 @@ def driver_phases(smi):
 # ---------------------------------------------------------------------- #
 INIT_SEEDS = (0, 1, 2**31 - 1)
 INIT_ULP = 2               # the float bound the CPU tests hold jax to
-SPREAD_OFFSETS = (0, 1)
+# the init-spread offsets run here: 0, the leg itself (each offset takes
+# ~37 s of the script's time limit; the script takes any offsets)
+SPREAD_OFFSETS = (0,)
 _ULP_VIEW = {torch.float32: (torch.int32, 0x7FFFFFFF),
              torch.bfloat16: (torch.int16, 0x7FFF)}
 
@@ -6096,20 +6318,20 @@ def rounds_against(other: Path, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------- #
-# --kernels-against DIR: two trees' batch-invariant kernels in turns
+# --kernels-against DIR: two trees' batch-invariant kernels and K5 in turns
 # ---------------------------------------------------------------------- #
 AGAINST_DIR = build.BUILD_DIR.parent / "kernels_against"
 
 
 def _against_kernels(other: Path):
-    """DIR's ``bi_gemm.cu`` and ``bi_reduce.cu`` built (one nvcc each, in
-    parallel, with this tree's flags) and loaded: their C launchers
-    ``bi_gemm_f32``, ``bi_sum_f32``, ``bi_logsumexp_f32`` and
-    ``bi_argmax_f32``, whose interfaces this tree keeps; the last three
-    by mode."""
+    """DIR's ``bi_gemm.cu``, ``bi_reduce.cu`` and ``moe_gemm.cu`` built
+    (one nvcc each, in parallel, with this tree's flags) and loaded: their
+    C launchers ``bi_gemm_f32``, ``bi_sum_f32``, ``bi_logsumexp_f32``,
+    ``bi_argmax_f32`` and ``moe_gemm_bf16``, whose interfaces this tree
+    keeps; the reductions by mode."""
     AGAINST_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in ("bi_gemm", "bi_reduce"):
+    for name in ("bi_gemm", "bi_reduce", "moe_gemm"):
         src = other / "src" / "repro_torch" / "kernels" / "csrc" / f"{name}.cu"
         procs[name] = subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-o",
@@ -6132,7 +6354,11 @@ def _against_kernels(other: Path):
         fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * (
             3 if mode == kbr.SUM else 2) + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return gemm, reduce
+    moe = libs["moe_gemm"].moe_gemm_bf16
+    moe.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    moe.restype = ctypes.c_int
+    return gemm, reduce, moe
 
 
 def _gemm_with(fn, a, b):
@@ -6184,6 +6410,148 @@ def _lse_against(old_reduce, x):
     return int(differ.sum()), int(inf.sum())
 
 
+def _k5_with(fn, x, w):
+    """``moe_gemm(x, w)`` in bf16 through another tree's launcher ``fn``."""
+    e, c, k = x.shape
+    out = torch.empty((e, c, w.shape[2]), dtype=x.dtype, device=x.device)
+    assert fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, k,
+              w.shape[2], torch.cuda.current_stream().cuda_stream) == 0
+    return out
+
+
+@contextlib.contextmanager
+def k5_launcher(fn):
+    """Within the block, K5's wrapper launches ``fn`` (another tree's bf16
+    C launcher, the same interface) for bf16 tensors, counted as its own."""
+    real = k5._launchers
+    fns = {**real(), torch.bfloat16: fn}
+    k5._launchers = lambda: fns
+    try:
+        yield
+    finally:
+        k5._launchers = real
+
+
+def k5_against(old, smi):
+    """K5 of ``other``'s tree (its bf16 launcher ``old``) and of this one
+    at the decode products of ``K5_DECODE_ARCHS`` (gate and down), on a
+    decode step's dispatch (``moe_decode_calls``) and with every expert
+    occupied (unit normal x), and at qwen2-moe-a2.7b's prefill gate/up
+    (the wgmma route): each tree's output against the plain version
+    (within ``K5_BF16_TOL``; this tree's empty experts' rows bit-equal
+    too), then both trees' kernels and ``torch.bmm`` in turns
+    (``median_turns``), with both bounds."""
+    rows = []
+    for arch in K5_DECODE_ARCHS:
+        calls, _ = moe_decode_calls(arch)
+        for product, x, w in calls:
+            if product == "up":
+                continue
+            g = torch.Generator(device="cuda").manual_seed(x.shape[2])
+            dense = torch.randn(x.shape, device="cuda", generator=g,
+                                dtype=x.dtype)
+            for kind, xx in (("a decode step's routing", x),
+                             ("every expert occupied", dense)):
+                want = k5.moe_gemm_ref(xx, w)
+                empty = empty_experts(xx)
+                bits, close, err = k5_holds(k5.moe_gemm(xx, w), want, empty)
+                assert bits and close, (arch, product, kind, err)
+                close_old = k5_holds(_k5_with(old, xx, w), want, empty)[1]
+                assert close_old, (arch, product, kind, "against")
+                ms = median_turns({
+                    "against": lambda xx=xx, w=w: _k5_with(old, xx, w),
+                    "this": lambda xx=xx, w=w: k5.moe_gemm(xx, w),
+                    "library": lambda xx=xx, w=w: torch.bmm(xx, w)},
+                    10 if xx.shape[0] > 128 else 50)
+                occ_ms, _ = occupied_bound(xx, w)
+                rows.append(dict(
+                    kernel="moe_gemm", case=f"{arch} decode {product}, {kind}",
+                    shape=[*xx.shape, w.shape[2]],
+                    occupied_experts=xx.shape[0] - int(empty.sum()),
+                    bound_ms=moe_bound(*xx.shape, w.shape[2], xx.dtype)[0],
+                    bound_occupied_ms=occ_ms, **ms,
+                    of_occupied_bound=ms["this"] / occ_ms))
+            del dense
+        del calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg = registry.get("qwen2-moe-a2.7b")
+    e, d, f = cfg.moe.n_routed, cfg.d_model, cfg.moe.d_ff_expert
+    c = tmoe.capacity(SERVE_BATCH * SERVE_PROMPT, cfg)
+    x, w = (_randn(*shape, seed=seed).to(torch.bfloat16)
+            for shape, seed in (((e, c, d), 1), ((e, d, f), 2)))
+    assert k5_holds(_k5_with(old, x, w), k5.moe_gemm(x, w),
+                    torch.zeros(e, dtype=torch.bool, device="cuda"))[1]
+    ms = median_turns({"against": lambda: _k5_with(old, x, w),
+                       "this": lambda: k5.moe_gemm(x, w),
+                       "library": lambda: torch.bmm(x, w)}, 10)
+    rows.append(dict(kernel="moe_gemm", case="qwen2-moe-a2.7b prefill "
+                     "gate/up (the wgmma route)", shape=[e, c, d, f],
+                     bound_ms=moe_bound(e, c, d, f, torch.bfloat16)[0], **ms))
+    for row in rows:
+        emit(phase="kernel_turns", gpu=smi, speedup=row["against"]
+             / row["this"], of_library=row["this"] / row["library"], **row)
+    return rows
+
+
+def decode_steps_against(old, smi, steps_a_turn=8):
+    """qwen2-moe-a2.7b (24 layers) and deepseek-v3-671b (cut to 4 layers,
+    as phase 14) served at full width as ``serve_phase`` serves them
+    (weights from seed 0, 8 prompts of 2,048 tokens), then decoded with
+    ``other``'s K5 (its bf16 launcher ``old``) and this tree's in turns
+    (one untimed step each, then against, this, this, against),
+    ``steps_a_turn`` greedy steps a turn on the host clock, each ending in
+    a synchronise, and one more under the profiler: each tree's median
+    step ms and tokens/s over its turns, and its profiled steps' device
+    idle share and K5 device us a step."""
+    out = {}
+    for arch, cfg in (("qwen2-moe-a2.7b", registry.get("qwen2-moe-a2.7b")),
+                      ("deepseek-v3-671b", dataclasses.replace(
+                          registry.get("deepseek-v3-671b"), n_layers=4))):
+        prefill = steps.make_prefill_step(cfg)
+        decode = steps.make_decode_step(cfg)
+        turns = ("against", "this", "this", "against")
+        target = SERVE_PROMPT + 2 + len(turns) * (steps_a_turn + 1)
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = api.init(cfg, 0)
+        batch = {"tokens": prompts(cfg, SERVE_BATCH, SERVE_PROMPT)}
+        got = {t: dict(step_ms=[], idle=[], busy_us=[], k5_us=[])
+               for t in ("against", "this")}
+        with torch.inference_mode():
+            logits, cache = prefill(params, batch, target)
+            tok = logits.argmax(-1)[:, None]
+            for i, tree in enumerate(("against", "this") + turns):
+                timed = i >= 2                  # the first two warm up
+                with (k5_launcher(old) if tree == "against"
+                      else contextlib.nullcontext()):
+                    n = steps_a_turn + 1 if timed else 1
+                    _, lg, step_ms, prof, cache = greedy_decode(
+                        decode, params, cache, tok, n,
+                        profile_at=n - 1 if timed else None)
+                tok = lg[-1].argmax(-1)[:, None]
+                if timed:
+                    got[tree]["step_ms"] += step_ms
+                    got[tree]["idle"].append(prof["device_idle_share"])
+                    got[tree]["busy_us"].append(prof["device_busy_us"])
+                    got[tree]["k5_us"].append(prof["moe_gemm_us"])
+        del params, cache, logits
+        row = {tree: dict(step_ms_median=float(np.median(v["step_ms"])),
+                          tokens_per_s=SERVE_BATCH * len(v["step_ms"])
+                          / (sum(v["step_ms"]) / 1e3),
+                          device_idle_share=float(np.mean(v["idle"])),
+                          device_busy_us=float(np.mean(v["busy_us"])),
+                          k5_device_us_a_step=float(np.mean(v["k5_us"])),
+                          steps=len(v["step_ms"]))
+               for tree, v in got.items()}
+        emit(phase="decode_turns", arch=arch, n_layers=cfg.n_layers,
+             gpu=smi, batch=SERVE_BATCH, prompt=SERVE_PROMPT, **row)
+        out[arch] = row
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernels_against(other: Path, smi: str) -> list:
     """``bi_gemm`` and ``bi_reduce`` (its sums, logsumexp and argmax) of
     ``other``'s tree (``other/src``, e.g. a ``git archive`` of the
@@ -6197,9 +6565,11 @@ def kernels_against(other: Path, smi: str) -> list:
     then at the timed shapes and the main path's evaluation each tree's
     kernel and the library's call (cuBLAS ``bmm``, torch's ``sum``,
     ``logsumexp``, ``argmax``) in turns (against, this, library, library,
-    this, against, twice; the median device ms of four)."""
-    old_gemm, old_reduce = _against_kernels(other)
-    build.build(["bi_gemm", "bi_reduce"])
+    this, against, twice; the median device ms of four). Then K5 the same
+    way at the MoE decode and prefill (``k5_against``) and the MoE decode
+    steps with each tree's K5 in turns (``decode_steps_against``)."""
+    old_gemm, old_reduce, old_moe = _against_kernels(other)
+    build.build(["bi_gemm", "bi_reduce", "moe_gemm"])
     rows = []
     gemm_cases = [c[:6] for c in BI_GEMM_CASES if c[6]] + [
         ("main path eval", 48, 10_000, 784, 64, True)]
@@ -6256,6 +6626,8 @@ def kernels_against(other: Path, smi: str) -> list:
         emit(phase="kernel_turns", gpu=smi, bits_equal=True,
              speedup=row["against"] / row["this"],
              of_library=row["this"] / row["library"], **row)
+    rows += k5_against(old_moe, smi)
+    decode_steps_against(old_moe, smi)
     return rows
 
 
@@ -6309,6 +6681,15 @@ def main():
         assert ops["HMMA"] > 0, (d, ops)
     ops = sass["moe_gemm"]["moe_gemm_wgmma_kernel"]
     assert ops["HGMMA"] > 0 and ops["UTMALDG"] > 0, ops
+    # K5's decode route, every slot-tile count: HMMA fed by TMA (UTMALDG) or
+    # by cp.async (LDGSTS), read by ldmatrix (LDSM), no spill
+    for ct in K5_DECODE_TILES:
+        for kernel, feed in (("moe_gemm_decode_tma_kernel", "UTMALDG"),
+                             ("moe_gemm_decode_kernel", "LDGSTS")):
+            ops = sass["moe_gemm"][f"{kernel}<{ct}>"]
+            assert ops["HMMA"] > 0 and ops[feed] > 0 and ops["LDSM"] > 0, (
+                kernel, ct, ops)
+            assert not ops["LDL"] and not ops["STL"], (kernel, ct, ops)
     for d in k4.HEAD_DIMS:
         ops = sass["decode_attention"][f"decode_mma_kernel<{d}>"]
         assert ops["HMMA"] > 0 and ops["LDGSTS"] > 0, (d, ops)
@@ -6490,6 +6871,10 @@ def main():
     check_moe("deepseek-v3 prefill gate/up", e, c_pre, d, f, bf16, reps=10)
     check_moe("deepseek-v3 prefill down", e, c_pre, f, d, bf16, reps=10)
     check_moe("deepseek-v3 decode gate/up", e, 8, d, f, bf16, reps=20)
+    check_moe("deepseek-v3 decode down", e, 8, f, d, bf16, reps=20)
+    # both decodes again on the x a decode step's dispatch gives K5 (the
+    # experts no token was routed to all zero), with P31
+    moe_decode_checks()
 
     # the task plane's batch-invariant kernels at the main paths' shapes
     for case in BI_GEMM_CASES:
@@ -6734,8 +7119,10 @@ if __name__ == "__main__":
         which.add_argument("--kernels-against", type=Path, metavar="DIR",
                            help="hold bi_gemm and bi_reduce (sum, "
                            "logsumexp, argmax) of DIR's tree against this "
-                           "one's, bit for bit, and time them in turns, "
-                           "and nothing else")
+                           "one's, bit for bit, and time them in turns; "
+                           "K5 at the MoE decode and prefill and the MoE "
+                           "decode steps likewise, in turns; and nothing "
+                           "else")
         args = ap.parse_args()
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device; this runs on the GPU")

@@ -18,10 +18,13 @@
 // and N are taken.
 //
 // Bound: at the MoE prefill (C in the thousands) the products are bound by
-// operations, ~2·C flops a weight byte; at decode (C = 8) by the bytes of
-// the expert weights, every expert's read once a launch, routed tokens or
-// not (the capacity-padded dispatch computes them all, as the reference
-// does).
+// operations, ~2·C flops a weight byte; at decode (C = 8) by bytes: x and
+// the output once, and the weights of the occupied experts only. An expert
+// that no token was routed to has an all-zero x block (the capacity-padded
+// dispatch zero-fills its slots), so its sums are +0 and the decode kernels
+// never read its weights; a roofline of the decode counts the occupied
+// experts' bytes (8 decode tokens route to ~25 of qwen2-moe-a2.7b's 60
+// experts and ~57 of DeepSeek-V3's 256).
 //
 // Design, bfloat16, C >= kWgmmaMinC (the MoE prefill): Hopper's warpgroup
 // products fed by the Tensor Memory Accelerator. 384 threads: warpgroup 0
@@ -48,18 +51,30 @@
 // looked up at run time with cudaGetDriverEntryPoint: the library links no
 // -lcuda. TMA needs 16-byte strides and bases (K and N
 // multiples of 8); a call that does not give them, or has C below
-// kWgmmaMinC, takes the mma.sync kernel below.
+// kWgmmaMinC, takes a decode kernel below.
 //
-// Design, bfloat16, the rest (the MoE decode at C = 8, at 1.16x its bytes
-// bound; ragged K or N): the tensor cores through mma.sync.m16n8k16 (bf16
-// operands, float32 accumulator). 128 threads, a 64 x 64 output tile, four
-// warps of 32 x 32 (2 x 4 mma tiles each, 32 float32 accumulators a
-// thread); tiles of 32 along the contraction axis staged in shared memory
-// through a 3-stage cp.async ring (16 bytes a copy, zero-fill past the
-// edges; every copy of a tile issued before the first is waited for), read
-// into fragments with ldmatrix (.trans for w, which is K-major). Where a
-// row's 16-byte chunks are not aligned (K or N not a multiple of 8, or a
-// misaligned base) the chunk is loaded element by element instead.
+// Design, bfloat16, C < kWgmmaMinC (the MoE decode at C = 8; see PERF.md
+// for its times beside both bounds): a product at C = 8 is a stream of the
+// weights, so the design is about bytes. The operands are swapped, out[e]ᵀ =
+// w[e]ᵀ x[e]ᵀ: a block owns 128 output columns of one expert, and each of
+// its 8 warps 16 of them as the 16 rows of mma.sync.m16n8k16 (bf16
+// operands, float32 accumulators), with the slots as the n8 side, so at C =
+// 8 no lane of the product is padding (a 64-slot tile would waste 56 of its
+// rows) and each weight is read once. The block first tests its
+// expert's x block (passes of 16-byte loads, a block-wide vote after each;
+// the first pass decides an occupied expert) and, where it is all ±0,
+// writes +0 and leaves before any weight copy. Else a producer warp keeps a
+// 6-stage ring of TMA copies full (each stage the x box, CT·8 slots x 64 of
+// k, and two 64 x 64 boxes of w, 128-byte swizzled; 17 KB, two blocks an
+// SM, ~85 KB in flight each), the weights with an evict-first L2 hint, and
+// the 8 consumer warps read it with ldmatrix (.trans for w, which is
+// K-major) through the swizzle, each releasing a stage after a
+// fence.proxy.async (the stage is refilled through the async proxy after
+// generic-proxy reads). C up to 127 takes CT = 1, 2, 4, 8 or 16 tiles of 8
+// slots. Where TMA does not take the strides (K or N not a multiple of 8, a
+// misaligned base; and C >= kWgmmaMinC there, in chunks of 128 slots) the
+// same block and test run on a 4- to 7-stage cp.async ring of 32-deep tiles,
+// element by element where a 16-byte chunk is not aligned.
 //
 // Design, float32: the CUDA cores, never TF32 (which would round the
 // inputs). 256 threads, a 64 x 64 tile, each thread a 4 x 4 register tile;
@@ -74,23 +89,35 @@
 
 #include "mma_sm90.cuh"
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
 
-constexpr int kBM = 64;  // output rows (capacity slots) a block
-constexpr int kBN = 64;  // output columns a block
+constexpr int kBM = 64;  // the float32 kernel's tile: output rows (capacity slots) a block
+constexpr int kBN = 64;  // ... and output columns
 
 // ---------------------------------------------------------------------------
-// bfloat16: mma.sync on the tensor cores
+// bfloat16 below kWgmmaMinC (the decode), and ragged K or N: mma.sync with the
+// operands swapped, each weight read once, experts with no token skipped
 // ---------------------------------------------------------------------------
-constexpr int kBK16 = 32;                // contraction a stage
-constexpr int kStages = 3;
-constexpr int kThreads16 = 128;
-constexpr int kAStride = kBK16 + 8;      // bf16 a row of the x tile (80 bytes)
-constexpr int kBStride = kBN + 8;        // bf16 a row of the w tile (144 bytes)
-constexpr int kATile = kBM * kAStride;
-constexpr int kBTile = kBK16 * kBStride;
+constexpr int kDBN = 128;            // output columns (w's N) a block: 16 a warp
+constexpr int kDBK = 32;             // contraction a stage
+constexpr int kDThreads = kDBN * 2;  // a warp for each 16 columns
+constexpr int kDChunks = kDBN / 8;   // 16-byte chunks a row of the w panel
+constexpr int kDRows = 128;          // output rows (capacity slots) a block at most
+constexpr int kDWStride = kDBN + 8;  // bf16 a row of the w panel (272 bytes)
+constexpr int kDXStride = kDBK + 8;  // bf16 a row of the x tile (80 bytes)
+constexpr int kDWTile = kDBK * kDWStride;
+
+// CT tiles of 8 capacity slots a block (1, 2, 4, 8 or 16); the ring as deep
+// as ~64-76 KB of shared memory allows, so three blocks fit an SM below 16
+template <int CT>
+struct DecodeShape {
+  static constexpr int kStages = CT <= 2 ? 7 : CT == 4 ? 6 : CT == 8 ? 5 : 4;
+  static constexpr int kXTile = CT * 8 * kDXStride;
+  static constexpr size_t kSmem = static_cast<size_t>(kStages) * (kDWTile + kXTile) * 2;
+};
 
 // One 8-element (16-byte) chunk of a row-major (rows x cols) matrix into
 // shared memory: rows past `rows` and columns past `cols` read as zero. With
@@ -112,113 +139,165 @@ __device__ __forceinline__ void load_chunk(__nv_bfloat16* dst, const __nv_bfloat
   }
 }
 
-__global__ void __launch_bounds__(kThreads16)
-    moe_gemm_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                         __nv_bfloat16* __restrict__ out, int C, int K, int N, bool vec_x,
-                         bool vec_w) {
-  __shared__ __align__(16) __nv_bfloat16 sa[kStages][kATile];
-  __shared__ __align__(16) __nv_bfloat16 sb[kStages][kBTile];
+// Whether the first `rows` rows of a row-major matrix of K columns are all
+// +0 or -0 (bits & 0x7FFF == 0: a NaN or any other value is not). The block
+// reads them in passes, with a block-wide vote after each: first one 16-byte
+// load a thread (a routed expert's first slot holds a token, so that pass
+// decides an occupied expert), then kZeroPass a thread. With `vec`, K is a
+// multiple of 8 and the base 16-byte aligned; else element by element.
+constexpr int kZeroPass = 8;
 
-  const int e = blockIdx.z;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
+__device__ __forceinline__ bool block_all_zero(const __nv_bfloat16* src, int rows, int K,
+                                               bool vec) {
+  const int threads = blockDim.x;
+  if (vec) {
+    const uint4* p = reinterpret_cast<const uint4*>(src);
+    const int n = rows * (K >> 3);
+    for (int base = 0, per = 1; base < n || base == 0; base += per * threads, per = kZeroPass) {
+      uint32_t bits = 0;
+#pragma unroll
+      for (int j = 0; j < kZeroPass; ++j) {
+        const int c = base + threadIdx.x + j * threads;
+        if (j < per && c < n) {
+          const uint4 v = __ldg(p + c);
+          bits |= v.x | v.y | v.z | v.w;
+        }
+      }
+      if (__syncthreads_or((bits & 0x7FFF7FFFu) != 0)) return false;
+    }
+    return true;
+  }
+  const unsigned short* p = reinterpret_cast<const unsigned short*>(src);
+  const int n = rows * K;
+  for (int base = 0; base < n; base += kZeroPass * threads) {
+    uint32_t bits = 0;
+#pragma unroll
+    for (int j = 0; j < kZeroPass; ++j) {
+      const int c = base + threadIdx.x + j * threads;
+      if (c < n) bits |= p[c];
+    }
+    if (__syncthreads_or((bits & 0x7FFFu) != 0)) return false;
+  }
+  return true;
+}
+
+// The epilogue of both decode kernels: accumulator j of tile ct is slot
+// 8·ct + 2·(lane % 4) (+1 for odd j) and column 16·warp + lane / 4 (+8 for
+// j >= 2) of the block's tile; each sum rounded once to bf16; slots past
+// `rows` and columns past N skipped. A skipped expert's accumulators are
+// +0, so it writes +0.
+template <int CT>
+__device__ __forceinline__ void store_decode_tile(const float (&acc)[CT][4],
+                                                  __nv_bfloat16* oe, int rows, int N, int n0,
+                                                  int warp, int lane) {
+  const int g = lane >> 2, q2 = (lane & 3) * 2;
+#pragma unroll
+  for (int ct = 0; ct < CT; ++ct)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = ct * 8 + q2 + (j & 1);
+      const int col = n0 + warp * 16 + g + (j >> 1) * 8;
+      if (r < rows && col < N) oe[static_cast<size_t>(r) * N + col] = __float2bfloat16(acc[ct][j]);
+    }
+}
+
+// The decode kernel for what TMA does not take (K or N not a multiple of 8,
+// a misaligned base; and C >= kWgmmaMinC there): one block is expert
+// blockIdx.y, output columns [n0, n0 + 128) of w and the capacity slots
+// [c0, c0 + 128) (blockIdx.z; one chunk below kWgmmaMinC), staged through a
+// cp.async ring. Warp i owns columns n0 + 16i .. n0 + 16i + 15 as the 16
+// rows of mma.sync's A (w's panel through ldmatrix.trans) and every slot as
+// its n8 side (x through ldmatrix), so at C = 8 no lane of the product is
+// padding.
+template <int CT>
+__global__ void __launch_bounds__(kDThreads, CT >= 16 ? 1 : CT >= 8 ? 2 : 3)
+    moe_gemm_decode_kernel(const __nv_bfloat16* __restrict__ x,
+                           const __nv_bfloat16* __restrict__ w, __nv_bfloat16* __restrict__ out,
+                           int C, int K, int N, bool vec_x, bool vec_w) {
+  using Shape = DecodeShape<CT>;
+  constexpr int kStages = Shape::kStages;
+  extern __shared__ __align__(16) unsigned char decode_smem[];
+  __nv_bfloat16* sw = reinterpret_cast<__nv_bfloat16*>(decode_smem);  // [stage][kDBK][kDWStride]
+  __nv_bfloat16* sx = sw + kStages * kDWTile;  // [stage][CT·8][kDXStride]
+
+  const int n0 = blockIdx.x * kDBN;
+  const int e = blockIdx.y;
+  const int c0 = blockIdx.z * kDRows;
+  const int rows = min(C - c0, kDRows);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int wm = (warp >> 1) * 32;  // the warp's 32 x 32 piece of the tile
-  const int wn = (warp & 1) * 32;
 
-  const __nv_bfloat16* xe = x + static_cast<size_t>(e) * C * K;
+  const __nv_bfloat16* xe = x + (static_cast<size_t>(e) * C + c0) * K;
   const __nv_bfloat16* we = w + static_cast<size_t>(e) * K * N;
 
-  // a stage: the x tile (64 rows x 32) is 256 chunks, the w tile (32 rows x
-  // 64) 256 chunks; two of each a thread, all issued before any is waited for
-  auto load_stage = [&](int stage, int k0) {
+  float acc[CT][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kThreads16;
-      const int r = c >> 2, k8 = (c & 3) * 8;  // x: 4 chunks a row
-      load_chunk(&sa[stage][r * kAStride + k8], xe, m0 + r, k0 + k8, C, K, vec_x);
+  for (int ct = 0; ct < CT; ++ct)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[ct][j] = 0.0f;
+
+  // An expert no token was routed to has an all-zero x block (the dispatch
+  // zero-fills its slots; the down product's silu(0)·0 is 0 too): its sums
+  // are +0 and w is never read. Tested before the first weight copy.
+  if (!block_all_zero(xe, rows, K, vec_x)) {
+    // a stage: the w panel (32 rows x 128) is 512 chunks, two a thread; the x
+    // tile (CT·8 rows x 32) CT·32 chunks
+    auto load_stage = [&](int stage, int k) {
+      __nv_bfloat16* ws = sw + stage * kDWTile;
+#pragma unroll
+      for (int i = 0; i < kDBK * kDChunks / kDThreads; ++i) {
+        const int c = tid + i * kDThreads;
+        const int r = c / kDChunks, n8 = (c % kDChunks) * 8;
+        load_chunk(ws + r * kDWStride + n8, we, k + r, n0 + n8, K, N, vec_w);
+      }
+      __nv_bfloat16* xs = sx + stage * Shape::kXTile;
+      for (int c = tid; c < CT * 8 * 4; c += kDThreads) {
+        const int r = c >> 2, k8 = (c & 3) * 8;
+        load_chunk(xs + r * kDXStride + k8, xe, r, k + k8, rows, K, vec_x);
+      }
+    };
+
+    const int n_tiles = (K + kDBK - 1) / kDBK;
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < n_tiles) load_stage(s, s * kDBK);
+      cp_async_commit();
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kThreads16;
-      const int r = c >> 3, n8 = (c & 7) * 8;  // w: 8 chunks a row
-      // rows of w past K read as zero, like the columns of x past K
-      load_chunk(&sb[stage][r * kBStride + n8], we, k0 + r, n0 + n8, K, N, vec_w);
-    }
-  };
+    for (int t = 0; t < n_tiles; ++t) {
+      cp_async_wait<kStages - 2>();  // tile t has landed (this thread's copies)
+      __syncthreads();               // ... and everyone's; stage (t-1) is free
+      const int next = t + kStages - 1;
+      if (next < n_tiles) load_stage(next % kStages, next * kDBK);
+      cp_async_commit();
 
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
-
-  const int n_tiles = (K + kBK16 - 1) / kBK16;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_tiles) load_stage(s, s * kBK16);
-    cp_async_commit();
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<kStages - 2>();  // tile t has landed (this thread's copies)
-    __syncthreads();               // ... and everyone's; stage (t-1) is free
-    const int next = t + kStages - 1;
-    if (next < n_tiles) load_stage(next % kStages, next * kBK16);
-    cp_async_commit();
-
-    const __nv_bfloat16* a_s = sa[t % kStages];
-    const __nv_bfloat16* b_s = sb[t % kStages];
-#pragma unroll
-    for (int kk = 0; kk < kBK16; kk += 16) {
+      const __nv_bfloat16* ws = sw + (t % kStages) * kDWTile;
+      const __nv_bfloat16* xs = sx + (t % kStages) * Shape::kXTile;
+      // A (16 columns of w x 16 of k), k-major in shared memory: matrices
+      // (n 0-7, k 0-7), (n 8-15, k 0-7), (n 0-7, k 8-15), (n 8-15, k 8-15)
       uint32_t af[2][4];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        // lanes 0-15: rows 0-15 at k; lanes 16-31: rows 0-15 at k + 8
-        const int r = wm + mi * 16 + (lane & 15);
-        ldmatrix_x4(af[mi], &a_s[r * kAStride + kk + (lane >> 4) * 8]);
-      }
+      for (int h = 0; h < 2; ++h)
+        ldmatrix_x4_trans(af[h], ws + (h * 16 + (lane & 7) + ((lane >> 4) << 3)) * kDWStride +
+                                     warp * 16 + ((lane >> 3) & 1) * 8);
 #pragma unroll
-      for (int nj = 0; nj < 4; nj += 2) {
-        // lanes 0-15: k rows 0-15 at n; lanes 16-31: the same at n + 8
+      for (int ct = 0; ct < CT; ++ct) {
+        // B (16 of k x 8 slots) is x's rows: k 0-7, 8-15, 16-23, 24-31
         uint32_t bf[4];
-        const int kr = kk + (lane & 15);
-        ldmatrix_x4_trans(bf, &b_s[kr * kBStride + wn + nj * 8 + (lane >> 4) * 8]);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(acc[mi][nj], af[mi], bf[0], bf[1]);
-          mma_bf16(acc[mi][nj + 1], af[mi], bf[2], bf[3]);
-        }
+        ldmatrix_x4(bf, xs + (ct * 8 + (lane & 7)) * kDXStride + (lane >> 3) * 8);
+        mma_bf16(acc[ct], af[0], bf[0], bf[1]);
+        mma_bf16(acc[ct], af[1], bf[2], bf[3]);
       }
     }
+    cp_async_wait<0>();
   }
-  cp_async_wait<0>();
-
-  __nv_bfloat16* oe = out + static_cast<size_t>(e) * C * N;
-  const int g = lane >> 2, q2 = (lane & 3) * 2;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {  // rows g and g + 8 of the mma tile
-        const int row = m0 + wm + mi * 16 + g + h * 8;
-        const int col = n0 + wn + nj * 8 + q2;
-        if (row >= C) continue;
-        __nv_bfloat16* o = oe + static_cast<size_t>(row) * N + col;
-        if (col < N) o[0] = __float2bfloat16(acc[mi][nj][2 * h]);
-        if (col + 1 < N) o[1] = __float2bfloat16(acc[mi][nj][2 * h + 1]);
-      }
+  store_decode_tile<CT>(acc, out + (static_cast<size_t>(e) * C + c0) * N, rows, N, n0, warp, lane);
 }
 
 // ---------------------------------------------------------------------------
 // bfloat16, C >= kWgmmaMinC: wgmma from a TMA ring
 // ---------------------------------------------------------------------------
-constexpr int kWgmmaMinC = 128;  // one full 128-row tile: below it the mma.sync kernel
+constexpr int kWgmmaMinC = 128;  // one full 128-row tile: below it the decode kernels
 constexpr int kWBM = 128;        // output rows a block, 64 a consumer warpgroup
 constexpr int kWBK = 64;         // contraction a stage: one 128-byte swizzled row
 constexpr int kWStages = 4;
@@ -268,6 +347,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the same with an L2 eviction priority (`policy`: createpolicy's encoding)
+__device__ __forceinline__ void tma_load_3d_hint(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                                 int c0, int c1, int c2, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "l"(policy)
       : "memory");
 }
 
@@ -427,6 +517,128 @@ __global__ void __launch_bounds__(kWThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 below kWgmmaMinC where TMA takes the strides (the decode): the
+// decode kernel's product fed by a TMA ring
+// ---------------------------------------------------------------------------
+constexpr int kTBK = 64;                  // contraction a stage: one 128-byte swizzled row of x
+constexpr int kTThreads = kDThreads + 32;  // 8 consumer warps, then the producer warp
+constexpr int kTSmemBudget = 105 * 1024;   // the ring: two blocks an SM
+// w is read once a call: its lines go first from L2, x and the rest stay
+constexpr uint64_t kEvictFirst = 0x12F0000000000000ull;
+
+template <int CT>
+struct TmaShape {
+  static constexpr int kW = kTBK * kDBN;    // bf16 of w a stage: kDBN / 64 boxes of 64 x 64
+  static constexpr int kX = CT * 8 * kTBK;  // bf16 of x a stage: one CT·8 x 64 box
+  static constexpr int kStageBytes = (kW + kX) * 2;
+  static constexpr int kStages = kTSmemBudget / kStageBytes > 2 ? kTSmemBudget / kStageBytes : 2;
+  // the stages 1 KB aligned for the 128-byte swizzle, then 2 barriers a stage
+  static constexpr size_t kSmem =
+      1024 + static_cast<size_t>(kStages) * kStageBytes + 2 * kStages * sizeof(uint64_t);
+};
+
+// One block: expert blockIdx.y, output columns [n0, n0 + 128) of w, every
+// slot (C < kWgmmaMinC). Warp 8's first thread keeps the ring full: a stage
+// is one TMA copy of the x box (CT·8 slots x 64 of k; slots past C read as
+// zero) and two of the w boxes (64 of k x 64 columns each; k past K and
+// columns past N read as zero), all 128-byte swizzled, signalled on the
+// stage's `full` mbarrier; warps 0-7 wait for it, multiply as the cp.async
+// kernel does (the swizzle undone in the ldmatrix addresses: chunk j of row r
+// lies at chunk j ^ (r % 8)), and arrive on its `empty` mbarrier.
+template <int CT>
+__global__ void __launch_bounds__(kTThreads, CT >= 16 ? 1 : 2)
+    moe_gemm_decode_tma_kernel(__grid_constant__ const CUtensorMap map_x,
+                               __grid_constant__ const CUtensorMap map_w,
+                               const __nv_bfloat16* __restrict__ x,
+                               __nv_bfloat16* __restrict__ out, int C, int K, int N) {
+  using Shape = TmaShape<CT>;
+  constexpr int kStages = Shape::kStages;
+  extern __shared__ unsigned char tma_smem[];
+  const uint32_t pad = (1024 - (smem_addr(tma_smem) & 1023)) & 1023;
+  __nv_bfloat16* sw = reinterpret_cast<__nv_bfloat16*>(tma_smem + pad);  // [stage][2][64 k][64 n]
+  __nv_bfloat16* sx = sw + kStages * Shape::kW;  // [stage][CT·8][64 k]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sx + kStages * Shape::kX);
+  uint64_t* empty = full + kStages;
+
+  const int n0 = blockIdx.x * kDBN;
+  const int e = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_k = (K + kTBK - 1) / kTBK;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);           // the producer's arrive, plus the bytes
+      mbar_init(&empty[s], kDThreads);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the skip, as in the cp.async kernel; its block-wide vote also publishes
+  // the barriers' initialisation
+  const __nv_bfloat16* xe = x + static_cast<size_t>(e) * C * K;
+  const bool skip = block_all_zero(xe, C, K, true);
+
+  if (warp == kDThreads / 32) {
+    // the producer; a w box that lies past N is left out
+    const int boxes = min(kDBN / 64, (N - n0 + 63) / 64);
+    const int bytes = (Shape::kX + boxes * 64 * kTBK) * 2;
+    if (lane == 0 && !skip) {
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int s = kt % kStages;
+        mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], bytes);
+        tma_load_3d(sx + s * Shape::kX, &map_x, &full[s], kt * kTBK, 0, e);
+        for (int b = 0; b < boxes; ++b)
+          tma_load_3d_hint(sw + s * Shape::kW + b * 64 * kTBK, &map_w, &full[s], n0 + b * 64,
+                           kt * kTBK, e, kEvictFirst);
+      }
+    }
+    return;
+  }
+
+  float acc[CT][4];
+#pragma unroll
+  for (int ct = 0; ct < CT; ++ct)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[ct][j] = 0.0f;
+  if (!skip) {
+    // the warp's 16 columns: box warp / 4, chunks 2·(warp % 4) and one more
+    const int box = (warp >> 2) * 64 * kTBK;
+    const int chunk = (warp & 3) * 2 + ((lane >> 3) & 1);
+    for (int kt = 0; kt < n_k; ++kt) {
+      const int s = kt % kStages;
+      mbar_wait(&full[s], (kt / kStages) & 1);
+      const __nv_bfloat16* ws = sw + s * Shape::kW + box;
+      const __nv_bfloat16* xs = sx + s * Shape::kX;
+#pragma unroll
+      for (int kk = 0; kk < kTBK; kk += 32) {
+        uint32_t af[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int kr = kk + h * 16 + (lane & 7) + ((lane >> 4) << 3);
+          ldmatrix_x4_trans(af[h], ws + kr * 64 + ((chunk ^ (kr & 7)) << 3));
+        }
+#pragma unroll
+        for (int ct = 0; ct < CT; ++ct) {
+          const int r = ct * 8 + (lane & 7);
+          uint32_t bf[4];
+          ldmatrix_x4(bf, xs + r * 64 + ((((kk >> 3) + (lane >> 3)) ^ (r & 7)) << 3));
+          mma_bf16(acc[ct], af[0], bf[0], bf[1]);
+          mma_bf16(acc[ct], af[1], bf[2], bf[3]);
+        }
+      }
+      // the stage was read through the generic proxy and is refilled
+      // through the async one: without this fence a TMA copy has been seen
+      // to land before the reads it follows (wrong sums, 13 of 90 calls)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(&empty[s]);
+    }
+  }
+  store_decode_tile<CT>(acc, out + static_cast<size_t>(e) * C * N, C, N, n0, warp, lane);
+}
+
+// ---------------------------------------------------------------------------
 // float32: CUDA cores
 // ---------------------------------------------------------------------------
 constexpr int kBK32 = 16;
@@ -564,6 +776,43 @@ int launch_wgmma(const void* x, const void* w, void* out, int e, int c, int k, i
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int CT>
+int launch_decode(const void* x, const void* w, void* out, int e, int c, int k, int n,
+                  bool vec_x, bool vec_w, cudaStream_t stream) {
+  using B = __nv_bfloat16;
+  const int gz = (c + kDRows - 1) / kDRows;
+  if (e > 65535 || gz > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = DecodeShape<CT>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      moe_gemm_decode_kernel<CT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + kDBN - 1) / kDBN, e, gz);
+  moe_gemm_decode_kernel<CT><<<grid, kDThreads, smem, stream>>>(
+      static_cast<const B*>(x), static_cast<const B*>(w), static_cast<B*>(out), c, k, n, vec_x,
+      vec_w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int CT>
+int launch_decode_tma(const void* x, const void* w, void* out, int e, int c, int k, int n,
+                      cudaStream_t stream) {
+  using B = __nv_bfloat16;
+  if (e > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_x, map_w;
+  if (!encode_3d(&map_x, x, e, c, k, CT * 8, kTBK) || !encode_3d(&map_w, w, e, k, n, kTBK, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = TmaShape<CT>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      moe_gemm_decode_tma_kernel<CT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + kDBN - 1) / kDBN, e);
+  moe_gemm_decode_tma_kernel<CT><<<grid, kTThreads, smem, stream>>>(
+      map_x, map_w, static_cast<const B*>(x), static_cast<B*>(out), c, k, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int moe_gemm_f32(const float* x, const float* w, float* out, int e, int c, int k,
@@ -577,18 +826,28 @@ extern "C" int moe_gemm_f32(const float* x, const float* w, float* out, int e, i
 
 // The route is a fixed rule: the wgmma kernel where C fills at least one
 // 128-row tile and TMA takes the strides (K and N multiples of 8, x, w and
-// out 16-byte aligned); the mma.sync kernel otherwise.
+// out 16-byte aligned); below it the decode kernel fed by TMA where TMA takes
+// them, else the decode kernel fed by cp.async; each decode kernel with the
+// fewest of 8, 16, 32, 64 or 128 slots a block that hold C (128 a chunk for
+// the cp.async kernel above that).
 extern "C" int moe_gemm_bf16(const void* x, const void* w, void* out, int e, int c, int k, int n,
                              cudaStream_t stream) {
-  using B = __nv_bfloat16;
-  if (c >= kWgmmaMinC && k > 0 && k % 8 == 0 && n % 8 == 0 && aligned16(x) && aligned16(w) &&
-      aligned16(out)) {
-    return launch_wgmma(x, w, out, e, c, k, n, stream);
+  const bool tma = k > 0 && k % 8 == 0 && n % 8 == 0 && aligned16(x) && aligned16(w) &&
+                   aligned16(out);
+  if (tma && c >= kWgmmaMinC) return launch_wgmma(x, w, out, e, c, k, n, stream);
+  const int tiles = (std::min(c, kDRows) + 7) / 8;
+  if (tma) {
+    if (tiles <= 1) return launch_decode_tma<1>(x, w, out, e, c, k, n, stream);
+    if (tiles <= 2) return launch_decode_tma<2>(x, w, out, e, c, k, n, stream);
+    if (tiles <= 4) return launch_decode_tma<4>(x, w, out, e, c, k, n, stream);
+    if (tiles <= 8) return launch_decode_tma<8>(x, w, out, e, c, k, n, stream);
+    return launch_decode_tma<16>(x, w, out, e, c, k, n, stream);
   }
   const bool vec_x = k % 8 == 0 && aligned16(x);
   const bool vec_w = n % 8 == 0 && aligned16(w);
-  moe_gemm_bf16_kernel<<<grid_of(e, c, n), kThreads16, 0, stream>>>(
-      static_cast<const B*>(x), static_cast<const B*>(w), static_cast<B*>(out), c, k, n, vec_x,
-      vec_w);
-  return static_cast<int>(cudaGetLastError());
+  if (tiles <= 1) return launch_decode<1>(x, w, out, e, c, k, n, vec_x, vec_w, stream);
+  if (tiles <= 2) return launch_decode<2>(x, w, out, e, c, k, n, vec_x, vec_w, stream);
+  if (tiles <= 4) return launch_decode<4>(x, w, out, e, c, k, n, vec_x, vec_w, stream);
+  if (tiles <= 8) return launch_decode<8>(x, w, out, e, c, k, n, vec_x, vec_w, stream);
+  return launch_decode<16>(x, w, out, e, c, k, n, vec_x, vec_w, stream);
 }

@@ -37,13 +37,19 @@ and whose cost is ``cost``; the backward's two products are two more
 calls of it.
 
 Bound on the card: operations at the MoE prefill (2·C flops a weight
-element, C in the thousands), bytes at decode (every expert's weights read
-once a launch). bfloat16 runs on the tensor cores with a float32
-accumulator (a bf16 product is exact in float32, so this is the TPU
-kernel's cast-to-f32 dot): from C = 128 up (the prefill) ``wgmma`` fed by
-TMA tensor copies, whose tensor maps the C launcher encodes for each call
-(K and N multiples of 8); below it, and for other K or N, ``mma.sync``
-(the decode at C = 8). The launcher picks the route by that fixed rule.
+element, C in the thousands), bytes at decode: x and the output, and the
+weights of the occupied experts only. bfloat16 runs on the tensor cores
+with a float32 accumulator (a bf16 product is exact in float32, so this is
+the TPU kernel's cast-to-f32 dot): from C = 128 up (the prefill) ``wgmma``
+fed by TMA tensor copies, whose tensor maps the C launcher encodes for each
+call (K and N multiples of 8); below it (the decode at C = 8) a kernel
+that streams the weights through ``mma.sync`` with the operands swapped,
+fed by TMA where it takes the strides and by ``cp.async`` elsewhere (and
+for other K or N at any C). Its blocks first test their expert's x block:
+an expert no token was routed to (all ±0, as the dispatch leaves it) gets
++0 and its weights are never read. The plain version gives NaN there where
+w holds an inf or a NaN (0·inf), the kernel +0 (ROADMAP P31; the combine
+never reads those rows). The launcher picks the route by that fixed rule.
 float32 runs on the CUDA cores (never TF32, which would round the
 inputs).
 """

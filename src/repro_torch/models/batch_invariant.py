@@ -412,7 +412,10 @@ def invariant_vjp(q, k, v, g, causal: bool, window: Optional[int],
         sc = sc.masked_fill(_outside_band(s, t, causal, window, q.device),
                             NEG_INF)
     lse = bi_reduce(sc.reshape(-1, t, 1), LOGSUMEXP).reshape(b * h, s, 1)
-    p = torch.exp(sc - lse)
+    # + (lse - lse): a row whose logsumexp is +inf is NaN throughout, as
+    # jax.nn.softmax's is (it subtracts the +inf itself); every other row
+    # gains +0 and keeps its bits
+    p = torch.exp(sc - lse) + (lse - lse)
     dp = bi_gemm(g3, v3.mT)
     rows = bi_reduce((p * dp).reshape(-1, t, 1), SUM).reshape(b * h, s, 1)
     ds = p * (dp - rows) * scale

@@ -138,3 +138,87 @@ def test_cpu_route_is_the_plain_version():
                                np.broadcast_to(w.sum(-1)[:, None].numpy(),
                                                x.shape), rtol=1e-5)
     assert moe_gemm.launches == before
+
+
+# ---------------------------------------------------------------------- #
+# the decode: experts no token was routed to
+# ---------------------------------------------------------------------- #
+DECODE = [  # E, C, d, f: the decode's C = 8 (16 for a grouped dispatch)
+    (6, 8, 128, 256),
+    (6, 8, 256, 128),
+    (5, 16, 128, 128),
+]
+EMPTY = (1, 3, 4)       # all +0, all -0, +-0 mixed
+
+
+def _decode_inputs(E, C, d, f, seed):
+    """x with experts 1, 3 and 4 empty (all +0, all -0, +-0 by a random
+    sign), expert 2 holding one token whose row has a NaN, the rest random;
+    w random."""
+    rng = np.random.default_rng(seed)
+    x, w = _inputs(E, C, d, f, seed=seed)
+    x[1] = 0.0
+    x[3] = -0.0
+    x[4] = np.where(rng.random((C, d)) < 0.5, -0.0, 0.0)
+    x[2] = 0.0
+    x[2, 0] = rng.standard_normal(d)
+    x[2, 0, d // 3] = np.nan
+    return x, w
+
+
+def _plus_zero(a):
+    a = np.asarray(a, np.float32)
+    return bool((a == 0).all() and not np.signbit(a).any())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,C,d,f", DECODE)
+def test_empty_experts_give_plus_zero_as_in_the_reference(ref, E, C, d, f,
+                                                          dtype):
+    """At decode shapes, experts whose x block is all +-0 (what the
+    dispatch leaves for an expert no token was routed to) get +0 rows in
+    the reference's Pallas kernel, in its plain einsum and in the port's
+    plain version — the spec the card's kernel is held to, which skips
+    them; a NaN in an otherwise empty expert's row is NaN across that
+    output row in all three, and that expert's other rows +0; the rest
+    within the module's tolerance."""
+    x, w = _decode_inputs(E, C, d, f, seed=5)
+    j = [ref.jnp.asarray(a).astype(getattr(ref.jnp, dtype)) for a in (x, w)]
+    pallas = np.asarray(ref.ops.moe_gemm(*j).astype(ref.jnp.float32))
+    oracle = np.asarray(ref.kref.moe_gemm_ref(*j).astype(ref.jnp.float32))
+    t = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in (x, w)]
+    before = moe_gemm.launches
+    got = moe_gemm(*t).float().numpy()
+    assert moe_gemm.launches == before
+    for out in (pallas, oracle, got):
+        for e in EMPTY:
+            assert _plus_zero(out[e]), e
+        assert np.isnan(out[2, 0]).all()
+        assert _plus_zero(out[2, 1:])
+    nan = np.isnan(pallas)
+    assert np.array_equal(np.isnan(got), nan)
+    assert np.array_equal(np.isnan(oracle), nan)
+    for want in (pallas, oracle):
+        _close(got[~nan], want[~nan], TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_an_empty_expert_with_an_inf_weight_is_nan_in_the_reference(
+        ref, dtype):
+    """ROADMAP P31: an empty expert whose weights hold an inf or a NaN
+    gives NaN rows in the reference (0·inf) and in the port's plain
+    version, where the card's kernel, which never reads that expert's
+    weights, writes +0. The combine never reads an empty expert's rows,
+    so a model's output is the same."""
+    x, w = _decode_inputs(6, 8, 128, 256, seed=6)
+    w[1, 5, 7] = np.inf
+    w[3, 9, 11] = np.nan
+    j = [ref.jnp.asarray(a).astype(getattr(ref.jnp, dtype)) for a in (x, w)]
+    pallas = np.asarray(ref.ops.moe_gemm(*j).astype(ref.jnp.float32))
+    t = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in (x, w)]
+    got = moe_gemm(*t).float().numpy()
+    for out in (pallas, got):
+        assert np.isnan(out[1, :, 7]).all() and np.isnan(out[3, :, 11]).all()
+        assert _plus_zero(np.delete(out[1], 7, 1))
+        assert _plus_zero(np.delete(out[3], 11, 1))
+        assert _plus_zero(out[4])

@@ -191,3 +191,54 @@ def test_bfloat16_serves_on_the_cpu(arch):
         assert step.dtype == torch.bfloat16
         assert bool(torch.isfinite(step).all())
     assert bool(torch.isfinite(logits).all()) and cache["index"] == P + 2
+
+
+def test_a_decode_step_that_leaves_experts_empty(ref, monkeypatch):
+    """The reduced float32 ``qwen2-moe-a2.7b`` with 16 routed experts (top
+    4), served by both packages: a decode step's 2 tokens route to at most
+    8 experts, so every decode call of K5 has empty experts (x blocks all
+    zero: the dispatch's zero-filled slots, and silu(0)·0 for the down
+    product), whose rows are +0 from the port's K5 and from the
+    reference's Pallas kernel (interpret mode) on the same x and w, the
+    rest within 1e-4 of it; the logits of every step match the
+    reference's within 1e-4. The card's kernel skips those experts'
+    weights (chip_smoke.py)."""
+    ops = reference("kernels.ops")
+    monkeypatch.setenv("REPRO_PALLAS_INTERPRET", "1")
+    cfgs = []
+    for reg in (ref.reg, registry):
+        cfg = reg.reduced(reg.get("qwen2-moe-a2.7b"))
+        cfgs.append(dataclasses.replace(cfg, dtype="float32", moe=dataclasses
+                                        .replace(cfg.moe, n_routed=16,
+                                                 top_k=4)))
+    cfg_ref, cfg = cfgs
+    params_ref = ref.api.init(cfg_ref, ref.jax.random.PRNGKey(0))
+    params = params_from_numpy(
+        flatten_tree(ref.jax.tree.map(np.asarray, params_ref)), "cpu")
+    calls = []
+    real = tmoe.moe_gemm
+
+    def recording(x, w):
+        out = real(x, w)
+        calls.append((x.detach().clone(), w, out.detach().clone()))
+        return out
+
+    monkeypatch.setattr(tmoe, "moe_gemm", recording)
+    _serve(ref, cfg_ref, cfg, params_ref, params,
+           _tokens(cfg, (B, S), seed=4))
+    n_moe = cfg.n_blocks * sum(k["mlp"] == "moe"
+                               for k in cfg.block_pattern())
+    decode = calls[3 * n_moe:]
+    assert len(decode) == 3 * n_moe * (S - P)
+    E, K = cfg.moe.n_routed, cfg.moe.top_k
+    for i, (x, w, out) in enumerate(decode):
+        empty = (x == 0).flatten(1).all(1)
+        assert int(empty.sum()) >= E - B * K, i
+        assert bool((out[empty] == 0).all()), i
+        assert not torch.signbit(out[empty]).any(), i
+    for x, w, out in decode[:3]:                    # one layer's three
+        want = np.asarray(ops.moe_gemm(ref.jnp.asarray(x.numpy()),
+                                       ref.jnp.asarray(w.numpy())))
+        empty = (x == 0).flatten(1).all(1).numpy()
+        assert (want[empty] == 0).all() and not np.signbit(want[empty]).any()
+        np.testing.assert_allclose(out.numpy(), want, **TOL)
