@@ -10,7 +10,12 @@ commit's ``git archive``) and of this one in turns and does nothing else
 beside this tree's, holds them equal bit for bit (the sums, logsumexp
 and argmax at every phase 3 shape, and logsumexp and argmax on the edge
 rows) and times them and the library's call in turns at phase 3's timed
-shapes (``kernels_against``); then it builds DIR's ``moe_gemm`` (K5) too,
+shapes (``kernels_against``); then DIR's ``flash_attention`` (K3): its
+float32 route held bit for bit against this tree's at every float32 shape
+of phase 3, every B the LM path launches and edge inputs (exps that
+underflow, infinite logits, +-inf and NaN in V, misaligned operands), one
+bf16 shape too, and both trees and SDPA timed in turns (``k3_against``);
+then it builds DIR's ``moe_gemm`` (K5) too,
 times both trees' and ``torch.bmm`` in turns at qwen2-moe-a2.7b's and
 deepseek-v3-671b's decode products, on a decode step's dispatch and with
 every expert occupied, and at qwen2-moe's prefill (``k5_against``), and
@@ -24,7 +29,9 @@ phase catches one:
  2. build every kernel of the port from its source with nvcc (one process
     a source, all at once), timed, with each kernel's registers and spills;
     the SASS of K2–K6 read back (``cuobjdump``): K3's bf16 kernels must
-    issue HMMA (``mma.sync``), K5's wgmma kernels HGMMA fed by UTMALDG (TMA
+    issue HMMA (``mma.sync``) and its float32 instances (D, a row's
+    threads, a block's warps) FFMA from LDS.128 fed by LDGSTS, no HMMA or
+    HGMMA, at most one spill, K5's wgmma kernels HGMMA fed by UTMALDG (TMA
     tensor loads), K4's tensor-core kernels HMMA fed by LDGSTS
     (``cp.async``), K6's chunk-state and chunk-scan kernels HMMA, and K2's
     instances up to 64 rows no shared- or local-memory access (LDS, STS,
@@ -986,6 +993,31 @@ def robust_cases():
                   (min(n + 3, 128), n, M_MLP, "median", f32,
                    "class boundary", dict(reps=20))]
     return cases
+
+
+# K3's shapes of phase 3: lm_tiny's training heads (8 windows a client row,
+# a bucket's rows padded to 1, 2, 4, 8, 16 or 24) and its evaluation (16
+# client rows x 400 windows), at (B, 4, 32, 32, 16) causal; tests/
+# test_kernels.py's five shapes, a ragged S and a window without causal
+# (b, h, s, t, d, causal, window, label; in both types); grouped KV heads
+# and an unmasked S > T (label, b, h, hkv, s, t, d, causal, window)
+K3_LM_BATCHES = (8, 32, 64, 128, 192, 6400)
+K3_SHAPES = ((2, 4, 256, 256, 64, True, None, "causal"),
+             (1, 2, 128, 256, 64, True, None, "right-aligned S < T"),
+             (2, 2, 256, 256, 128, True, 64, "window 64, D 128"),
+             (1, 1, 256, 256, 64, False, None, "bidirectional"),
+             (1, 2, 512, 512, 64, True, None, "S = 512"),
+             (3, 2, 37, 37, 16, True, None, "ragged S = 37"),
+             (2, 2, 100, 130, 32, False, 17, "window, not causal"))
+K3_GQA = ("GQA 12/4", 2, 12, 4, 100, 130, 64, True, None)
+K3_UNMASKED = ("unmasked S > T, ragged", 2, 4, 2, 100, 37, 32, False, None)
+# every B the LM path launches K3 at (lm_k3_shapes: the training buckets,
+# the evaluation and the held-out evaluation's), (B, 4, 32, 32, 16) causal
+K3_LM_LAUNCHED = (8, 32, 48, 64, 192, 384, 400, 576, 768, 1152, 6400)
+# the float32 route's instances: (D, threads a row, warps a block)
+K3_F32_INSTANCES = [(16, 4, w) for w in (1, 2, 4)] + [
+    (16, 2, w) for w in (1, 2)] + [(32, 8, w) for w in (1, 2, 4)] + [
+    (d, 16, w) for d in (64, 128) for w in (1, 2, 4)]
 
 
 def flash_bound(b, h, s, t, d, causal, window, dtype, hkv=None):
@@ -6324,14 +6356,16 @@ AGAINST_DIR = build.BUILD_DIR.parent / "kernels_against"
 
 
 def _against_kernels(other: Path):
-    """DIR's ``bi_gemm.cu``, ``bi_reduce.cu`` and ``moe_gemm.cu`` built
-    (one nvcc each, in parallel, with this tree's flags) and loaded: their
-    C launchers ``bi_gemm_f32``, ``bi_sum_f32``, ``bi_logsumexp_f32``,
-    ``bi_argmax_f32`` and ``moe_gemm_bf16``, whose interfaces this tree
-    keeps; the reductions by mode."""
+    """DIR's ``bi_gemm.cu``, ``bi_reduce.cu``, ``moe_gemm.cu`` and
+    ``flash_attention.cu`` built (one nvcc each, in parallel, with this
+    tree's flags) and loaded: their C launchers ``bi_gemm_f32``,
+    ``bi_sum_f32``, ``bi_logsumexp_f32``, ``bi_argmax_f32``,
+    ``moe_gemm_bf16``, ``flash_attention_f32`` and
+    ``flash_attention_bf16``, whose interfaces this tree keeps; the
+    reductions by mode, K3's by dtype."""
     AGAINST_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in ("bi_gemm", "bi_reduce", "moe_gemm"):
+    for name in ("bi_gemm", "bi_reduce", "moe_gemm", "flash_attention"):
         src = other / "src" / "repro_torch" / "kernels" / "csrc" / f"{name}.cu"
         procs[name] = subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-o",
@@ -6358,7 +6392,124 @@ def _against_kernels(other: Path):
     moe.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     moe.restype = ctypes.c_int
-    return gemm, reduce, moe
+    flash = {torch.float32: libs["flash_attention"].flash_attention_f32,
+             torch.bfloat16: libs["flash_attention"].flash_attention_bf16}
+    for fn in flash.values():
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return gemm, reduce, moe, flash
+
+
+def _k3_with(fns, q, k, v, causal, window):
+    """``flash_attention(q, k, v)`` through another tree's launchers
+    ``fns`` (by dtype), at the default scale."""
+    b, h, s, d = q.shape
+    out = torch.empty_like(q)
+    assert fns[q.dtype](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), b, h, k.shape[1], s, k.shape[2], d,
+                        int(causal), window or 0, d ** -0.5,
+                        torch.cuda.current_stream().cuda_stream) == 0
+    return out
+
+
+def k3_edge_inputs(b, h, hkv, s, t, d, kind, seed):
+    """q, k, v (float32, unit normal from ``seed``) made into an edge case:
+    "underflow" logits 30x wider, so that most exps underflow to 0 (and
+    rows' alphas with them); "inf logits" q at 1e18 and one q element
+    +inf, so that logits overflow to +-inf and NaN; "nonfinite v" +inf,
+    NaN and -inf in V at keys past the causal edge of earlier rows, or
+    inside and outside a window (a masked key adds 0·v, NaN); "misaligned"
+    every operand 4 bytes past a 16-byte boundary (the kernel's 4-byte
+    copies)."""
+    q, k, v = (_randn(b, n_h, n, d, seed=seed + i) for i, (n_h, n) in
+               enumerate(((h, s), (hkv, t), (hkv, t))))
+    if kind == "underflow":
+        q, k = q * 30, k * 30
+    elif kind == "inf logits":
+        q = q * 1e18
+        q[:, :, s // 2, 0] = float("inf")
+    elif kind == "nonfinite v":
+        v[:, :, t - 1, 0] = float("inf")
+        v[:, :, t // 2, 1] = float("nan")
+        v[:, :, t // 3, 2] = -float("inf")
+    elif kind == "misaligned":
+        q, k, v = misaligned(q), misaligned(k), misaligned(v)
+    return q, k, v
+
+
+def k3_against(old, smi):
+    """K3's float32 route of ``other``'s tree (its launchers ``old``) and of
+    this one: equal bit for bit (int32 views) at every float32 shape of
+    phase 3 and every B the LM path launches, and on the edge inputs
+    (``k3_edge_inputs``) at the LM's training and evaluation shapes, a
+    window with and without ``causal``, a long causal head, a ragged S and
+    grouped KV heads; one bf16 shape (the route this tree leaves alone)
+    too. Then each tree's kernel and SDPA in turns (``median_turns``) at
+    each of those float32 shapes, with the bound (``flash_bound``)."""
+    f32 = torch.float32
+    cases = [(f"lm_tiny B = {b}", b, 4, 4, 32, 32, 16, True, None)
+             for b in sorted({*K3_LM_BATCHES, *K3_LM_LAUNCHED})]
+    cases += [(label, b, h, h, s_, t_, d, causal, window)
+              for b, h, s_, t_, d, causal, window, label in K3_SHAPES]
+    cases += [K3_GQA, K3_UNMASKED]
+    edges = [c for c in cases if c[0] in (
+        "lm_tiny B = 8", "lm_tiny B = 6400", "window 64, D 128",
+        "window, not causal", "causal", "ragged S = 37", "GQA 12/4")]
+    elements = n_edges = 0
+    for i, (label, b, h, hkv, s_, t_, d, causal, window) in enumerate(cases):
+        q, k, v = k3_edge_inputs(b, h, hkv, s_, t_, d, "normal", seed=3 * i)
+        assert bits_equal(_k3_with(old, q, k, v, causal, window),
+                          k3.flash_attention(q, k, v, causal=causal,
+                                             window=window)), label
+        elements += q.numel()
+    for i, (label, b, h, hkv, s_, t_, d, causal, window) in enumerate(edges):
+        for kind in ("underflow", "inf logits", "nonfinite v", "misaligned"):
+            q, k, v = k3_edge_inputs(b, h, hkv, s_, t_, d, kind,
+                                     seed=100 + 3 * i)
+            new = k3.flash_attention(q, k, v, causal=causal, window=window)
+            assert bits_equal(_k3_with(old, q, k, v, causal, window),
+                              new), (label, kind)
+            elements += q.numel()
+            n_edges += 1
+    q, k, v = (_randn(2, 4, 256, 64, seed=i).to(torch.bfloat16)
+               for i in range(3))
+    assert bits_equal(_k3_with(old, q, k, v, True, None),
+                      k3.flash_attention(q, k, v)), "bf16"
+    emit(phase="k3_bits_against", gpu=smi, f32_shapes=len(cases),
+         edge_cases=n_edges, f32_elements=elements,
+         bf16_shape=[2, 4, 4, 256, 256, 64], bits_equal=True)
+    rows = []
+    for label, b, h, hkv, s_, t_, d, causal, window in cases:
+        q, k, v = (_randn(b, n_h, n, d, seed=j) for j, (n_h, n) in
+                   enumerate(((h, s_), (hkv, t_), (hkv, t_))))
+        sdpa = functools.partial(
+            torch.nn.functional.scaled_dot_product_attention, q, k, v,
+            enable_gqa=hkv != h)
+        if causal and s_ == t_ and window is None:
+            lib = functools.partial(sdpa, is_causal=True)
+        elif causal or window is not None:
+            lib = functools.partial(sdpa, attn_mask=k3.band_mask(
+                s_, t_, causal, window, "cuda"))
+        else:
+            lib = sdpa
+        ms = median_turns({
+            "against": lambda q=q, k=k, v=v, c=causal, w=window: _k3_with(
+                old, q, k, v, c, w),
+            "this": lambda q=q, k=k, v=v, c=causal, w=window:
+                k3.flash_attention(q, k, v, causal=c, window=w),
+            "library": lib}, 20 if b * s_ * d > 1_000_000 else 100)
+        rows.append(dict(
+            kernel="flash_attention", case=label, dtype="float32",
+            shape=[b, h, hkv, s_, t_, d], causal=causal, window=window,
+            library_call="scaled_dot_product_attention", bound_ms=flash_bound(
+                b, h, s_, t_, d, causal, window, f32, hkv)[0], **ms))
+    for row in rows:
+        emit(phase="kernel_turns", gpu=smi, bits_equal=True,
+             speedup=row["against"] / row["this"],
+             of_library=row["this"] / row["library"],
+             of_bound=row["bound_ms"] / row["this"], **row)
+    return rows
 
 
 def _gemm_with(fn, a, b):
@@ -6565,11 +6716,12 @@ def kernels_against(other: Path, smi: str) -> list:
     then at the timed shapes and the main path's evaluation each tree's
     kernel and the library's call (cuBLAS ``bmm``, torch's ``sum``,
     ``logsumexp``, ``argmax``) in turns (against, this, library, library,
-    this, against, twice; the median device ms of four). Then K5 the same
-    way at the MoE decode and prefill (``k5_against``) and the MoE decode
-    steps with each tree's K5 in turns (``decode_steps_against``)."""
-    old_gemm, old_reduce, old_moe = _against_kernels(other)
-    build.build(["bi_gemm", "bi_reduce", "moe_gemm"])
+    this, against, twice; the median device ms of four). Then K3's
+    float32 route (``k3_against``), K5 the same way at the MoE decode and
+    prefill (``k5_against``) and the MoE decode steps with each tree's K5
+    in turns (``decode_steps_against``)."""
+    old_gemm, old_reduce, old_moe, old_flash = _against_kernels(other)
+    build.build(["bi_gemm", "bi_reduce", "moe_gemm", "flash_attention"])
     rows = []
     gemm_cases = [c[:6] for c in BI_GEMM_CASES if c[6]] + [
         ("main path eval", 48, 10_000, 784, 64, True)]
@@ -6626,6 +6778,7 @@ def kernels_against(other: Path, smi: str) -> list:
         emit(phase="kernel_turns", gpu=smi, bits_equal=True,
              speedup=row["against"] / row["this"],
              of_library=row["this"] / row["library"], **row)
+    rows += k3_against(old_flash, smi)
     rows += k5_against(old_moe, smi)
     decode_steps_against(old_moe, smi)
     return rows
@@ -6679,6 +6832,18 @@ def main():
     for d in k3.HEAD_DIMS:
         ops = sass["flash_attention"][f"flash_bf16_kernel<{d}>"]
         assert ops["HMMA"] > 0, (d, ops)
+    # K3's float32 route on the CUDA cores: FFMA from 128-bit shared loads
+    # fed by cp.async, no tensor-core instruction; at most one value
+    # spilled once (ptxas spills 8 bytes at D = 32 with 2 or 4 warps)
+    assert {n for n in sass["flash_attention"] if n.startswith(
+        "flash_f32_kernel<")} == {f"flash_f32_kernel<{d},{kt},{w}>"
+                                  for d, kt, w in K3_F32_INSTANCES}
+    for d, kt, w in K3_F32_INSTANCES:
+        ops = sass["flash_attention"][f"flash_f32_kernel<{d},{kt},{w}>"]
+        assert ops["FFMA"] > 0 and ops["LDS.128"] > 0 and ops["LDGSTS"] > 0, (
+            d, kt, w, ops)
+        assert not ops["HMMA"] and not ops["HGMMA"], (d, kt, w, ops)
+        assert ops["LDL"] <= 1 and ops["STL"] <= 1, (d, kt, w, ops)
     ops = sass["moe_gemm"]["moe_gemm_wgmma_kernel"]
     assert ops["HGMMA"] > 0 and ops["UTMALDG"] > 0, ops
     # K5's decode route, every slot-tile count: HMMA fed by TMA (UTMALDG) or
@@ -6733,18 +6898,11 @@ def main():
     # padded to 1, 2, 4, 8, 16 or 24) and its evaluation shape (16 client
     # rows x 400 windows); then tests/test_kernels.py's five shapes in
     # both types, a ragged S and a window without causal
-    for b in (8, 32, 64, 128, 192, 6400):
+    for b in K3_LM_BATCHES:
         check_flash(b, 4, 32, 32, 16, True, None, f32,
                     "lm_tiny eval" if b == 6400 else "lm_tiny train")
     for dt in (f32, bf16):
-        for b, h, s_, t_, d, causal, window, label in (
-                (2, 4, 256, 256, 64, True, None, "causal"),
-                (1, 2, 128, 256, 64, True, None, "right-aligned S < T"),
-                (2, 2, 256, 256, 128, True, 64, "window 64, D 128"),
-                (1, 1, 256, 256, 64, False, None, "bidirectional"),
-                (1, 2, 512, 512, 64, True, None, "S = 512"),
-                (3, 2, 37, 37, 16, True, None, "ragged S = 37"),
-                (2, 2, 100, 130, 32, False, 17, "window, not causal")):
+        for b, h, s_, t_, d, causal, window, label in K3_SHAPES:
             check_flash(b, h, s_, t_, d, causal, window, dt, label, reps=50)
     # the bf16 tensor-core route at every head dim, a ragged S and T (S =
     # 100 right-aligned in T = 130), windowed and not, with grouped KV
@@ -6753,8 +6911,9 @@ def main():
         for causal, window in ((True, None), (True, 48), (False, 17)):
             check_flash(2, 6, 100, 130, d, causal, window, bf16,
                         "ragged T, GQA 6/2", reps=20, hkv=2)
-    check_flash(2, 12, 100, 130, 64, True, None, f32, "GQA 12/4", reps=20,
-                hkv=4)
+    label, b, h, hkv, s_, t_, d, causal, window = K3_GQA
+    check_flash(b, h, s_, t_, d, causal, window, f32, label, reps=20,
+                hkv=hkv)
     check_flash_grad(128, 4, 32, 16)
     check_flash_grad(4, 12, 64, 32, hkv=4)
     # K3 at starcoder2-15b's prefill shape (48 query heads over its 4 KV
@@ -6774,9 +6933,10 @@ def main():
                 bf16, "seamless-m4t-medium encoder / cross prefill", reps=5)
     check_flash(SERVE_BATCH, 16, SERVE_PROMPT, SERVE_PROMPT // 2, 64, False,
                 None, bf16, "unmasked S > T (2,048 over 1,024)", reps=5)
+    label, b, h, hkv, s_, t_, d, causal, window = K3_UNMASKED
     for dt in (f32, bf16):
-        check_flash(2, 4, 100, 37, 32, False, None, dt,
-                    "unmasked S > T, ragged", reps=20, hkv=2)
+        check_flash(b, h, s_, t_, d, causal, window, dt, label, reps=20,
+                    hkv=hkv)
 
     # K4: tests/test_kernels.py's three shapes in both types; the GQA
     # serving shape of starcoder2-15b (48 query, 4 KV heads, D 128, bf16,
@@ -7118,11 +7278,11 @@ if __name__ == "__main__":
                            "this one in turns, and nothing else")
         which.add_argument("--kernels-against", type=Path, metavar="DIR",
                            help="hold bi_gemm and bi_reduce (sum, "
-                           "logsumexp, argmax) of DIR's tree against this "
-                           "one's, bit for bit, and time them in turns; "
-                           "K5 at the MoE decode and prefill and the MoE "
-                           "decode steps likewise, in turns; and nothing "
-                           "else")
+                           "logsumexp, argmax) and K3's float32 route of "
+                           "DIR's tree against this one's, bit for bit, "
+                           "and time them in turns; K5 at the MoE decode "
+                           "and prefill and the MoE decode steps likewise, "
+                           "in turns; and nothing else")
         args = ap.parse_args()
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device; this runs on the GPU")

@@ -46,15 +46,21 @@
 // query tiles, which see the most keys under `causal`, are launched first.
 //
 // Design, float32: the CUDA cores, never TF32 (which would round the
-// inputs). A block of 32 or 64 query rows (32 when S <= 32, so the LM's
-// 32-row heads fill the block). D / 16 neighbouring lanes share a row,
-// each holding 16 of its dims (lane + G·i, strided so the lanes of a row
-// read neighbouring shared-memory words) of q and of the f32 accumulator
-// in registers; the row's dot product is reduced across those lanes by
-// warp shuffles. K and V are staged through shared memory in tiles of 64
-// keys; the softmax is updated once per 16 keys. Ragged S and T are masked
-// at the tile edges. At the LM's shapes every byte moves once and the
-// kernel is bound by its launch.
+// inputs), each row's arithmetic fixed to the bit (the kernel below says
+// how). Rows are grouped in tiles of 32 or 64 (32 when S <= 32): a tile's
+// rows walk the same keys, from the same first key, in updates of 16 keys.
+// A row is computed by a team of 2 to 16 threads: each takes the dot
+// products of a few keys of an update, from the whole q row in registers
+// and K rows read by 16-byte shared loads (rows padded 16 bytes, so the
+// team's keys sit in distinct banks), and holds 4 or 8 dims of the
+// accumulator. A block of 1, 2 or 4 warps takes 4 to 32 rows of one tile,
+// so that the long heads spread over every SM and the LM's 32-row heads
+// (D = 16) make one block each where there are enough of them. K and V
+// stream through a ring of three 16-key chunks by 16-byte cp.async (4-byte
+// where an operand is not on a 16-byte boundary), the next chunks loading
+// while this one is walked; an update wholly outside the band of every row
+// of a warp skips its dot products (its logits are -1e30 either way). At
+// the LM's shapes the bytes bound it; at long sequences the CUDA cores.
 //
 // Plain C interface, loaded with ctypes; the functions return the
 // cudaError_t of the launch (0 on success) and never synchronise.
@@ -65,6 +71,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -74,124 +81,326 @@ constexpr int kBK = 64;            // keys per shared-memory tile
 // ---------------------------------------------------------------------------
 // float32: CUDA cores
 // ---------------------------------------------------------------------------
-constexpr int kKC = 16;   // keys per online-softmax update
-constexpr int kDPL = 16;  // head dims held by one lane
+constexpr int kKC = 16;             // keys per online-softmax update
+constexpr int kDPL = 16;            // head dims in one partial dot product
+constexpr int kStages = 3;          // chunks of kKC keys in the cp.async ring
+constexpr int kRowTile = 64;        // query rows that walk one key range (32 when S <= 32)
+constexpr int kFullGrid = 2 * 132;  // two blocks on each of the H100's SMs
+constexpr int kBusyGrid = 768;      // row tiles from which 2 threads a row beat 4 at D = 16
 
-template <int D>
-__global__ void __launch_bounds__(64 * (D / kDPL))
+// a row's probabilities in shared memory, KT times an odd number of floats
+// apart where that is a multiple of 4, so that the rows of a warp write
+// distinct banks
+template <int KT>
+__host__ __device__ constexpr int f32_pstride() {
+  return KT == 8 ? 24 : KT == 16 ? 16 : 20;
+}
+template <int D, int KT, int NW>
+constexpr size_t f32_smem_bytes() {
+  return sizeof(float) * (static_cast<size_t>(kStages) * kKC * (2 * D + 4) +
+                          static_cast<size_t>(NW) * (32 / KT) * f32_pstride<KT>());
+}
+
+// 4 bytes from global to shared memory (operands not on a 16-byte boundary)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+// Each row's arithmetic is fixed, whatever thread computes it, so that its
+// bits depend on nothing else (not on B, not on the team or the block): D / 16
+// partial dot products (partial g sums dims g, g + D/16, ... in order, one
+// fma each, from +0), folded pairwise as a butterfly over D / 16 lanes folds
+// them (offsets D/32, ..., 1); the logit dot·scale, or -1e30 where masked;
+// per update of kKC keys counted from the row tile's k_begin: m_cur by
+// fmaxf, alpha = expf(m - m_new), acc·alpha, then p = expf(logit - m_new)
+// added to psum and p·v added to acc in key order, l = l·alpha + psum; at the
+// end acc / fmaxf(l, 1e-30f). Every key from the tile's k_begin to its k_end
+// is walked, masked or not: a masked key adds 0·v, which is NaN where v is
+// not finite. Only expf is not a correctly rounded operation, and it is
+// always the same function; the others are the _rn intrinsics, which nvcc
+// never contracts into other operations.
+//
+// A row's team of KT threads: each takes the dot products of kKC / KT keys
+// of a chunk (u, u + KT, ...) and holds D / KT dims of the accumulator; the
+// team shares the chunk's maximum by shuffles and its probabilities through
+// shared memory. A block is NW warps, 32 / KT rows each, of one row tile.
+template <int D, int KT, int NW>
+__global__ void __launch_bounds__(32 * NW)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int h, int group,
-                 int n_qtiles, int bq, int s, int t, int causal, int window, float scale) {
-  constexpr int G = D / kDPL;  // lanes sharing one query row
-  extern __shared__ float smem[];
-  float* ks = smem;            // [kBK][D]
-  float* vs = smem + kBK * D;  // [kBK][D]
+                 const float* __restrict__ v, float* __restrict__ o, int n_bh, int h,
+                 int group, int n_ptiles, int ptile, int n_sub, int s, int t, int causal,
+                 int window, float scale, int vec) {
+  constexpr int G = D / kDPL;            // partial dot products of a row
+  constexpr int RW = 32 / KT;            // rows of a warp
+  constexpr int RB = NW * RW;            // rows of a block
+  constexpr int KPT = kKC / KT;          // keys a thread takes the dot product of
+  constexpr int DPT = D / KT;            // accumulator dims of a thread
+  constexpr int KS = D + 4;              // a K row in shared memory, 16 bytes padded
+  constexpr int STAGE = kKC * (KS + D);  // floats of one chunk: K, then V
+  constexpr int PS = f32_pstride<KT>();
+  static_assert(KPT >= 1 && DPT % 4 == 0 && RB <= 32, "team");
+  extern __shared__ __align__(16) float smem[];
+  float* const pbuf = smem + kStages * STAGE;  // [RB][PS] a chunk's probabilities
 
-  const int bh = blockIdx.x / n_qtiles;
-  const int qt = blockIdx.x % n_qtiles;
+  // the last row tiles first (under `causal` they walk the most keys)
+  const int blk = static_cast<int>(blockIdx.x);
+  const int per_tile = n_bh * n_sub;
+  const int pt = n_ptiles - 1 - blk / per_tile;
+  const int bh = blk % per_tile / n_sub;
+  const int row0 = pt * ptile + blk % n_sub * RB;
+  if (row0 >= s) return;
   const int kvh = (bh / h) * (h / group) + (bh % h) / group;  // (b, h // G)
-  const int lane = threadIdx.x % G;
-  const int row = qt * bq + threadIdx.x / G;
+  const int ln = threadIdx.x & 31;
+  const int rb = (threadIdx.x >> 5) * RW + ln / KT;  // the row in the block
+  const int u = ln % KT;                             // the thread in its row's team
+  const int row = row0 + rb;
   const bool active = row < s;  // rows past S compute, but never store
   const int shift = t - s;      // queries right-aligned
   const int qi = row + shift;
-  const float* qrow = q + (static_cast<int64_t>(bh) * s + row) * D;
   const float* kb = k + static_cast<int64_t>(kvh) * t * D;
   const float* vb = v + static_cast<int64_t>(kvh) * t * D;
 
-  float qv[kDPL], acc[kDPL];
-#pragma unroll
-  for (int i = 0; i < kDPL; ++i) {
-    qv[i] = active ? qrow[lane + G * i] : 0.f;
-    acc[i] = 0.f;
-  }
-  float m = kNegInf, l = 0.f;
-
-  // keys some row of this block may attend to
-  const int first = qt * bq + shift;
-  const int last = min(qt * bq + bq, s) - 1 + shift;
+  // keys some row of the row tile may attend to: every row of the tile walks
+  // them all, its 16-key updates counted from k_begin
+  const int first = pt * ptile + shift;
+  const int last = min(pt * ptile + ptile, s) - 1 + shift;
   const int k_end = causal ? min(t, last + 1) : t;
   const int k_begin = window > 0 ? max(0, first - window + 1) : 0;
+  const int n_chunks = (k_end - k_begin + kKC - 1) / kKC;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    const int nk = min(kBK, k_end - k0);
-    __syncthreads();  // the previous tile is consumed
-    const float* kt = kb + static_cast<int64_t>(k0) * D;
-    const float* vt = vb + static_cast<int64_t>(k0) * D;
-    for (int idx = threadIdx.x; idx < nk * D; idx += blockDim.x) {
-      ks[idx] = kt[idx];
-      vs[idx] = vt[idx];
-    }
-    __syncthreads();
-
-    for (int c0 = 0; c0 < nk; c0 += kKC) {
-      const int nc = min(kKC, nk - c0);  // the same for the whole block
-      float sc[kKC];
-      float m_cur = kNegInf;
-#pragma unroll
-      for (int c = 0; c < kKC; ++c) {
-        if (c < nc) {
-          const float* kr = ks + (c0 + c) * D;
-          float dot = 0.f;
-#pragma unroll
-          for (int i = 0; i < kDPL; ++i) dot += qv[i] * kr[lane + G * i];
-#pragma unroll
-          for (int off = G / 2; off > 0; off >>= 1)
-            dot += __shfl_xor_sync(0xffffffffu, dot, off);
-          const int kj = k0 + c0 + c;
-          bool keep = !causal || kj <= qi;
-          if (window > 0) keep = keep && (qi - kj) < window;
-          sc[c] = keep ? dot * scale : kNegInf;
-          m_cur = fmaxf(m_cur, sc[c]);
+  // chunk j (keys from k_begin + kKC·j, none past k_end) into stage j % kStages;
+  // a group is committed even when empty, so that the wait counts stay right
+  auto load = [&](int j) {
+    if (j < n_chunks) {
+      const int k0 = k_begin + j * kKC;
+      const int nk = min(kKC, k_end - k0);
+      float* ks = smem + (j % kStages) * STAGE;
+      float* vs = ks + kKC * KS;
+      const float* kt = kb + static_cast<int64_t>(k0) * D;
+      const float* vt = vb + static_cast<int64_t>(k0) * D;
+      if (vec) {
+        for (int x = threadIdx.x; x < nk * (D / 4); x += 32 * NW) {
+          const int r = x / (D / 4), c = x % (D / 4) * 4;
+          cp_async16(ks + r * KS + c, kt + r * D + c, 16);
+          cp_async16(vs + r * D + c, vt + r * D + c, 16);
+        }
+      } else {
+        for (int x = threadIdx.x; x < nk * D; x += 32 * NW) {
+          cp_async4(ks + x / D * KS + x % D, kt + x);
+          cp_async4(vs + x, vt + x);
         }
       }
-      const float m_new = fmaxf(m, m_cur);
-      const float alpha = expf(m - m_new);
+    }
+    cp_async_commit();
+  };
 #pragma unroll
-      for (int i = 0; i < kDPL; ++i) acc[i] *= alpha;
-      float psum = 0.f;
+  for (int j = 0; j < kStages - 1; ++j) load(j);
+
+  // the whole q row in registers, while the first chunks land
+  float qv[D];
+  const float* qrow = q + (static_cast<int64_t>(bh) * s + row) * D;
+  if (vec) {
 #pragma unroll
-      for (int c = 0; c < kKC; ++c) {
-        if (c < nc) {
-          const float p = expf(sc[c] - m_new);
-          psum += p;
-          const float* vr = vs + (c0 + c) * D;
+    for (int i = 0; i < D / 4; ++i) {
+      const float4 x = active ? __ldg(reinterpret_cast<const float4*>(qrow) + i)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+      qv[4 * i] = x.x;
+      qv[4 * i + 1] = x.y;
+      qv[4 * i + 2] = x.z;
+      qv[4 * i + 3] = x.w;
+    }
+  } else {
 #pragma unroll
-          for (int i = 0; i < kDPL; ++i) acc[i] += p * vr[lane + G * i];
+    for (int i = 0; i < D; ++i) qv[i] = active ? __ldg(qrow + i) : 0.f;
+  }
+
+  float acc[DPT];
+#pragma unroll
+  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
+  float m = kNegInf, l = 0.f;
+  float* const prow = pbuf + rb * PS;
+
+  // one update over the chunk in `ks`, `vs` (keys k0 to k0 + nc - 1); FULL:
+  // nc = kKC, known to the compiler
+  auto update = [&](auto full, const float* ks, const float* vs, int k0, int nc) {
+    constexpr bool FULL = decltype(full)::value;
+    // a chunk outside the band of every row of the warp: each logit is -1e30
+    // without its dot product
+    const int lo = window > 0 ? max(k0, qi - window + 1) : k0;
+    const int hi = causal ? min(k0 + nc - 1, qi) : k0 + nc - 1;
+    const bool live = __any_sync(0xffffffffu, active && lo <= hi);
+
+    // the logits of keys u, u + KT, ...
+    float sc[KPT];
+    float m_cur = kNegInf;
+#pragma unroll
+    for (int jj = 0; jj < KPT; ++jj) {
+      const int c = u + KT * jj;
+      sc[jj] = kNegInf;
+      if (live && (FULL || c < nc)) {
+        const float* kr = ks + c * KS;
+        float part[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) part[g] = 0.f;
+#pragma unroll
+        for (int d4 = 0; d4 < D / 4; ++d4) {
+          const float4 kv = *reinterpret_cast<const float4*>(kr + 4 * d4);
+          const int d = 4 * d4;
+          part[d % G] = __fmaf_rn(qv[d], kv.x, part[d % G]);
+          part[(d + 1) % G] = __fmaf_rn(qv[d + 1], kv.y, part[(d + 1) % G]);
+          part[(d + 2) % G] = __fmaf_rn(qv[d + 2], kv.z, part[(d + 2) % G]);
+          part[(d + 3) % G] = __fmaf_rn(qv[d + 3], kv.w, part[(d + 3) % G]);
+        }
+#pragma unroll
+        for (int off = G / 2; off > 0; off >>= 1)
+#pragma unroll
+          for (int g = 0; g < off; ++g) part[g] = __fadd_rn(part[g], part[g + off]);
+        const int kj = k0 + c;
+        bool keep = !causal || kj <= qi;
+        if (window > 0) keep = keep && (qi - kj) < window;
+        if (keep) sc[jj] = __fmul_rn(part[0], scale);
+      }
+      m_cur = fmaxf(m_cur, sc[jj]);
+    }
+#pragma unroll
+    for (int off = KT / 2; off > 0; off >>= 1)
+      m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, off));
+    const float m_new = fmaxf(m, m_cur);
+    const float alpha = expf(m - m_new);
+#pragma unroll
+    for (int jj = 0; jj < KPT; ++jj) {
+      const int c = u + KT * jj;
+      if (FULL || c < nc) prow[c] = expf(__fsub_rn(sc[jj], m_new));
+    }
+    __syncwarp();
+    float p[kKC];
+#pragma unroll
+    for (int i = 0; i < kKC / 4; ++i) {
+      const float4 x = reinterpret_cast<const float4*>(prow)[i];
+      p[4 * i] = x.x;
+      p[4 * i + 1] = x.y;
+      p[4 * i + 2] = x.z;
+      p[4 * i + 3] = x.w;
+    }
+    float psum = 0.f;
+#pragma unroll
+    for (int c = 0; c < kKC; ++c)
+      if (FULL || c < nc) psum = __fadd_rn(psum, p[c]);
+#pragma unroll
+    for (int i = 0; i < DPT; ++i) acc[i] = __fmul_rn(acc[i], alpha);
+    const float* vc = vs + u * DPT;
+#pragma unroll
+    for (int c = 0; c < kKC; ++c) {
+      if (FULL || c < nc) {
+#pragma unroll
+        for (int i = 0; i < DPT / 4; ++i) {
+          const float4 x = reinterpret_cast<const float4*>(vc + c * D)[i];
+          acc[4 * i] = __fmaf_rn(p[c], x.x, acc[4 * i]);
+          acc[4 * i + 1] = __fmaf_rn(p[c], x.y, acc[4 * i + 1]);
+          acc[4 * i + 2] = __fmaf_rn(p[c], x.z, acc[4 * i + 2]);
+          acc[4 * i + 3] = __fmaf_rn(p[c], x.w, acc[4 * i + 3]);
         }
       }
-      l = l * alpha + psum;
-      m = m_new;
     }
+    l = __fmaf_rn(l, alpha, psum);
+    m = m_new;
+  };
+
+  for (int j = 0; j < n_chunks; ++j) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // chunk j is in; chunk j - 1's stage and probabilities are free
+    load(j + kStages - 1);
+    const float* ks = smem + (j % kStages) * STAGE;
+    const int k0 = k_begin + j * kKC;
+    const int nc = min(kKC, k_end - k0);  // the same for the whole block
+    if (nc == kKC)
+      update(std::true_type{}, ks, ks + kKC * KS, k0, nc);
+    else
+      update(std::false_type{}, ks, ks + kKC * KS, k0, nc);
   }
 
   if (active) {
     const float denom = fmaxf(l, 1e-30f);
-    float* orow = o + (static_cast<int64_t>(bh) * s + row) * D;
+    float* orow = o + (static_cast<int64_t>(bh) * s + row) * D + u * DPT;
+    if (vec) {
 #pragma unroll
-    for (int i = 0; i < kDPL; ++i) orow[lane + G * i] = acc[i] / denom;
+      for (int i = 0; i < DPT / 4; ++i)
+        reinterpret_cast<float4*>(orow)[i] =
+            make_float4(acc[4 * i] / denom, acc[4 * i + 1] / denom, acc[4 * i + 2] / denom,
+                        acc[4 * i + 3] / denom);
+    } else {
+#pragma unroll
+      for (int i = 0; i < DPT; ++i) orow[i] = acc[i] / denom;
+    }
   }
+}
+
+template <int D, int KT, int NW>
+int launch_f32_blocks(const float* q, const float* k, const float* v, float* o, int n_bh,
+                      int h, int group, int n_ptiles, int ptile, int s, int t, int causal,
+                      int window, float scale, int vec, cudaStream_t stream) {
+  constexpr int RB = NW * 32 / KT;
+  const int n_sub = ptile / RB;
+  const long long blocks = static_cast<long long>(n_bh) * n_ptiles * n_sub;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = f32_smem_bytes<D, KT, NW>();
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_f32_kernel<D, KT, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  flash_f32_kernel<D, KT, NW><<<static_cast<unsigned>(blocks), 32 * NW, smem, stream>>>(
+      q, k, v, o, n_bh, h, group, n_ptiles, ptile, n_sub, s, t, causal, window, scale, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The team: 4 threads a row at D = 16, 8 at D = 32, 16 at D = 64 and 128
+// (at most 4 accumulator dims a thread below D = 128); at D = 16 on a grid
+// of kBusyGrid row tiles or more, 2 (fewer instructions a row, where the
+// card is full anyway: the LM's B = 192 on, where the H100 took 0.95x the
+// time of a 4-thread team, 0.81x at B = 6,400). A block of 1, 2 or 4 warps holds 4 to 32 rows of one
+// row tile: the most warps that still make kFullGrid blocks, else one (the
+// short grids of a few long heads). 16-byte copies and loads where every
+// operand allows them.
+template <int D, int KT>
+int launch_f32_team(const float* q, const float* k, const float* v, float* o, int n_bh,
+                    int h, int group, int n_ptiles, int ptile, int s, int t, int causal,
+                    int window, float scale, int vec, cudaStream_t stream) {
+  constexpr int RW = 32 / KT;
+  const long long tiles = static_cast<long long>(n_bh) * n_ptiles;
+  if (RW * 4 <= 32 && tiles * (ptile / (4 * RW)) >= kFullGrid)
+    return launch_f32_blocks<D, KT, (RW * 4 <= 32 ? 4 : 1)>(
+        q, k, v, o, n_bh, h, group, n_ptiles, ptile, s, t, causal, window, scale, vec, stream);
+  if (RW * 2 <= 32 && tiles * (ptile / (2 * RW)) >= kFullGrid)
+    return launch_f32_blocks<D, KT, (RW * 2 <= 32 ? 2 : 1)>(
+        q, k, v, o, n_bh, h, group, n_ptiles, ptile, s, t, causal, window, scale, vec, stream);
+  return launch_f32_blocks<D, KT, 1>(q, k, v, o, n_bh, h, group, n_ptiles, ptile, s, t,
+                                     causal, window, scale, vec, stream);
 }
 
 template <int D>
 int launch_f32(const float* q, const float* k, const float* v, float* o, int b, int h,
                int group, int s, int t, int causal, int window, float scale,
                cudaStream_t stream) {
-  constexpr int G = D / kDPL;
-  const int bq = s <= 32 ? 32 : 64;
-  const int n_qtiles = (s + bq - 1) / bq;
-  const long long blocks = static_cast<long long>(b) * h * n_qtiles;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = 2 * kBK * D * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n_bh = static_cast<long long>(b) * h;
+  if (n_bh > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int ptile = s <= 32 ? 32 : kRowTile;
+  const int n_ptiles = (s + ptile - 1) / ptile;
+  const int vec = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) &
+                   15) == 0;
+  const int nb = static_cast<int>(n_bh);
+  if constexpr (D == 16) {
+    if (n_bh * n_ptiles >= kBusyGrid)
+      return launch_f32_team<D, 2>(q, k, v, o, nb, h, group, n_ptiles, ptile, s, t, causal,
+                                   window, scale, vec, stream);
+    return launch_f32_team<D, 4>(q, k, v, o, nb, h, group, n_ptiles, ptile, s, t, causal,
+                                 window, scale, vec, stream);
+  } else {
+    return launch_f32_team<D, D == 32 ? 8 : 16>(q, k, v, o, nb, h, group, n_ptiles, ptile, s,
+                                                t, causal, window, scale, vec, stream);
   }
-  flash_f32_kernel<D><<<static_cast<unsigned>(blocks), bq * G, smem, stream>>>(
-      q, k, v, o, h, group, n_qtiles, bq, s, t, causal, window, scale);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------

@@ -53,10 +53,10 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels import flash_attention as k3
 from repro_torch.kernels.bi_gemm import bi_gemm
 from repro_torch.kernels.bi_reduce import ARGMAX, LOGSUMEXP, SUM, bi_reduce
-from repro_torch.kernels.flash_attention import (NEG_INF, band_mask,
-                                                 flash_attention)
+from repro_torch.kernels.flash_attention import NEG_INF, band_mask
 
 _state = threading.local()
 
@@ -427,14 +427,13 @@ def invariant_vjp(q, k, v, g, causal: bool, window: Optional[int],
 
 
 class _Attention(torch.autograd.Function):
-    """K3's forward; backward ``invariant_vjp``."""
+    """K3's operator forward; backward ``invariant_vjp``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
         ctx.save_for_backward(q, k, v)
         ctx.args = (causal, window, scale)
-        return flash_attention(q, k, v, causal=causal, window=window,
-                               scale=scale)
+        return k3._op(q, k, v, causal, window, scale)
 
     @staticmethod
     def backward(ctx, g):
@@ -446,7 +445,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None
               ) -> torch.Tensor:
     """``kernels.flash_attention`` (K3) for the route: q (B, H, S, D),
-    k/v (B, Hkv, T, D) float32; its gradient ``invariant_vjp``."""
+    k/v (B, Hkv, T, D) float32; its gradient ``invariant_vjp``. The
+    arguments are checked once and K3's operator is called once, without
+    the wrapper's own Function."""
+    k3._check(q, k, v, causal, window)
+    scale = q.shape[3] ** -0.5
     if not _differentiable(q, k, v):
-        return flash_attention(q, k, v, causal=causal, window=window)
-    return _Attention.apply(q, k, v, causal, window, q.shape[3] ** -0.5)
+        return k3._op(q, k, v, causal, window, scale)
+    return _Attention.apply(q, k, v, causal, window, scale)

@@ -15,16 +15,21 @@ summation order), 2e-2 for bfloat16 (the probabilities and the output
 rounded to 8 mantissa bits). Gradients (float32) within 1e-4: the two
 VJPs reduce over up to 512 keys in another order.
 """
+import collections
+import re
 import types
 
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch_parity import reference, single_threaded  # noqa: F401
 
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.flash_attention import (band_mask, flash_attention,
                                                  flash_attention_ref)
+from repro_torch.models import batch_invariant as bi
 from repro_torch.models.attention import causal_window_mask
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -258,3 +263,119 @@ def test_rejects_what_the_kernel_does_not_take(kw, err):
         flash_attention(q, k, k, window=kw.get("window"))
     with pytest.raises(err):
         flash_attention_ref(q, k, k, window=kw.get("window"))
+
+
+def _f32_route():
+    """The float32 route's text in ``csrc/flash_attention.cu`` (from its
+    banner to the bfloat16 route's), comments left out."""
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    start = src.index("// float32: CUDA cores")
+    end = src.index("// bfloat16: mma.sync on the tensor cores")
+    assert start < end
+    return "\n".join(line.split("//")[0]
+                     for line in src[start:end].splitlines())
+
+
+@pytest.mark.parametrize("banned", [
+    r"tf32", r"\bw?gmma\b", r"\bmma[._]", r"ldmatrix", r"__expf\b",
+    r"\bexp2f\b", r"__fdividef", r"\batomic", r"__f[a-z]+_r[zdu]\b",
+    r"__[a-z0-9]+_r[zdu]\(", r"bf16|bfloat16"])
+def test_the_f32_route_holds_no_shortcut(banned):
+    """The float32 route runs on the CUDA cores in full float32: no TF32,
+    no tensor-core instruction, no fast exp or division, no atomics, no
+    directed rounding, nothing of bfloat16; and the build has no fast math
+    (which would let nvcc replace expf and the division)."""
+    assert not re.search(banned, _f32_route(), re.I), banned
+    assert not any("fast_math" in f or "fmad" in f or "ftz" in f
+                   for f in build.NVCC_FLAGS)
+
+
+@pytest.mark.parametrize("kept", [
+    "constexpr int kKC = 16;",                       # the 16-key update
+    "constexpr int kDPL = 16;",                      # 16 dims a partial
+    "const int ptile = s <= 32 ? 32 : kRowTile;",    # the row tiles' keys
+    "constexpr int kRowTile = 64;",
+    "const int k_end = causal ? min(t, last + 1) : t;",
+    "const int k_begin = window > 0 ? max(0, first - window + 1) : 0;",
+    "part[d % G] = __fmaf_rn(qv[d], kv.x, part[d % G]);",
+    "part[g] = __fadd_rn(part[g], part[g + off]);",
+    "if (keep) sc[jj] = __fmul_rn(part[0], scale);",
+    "m_cur = fmaxf(m_cur, sc[jj]);",
+    "const float m_new = fmaxf(m, m_cur);",
+    "const float alpha = expf(m - m_new);",
+    "prow[c] = expf(__fsub_rn(sc[jj], m_new));",
+    "if (FULL || c < nc) psum = __fadd_rn(psum, p[c]);",
+    "l = __fmaf_rn(l, alpha, psum);",
+    "const float denom = fmaxf(l, 1e-30f);",
+    "orow[i] = acc[i] / denom;"])
+def test_the_f32_route_keeps_the_order(kept):
+    """Each row's arithmetic is fixed, whatever thread computes it: the
+    partial dot products and their pairwise fold, the logit, the update
+    every 16 keys counted from the row tile's first key, ``expf`` (never a
+    faster exp), the sum of p in key order, l·alpha + psum, and the final
+    division by fmaxf(l, 1e-30f). The other operations are correctly
+    rounded intrinsics, which nvcc cannot contract otherwise."""
+    assert kept in _f32_route(), kept
+
+
+class _Ops(TorchDispatchMode):
+    """The operators run inside the block, counted by name; ``inside``
+    is true while one of them runs."""
+
+    inside = False
+
+    def __enter__(self):
+        self.ops = collections.Counter()
+        super().__enter__()
+        return self.ops
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops[str(func.overloadpacket)] += 1
+        _Ops.inside = True
+        try:
+            return func(*args, **(kwargs or {}))
+        finally:
+            _Ops.inside = False
+
+
+@pytest.mark.parametrize("grad", [True, False])
+@pytest.mark.parametrize("H,Hkv,S,T,causal,window", [
+    (4, 4, 32, 32, True, None),       # lm_tiny's heads
+    (4, 2, 24, 40, True, 9),
+    (2, 2, 20, 12, False, None)])
+def test_route_attention_is_one_operator_call(monkeypatch, H, Hkv, S, T,
+                                              causal, window, grad):
+    """``bi.attention`` checks its arguments once and calls K3's operator
+    once (no nested Function of the wrapper); its values are
+    ``flash_attention``'s bit for bit and its gradient is
+    ``invariant_vjp``'s. (On the CPU the operator runs the plain version,
+    which checks again inside it: that check is not counted.)"""
+    rng = np.random.default_rng(H * 100 + S)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)) for shape in ((3, H, S, 16), (3, Hkv, T, 16),
+                                   (3, Hkv, T, 16), (3, H, S, 16)))
+    want = flash_attention(q, k, v, causal=causal, window=window)
+    qkv = [x.clone().requires_grad_(grad) for x in (q, k, v)]
+    checks = []
+    real_check = fa._check
+    monkeypatch.setattr(fa, "_check", lambda *a: checks.append(
+        _Ops.inside) or real_check(*a))
+
+    def nested(*a):
+        raise AssertionError("the wrapper's Function was entered")
+    monkeypatch.setattr(fa._FlashAttention, "apply", nested)
+    with _Ops() as ops:
+        got = bi.attention(*qkv, causal=causal, window=window)
+    assert ops["repro_torch.flash_attention"] == 1, ops
+    assert checks.count(False) == 1, checks
+    assert torch.equal(got, want) and got.requires_grad == grad
+    if grad:
+        with _Ops() as ops:
+            dq, dk, dv = torch.autograd.grad(got, qkv, g)
+        assert ops["repro_torch.flash_attention"] == 0, ops
+        for a, b in zip((dq, dk, dv), bi.invariant_vjp(
+                q, k, v, g, causal, window, 16 ** -0.5)):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="S <= T"):
+        bi.attention(q, k[:, :, :S - 1], v[:, :, :S - 1], causal=True)
+
